@@ -1,0 +1,110 @@
+"""Config system: model architecture and FL hyperparameters (the port's copy).
+
+The same frozen dataclasses as ``repro.configs.base``, cut to the fields
+this port implements: ``ArchConfig`` for the dense transformer family and
+``FLConfig`` without the knobs of the planes that are not ported yet (comm,
+fleet, robust, privacy, obs).  Shared fields keep the JAX package's names
+and defaults, so one keyword dict builds both configs.  A value the port
+does not implement yet (``cohort_mode="vmapped"``, ``exec_mode="bucketed"``,
+the ``mvr`` / ``adam`` / ``scaffold`` server opts, ``prefetch > 0`` on the
+cohort engine) raises ``NotImplementedError`` at bind time.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Literal
+
+Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio"]
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    # identity
+    name: str = "unnamed"
+    family: Family = "dense"
+    citation: str = ""
+
+    # core transformer dims
+    n_layers: int = 2
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 0              # 0 => d_model // n_heads
+    d_ff: int = 1024
+    vocab: int = 32000
+
+    # attention details
+    qkv_bias: bool = False
+    rope_kind: Literal["full", "half", "none"] = "full"  # "half" = ChatGLM 2d RoPE
+    rope_theta: float = 10000.0
+
+    # misc
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(1, self.n_heads))
+
+
+# ---------------------------------------------------------------------------
+# FL configuration (the paper's knobs)
+# ---------------------------------------------------------------------------
+
+Algorithm = Literal[
+    "fedshuffle", "fedavg", "fedavg_so", "fedshuffle_so", "fednova", "fedavg_min",
+    "fedavg_mean", "gen",
+]
+Sampling = Literal["full", "uniform", "independent"]
+ServerOpt = Literal["sgd", "momentum", "mvr", "adam", "scaffold"]
+CohortMode = Literal["vmapped", "sequential"]
+Engine = Literal["legacy", "cohort"]
+ExecMode = Literal["padded", "bucketed"]
+# Where the RR index matrices [C, K_max, B] come from:
+#   host         — numpy PCG permutations per cohort client (bitwise-identical
+#                  to the legacy FederatedPipeline path)
+#   host_feistel — the numpy mirror of the swap-or-not cipher
+#   device_ref   — the cipher's plain torch version, on the device
+#   device       — the cipher as the CUDA kernel (plain torch on a CPU tensor)
+RRBackend = Literal["host", "host_feistel", "device_ref", "device"]
+
+
+@dataclass(frozen=True)
+class FLConfig:
+    # population
+    num_clients: int = 8
+    cohort_size: int = 4           # expected #participating clients b
+    sampling: Sampling = "uniform"
+    # local work
+    epochs: int = 1                # E (same for all unless epochs_max > epochs)
+    epochs_max: int = 0            # >epochs => E_i ~ U{epochs..epochs_max} per round
+    local_batch: int = 1
+    k_max: int = 0                 # 0 => derived from data sizes at pipeline build
+    # algorithm
+    algorithm: Algorithm = "fedshuffle"
+    reshuffle: bool = True         # RR vs with-replacement local sampling
+    # step sizes
+    local_lr: float = 0.1
+    server_lr: float = 1.0
+    # server optimizer
+    server_opt: ServerOpt = "sgd"
+    momentum: float = 0.9          # used by "momentum"
+    local_update: str = ""         # "" => server opt's paired default ("sgd")
+    # cohort execution
+    cohort_mode: CohortMode = "vmapped"
+    accum_dtype: str = "float32"   # sequential-mode delta accumulator dtype
+    exec_mode: ExecMode = "padded"
+    # cohort engine (device-resident data plane; repro_torch.fed.cohort)
+    engine: Engine = "legacy"      # "cohort" => device-resident data plane
+    rr_backend: RRBackend = "host"
+    rr_rounds: int = 24            # swap-or-not cipher rounds (device/feistel RR)
+    prefetch: int = 2              # rounds sampled ahead (cohort engine)
+    participation: str = "iid"     # cohort schedule (fed.cohort.scheduler)
+    # system heterogeneity (Fig. 4): every client is cut short by this many
+    # local steps (planned vs actual); the "gen" hybrid algorithm corrects it
+    drop_last_steps: int = 0
+    # data imbalance
+    imbalance: Literal["equal", "lognormal", "zipf"] = "lognormal"
+    min_samples: int = 2
+    mean_samples: int = 8
+    seed: int = 0

@@ -1,0 +1,258 @@
+"""Federated data pipeline: population metadata + per-round batch assembly.
+
+The port's numpy copy of ``repro.data.federated``, padded layout only.  It
+turns (task, FLConfig) into the static-shape host arrays a round consumes:
+
+* ``Population`` — client dataset sizes |D_i| (equal / log-normal / zipf
+  imbalance), objective weights w_i = |D_i|/|D|.
+* ``IndexPlan`` — the *index-level* description of a round: RR index matrices
+  [C, K_max, B] (or None when the device generates them), step masks and
+  per-client scalars.
+* ``RoundBatch`` — the materialized plan: data [C, K_max, B, ...] gathered
+  through ``task.batch``.
+
+``FederatedPipeline`` is the **legacy / reference path**: it materializes
+every round batch on the host.  The cohort engine (``repro_torch.fed.cohort``)
+reuses ``index_plan`` and leaves the gather to a device-resident data plane;
+with the host RR backend both paths are bitwise-identical.  Every array here
+is numpy; ``repro_torch.fed.rounds.as_device_batch`` moves them to a device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, NamedTuple
+
+import numpy as np
+
+from ..configs.base import FLConfig
+from .reshuffle import local_step_indices, steps_for
+
+
+def _rng(*keys: int) -> np.random.Generator:
+    return np.random.default_rng(np.random.SeedSequence(entropy=[int(k) & 0xFFFFFFFF for k in keys]))
+
+
+def _chernoff_bound(mu: float) -> int:
+    """Upper bound on a ~mean-``mu`` occupancy count with 4-sigma-ish slack
+    (the independent-sampling cohort-slot padding)."""
+    return int(np.ceil(mu + 4.0 * np.sqrt(mu) + 4.0))
+
+
+class ClientMeta(NamedTuple):
+    """Per-cohort-slot scalars consumed by the algorithms (all [C])."""
+
+    weight: Any              # w_i = |D_i|/|D|
+    prob: Any                # p_i (inclusion probability of the sampling S)
+    num_samples: Any         # |D_i|
+    epochs: Any              # E_i this round
+    num_steps: Any           # actual local steps this round (after interrupts)
+    num_steps_planned: Any   # K_i = E_i * ceil(|D_i|/B) (planned)
+    valid: Any               # 1.0 if the slot holds a sampled client else 0.0
+    client_id: Any           # int ids; -1 on padding slots
+
+
+class RoundBatch(NamedTuple):
+    data: Any                # dict, leaves [C, K_max, B, ...]
+    step_mask: Any           # [C, K_max]
+    meta: ClientMeta
+
+
+class IndexPlan(NamedTuple):
+    """A round described by indices instead of data — what the cohort engine
+    ships to the device.  ``idx`` is None when a device RR backend
+    regenerates the stream from (seed, client, round) alone; ``sizes`` /
+    ``spe`` are the int32 per-slot scalars that keying needs (both 1 on
+    padding slots)."""
+
+    idx: Any                 # [C, K_max, B] int32 | None
+    step_mask: Any           # [C, K_max] float32
+    meta: ClientMeta
+    sizes: Any               # [C] int32
+    spe: Any                 # [C] int32 (steps per epoch)
+    rnd: int
+
+
+@dataclass
+class Population:
+    """The client population and its imbalance structure."""
+
+    num_clients: int
+    sizes: np.ndarray        # |D_i|, int64 [n]
+
+    @classmethod
+    def build(cls, fl: FLConfig, sizes: np.ndarray | None = None) -> "Population":
+        if sizes is not None:
+            return cls(len(sizes), np.asarray(sizes, dtype=np.int64))
+        n = fl.num_clients
+        r = _rng(fl.seed, 0x512E)
+        if fl.imbalance == "equal":
+            s = np.full(n, fl.mean_samples, dtype=np.int64)
+        elif fl.imbalance == "lognormal":
+            s = np.round(np.exp(r.normal(np.log(fl.mean_samples), 0.9, size=n))).astype(np.int64)
+        elif fl.imbalance == "zipf":
+            ranks = np.arange(1, n + 1, dtype=np.float64)
+            s = np.round(fl.mean_samples * n * (ranks**-1.2) / (ranks**-1.2).sum() * 1.0).astype(np.int64)
+        else:
+            raise ValueError(fl.imbalance)
+        return cls(n, np.maximum(s, fl.min_samples))
+
+    @property
+    def weights(self) -> np.ndarray:
+        return (self.sizes / self.sizes.sum()).astype(np.float64)
+
+
+@dataclass
+class FederatedPipeline:
+    """Assembles static-shape round batches for a (task, population, FLConfig)."""
+
+    task: Any
+    population: Population
+    fl: FLConfig
+
+    def __post_init__(self):
+        if self.fl.exec_mode != "padded":
+            raise NotImplementedError(
+                f"exec_mode={self.fl.exec_mode!r} is not ported yet; the port "
+                f"runs the padded layout")
+        e_max = max(self.fl.epochs, self.fl.epochs_max)
+        spe_all = np.maximum(1, -(-self.population.sizes // self.fl.local_batch))
+        self.k_max = self.fl.k_max or int((spe_all * e_max).max())
+        self._weights = self.population.weights
+        self._probs = self.inclusion_probs()
+        self.cohort_slots = self._cohort_slots()
+
+    def _cohort_slots(self) -> int:
+        if self.fl.sampling == "full":
+            return self.population.num_clients
+        if self.fl.sampling == "uniform":
+            return self.fl.cohort_size
+        # independent sampling: |S| is random with mean mu = sum_i p_i; pad to
+        # a Chernoff-style bound so silent truncation is pathological
+        bound = _chernoff_bound(float(self._probs.sum()))
+        b = self.fl.cohort_size
+        return min(self.population.num_clients, max(2 * b, b + 4, bound))
+
+    # -- sampling ----------------------------------------------------------
+
+    def inclusion_probs(self) -> np.ndarray:
+        """p_i for the configured proper sampling (paper §3)."""
+        n, b = self.population.num_clients, self.fl.cohort_size
+        if self.fl.sampling == "full":
+            return np.ones(n)
+        if self.fl.sampling == "uniform":
+            return np.full(n, b / n)
+        if self.fl.sampling == "independent":
+            # importance sampling: p_i = min(1, b * w_i)  (paper §5)
+            return np.minimum(1.0, b * self._weights)
+        raise ValueError(self.fl.sampling)
+
+    def _sample(self, rnd: int):
+        """Realize S^r through the participation scheduler -> (ids, probs)."""
+        from ..fed.cohort.scheduler import sample_round  # deferred: avoids import cycle
+
+        return sample_round(self.fl, self.population, rnd,
+                            slots=self.cohort_slots, probs=self._probs)
+
+    def epochs_for(self, rnd: int, client: int) -> int:
+        if self.fl.epochs_max <= self.fl.epochs:
+            return self.fl.epochs
+        return int(_rng(self.fl.seed, 0xE70C, rnd, client).integers(self.fl.epochs, self.fl.epochs_max + 1))
+
+    # -- index-plan assembly ----------------------------------------------
+
+    def _equalized_steps(self, rnd: int, cohort: np.ndarray) -> int | None:
+        """Equalized-K strategies (FedAvgMin / FedAvgMean): a common fixed K
+        for the whole cohort, as the registered strategy declares."""
+        from ..fed.strategy import equalized_mode  # deferred: avoids import cycle
+
+        mode = equalized_mode(self.fl.algorithm)
+        if mode is None:
+            return None
+        ks = [
+            steps_for(int(self.population.sizes[int(c)]), self.epochs_for(rnd, int(c)),
+                      self.fl.local_batch)
+            for c in cohort
+        ]
+        return int(min(ks)) if mode == "min" else int(round(np.mean(ks)))
+
+    def index_plan(self, rnd: int, *, with_idx: bool = True) -> IndexPlan:
+        """The index-level round description (everything but the data bytes).
+
+        ``with_idx=False`` skips host RR generation entirely (a device
+        backend regenerates the streams) — the host then does only
+        O(cohort) scalar work plus the [C, K_max] mask.
+        """
+        sample = self._sample(rnd)
+        cohort, probs_slot = sample.ids, sample.probs
+        C, K, B = self.cohort_slots, self.k_max, self.fl.local_batch
+        w = self._weights
+        fixed_k = self._equalized_steps(rnd, cohort)
+
+        idx_all = np.zeros((C, K, B), dtype=np.int32) if with_idx else None
+        step_mask = np.zeros((C, K), dtype=np.float32)
+        sizes = np.ones(C, dtype=np.int32)
+        spe = np.ones(C, dtype=np.int32)
+        meta = ClientMeta(
+            weight=np.zeros(C), prob=np.ones(C), num_samples=np.ones(C),
+            epochs=np.ones(C), num_steps=np.ones(C), num_steps_planned=np.ones(C),
+            valid=np.zeros(C), client_id=np.full(C, -1, dtype=np.int64),
+        )
+
+        for slot, cid in enumerate(cohort):
+            cid = int(cid)
+            n_i = int(self.population.sizes[cid])
+            e_i = self.epochs_for(rnd, cid)
+            steps_per_epoch = max(1, -(-n_i // B))
+            if fixed_k is not None:
+                # equalized-steps heuristics sample *with replacement* (Table 4)
+                steps = min(fixed_k, K)
+                if with_idx:
+                    rr = _rng(self.fl.seed, 0xF1CED, rnd, cid)
+                    idx_all[slot, :steps] = rr.integers(0, n_i, size=(steps, B))
+                mask = np.zeros((K,), np.float32)
+                mask[:steps] = 1.0
+                planned = steps
+            else:
+                planned = steps_for(n_i, e_i, B)
+                if with_idx:
+                    idx_all[slot], mask = local_step_indices(
+                        self.fl.seed, cid, rnd, n_i, e_i, B, K,
+                        reshuffle=self.fl.reshuffle,
+                    )
+                else:
+                    if planned > K:
+                        raise ValueError(f"client {cid}: K_i={planned} exceeds k_max={K}")
+                    mask = np.zeros((K,), np.float32)
+                    mask[:planned] = 1.0
+            # system interruptions (Fig. 4): drop the last steps of the plan
+            if self.fl.drop_last_steps:
+                done = int(mask.sum())
+                cut = max(1, done - self.fl.drop_last_steps)
+                mask[cut:] = 0.0
+            step_mask[slot] = mask
+            sizes[slot] = n_i
+            spe[slot] = steps_per_epoch
+            meta.weight[slot] = w[cid]
+            meta.prob[slot] = probs_slot[slot]
+            meta.num_samples[slot] = n_i
+            meta.epochs[slot] = e_i
+            meta.num_steps[slot] = float(mask.sum())
+            meta.num_steps_planned[slot] = planned
+            meta.valid[slot] = 1.0
+            meta.client_id[slot] = cid
+
+        return IndexPlan(idx=idx_all, step_mask=step_mask, meta=meta,
+                         sizes=sizes, spe=spe, rnd=int(rnd))
+
+    # -- batch materialization (the legacy / reference data path) ----------
+
+    def round_batch(self, rnd: int) -> RoundBatch:
+        plan = self.index_plan(rnd, with_idx=True)
+        C, K, B = self.cohort_slots, self.k_max, self.fl.local_batch
+        data = {name: np.zeros((C, K, B) + tuple(shape), dtype=dt)
+                for name, (dt, shape) in self.task.spec().items()}
+        for slot in np.nonzero(plan.meta.valid > 0)[0]:
+            sample = self.task.batch(int(plan.meta.client_id[slot]), plan.idx[slot])
+            for name in data:
+                data[name][slot] = sample[name]
+        return RoundBatch(data=data, step_mask=plan.step_mask, meta=plan.meta)

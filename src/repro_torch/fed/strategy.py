@@ -1,0 +1,327 @@
+"""Composable federated strategies — the paper's Algorithm 4 as an API.
+
+A :class:`FedStrategy` declares the round recipe as a composition of
+
+* a **(c, w~, q) parametrization** (:class:`~repro_torch.core.algorithms.GenSpec`):
+  local step-size normalization, aggregation weighting and normalization;
+* a **server optimizer** from :data:`SERVER_OPTS` (``sgd`` / ``momentum``),
+  declared as a :func:`chain` of pseudo-update transforms;
+* a **local update rule** from :data:`LOCAL_UPDATES` (plain RR-SGD, the empty
+  transform chain);
+* optionally an **equalized-step pipeline mode** (``fedavg_min`` /
+  ``fedavg_mean``), which the data pipeline applies.
+
+:func:`bind_strategy` closes a strategy over a concrete ``FLConfig`` and
+``loss_fn`` and yields the hooks the round driver (``repro_torch.fed.rounds``)
+calls.  The port's counterpart of ``repro.fed.strategy`` with every plane at
+its default off setting; the ``mvr`` / ``adam`` / ``scaffold`` server opts and
+the non-empty local chains raise ``NotImplementedError`` until they are
+ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..configs.base import FLConfig
+from ..core import algorithms as _alg
+from ..core.algorithms import GenSpec, PRESETS, agg_coeff, lr_scale
+from ..core.local import build_local_step
+from ..utils.pytree import tree_copy, tree_zeros_like
+from .server import ServerState
+
+# local update name -> its chain of ClientTransforms (core.local)
+LOCAL_UPDATES: dict[str, tuple] = {"sgd": ()}
+_UNPORTED_LOCAL_UPDATES = ("mvr", "scaffold", "fedprox", "local_clip")
+
+
+# ---------------------------------------------------------------------------
+# Server optimizers: a chain of pseudo-update transforms followed by the
+# canonical descent application ``x <- x + (lr * delta').to(x.dtype)``.
+# ---------------------------------------------------------------------------
+
+
+class ServerTransform(NamedTuple):
+    """One link of a server chain: ``init(fl, params) -> opt-state slice``
+    and ``update(fl, delta, opt) -> (delta', opt-state updates)``."""
+
+    init: Callable
+    update: Callable
+
+
+def heavy_ball() -> ServerTransform:
+    """Classic heavy-ball: m <- beta*m + Delta; the chain then applies lr*m."""
+
+    def init(fl: FLConfig, params):
+        return {"m": tree_zeros_like(params)}
+
+    def update(fl: FLConfig, delta, opt):
+        m = {k: fl.momentum * opt["m"][k] + d for k, d in delta.items()}
+        return m, {"m": m}
+
+    return ServerTransform(init, update)
+
+
+class ServerOpt(NamedTuple):
+    """A registered server optimizer: ``init(fl, params) -> opt dict`` and
+    ``make_update(fl) -> update(state, delta_agg, lr) -> ServerState``;
+    ``local_update`` names the client-side rule it pairs with by default."""
+
+    name: str
+    init: Callable
+    make_update: Callable
+    local_update: str = "sgd"
+
+
+def chain(name: str, *transforms: ServerTransform, local_update: str = "sgd") -> ServerOpt:
+    """Compose pseudo-update transforms into a server optimizer ending in the
+    descent application ``x <- x + (lr * delta').to(x.dtype)``."""
+
+    def init(fl: FLConfig, params) -> dict:
+        opt: dict = {}
+        for t in transforms:
+            new = t.init(fl, params)
+            dup = set(new) & set(opt)
+            if dup:
+                raise ValueError(
+                    f"server chain {name!r}: transforms collide on opt-state "
+                    f"keys {sorted(dup)}")
+            opt.update(new)
+        return opt
+
+    def make_update(fl: FLConfig):
+        def update(state: ServerState, delta_agg, lr) -> ServerState:
+            opt = dict(state.opt)
+            d = delta_agg
+            for t in transforms:
+                d, new = t.update(fl, d, opt)
+                opt.update(new)
+            p = {k: a + (lr * d[k]).to(a.dtype) for k, a in state.params.items()}
+            return ServerState(params=p, opt=opt, rnd=state.rnd + 1)
+
+        return update
+
+    return ServerOpt(name, init, make_update, local_update)
+
+
+SERVER_OPTS: dict[str, ServerOpt] = {
+    "sgd": chain("sgd"),
+    "momentum": chain("momentum", heavy_ball()),
+}
+_UNPORTED_SERVER_OPTS = ("mvr", "adam", "scaffold")
+
+
+# ---------------------------------------------------------------------------
+# FedStrategy: the declared composition + its registry
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FedStrategy:
+    """A declared (c, w~, q) x server-opt x local-chain composition.
+
+    ``server_opt=None`` defers to ``FLConfig.server_opt`` at bind time;
+    ``local_update=None`` defers to ``FLConfig.local_update`` and then to the
+    server opt's paired default.  ``equalize`` marks the strategies that only
+    make sense with the equalized-K pipeline mode (Table 4's FedAvgMin /
+    FedAvgMean).
+    """
+
+    name: str
+    gen: GenSpec
+    server_opt: str | None = None
+    equalize: str | None = None       # None | "min" | "mean"
+    local_update: str | None = None
+
+    def with_server_opt(self, server_opt: str) -> "FedStrategy":
+        return replace(self, server_opt=server_opt)
+
+
+STRATEGIES: dict[str, FedStrategy] = {}
+
+
+def register_strategy(strategy: FedStrategy, *, overwrite: bool = False) -> FedStrategy:
+    if not overwrite and strategy.name in STRATEGIES:
+        raise ValueError(
+            f"strategy {strategy.name!r} already registered (pass overwrite=True to replace)")
+    if strategy.equalize not in (None, "min", "mean"):
+        raise ValueError(
+            f"strategy {strategy.name!r}: equalize must be None, 'min' or "
+            f"'mean', got {strategy.equalize!r}")
+    for slot, kind, registry in (("c", strategy.gen.c, _alg.C_KINDS),
+                                 ("w", strategy.gen.w, _alg.W_KINDS),
+                                 ("q", strategy.gen.q, _alg.Q_KINDS)):
+        if kind not in registry:
+            raise ValueError(f"strategy {strategy.name!r}: unknown {slot}-kind {kind!r}")
+    STRATEGIES[strategy.name] = strategy
+    return strategy
+
+
+_EQUALIZED_PRESETS = {"fedavg_min": "min", "fedavg_mean": "mean"}
+for _name, _gen in PRESETS.items():
+    register_strategy(FedStrategy(name=_name, gen=_gen,
+                                  equalize=_EQUALIZED_PRESETS.get(_name)))
+
+
+def strategy_for(algorithm: "str | FLConfig", *, server_opt: str | None = None) -> FedStrategy:
+    """Resolve a config string (or a whole FLConfig) to its FedStrategy."""
+    if isinstance(algorithm, FLConfig):
+        return strategy_for(algorithm.algorithm, server_opt=algorithm.server_opt)
+    if algorithm not in STRATEGIES:
+        raise KeyError(f"unknown strategy {algorithm!r}; have {sorted(STRATEGIES)}")
+    s = STRATEGIES[algorithm]
+    if server_opt is not None:
+        if s.server_opt is None:
+            s = s.with_server_opt(server_opt)
+        elif s.server_opt != server_opt:
+            raise ValueError(
+                f"strategy {algorithm!r} pins server_opt={s.server_opt!r}; "
+                f"requested {server_opt!r}")
+    return s
+
+
+def equalized_mode(algorithm: str) -> str | None:
+    """The equalized-step pipeline mode an algorithm requires (None, "min" or
+    "mean").  Raises for unregistered algorithm names so typos fail loudly."""
+    return strategy_for(algorithm).equalize
+
+
+# ---------------------------------------------------------------------------
+# Binding: close a FedStrategy over (FLConfig, loss_fn) into plain hooks
+# ---------------------------------------------------------------------------
+
+
+class BoundStrategy(NamedTuple):
+    name: str
+    gen: GenSpec
+    local_update: str
+    equalize: str | None
+    fl: FLConfig
+    num_clients: int
+    loss_fn: Callable
+    init: Callable                     # (params) -> ServerState
+    client_transform: Callable         # (meta, lr_mult) -> eta [C]
+    agg_coeffs: Callable               # (meta) -> [C]
+    aggregate: Callable                # (stacked deltas, meta) -> delta_agg
+    server_update: Callable            # (state, delta_agg, lr) -> ServerState
+    local_step: Callable               # (params, data, mask, eta) -> (delta, loss)
+
+
+def weighted_sum(deltas: dict, coeff: torch.Tensor) -> dict:
+    """sum_i coeff_i * Delta_i over the leading client axis of stacked
+    deltas (fp32 accumulate, result cast back to the delta dtype)."""
+    return {k: torch.einsum("c,c...->...", coeff.float(), t.float()).to(t.dtype)
+            for k, t in deltas.items()}
+
+
+def _check_config(fl: FLConfig) -> None:
+    """Bind-time validation of the execution knobs the port implements."""
+    if fl.engine not in ("legacy", "cohort"):
+        raise ValueError(f"unknown engine {fl.engine!r}; have ('legacy', 'cohort')")
+    if fl.exec_mode != "padded":
+        if fl.exec_mode == "bucketed":
+            raise NotImplementedError("exec_mode='bucketed' is not ported yet")
+        raise ValueError(f"unknown exec_mode {fl.exec_mode!r}; have ('padded', 'bucketed')")
+    if fl.cohort_mode != "sequential":
+        if fl.cohort_mode == "vmapped":
+            raise NotImplementedError(
+                "cohort_mode='vmapped' is not ported yet; use cohort_mode='sequential'")
+        raise ValueError(f"unknown cohort_mode {fl.cohort_mode!r}")
+    if fl.engine == "cohort":
+        from .cohort.engine import BACKENDS  # deferred: cohort imports rounds
+        from .cohort.scheduler import PARTICIPATION
+
+        if fl.rr_backend not in BACKENDS:
+            raise ValueError(f"unknown rr_backend {fl.rr_backend!r}; have {BACKENDS}")
+        if fl.participation not in PARTICIPATION:
+            raise NotImplementedError(
+                f"participation schedule {fl.participation!r} is not ported yet; "
+                f"have {sorted(PARTICIPATION)}")
+        if fl.prefetch < 0:
+            raise ValueError(f"fl.prefetch must be >= 0, got {fl.prefetch}")
+        if fl.prefetch > 0:
+            raise NotImplementedError(
+                "round prefetch is not ported yet; use prefetch=0 with engine='cohort'")
+
+
+def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
+                  loss_fn, *, num_clients: int) -> BoundStrategy:
+    if isinstance(strategy, BoundStrategy):
+        # bind-once-reuse: just validate agreement with what was bound
+        if fl is not None and fl != strategy.fl:
+            raise ValueError("fl differs from the config this strategy was bound over")
+        if num_clients is not None and num_clients != strategy.num_clients:
+            raise ValueError("num_clients differs from the bound strategy's")
+        if loss_fn is not None and loss_fn is not strategy.loss_fn:
+            raise ValueError("loss_fn differs from the one this strategy was bound over")
+        return strategy
+    if strategy is None:
+        strategy = strategy_for(fl)
+    pipeline_mode = equalized_mode(fl.algorithm)
+    if pipeline_mode != strategy.equalize:
+        # the pipeline keys its K-equalization off FLConfig.algorithm; a
+        # disagreement would silently run different math than either name says
+        raise ValueError(
+            f"strategy {strategy.name!r} expects equalized-step pipeline mode "
+            f"{strategy.equalize!r}, but FLConfig.algorithm={fl.algorithm!r} "
+            f"makes the pipeline apply {pipeline_mode!r}. Set algorithm="
+            f"{strategy.name!r} (or register a strategy declaring "
+            f"equalize={pipeline_mode!r}).")
+    if strategy.server_opt is not None and strategy.server_opt != fl.server_opt:
+        raise ValueError(
+            f"strategy {strategy.name!r} pins server_opt="
+            f"{strategy.server_opt!r} but FLConfig.server_opt is "
+            f"{fl.server_opt!r}; make them agree.")
+    _check_config(fl)
+    server_opt = strategy.server_opt or fl.server_opt
+    if server_opt not in SERVER_OPTS:
+        if server_opt in _UNPORTED_SERVER_OPTS:
+            raise NotImplementedError(f"server opt {server_opt!r} is not ported yet")
+        raise ValueError(f"unknown server opt {server_opt!r}; have {sorted(SERVER_OPTS)}")
+    sdef = SERVER_OPTS[server_opt]
+    if (strategy.local_update is not None and fl.local_update
+            and strategy.local_update != fl.local_update):
+        raise ValueError(
+            f"strategy {strategy.name!r} pins local_update="
+            f"{strategy.local_update!r} but FLConfig.local_update is "
+            f"{fl.local_update!r}; make them agree.")
+    local_update = strategy.local_update or fl.local_update or sdef.local_update
+    if local_update not in LOCAL_UPDATES:
+        if local_update in _UNPORTED_LOCAL_UPDATES:
+            raise NotImplementedError(f"local update {local_update!r} is not ported yet")
+        raise ValueError(
+            f"unknown local update {local_update!r}; have {sorted(LOCAL_UPDATES)}")
+    gen = strategy.gen
+
+    def init(params) -> ServerState:
+        # copy: the caller keeps ownership of the tree it passed in
+        params = tree_copy(params)
+        return ServerState(params=params, opt=sdef.init(fl, params), rnd=0)
+
+    def client_transform(meta, lr_mult):
+        """Per-client step sizes eta_l * lr_mult / c_i ([C])."""
+        return fl.local_lr * lr_mult * lr_scale(gen, meta)
+
+    def agg_coeffs(meta) -> torch.Tensor:
+        return agg_coeff(gen, meta, num_clients=num_clients, cohort_size=fl.cohort_size)
+
+    def aggregate(deltas, meta):
+        return weighted_sum(deltas, agg_coeffs(meta))
+
+    return BoundStrategy(
+        name=strategy.name,
+        gen=gen,
+        local_update=local_update,
+        equalize=strategy.equalize,
+        fl=fl,
+        num_clients=num_clients,
+        loss_fn=loss_fn,
+        init=init,
+        client_transform=client_transform,
+        agg_coeffs=agg_coeffs,
+        aggregate=aggregate,
+        server_update=sdef.make_update(fl),
+        local_step=build_local_step(LOCAL_UPDATES[local_update], loss_fn),
+    )
