@@ -3,24 +3,30 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-1. prints the card's name and power limit, builds the CUDA kernel from
-   ``src/repro_torch/csrc/rr_perm.cu``;
+1. prints the card's name and power limit, builds the CUDA kernels from
+   ``src/repro_torch/csrc/{rr_perm,quantize}.cu`` (one ``nvcc`` each, all
+   started together);
 2. holds each kernel against its plain PyTorch version on the card and the
-   numpy mirror, bitwise, at the main path's shapes and a stress shape, and
+   numpy mirror, bitwise, at the main paths' shapes and stress shapes, and
    times both;
-3. drives the main path through its user entry point: FedShuffle training of
-   full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds through the
-   cohort engine with the CUDA index kernel (``rr_backend="device"``), with
-   every launch count set to 0 just before and read just after;
-4. checks the result: finite losses, one kernel launch per round, the same
-   run with the plain version of the kernel (``rr_backend="device_ref"``)
-   giving bitwise-identical parameters, and a CharLM-tiny run on the card
-   agreeing with the port on the CPU;
+3. drives two main paths through the user entry point, each with every
+   launch count set to 0 just before and read just after: FedShuffle
+   training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
+   through the cohort engine with the CUDA index kernel
+   (``rr_backend="device"``), first with a dense wire, then with the qsgd
+   codec both ways (``uplink="qsgd", downlink="qsgd"``: the CUDA quantize
+   kernels, 12 launches of each a direction a round);
+4. checks the results: finite losses and parameters, the predicted launch
+   counts, the same runs with the plain versions of the kernels
+   (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
+   bitwise-identical parameters, the comm metrics equal to the wire's
+   arithmetic, and CharLM-tiny runs on the card (dense, and
+   ``ef_qsgd`` / ``qsgd``) agreeing with the port on the CPU;
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-With ``--profile DIR`` it also traces one more main-path round with
-``torch.profiler`` and writes the kernel-time table to ``DIR``.
+With ``--profile DIR`` it also traces one more round of the qsgd main path
+with ``torch.profiler`` and writes the kernel-time table to ``DIR``.
 """
 from __future__ import annotations
 
@@ -29,16 +35,30 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 ROUNDS = 4
+KERNELS = ("rr_perm", "quantize")
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 3.35 TB/s;
-# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz = 16.7e12 integer ops/s.
+# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz = 16.7e12 integer ops/s; the
+# 67 TFLOP/s fp32 rate counts an FMA as two, so 33.4e12 fp32 instructions/s,
+# which is also the most instructions of any mix the SMs issue (4 schedulers
+# x 32 lanes a clock).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
+# quantize.cu, source-level operations a value (a conversion, division or
+# modulo counted as one).  quantize_pack: integer 21 = key_combine 14,
+# position and mask 3, two conversions, shift and or; float 11 = abs and
+# max of the scale pass, abs, two multiplies, add, floor, clamp (2),
+# sign test, level add.  unpack_dequantize: integer 5 = byte index and
+# shift (3), mask, conversion; float 3 = subtract, two multiplies.
+QUANT_OPS = {"quantize_pack": (21, 11), "unpack_dequantize": (5, 3)}
+COMM = dict(uplink="qsgd", downlink="qsgd")
 
 
 def rr_ops_per_element(mode: str, rounds: int) -> int:
@@ -168,16 +188,223 @@ def check_rr_perm(dev) -> dict:
             "call_ms": call_ms, "plain_call_ms": plain_call_ms, "shape": [C, k_max, B]}
 
 
-def run_main_path(dev, rr_backend: str):
+def e2e_wire_leaves() -> list[int]:
+    """The value count of each wire leaf (the JAX package's 12 leaves) of
+    the e2e model, from its shapes alone."""
+    from repro_torch.launch.train import charlm_e2e_config
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.pytree import wire_shapes
+
+    cfg, _ = charlm_e2e_config()
+    return [like.numel() for _, like in wire_shapes(build_model(cfg).init(0, "meta"))]
+
+
+def _bitwise(a, b) -> bool:
+    """Equal bytes (floats compared as int32, so -0.0 != 0.0)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _check_quantize_case(v, keys, chunk: int, bits: int, mirror_chunks: int,
+                         mirror_rows: int) -> tuple[int, float, float]:
+    """Kernel vs plain torch on the card over all rows, and vs the numpy
+    mirror on the first ``mirror_chunks`` chunks of the first
+    ``mirror_rows`` rows: packed bytes, scales and decoded values.  Returns
+    the number of values checked and the largest absolute difference from
+    the plain version of the packed bytes and of the decoded values."""
+    import torch
+
+    from repro_torch.kernels.quantize import ref
+    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+
+    n = v.shape[1]
+    gp, gs = quantize_pack_kernel(v, keys, chunk=chunk, bits=bits)
+    wp, ws = ref.quantize_pack_torch(v, keys, chunk=chunk, bits=bits)
+    gd = unpack_dequantize_kernel(gp, gs, n=n, chunk=chunk, bits=bits)
+    wd = ref.unpack_dequantize_torch(wp, ws, n=n, chunk=chunk, bits=bits)
+    torch.cuda.synchronize()
+    where = f"quantize chunk={chunk} bits={bits} shape={list(v.shape)}"
+    err_q = float((gp.int() - wp.int()).abs().max())
+    err_d = float((gd - wd).abs().max())
+    if not (_bitwise(gp, wp) and _bitwise(gs, ws) and _bitwise(gd, wd)):
+        raise AssertionError(f"{where}: kernel != plain torch version")
+    m = min(mirror_chunks, gs.shape[1])
+    for r in range(min(mirror_rows, v.shape[0])):
+        row = np.zeros(m * chunk, np.float32)          # the mirror pads with zeros
+        src = v[r, :m * chunk].cpu().numpy()
+        row[:src.size] = src
+        k = keys[r, :m].cpu().numpy().astype(np.uint32)
+        mp, ms = ref.quantize_pack(row.reshape(m, chunk), k, bits)
+        md = ref.unpack_dequantize(mp, ms, chunk, bits).reshape(-1)[:min(n, m * chunk)]
+        if not ((gp[r, :m].cpu().numpy() == mp).all() and (gs[r, :m].cpu().numpy() == ms).all()
+                and (gd[r, :md.size].cpu().numpy().view(np.uint32) == md.view(np.uint32)).all()):
+            raise AssertionError(f"{where}: kernel != numpy mirror (row {r})")
+    return v.numel(), err_q, err_d
+
+
+def check_quantize(dev) -> list[dict]:
+    """The two quantize kernels on the card vs their plain torch versions on
+    the card and the numpy mirror, bitwise, for bits 2 / 4 / 8 at the e2e
+    wire leaves (cohort of 8, chunk 256, keys as the codec derives them in
+    round 0) and at stress shapes (ragged tails, chunks of 8 and 1000, keys
+    near 2^32 - 1, all-zero and -0.0 chunks); then both timed over one
+    direction of one main-path round: all 12 wire leaves, 4 bits."""
+    import torch
+
+    from repro_torch.fed.comm import round_keys
+    from repro_torch.kernels.quantize import ref
+    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+    from repro_torch.kernels.rr_perm.ref import key_combine_torch
+
+    fl, _, plans = main_path_inputs(1)
+    C, chunk = len(plans[0].meta.client_id), fl.uplink_chunk
+    slot_keys = round_keys(fl.seed, torch.as_tensor(plans[0].meta.client_id, device=dev), 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    leaves, keys = [], []
+    for i, n in enumerate(e2e_wire_leaves()):
+        # update-like values: rows of magnitudes 1e-4 .. 1
+        v = torch.randn((C, n), generator=gen, device=dev)
+        v *= torch.logspace(-4, 0, C, device=dev)[:, None]
+        nc = -(-n // chunk)
+        ki = key_combine_torch(slot_keys, i)
+        keys.append(key_combine_torch(ki[:, None], torch.arange(nc, device=dev)[None, :]))
+        leaves.append(v)
+    leaves[0][0, :chunk] = 0.0
+    leaves[0][1, :chunk] = -0.0
+    checked, stress, err = 0, 0, {"quantize_pack": 0.0, "unpack_dequantize": 0.0}
+
+    def tally(res):
+        err["quantize_pack"] = max(err["quantize_pack"], res[1])
+        err["unpack_dequantize"] = max(err["unpack_dequantize"], res[2])
+        return res[0]
+
+    for bits in ref.BITS_CHOICES:
+        for v, k in zip(leaves, keys):
+            checked += tally(_check_quantize_case(v, k, chunk, bits, mirror_chunks=1024,
+                                                  mirror_rows=2))
+    for c in (8, 256, 1000):
+        n = 37 * c + 5                                            # a ragged last chunk
+        nc = -(-n // c)
+        v = torch.randn((5, n), generator=gen, device=dev) * 10.0
+        v[1, :2 * c] = 0.0
+        v[2] = -0.0
+        k = (2**32 - 1 - torch.arange(5 * nc, device=dev)).reshape(5, nc)
+        for bits in ref.BITS_CHOICES:
+            stress += tally(_check_quantize_case(v, k, c, bits, mirror_chunks=nc, mirror_rows=5))
+    print(f"quantize check: {checked} values at the e2e wire leaves and {stress} at stress "
+          f"shapes bitwise equal (kernels, plain torch on the card, numpy mirror; "
+          f"bits 2, 4, 8)", flush=True)
+
+    bits = fl.uplink_bits
+    values = sum(v.numel() for v in leaves)
+    nchunks = sum(k.numel() for k in keys)
+    pb = ref.packed_width(chunk, bits)
+    packs = [quantize_pack_kernel(v, k, chunk=chunk, bits=bits) for v, k in zip(leaves, keys)]
+    ns = [v.shape[1] for v in leaves]
+
+    def q_kernel():
+        return [quantize_pack_kernel(v, k, chunk=chunk, bits=bits) for v, k in zip(leaves, keys)]
+
+    def q_plain():
+        return [ref.quantize_pack_torch(v, k, chunk=chunk, bits=bits) for v, k in zip(leaves, keys)]
+
+    def d_kernel():
+        return [unpack_dequantize_kernel(p, s, n=n, chunk=chunk, bits=bits)
+                for (p, s), n in zip(packs, ns)]
+
+    def d_plain():
+        return [ref.unpack_dequantize_torch(p, s, n=n, chunk=chunk, bits=bits)
+                for (p, s), n in zip(packs, ns)]
+
+    # bytes each call must move: every input read once, every output written once
+    q_bytes = 4 * values + 8 * nchunks + pb * nchunks + 4 * nchunks
+    d_bytes = pb * nchunks + 4 * nchunks + 4 * values
+    rows = []
+    for name, kern, plain, nbytes in (("quantize_pack", q_kernel, q_plain, q_bytes),
+                                      ("unpack_dequantize", d_kernel, d_plain, d_bytes)):
+        # 20 calls of 12 launches fit the launch queue behind the sleep
+        ms, call_ms = time_ms(kern, 20)
+        plain_ms, plain_call_ms = time_ms(plain, 3, behind_sleep=False)
+        int_ops, fp_ops = QUANT_OPS[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = max(int_ops * values / INT32_OPS_PER_S,
+                    (int_ops + fp_ops) * values / ISSUE_OPS_PER_S) * 1e3
+        rows.append({"name": name, "route": "cuda", "source": "src/repro_torch/csrc/quantize.cu",
+                     "replaces": ("src/repro/kernels/quantize/kernel.py:53" if name == "quantize_pack"
+                                  else "src/repro/kernels/quantize/kernel.py:79"),
+                     "launches": None, "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                     "library_ms": None, "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+                     "shape": [C, values // C], "leaves": len(leaves), "chunk": chunk,
+                     "bits": bits, "gbytes": nbytes / 1e9})
+    return rows
+
+
+def run_main_path(dev, rr_backend: str, **comm):
     from repro_torch.launch.train import run_charlm_e2e
 
     return run_charlm_e2e(ROUNDS, "fedshuffle", "sgd", device=dev, engine="cohort",
-                          rr_backend=rr_backend, prefetch=0)
+                          rr_backend=rr_backend, prefetch=0, **comm)
 
 
-def check_small_reference(dev) -> float:
+def report_rounds(label: str, res, wall: float, peak: int) -> None:
+    """Print a main-path run's rounds and fail on non-finite losses or
+    parameters."""
+    import torch
+
+    from repro_torch.utils.pytree import tree_count_params
+
+    rows = res.metrics.rows
+    print(f"{label}: {tree_count_params(res.state.params)} params, {ROUNDS} rounds in "
+          f"{wall:.2f} s (incl. set-up), peak device memory {peak / 2**30:.3f} GiB", flush=True)
+    prev = 0.0
+    for r in rows:
+        print(f"  round {r['round']}: local_loss {r['local_loss']:.6f} "
+              f"eval_loss {r.get('eval_loss', float('nan')):.6f} "
+              f"round_ms {(r['elapsed_s'] - prev) * 1e3:.1f}", flush=True)
+        prev = r["elapsed_s"]
+    if len(rows) != ROUNDS or not all(np.isfinite(r["local_loss"]) for r in rows):
+        raise AssertionError(f"{label}: bad loss rows {rows}")
+    if not all(torch.isfinite(v).all() for v in res.state.params.values()):
+        raise AssertionError(f"{label}: non-finite parameters")
+
+
+def check_comm_metrics(rows, fl) -> None:
+    """Each round's comm metrics equal the wire's arithmetic: per client,
+    every wire leaf of n values ships ceil(n / chunk) chunks of chunk * bits
+    / 8 bytes and one fp32 scale; the dense model is 32 bits a value."""
+    leaves = e2e_wire_leaves()
+    nc = [-(-n // fl.uplink_chunk) for n in leaves]
+    bits = sum(c * (fl.uplink_chunk * fl.uplink_bits + 32) for c in nc)
+    dense = 32 * sum(leaves)
+    f32 = np.float32
+    for r in rows:
+        cohort = f32(r["cohort"])
+        want = {"uplink_mbytes": cohort * f32(bits / 8e6),
+                "downlink_mbytes": cohort * f32(bits / 8e6),
+                "total_comm_mbytes": cohort * f32(2 * bits / 8e6),
+                "uplink_compression": f32(dense / bits),
+                "downlink_compression": f32(dense / bits)}
+        bad = {k: (r.get(k), float(w)) for k, w in want.items() if r.get(k) != float(w)}
+        if bad:
+            raise AssertionError(f"round {r['round']}: comm metrics {bad} (got, want)")
+    print(f"comm metrics: {bits} bits a client a direction (dense {dense}, "
+          f"{dense / bits:.3f}x), equal to the wire arithmetic every round", flush=True)
+
+
+def check_small_reference(dev, **comm) -> tuple[float, int]:
     """CharLM-tiny, two cohort-engine rounds on the card vs the port on the
-    CPU: the largest relative parameter difference (fp32, TF32 off)."""
+    CPU (fp32, TF32 off): the largest relative parameter difference and the
+    number of level flips.  With a dense wire every element is within 1e-4
+    of its leaf's max.  With a codec (``comm``) an element may instead sit
+    on the other side of a stochastic level boundary, because the inputs
+    differ by an ulp: it may differ by at most one uplink level a round
+    (server_lr * coefficient * scale / L), and such flips must stay under
+    0.1 % of the elements."""
     import torch
 
     from repro_torch.configs.base import FLConfig
@@ -186,35 +413,63 @@ def check_small_reference(dev) -> float:
     from repro_torch.data.tasks import CharLMTask
     from repro_torch.fed.cohort.engine import CohortEngine
     from repro_torch.fed.losses import make_loss
+    from repro_torch.fed.strategy import bind_strategy
     from repro_torch.fed.train_loop import train
+    from repro_torch.kernels.quantize import ops as qops
     from repro_torch.models.model import build_model
 
+    rounds = 2
     fl = FLConfig(num_clients=4, cohort_size=2, local_batch=2, algorithm="fedshuffle",
                   local_lr=0.05, mean_samples=3, cohort_mode="sequential", seed=1,
-                  engine="cohort", rr_backend="device", prefetch=0)
+                  engine="cohort", rr_backend="device", prefetch=0, **comm)
     model = build_model(CHARLM_TINY)
+    loss_fn = make_loss(model)
     params = model.init(0, "cpu")
-    out = {}
-    for d in ("cpu", dev):
-        task = CharLMTask(vocab=CHARLM_TINY.vocab, seq_len=16, num_clients=4)
-        eng = CohortEngine.build(task, Population.build(fl), fl, device=d)
-        p = {k: v.to(d) for k, v in params.items()}
-        out[str(d)] = train(make_loss(model), p, eng, fl, 2, log_every=0, device=d).state.params
-    worst = 0.0
+    scales = [0.0]
+    pack = qops.quantize_pack
+
+    def recording(*a, **k):
+        out = pack(*a, **k)
+        scales.append(float(out[1].max()))
+        return out
+
+    out, coeff = {}, 0.0
+    qops.quantize_pack = recording
+    try:
+        for d in ("cpu", dev):
+            task = CharLMTask(vocab=CHARLM_TINY.vocab, seq_len=16, num_clients=4)
+            eng = CohortEngine.build(task, Population.build(fl), fl, device=d)
+            strat = bind_strategy(None, fl, loss_fn, num_clients=4)
+            coeff = max([coeff] + [float(strat.agg_coeffs(eng.device_plan(r).meta).abs().max())
+                                   for r in range(rounds)])
+            p = {k: v.to(d) for k, v in params.items()}
+            out[str(d)] = train(loss_fn, p, eng, fl, rounds, strategy=strat, log_every=0,
+                                device=d).state.params
+    finally:
+        qops.quantize_pack = pack
+    level = rounds * fl.server_lr * coeff * max(scales) / (2 ** (fl.uplink_bits - 1) - 1)
+    worst, flips, total = 0.0, 0, 0
     for k, v in out["cpu"].items():
         g = out[str(dev)][k].cpu()
-        worst = max(worst, float((g - v).abs().max() / v.abs().max().clamp_min(1e-12)))
         if not torch.isfinite(g).all():
             raise AssertionError(f"tiny run on the card: non-finite {k}")
-    if worst > 1e-4:
-        raise AssertionError(f"tiny run: card vs CPU relative difference {worst:.3e} > 1e-4")
-    return worst
+        d = (g - v).abs()
+        rel = d / v.abs().max().clamp_min(1e-12)
+        off = rel > 1e-4
+        if comm and bool((d[off] > level * (1 + 1e-3)).any()):
+            raise AssertionError(f"tiny run {comm}: {k} differs by more than one level {level:.3e}")
+        flips += int(off.sum())
+        total += d.numel()
+        worst = max(worst, float(rel[~off].max()) if (~off).any() else 0.0)
+    if flips > (1e-3 * total if comm else 0):
+        raise AssertionError(f"tiny run {comm}: {flips} of {total} elements off by more than 1e-4")
+    return worst, flips
 
 
-def profile_round(dev, out_dir: Path) -> None:
-    """One main-path round step (after a warm-up round) under
-    torch.profiler: the kernel-time table and the device's busy share of
-    the round's wall time, written to ``out_dir``."""
+def profile_round(dev, out_dir: Path, **comm) -> None:
+    """One main-path round step (after a warm-up round; with the ``comm``
+    codecs) under torch.profiler: the kernel-time table and the device's
+    busy share of the round's wall time, written to ``out_dir``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -228,7 +483,7 @@ def profile_round(dev, out_dir: Path) -> None:
     from repro_torch.launch.train import charlm_e2e_config
     from repro_torch.models.model import build_model
 
-    cfg, fl = charlm_e2e_config(engine="cohort", rr_backend="device", prefetch=0)
+    cfg, fl = charlm_e2e_config(engine="cohort", rr_backend="device", prefetch=0, **comm)
     task = CharLMTask(vocab=cfg.vocab, seq_len=128, num_clients=fl.num_clients)
     eng = CohortEngine.build(task, Population.build(fl), fl, device=dev)
     model = build_model(cfg)
@@ -254,6 +509,8 @@ def profile_round(dev, out_dir: Path) -> None:
     busy_s = sum(getattr(e, field) for e in dev_events) / 1e6
     launches = sum(e.count for e in dev_events)
     mm_s = sum(getattr(e, field) for e in ka if e.key == "aten::mm") / 1e6
+    quant = [e for e in dev_events if "quantize" in e.key]
+    quant_s = sum(getattr(e, field) for e in quant) / 1e6
     # dense-layer FLOPs of the round: 6 * (weights of the x @ w products) per
     # token per step (forward + two backward products), masked steps included
     plan = eng.index_plan(2)
@@ -266,8 +523,9 @@ def profile_round(dev, out_dir: Path) -> None:
                f"round: device time {busy_s * 1e3:.1f} ms = {100 * busy_s / wall:.1f} % of "
                f"that wall, {launches} device kernels/copies ({wall / launches * 1e6:.1f} us "
                f"of wall each), aten::mm {mm_s * 1e3:.1f} ms for {mm_flop / 1e12:.2f} "
-               f"TFLOP = {mm_flop / mm_s / 1e12:.1f} TFLOP/s; {steps} client steps, "
-               f"{real} of them unmasked")
+               f"TFLOP = {mm_flop / mm_s / 1e12:.1f} TFLOP/s; quantize kernels "
+               f"{quant_s * 1e3:.3f} ms in {sum(e.count for e in quant)} launches; "
+               f"{steps} client steps, {real} of them unmasked")
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "profile_round.txt").write_text(
         summary + "\n" + ka.table(sort_by=field, row_limit=40) + "\n")
@@ -278,6 +536,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", type=Path, default=None)
     args = ap.parse_args()
+    start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -285,8 +544,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
     from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
-    from repro_torch.utils.pytree import tree_count_params
+    from repro_torch.launch.train import charlm_e2e_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -300,53 +560,80 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    build.load("rr_perm")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:     # one nvcc a source, all at once
+        list(pool.map(build.load, KERNELS))
     print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in build.LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    t0 = time.perf_counter()
     rr = check_rr_perm(dev)
+    quant, dequant = check_quantize(dev)
+    torch.cuda.synchronize()
+    print(f"kernel checks and timings: {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # the main path: counts to 0 just before, read just after
+    # main path 1, a dense wire: counts to 0 just before, read just after
     torch.cuda.reset_peak_memory_stats()
     rr_indices_kernel.launches = 0
     t0 = time.perf_counter()
     res = run_main_path(dev, "device")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     rr["launches"] = rr_indices_kernel.launches
-    peak = torch.cuda.max_memory_allocated()
-    rows = res.metrics.rows
-    print(f"main path: {tree_count_params(res.state.params)} params, {ROUNDS} rounds in "
-          f"{wall:.2f} s (incl. set-up), peak device memory {peak / 2**30:.3f} GiB", flush=True)
-    prev = 0.0
-    for r in rows:
-        print(f"  round {r['round']}: local_loss {r['local_loss']:.6f} "
-              f"eval_loss {r.get('eval_loss', float('nan')):.6f} "
-              f"round_ms {(r['elapsed_s'] - prev) * 1e3:.1f}", flush=True)
-        prev = r["elapsed_s"]
-    if len(rows) != ROUNDS or not all(np.isfinite(r["local_loss"]) for r in rows):
-        raise AssertionError(f"main path: bad loss rows {rows}")
-    if not all(torch.isfinite(v).all() for v in res.state.params.values()):
-        raise AssertionError("main path: non-finite parameters")
+    report_rounds("main path", res, time.perf_counter() - t0, torch.cuda.max_memory_allocated())
     if rr["launches"] != ROUNDS:
         raise AssertionError(f"rr_perm launched {rr['launches']} times in {ROUNDS} rounds")
-
     ref = run_main_path(dev, "device_ref").state.params
     differ = [k for k in ref if not torch.equal(res.state.params[k], ref[k])]
     if differ:
         raise AssertionError(f"device vs device_ref params differ in {differ}")
     print("main path with the plain rr version (device_ref): parameters bitwise equal",
           flush=True)
-    worst = check_small_reference(dev)
-    print(f"CharLM-tiny on the card vs the port on the CPU: max relative diff {worst:.3e}",
-          flush=True)
-    if args.profile is not None:
-        profile_round(dev, args.profile)
+    del res, ref
 
-    print(json.dumps({"kernels": [rr]}), flush=True)
+    # main path 2, qsgd both ways: 12 wire leaves a direction, one launch
+    # of each quantize kernel a leaf and direction
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rr_indices_kernel.launches = 0
+    quantize_pack_kernel.launches = unpack_dequantize_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = run_main_path(dev, "device", **COMM)
+    torch.cuda.synchronize()
+    quant["launches"] = quantize_pack_kernel.launches
+    dequant["launches"] = unpack_dequantize_kernel.launches
+    comm_rr = rr_indices_kernel.launches
+    report_rounds("comm path (qsgd up and down)", res, time.perf_counter() - t0,
+                  torch.cuda.max_memory_allocated())
+    want = 2 * len(e2e_wire_leaves()) * ROUNDS
+    if (quant["launches"], dequant["launches"], comm_rr) != (want, want, ROUNDS):
+        raise AssertionError(f"comm path launches: quantize {quant['launches']}, unpack "
+                             f"{dequant['launches']} (want {want}), rr_perm {comm_rr}")
+    print(f"comm path launches: quantize_pack {want}, unpack_dequantize {want}, rr_perm "
+          f"{comm_rr} in {ROUNDS} rounds, as predicted", flush=True)
+    check_comm_metrics(res.metrics.rows, charlm_e2e_config(**COMM)[1])
+    params = res.state.params
+    del res
+    torch.cuda.empty_cache()
+    ref = run_main_path(dev, "device", uplink_backend="ref", **COMM).state.params
+    differ = [k for k in ref if not torch.equal(params[k], ref[k])]
+    if differ:
+        raise AssertionError(f"comm path: kernel vs plain quantize params differ in {differ}")
+    print("comm path with the plain quantize version (uplink_backend='ref'): parameters "
+          "bitwise equal", flush=True)
+    del params, ref
+    torch.cuda.empty_cache()
+
+    for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd")):
+        worst, flips = check_small_reference(dev, **comm)
+        print(f"CharLM-tiny {comm or 'dense'} on the card vs the port on the CPU: max "
+              f"relative diff {worst:.3e}, {flips} level flips", flush=True)
+    if args.profile is not None:
+        profile_round(dev, args.profile, **COMM)
+
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s", flush=True)
+    print(json.dumps({"kernels": [rr, quant, dequant]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,11 +2,16 @@
 
 The same frozen dataclasses as ``repro.configs.base``, cut to the fields
 this port implements: ``ArchConfig`` for the dense transformer family and
-``FLConfig`` without the knobs of the planes that are not ported yet (comm,
-fleet, robust, privacy, obs).  Shared fields keep the JAX package's names
-and defaults, so one keyword dict builds both configs.  A value the port
-does not implement yet (``cohort_mode="vmapped"``, ``exec_mode="bucketed"``,
-the ``mvr`` / ``adam`` / ``scaffold`` server opts, ``prefetch > 0`` on the
+``FLConfig`` with the comm plane's knobs but without those of the planes
+that are not ported yet (fleet, robust, privacy, obs).  Shared fields keep
+the JAX package's names and defaults, so one keyword dict builds both
+configs, with one exception: ``uplink_backend`` takes ``"kernel"`` (the
+default: the CUDA kernel for a CUDA tensor, the plain torch version for a
+CPU tensor) or ``"ref"`` (the plain torch version on any device) where the
+JAX package takes ``"pallas"`` / ``"ref"``.  A default of ``"ref"`` would
+keep the kernel off the card's main path.  A value the port does not
+implement yet (``cohort_mode="vmapped"``, ``exec_mode="bucketed"``, the
+``mvr`` / ``adam`` / ``scaffold`` server opts, ``prefetch > 0`` on the
 cohort engine) raises ``NotImplementedError`` at bind time.
 """
 from __future__ import annotations
@@ -67,6 +72,9 @@ ExecMode = Literal["padded", "bucketed"]
 #   device_ref   — the cipher's plain torch version, on the device
 #   device       — the cipher as the CUDA kernel (plain torch on a CPU tensor)
 RRBackend = Literal["host", "host_feistel", "device_ref", "device"]
+# The qsgd pack path of both wire directions: the CUDA kernel for a CUDA
+# tensor (plain torch on a CPU tensor), or the plain torch version anywhere
+UplinkBackend = Literal["kernel", "ref"]
 
 
 @dataclass(frozen=True)
@@ -100,6 +108,20 @@ class FLConfig:
     rr_rounds: int = 24            # swap-or-not cipher rounds (device/feistel RR)
     prefetch: int = 2              # rounds sampled ahead (cohort engine)
     participation: str = "iid"     # cohort schedule (fed.cohort.scheduler)
+    # communication plane (repro_torch.fed.comm): each direction routes its
+    # own knob family through the shared per-direction validator at bind time
+    uplink: str = "identity"       # codec name (key into fed.comm.CODECS)
+    uplink_bits: int = 4           # qsgd: bits per value (2 | 4 | 8)
+    uplink_chunk: int = 256        # qsgd: values per fp32 scale
+    uplink_frac: float = 0.1       # topk/randk: fraction of coords shipped
+    uplink_backend: UplinkBackend = "kernel"  # quantize pack path, both directions
+    shift_alpha: float = 0.5       # diana_*: shift lr, h += alpha * C(d - h)
+    # downlink broadcast (reference-compressed; "identity" keeps the dense
+    # broadcast and the op sequence of the plane-off path exactly)
+    downlink: str = "identity"     # downlink-capable codec name
+    downlink_bits: int = 4         # qsgd: bits per value (2 | 4 | 8)
+    downlink_chunk: int = 256      # qsgd: values per fp32 scale
+    downlink_frac: float = 0.1     # randk: fraction of coords shipped
     # system heterogeneity (Fig. 4): every client is cut short by this many
     # local steps (planned vs actual); the "gen" hybrid algorithm corrects it
     drop_last_steps: int = 0

@@ -14,7 +14,7 @@ c_i = 1).  Every update is fp32 math cast back to the parameter dtype.
 of :class:`ClientTransform` links, and the empty chain reproduces
 ``local_sgd`` bit for bit.  Gradients come from autograd.  The port's
 counterpart of ``repro.core.local``; the ``mvr`` / ``scaffold`` / ``prox`` /
-``clip`` transforms and persistent per-client state are not ported yet.
+``clip`` transforms and persistent per-client chain state are not ported yet.
 """
 from __future__ import annotations
 
@@ -76,11 +76,14 @@ class ClientTransform(NamedTuple):
     """One link of a local-update chain.  ``init(params) -> carry`` builds
     the per-round carry (a dict of tensors, ``{}`` if none);
     ``update(step: StepCtx, d, carry) -> (d', carry')`` maps the fp32
-    descent direction.  Carry updates on masked steps are discarded."""
+    descent direction.  Carry updates on masked steps are discarded.
+    ``client_init`` marks a transform with persistent per-client state (the
+    JAX package's stateful transforms); binding one is not ported yet."""
 
     name: str
     init: Callable
     update: Callable
+    client_init: Callable | None = None
 
 
 def build_local_step(transforms: tuple, loss_fn: Callable) -> Callable:

@@ -21,8 +21,26 @@ built with ``plane=`` (a cohort-engine ``DevicePlane``), an ``IndexPlan`` —
 indices and scalars only — which the plane materializes on the device by
 gathering its resident bank (and, for the device RR backends, regenerating
 the reshuffling streams there).  Host (numpy) inputs are moved to the step's
-device first.  The port's counterpart of ``repro.fed.rounds`` with every
-plane off; the ``vmapped`` cohort mode is not ported yet.
+device first.
+
+With a non-identity uplink codec (``fl.uplink``; ``repro_torch.fed.comm``)
+the loop stages the clients' deltas as a slot-order ``[C]`` stack, the codec
+runs once on the stack (one launch of each quantize kernel per wire leaf),
+and the decoded deltas are accumulated in slot order by the same rule.
+With a non-identity downlink codec (``fl.downlink``) each slot's round-start
+params are reconstructed from its banked reference before the cohort runs,
+``ref_i + decode(encode(x - ref_i))``, and each client trains from, and
+measures its update against, its own reconstruction.  EF residuals, DIANA
+shifts and the downlink references live in the per-client bank
+(``ServerState.clients``): the cohort's rows are gathered at ``ids =
+where(valid, client_id, N)`` and committed back masked (padding slots write
+what they read).  Unlike the JAX package, which returns a new bank, the
+commit updates the bank in place (15.1 GB at CharLM-100M's 32 clients; a
+copy would double it), so a state passed to a round step must not be used
+again.  ``identity`` in both directions keeps the plane-off op sequence:
+no staging, no bank, no new metric keys.  The port's counterpart of
+``repro.fed.rounds`` with the fleet, robust, privacy and obs planes off;
+the ``vmapped`` cohort mode is not ported yet.
 """
 from __future__ import annotations
 
@@ -34,7 +52,9 @@ import torch
 from ..configs.base import FLConfig
 from ..data.federated import ClientMeta, IndexPlan, RoundBatch
 from ..utils.device import resolve_device
-from ..utils.pytree import tree_sq_norm, tree_zeros_like
+from ..utils.pytree import tree_map, tree_sq_norm, tree_zeros_like
+from .comm import (DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, dense_bits, downlink_apply,
+                   downlink_round_keys, round_keys, uplink_apply, wire_bits_total)
 from .server import ServerState
 from .strategy import BoundStrategy, FedStrategy, bind_strategy
 
@@ -84,6 +104,23 @@ def build_round_step(loss_fn: Callable,
     if plane is not None and plane.device != device:
         raise ValueError(f"the plane's bank lives on {plane.device}, the step runs on {device}")
     acc_dt = getattr(torch, fl.accum_dtype)
+    num_clients = strat.num_clients
+    banked = strat.client_state is not None
+    codec, down = strat.codec, strat.down_codec
+    up_on = codec is not None and codec.name != "identity"
+    dl_on = down is not None and down.name != "identity"
+    apply_up = uplink_apply(codec) if up_on else None
+    apply_down = downlink_apply(down) if dl_on else None
+
+    def add_weighted(acc, delta, coeff_i):
+        # THE accumulation rule: slot order, fp32 product, accumulator dtype
+        return {k: (A + coeff_i * delta[k].float()).to(A.dtype) for k, A in acc.items()}
+
+    def slot_keys(rule, keyfn, meta, rnd):
+        # per-slot stream keys for codecs that draw random bits, zeros otherwise
+        if rule.seeded:
+            return keyfn(fl.seed, meta.client_id, rnd)
+        return torch.zeros_like(meta.client_id)
 
     @torch.no_grad()
     def round_step(state: ServerState, batch, lr_mult=1.0):
@@ -103,23 +140,89 @@ def build_round_step(loss_fn: Callable,
         lr_mult = to_device(lr_mult, device, torch.float32)
         eta = strat.client_transform(meta, lr_mult)                   # [C]
         coeff = strat.agg_coeffs(meta)                                 # [C]
+        C = meta.valid.shape[0]
+        if banked:
+            if state.clients is None:
+                raise TypeError("round_step got a ServerState without the client state "
+                                "bank its codecs keep; build it with the bound strategy's init()")
+            # the cohort's bank rows; padding slots read (and write) the scratch row
+            ids = torch.where(meta.valid > 0, meta.client_id, num_clients)
+            cstate0 = tree_map(lambda b: b.index_select(0, ids), state.clients)
+        else:
+            cstate0 = {}
+        new_cs = cstate0
+        if dl_on:
+            # each slot's round-start params, reconstructed once from its
+            # reference before the cohort runs; committed as its next reference
+            starts = apply_down(state.params, cstate0[DOWNLINK_STATE_KEY]["ref"],
+                                slot_keys(down, downlink_round_keys, meta, state.rnd))
+            new_cs = {**cstate0, DOWNLINK_STATE_KEY: {"ref": starts}}
         acc = tree_zeros_like(state.params, dtype=acc_dt)
+        if up_on:
+            staged = {k: torch.empty((C, *v.shape), dtype=v.dtype, device=v.device)
+                      for k, v in state.params.items()}
         losses = []
-        for c in range(meta.valid.shape[0]):
-            delta, loss = strat.local_step(state.params,
-                                           {k: v[c] for k, v in batch.data.items()},
+        for c in range(C):
+            p_c = {k: v[c] for k, v in starts.items()} if dl_on else state.params
+            delta, loss = strat.local_step(p_c, {k: v[c] for k, v in batch.data.items()},
                                            batch.step_mask[c], eta[c])
-            # THE accumulation rule: slot order, fp32 product, accumulator dtype
-            acc = {k: (A + coeff[c] * delta[k].float()).to(A.dtype) for k, A in acc.items()}
+            if up_on:
+                for k, v in delta.items():
+                    staged[k][c] = v
+            else:
+                acc = add_weighted(acc, delta, coeff[c])
             losses.append(loss)
+        if up_on:
+            # the uplink on the staged slot-order stack, then the same
+            # accumulation of the decoded deltas in slot order
+            dhat, ef2 = apply_up(staged, new_cs.get(UPLINK_STATE_KEY, {}),
+                                 slot_keys(codec, round_keys, meta, state.rnd))
+            del staged
+            if codec.client_init is not None:
+                new_cs = {**new_cs, UPLINK_STATE_KEY: ef2}
+            for c in range(C):
+                acc = add_weighted(acc, {k: v[c] for k, v in dhat.items()}, coeff[c])
+            del dhat
         delta_agg = {k: a.to(state.params[k].dtype) for k, a in acc.items()}
+        if banked:
+            # masked commit: valid slots write their new rows, padding slots
+            # what they read; then every slot scatters to its own row
+            valid = meta.valid > 0
+
+            def commit(bank, new, old):
+                upd = torch.where(valid.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+                bank.index_copy_(0, ids, upd.to(bank.dtype))
+
+            tree_map(commit, state.clients, new_cs, cstate0)
+        params, bank = state.params, state.clients
         state = strat.server_update(state, delta_agg, fl.server_lr)
+        if banked:
+            state = state._replace(clients=bank)
         valid_sum = torch.clamp_min(meta.valid.sum(), 1.0)
         metrics = {
             "local_loss": (torch.stack(losses) * meta.valid).sum() / valid_sum,
             "delta_norm": torch.sqrt(tree_sq_norm(delta_agg)),
             "cohort": meta.valid.sum(),
         }
+        if up_on or dl_on:
+            # bytes on the wire (static per client: every payload is
+            # params-shaped); an identity direction pays its dense cost
+            dense = dense_bits(params)
+            up_bits = wire_bits_total(codec, params) if up_on else dense
+            down_bits = wire_bits_total(down, params) if dl_on else dense
+            n_valid = meta.valid.sum()
+            if up_on:
+                metrics["uplink_mbytes"] = n_valid * _f32(up_bits / 8e6)
+                metrics["uplink_compression"] = torch.tensor(_f32(dense / up_bits))
+            if dl_on:
+                metrics["downlink_mbytes"] = n_valid * _f32(down_bits / 8e6)
+                metrics["downlink_compression"] = torch.tensor(_f32(dense / down_bits))
+            metrics["total_comm_mbytes"] = n_valid * _f32((up_bits + down_bits) / 8e6)
         return state, metrics
 
     return round_step
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32 (the JAX package's ``jnp.float32(x)``)."""
+    return float(np.float32(x))

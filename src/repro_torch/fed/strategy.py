@@ -13,8 +13,10 @@ A :class:`FedStrategy` declares the round recipe as a composition of
 
 :func:`bind_strategy` closes a strategy over a concrete ``FLConfig`` and
 ``loss_fn`` and yields the hooks the round driver (``repro_torch.fed.rounds``)
-calls.  The port's counterpart of ``repro.fed.strategy`` with every plane at
-its default off setting; the ``mvr`` / ``adam`` / ``scaffold`` server opts and
+calls, the comm plane's two codecs (``fl.uplink`` / ``fl.downlink``,
+``repro_torch.fed.comm``) and the per-client state they keep included.  The
+port's counterpart of ``repro.fed.strategy`` with the fleet, robust and
+privacy planes off; the ``mvr`` / ``adam`` / ``scaffold`` server opts and
 the non-empty local chains raise ``NotImplementedError`` until they are
 ported.
 """
@@ -29,7 +31,8 @@ from ..configs.base import FLConfig
 from ..core import algorithms as _alg
 from ..core.algorithms import GenSpec, PRESETS, agg_coeff, lr_scale
 from ..core.local import build_local_step
-from ..utils.pytree import tree_copy, tree_zeros_like
+from ..utils.pytree import tree_copy, tree_map, tree_zeros_like
+from .comm import DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, build_codec
 from .server import ServerState
 
 # local update name -> its chain of ClientTransforms (core.local)
@@ -207,6 +210,13 @@ class BoundStrategy(NamedTuple):
     aggregate: Callable                # (stacked deltas, meta) -> delta_agg
     server_update: Callable            # (state, delta_agg, lr) -> ServerState
     local_step: Callable               # (params, data, mask, eta) -> (delta, loss)
+    client_state: Callable | None = None  # (params) -> one client's bank row
+    #                                      template ({name: {field: tree}}), or
+    #                                      None when no plane keeps client state
+    codec: object = None               # bound fed.comm.Codec of the uplink
+    down_codec: object = None          # bound fed.comm.Codec of the downlink
+    #                                      (None for hand-built strategies: the
+    #                                      round driver then runs dense)
 
 
 def weighted_sum(deltas: dict, coeff: torch.Tensor) -> dict:
@@ -293,12 +303,48 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
             raise NotImplementedError(f"local update {local_update!r} is not ported yet")
         raise ValueError(
             f"unknown local update {local_update!r}; have {sorted(LOCAL_UPDATES)}")
+    transforms = LOCAL_UPDATES[local_update]
+    # comm plane: both directions resolved and validated at bind time
+    codec = build_codec(fl, "uplink")
+    down_codec = build_codec(fl, "downlink")
+    state_names = [t.name for t in transforms if t.client_init is not None]
+    for key, owner in ((UPLINK_STATE_KEY, "the uplink codec's error-feedback residual"),
+                       (DOWNLINK_STATE_KEY, "the downlink broadcast's client-held reference")):
+        if key in state_names:
+            raise ValueError(
+                f"local update {local_update!r} has a stateful client transform named "
+                f"{key!r} — that bank key is reserved for {owner}; rename the transform.")
+    if state_names:
+        raise NotImplementedError(
+            f"stateful client transforms {state_names} are not ported yet")
+    client_state = None
+    if codec.client_init is not None:
+        def client_state(params):
+            # the codec's EF residual / DIANA shift, under the reserved key
+            return {UPLINK_STATE_KEY: codec.client_init(params)}
+
+    if down_codec.name != "identity":
+        pre_down_state = client_state
+
+        def client_state(params):
+            # the broadcast reference every client holds, seeded with the
+            # init params (server and client agree by construction)
+            d = dict(pre_down_state(params)) if pre_down_state is not None else {}
+            d[DOWNLINK_STATE_KEY] = {"ref": params}
+            return d
+
     gen = strategy.gen
 
     def init(params) -> ServerState:
         # copy: the caller keeps ownership of the tree it passed in
         params = tree_copy(params)
-        return ServerState(params=params, opt=sdef.init(fl, params), rnd=0)
+        clients = None
+        if client_state is not None:
+            # one bank row per client + the scratch row (index num_clients)
+            # that padding slots aim at
+            clients = tree_map(lambda t: t.unsqueeze(0).repeat((num_clients + 1,) + (1,) * t.dim()),
+                               client_state(params))
+        return ServerState(params=params, opt=sdef.init(fl, params), rnd=0, clients=clients)
 
     def client_transform(meta, lr_mult):
         """Per-client step sizes eta_l * lr_mult / c_i ([C])."""
@@ -323,5 +369,8 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
         agg_coeffs=agg_coeffs,
         aggregate=aggregate,
         server_update=sdef.make_update(fl),
-        local_step=build_local_step(LOCAL_UPDATES[local_update], loss_fn),
+        local_step=build_local_step(transforms, loss_fn),
+        client_state=client_state,
+        codec=codec,
+        down_codec=down_codec,
     )

@@ -153,6 +153,18 @@ def stream_key_torch(seed: int, client: torch.Tensor, rnd) -> torch.Tensor:
     return key_combine_torch(h, int(rnd))
 
 
+def swap_or_not_torch(x: torch.Tensor, n, key: torch.Tensor, rounds: int) -> torch.Tensor:
+    """``swap_or_not`` over int64 tensors holding uint32 values: ``x`` < n,
+    ``n`` and ``key`` broadcast against ``x``.  Returns int64 in [0, n)."""
+    for r in range(rounds):
+        kr_key = key_combine_torch(key, r)
+        kr = fmix32_torch(kr_key) % n
+        partner = (kr + n - x) % n
+        bit = key_combine_torch(kr_key, torch.maximum(x, partner)) & 1
+        x = torch.where(bit == 1, partner, x)
+    return x
+
+
 def rr_indices_torch(prekey: torch.Tensor, sizes: torch.Tensor, spe: torch.Tensor,
                      B: int, K: int, rounds: int = 24, mode: str = "rr") -> torch.Tensor:
     """The plain torch version of the kernel: [C] int64 ``prekey`` (values
@@ -171,11 +183,4 @@ def rr_indices_torch(prekey: torch.Tensor, sizes: torch.Tensor, spe: torch.Tenso
     key = key_combine_torch(prekey.to(torch.int64)[:, None], e)[:, :, None]
     if mode == "wr":
         return (fmix32_torch(key_combine_torch(key, flat)) % n).to(torch.int32)
-    x = flat % n
-    for r in range(rounds):
-        kr_key = key_combine_torch(key, r)
-        kr = fmix32_torch(kr_key) % n
-        partner = (kr + n - x) % n
-        bit = key_combine_torch(kr_key, torch.maximum(x, partner)) & 1
-        x = torch.where(bit == 1, partner, x)
-    return x.to(torch.int32)
+    return swap_or_not_torch(flat % n, n, key, rounds).to(torch.int32)

@@ -4,14 +4,16 @@ Runs ``--config charlm_e2e``: CharLM-100M (12 x 768, d_ff 3072, vocab 512)
 over 32 log-normally imbalanced clients, 8 per round, ``local_batch=4``,
 ``seq_len=128``, the sequential cohort mode, random weights from a seed.
 Any ``FLConfig`` field can be overridden, e.g. the cohort engine with the
-CUDA index kernel::
+CUDA index kernel and a qsgd-compressed uplink (the CUDA quantize kernels)::
 
   PYTHONPATH=src python -m repro_torch.launch.train --config charlm_e2e \\
-      --rounds 4 --engine cohort --rr-backend device --prefetch 0
+      --rounds 4 --engine cohort --rr-backend device --prefetch 0 --uplink qsgd
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  The port's counterpart of
-``repro.launch.train``; ``--arch`` / ``--smoke`` (the model zoo),
-``--checkpoint`` and ``--uplink`` are not ported yet.
+The downlink codec and the quantize backend go through
+``run_charlm_e2e(..., downlink="qsgd", uplink_backend="ref")``.  Runs on
+``cuda`` unless ``--device cpu`` is given.  The port's counterpart of
+``repro.launch.train``; ``--arch`` / ``--smoke`` (the model zoo) and
+``--checkpoint`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -80,10 +82,15 @@ def main() -> None:
     ap.add_argument("--rr-backend", default=None,
                     choices=["host", "host_feistel", "device_ref", "device"])
     ap.add_argument("--prefetch", type=int, default=None)
+    ap.add_argument("--uplink", default="identity",
+                    help="uplink codec (repro_torch.fed.comm.CODECS): identity | qsgd | "
+                         "topk | randk | ef_qsgd | ef_randk | diana_qsgd | diana_randk | "
+                         "diana_topk")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args()
     overrides = {k: v for k, v in (("engine", args.engine), ("rr_backend", args.rr_backend),
-                                   ("prefetch", args.prefetch)) if v is not None}
+                                   ("prefetch", args.prefetch), ("uplink", args.uplink))
+                 if v is not None}
     res = run_charlm_e2e(args.rounds, args.algorithm, args.server_opt,
                          device=args.device, **overrides)
     print(res.metrics.csv())

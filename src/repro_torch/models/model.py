@@ -3,7 +3,7 @@
 One ``Model`` per ArchConfig, the API the FL stack uses:
 
   * ``init(seed, device) -> params``  (flat dict of tensors, random weights
-    drawn with a ``torch.Generator`` on ``device``)
+    drawn with a ``torch.Generator`` on ``device``; shapes only on ``meta``)
   * ``loss(params, batch) -> (scalar, metrics)``  (the train objective)
 
 Gradients come from autograd.  The port's counterpart of
@@ -34,7 +34,9 @@ class Model:
     def init(self, seed: int, device) -> dict:
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        # device "meta" gives the shapes alone (it has no generator)
+        gen = (None if torch.device(device).type == "meta"
+               else torch.Generator(device=device).manual_seed(seed))
         p = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dt, device)}
         for i in range(cfg.n_layers):
             p.update(dense_block_init(gen, cfg, dt, device, f"blocks/{i}/"))

@@ -5,27 +5,54 @@ leaves are stacked on a leading ``[L, ...]`` axis.  The port keeps one flat
 dict per model with the layer index in the key, so :func:`params_from_jax`
 unstacks ``blocks`` into ``blocks/{i}/...``.  Dense weights stay ``[in, out]``
 (the port applies them as ``x @ w``, as the JAX package does), so nothing is
-transposed.  The input is numpy arrays (``np.asarray`` of each JAX leaf);
-this module imports no JAX.
+transposed.  :func:`server_state_from_jax` carries a whole JAX
+``ServerState`` across (params, optimizer state and the per-client bank,
+whose stacked leaves are ``[N+1, L, ...]``), so a run can continue in the
+port from a JAX state taken mid-run.  The input is numpy arrays
+(``np.asarray`` of each JAX leaf); this module imports no JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .configs.base import ArchConfig
+from .fed.server import ServerState
 from .utils.pytree import flatten, to_torch
 
 
-def params_from_jax(np_tree: dict, cfg: ArchConfig, device) -> dict:
-    """A JAX param tree (numpy leaves) -> the port's flat dict on ``device``."""
+def params_from_jax(np_tree: dict, cfg: ArchConfig | None, device, *, axis: int = 0) -> dict:
+    """A JAX param tree (numpy leaves) -> the port's flat dict on ``device``.
+    The layer axis of a ``blocks`` leaf is ``axis`` (1 in a per-client bank,
+    whose leaves lead with the bank axis); ``cfg`` may be None for a tree
+    without ``blocks``."""
     flat = {}
     for name, leaf in flatten(np_tree).items():
         if name.startswith("blocks/"):
             leaf = np.asarray(leaf)
-            if leaf.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: leading axis {leaf.shape[0]} != n_layers {cfg.n_layers}")
+            if cfg is None or leaf.shape[axis] != cfg.n_layers:
+                raise ValueError(f"{name}: layer axis {leaf.shape[axis]} != n_layers "
+                                 f"{cfg and cfg.n_layers}")
             rest = name[len("blocks/"):]
-            flat.update({f"blocks/{i}/{rest}": leaf[i] for i in range(cfg.n_layers)})
+            flat.update({f"blocks/{i}/{rest}": np.take(leaf, i, axis=axis)
+                         for i in range(cfg.n_layers)})
         else:
             flat[name] = leaf
     return to_torch(flat, device)
+
+
+def server_state_from_jax(np_state, cfg: ArchConfig | None, device) -> ServerState:
+    """A JAX ``ServerState`` (numpy leaves, e.g. ``jax.tree.map(np.asarray,
+    state)``) -> the port's ``ServerState`` on ``device``: params and each
+    optimizer-state tree unstacked like :func:`params_from_jax`, the round
+    counter as an int, and the client bank ``{name: {field: params-like}}``
+    (the comm plane's ``"uplink"`` / ``"downlink"`` entries) unstacked along
+    the layer axis after the bank axis."""
+    clients = None
+    if np_state.clients is not None:
+        clients = {name: {field: params_from_jax(tree, cfg, device, axis=1)
+                          for field, tree in entry.items()}
+                   for name, entry in np_state.clients.items()}
+    return ServerState(
+        params=params_from_jax(np_state.params, cfg, device),
+        opt={k: params_from_jax(v, cfg, device) for k, v in np_state.opt.items()},
+        rnd=int(np_state.rnd), clients=clients)

@@ -265,8 +265,11 @@ def test_unported_configs_raise(kw, what):
 
 def test_port_imports_neither_jax_nor_repro():
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
-    files = sorted(PORT_SRC.rglob("*.py"))
-    assert len(files) > 20
+    chip_smoke = PORT_SRC.parents[1] / "chip_smoke.py"
+    files = sorted(PORT_SRC.rglob("*.py")) + [chip_smoke]
+    assert len(files) > 20 and chip_smoke.exists()
+    for part in ("fed/comm/codecs.py", "kernels/quantize/ops.py", "kernels/quantize/ref.py"):
+        assert PORT_SRC / part in files, part
     for f in files:
         assert not bad.search(f.read_text()), f
     code = ("import importlib, pkgutil, sys, repro_torch\n"
