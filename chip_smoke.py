@@ -4,29 +4,33 @@
     python3 chip_smoke.py [--profile DIR]
 
 1. prints the card's name and power limit, builds the CUDA kernels from
-   ``src/repro_torch/csrc/{rr_perm,quantize}.cu`` (one ``nvcc`` each, all
-   started together);
-2. holds each kernel against its plain PyTorch version on the card and the
-   numpy mirror, bitwise, at the main paths' shapes and stress shapes, and
-   times both;
-3. drives two main paths through the user entry point, each with every
+   ``src/repro_torch/csrc/{rr_perm,quantize,server_update}.cu`` (one
+   ``nvcc`` each, all started together);
+2. holds each kernel against its plain PyTorch version on the card (and the
+   numpy mirror where there is one), bitwise, at the main paths' shapes and
+   stress shapes, and times both;
+3. drives four main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
    (``rr_backend="device"``), first with a dense wire, then with the qsgd
    codec both ways (``uplink="qsgd", downlink="qsgd"``: the CUDA quantize
-   kernels, 12 launches of each a direction a round);
+   kernels, 12 launches of each a direction a round); then FedShuffleMVR
+   (``server_opt="mvr"``) for 4 rounds with the App. F server step (the
+   CUDA server_update kernel, one launch a round over all 111 parameter
+   tensors) and for 2 rounds with the exact eq. 14 step (torch, no kernel);
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
    bitwise-identical parameters, the comm metrics equal to the wire's
-   arithmetic, and CharLM-tiny runs on the card (dense, and
-   ``ef_qsgd`` / ``qsgd``) agreeing with the port on the CPU;
+   arithmetic, and CharLM-tiny runs on the card (dense, ``ef_qsgd`` /
+   ``qsgd``, and mvr in both modes) agreeing with the port on the CPU;
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-With ``--profile DIR`` it also traces one more round of the qsgd main path
-with ``torch.profiler`` and writes the kernel-time table to ``DIR``.
+With ``--profile DIR`` it also traces one more round of the qsgd and of the
+two mvr main paths with ``torch.profiler`` and writes the kernel-time tables
+to ``DIR``.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 ROUNDS = 4
-KERNELS = ("rr_perm", "quantize")
+MVR_EXACT_ROUNDS = 2
+KERNELS = ("rr_perm", "quantize", "server_update")
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 3.35 TB/s;
 # 64 INT32 lanes per SM x 132 SMs x 1.98 GHz = 16.7e12 integer ops/s; the
 # 67 TFLOP/s fp32 rate counts an FMA as two, so 33.4e12 fp32 instructions/s,
@@ -59,6 +64,10 @@ ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
 # shift (3), mask, conversion; float 3 = subtract, two multiplies.
 QUANT_OPS = {"quantize_pack": (21, 11), "unpack_dequantize": (5, 3)}
 COMM = dict(uplink="qsgd", downlink="qsgd")
+MVR = dict(server_opt="mvr")
+# server_update.cu: fp32 operations a value (negate, 4 multiplies, 2 adds;
+# 1 - a once a thread)
+SERVER_UPDATE_OPS = 7
 
 
 def rr_ops_per_element(mode: str, rounds: int) -> int:
@@ -200,12 +209,15 @@ def e2e_wire_leaves() -> list[int]:
 
 
 def _bitwise(a, b) -> bool:
-    """Equal bytes (floats compared as int32, so -0.0 != 0.0)."""
+    """Equal bytes (f32 and bf16 compared as ints, so -0.0 != 0.0)."""
     import torch
 
-    if a.dtype == torch.float32:
-        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
-    return a.shape == b.shape and torch.equal(a, b)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype in ints:
+        a, b = a.contiguous().view(ints[a.dtype]), b.contiguous().view(ints[b.dtype])
+    return torch.equal(a, b)
 
 
 def _check_quantize_case(v, keys, chunk: int, bits: int, mirror_chunks: int,
@@ -344,14 +356,91 @@ def check_quantize(dev) -> list[dict]:
     return rows
 
 
-def run_main_path(dev, rr_backend: str, **comm):
+def e2e_param_shapes() -> dict:
+    """The e2e model's parameter tensors (the port's 111), as meta tensors."""
+    from repro_torch.launch.train import charlm_e2e_config
+    from repro_torch.models.model import build_model
+
+    cfg, _ = charlm_e2e_config()
+    return build_model(cfg).init(0, "meta")
+
+
+def check_server_update(dev) -> dict:
+    """server_update on the card vs its plain torch version on the card,
+    bitwise: the e2e leaf set (111 tensors, 114,051,840 values) with f32 and
+    bf16 x, at inv_eta_l = 1/(0.05 * 1.0) (FedShuffle) and 1/(0.05 * 3.7)
+    (a c = "one" preset's k_bar), and a ragged table (1, 255, 65,537 and 0
+    values, a tensor misaligned for 16-byte loads); then the kernel's one
+    launch over the f32 leaf set timed behind a GPU sleep and the plain
+    version as it runs."""
+    import torch
+
+    from repro_torch.kernels.server_update.kernel import server_update_kernel
+    from repro_torch.kernels.server_update.ref import server_update_torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = [v.shape for v in e2e_param_shapes().values()]
+    xs = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    ds = [torch.randn(s, generator=gen, device=dev) * 1e-3 for s in shapes]
+    ms = [torch.randn(s, generator=gen, device=dev) * 0.1 for s in shapes]
+    n_values = sum(x.numel() for x in xs)
+    buf = torch.randn(3 * 70000, generator=gen, device=dev)
+    ragged = [buf[:1], buf[1:256], buf[300:300 + 65537], buf[70000:70000], buf[70001:70001 + 4099]]
+    r_ds = [buf[100000:100000 + t.numel()] * 1e-3 for t in ragged]
+    r_ms = [buf[140000:140000 + t.numel()] for t in ragged]
+    eta_l = torch.tensor(0.05, device=dev)
+    invs = {"1/(0.05*1.0)": torch.reciprocal(eta_l * torch.tensor(1.0, device=dev)),
+            "1/(0.05*3.7)": torch.reciprocal(eta_l * torch.tensor(3.7, device=dev))}
+    checked, max_err = 0, 0.0
+    for label, inv in invs.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for x_set, d_set, m_set in ((xs, ds, ms), (ragged, r_ds, r_ms)):
+                x_in = [x.to(dtype) for x in x_set]
+                d_in = [d.to(dtype) for d in d_set]
+                gx, gm = server_update_kernel(x_in, d_in, m_set, eta_g=1.0, a=0.1, inv_eta_l=inv)
+                for x, d, m, kx, km in zip(x_in, d_in, m_set, gx, gm):
+                    px, pm = server_update_torch(x, d, m, 1.0, 0.1, inv)
+                    if x.numel():
+                        max_err = max(max_err, float((kx.float() - px.float()).abs().max()),
+                                      float((km - pm).abs().max()))
+                    if not (_bitwise(kx, px) and _bitwise(km, pm)):
+                        raise AssertionError(f"server_update {label} {dtype} n={x.numel()}: "
+                                             f"kernel != plain torch version")
+                    checked += x.numel()
+                del gx, gm, x_in, d_in
+    torch.cuda.synchronize()
+    print(f"server_update check: {checked} values bitwise equal to the plain torch version "
+          f"on the card (the {len(xs)}-tensor e2e leaf set and a ragged table; f32 and bf16 "
+          f"x; inv_eta_l {', '.join(invs)})", flush=True)
+
+    inv = invs["1/(0.05*1.0)"]
+    # 20 calls of one launch each fit the launch queue behind the sleep
+    ms_, call_ms = time_ms(lambda: server_update_kernel(xs, ds, ms, eta_g=1.0, a=0.1,
+                                                        inv_eta_l=inv), 20)
+    plain_ms, plain_call_ms = time_ms(
+        lambda: [server_update_torch(x, d, m, 1.0, 0.1, inv) for x, d, m in zip(xs, ds, ms)], 3,
+        behind_sleep=False)
+    nbytes = 20 * n_values            # x, d, m read and x', m' written, 4 bytes each
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = SERVER_UPDATE_OPS * n_values / ISSUE_OPS_PER_S * 1e3
+    return {"name": "server_update", "route": "cuda",
+            "source": "src/repro_torch/csrc/server_update.cu",
+            "replaces": "src/repro/kernels/server_update/kernel.py:38",
+            "launches": None, "max_abs_err": max_err, "ms": ms_, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": None, "library_note": "no single PyTorch call computes it",
+            "call_ms": call_ms, "plain_call_ms": plain_call_ms, "tensors": len(xs),
+            "values": n_values, "gbytes": nbytes / 1e9}
+
+
+def run_main_path(dev, rr_backend: str, rounds: int = ROUNDS, server_opt: str = "sgd", **kw):
     from repro_torch.launch.train import run_charlm_e2e
 
-    return run_charlm_e2e(ROUNDS, "fedshuffle", "sgd", device=dev, engine="cohort",
-                          rr_backend=rr_backend, prefetch=0, **comm)
+    return run_charlm_e2e(rounds, "fedshuffle", server_opt, device=dev, engine="cohort",
+                          rr_backend=rr_backend, prefetch=0, **kw)
 
 
-def report_rounds(label: str, res, wall: float, peak: int) -> None:
+def report_rounds(label: str, res, wall: float, peak: int, rounds: int = ROUNDS) -> None:
     """Print a main-path run's rounds and fail on non-finite losses or
     parameters."""
     import torch
@@ -359,7 +448,7 @@ def report_rounds(label: str, res, wall: float, peak: int) -> None:
     from repro_torch.utils.pytree import tree_count_params
 
     rows = res.metrics.rows
-    print(f"{label}: {tree_count_params(res.state.params)} params, {ROUNDS} rounds in "
+    print(f"{label}: {tree_count_params(res.state.params)} params, {rounds} rounds in "
           f"{wall:.2f} s (incl. set-up), peak device memory {peak / 2**30:.3f} GiB", flush=True)
     prev = 0.0
     for r in rows:
@@ -367,7 +456,7 @@ def report_rounds(label: str, res, wall: float, peak: int) -> None:
               f"eval_loss {r.get('eval_loss', float('nan')):.6f} "
               f"round_ms {(r['elapsed_s'] - prev) * 1e3:.1f}", flush=True)
         prev = r["elapsed_s"]
-    if len(rows) != ROUNDS or not all(np.isfinite(r["local_loss"]) for r in rows):
+    if len(rows) != rounds or not all(np.isfinite(r["local_loss"]) for r in rows):
         raise AssertionError(f"{label}: bad loss rows {rows}")
     if not all(torch.isfinite(v).all() for v in res.state.params.values()):
         raise AssertionError(f"{label}: non-finite parameters")
@@ -400,11 +489,11 @@ def check_small_reference(dev, **comm) -> tuple[float, int]:
     """CharLM-tiny, two cohort-engine rounds on the card vs the port on the
     CPU (fp32, TF32 off): the largest relative parameter difference and the
     number of level flips.  With a dense wire every element is within 1e-4
-    of its leaf's max.  With a codec (``comm``) an element may instead sit
-    on the other side of a stochastic level boundary, because the inputs
-    differ by an ulp: it may differ by at most one uplink level a round
-    (server_lr * coefficient * scale / L), and such flips must stay under
-    0.1 % of the elements."""
+    of its leaf's max (``comm`` may also pick the server opt, e.g. mvr).
+    With a codec an element may instead sit on the other side of a
+    stochastic level boundary, because the inputs differ by an ulp: it may
+    differ by at most one uplink level a round (server_lr * coefficient *
+    scale / L), and such flips must stay under 0.1 % of the elements."""
     import torch
 
     from repro_torch.configs.base import FLConfig
@@ -433,6 +522,7 @@ def check_small_reference(dev, **comm) -> tuple[float, int]:
         scales.append(float(out[1].max()))
         return out
 
+    coded = any(comm.get(k, "identity") != "identity" for k in ("uplink", "downlink"))
     out, coeff = {}, 0.0
     qops.quantize_pack = recording
     try:
@@ -456,20 +546,21 @@ def check_small_reference(dev, **comm) -> tuple[float, int]:
         d = (g - v).abs()
         rel = d / v.abs().max().clamp_min(1e-12)
         off = rel > 1e-4
-        if comm and bool((d[off] > level * (1 + 1e-3)).any()):
+        if coded and bool((d[off] > level * (1 + 1e-3)).any()):
             raise AssertionError(f"tiny run {comm}: {k} differs by more than one level {level:.3e}")
         flips += int(off.sum())
         total += d.numel()
         worst = max(worst, float(rel[~off].max()) if (~off).any() else 0.0)
-    if flips > (1e-3 * total if comm else 0):
+    if flips > (1e-3 * total if coded else 0):
         raise AssertionError(f"tiny run {comm}: {flips} of {total} elements off by more than 1e-4")
     return worst, flips
 
 
-def profile_round(dev, out_dir: Path, **comm) -> None:
-    """One main-path round step (after a warm-up round; with the ``comm``
-    codecs) under torch.profiler: the kernel-time table and the device's
-    busy share of the round's wall time, written to ``out_dir``."""
+def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
+    """One main-path round step (after a warm-up round; ``comm`` overrides
+    the FLConfig, e.g. the codecs or the server opt) under torch.profiler:
+    the kernel-time table and the device's busy share of the round's wall
+    time, written to ``out_dir/profile_round_<label>.txt``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -483,6 +574,8 @@ def profile_round(dev, out_dir: Path, **comm) -> None:
     from repro_torch.launch.train import charlm_e2e_config
     from repro_torch.models.model import build_model
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     cfg, fl = charlm_e2e_config(engine="cohort", rr_backend="device", prefetch=0, **comm)
     task = CharLMTask(vocab=cfg.vocab, seq_len=128, num_clients=fl.num_clients)
     eng = CohortEngine.build(task, Population.build(fl), fl, device=dev)
@@ -511,13 +604,18 @@ def profile_round(dev, out_dir: Path, **comm) -> None:
     mm_s = sum(getattr(e, field) for e in ka if e.key == "aten::mm") / 1e6
     quant = [e for e in dev_events if "quantize" in e.key]
     quant_s = sum(getattr(e, field) for e in quant) / 1e6
+    upd = [e for e in dev_events if "server_update" in e.key]
+    upd_s = sum(getattr(e, field) for e in upd) / 1e6
     # dense-layer FLOPs of the round: 6 * (weights of the x @ w products) per
-    # token per step (forward + two backward products), masked steps included
+    # token per gradient pass (forward + two backward products), masked steps
+    # included; an mvr step takes two passes, at y and at x, and the exact
+    # server step two more per client step (full_local_gradient at x and x_prev)
+    passes = 1 if strat.local_update != "mvr" else (4 if fl.mvr_exact else 2)
     plan = eng.index_plan(2)
     steps = plan.step_mask.size
     tokens = fl.local_batch * task.seq_len
     lin = sum(v.numel() for k, v in state.params.items() if v.dim() == 2 and k != "embed")
-    mm_flop = 6 * lin * tokens * steps
+    mm_flop = 6 * lin * tokens * steps * passes
     real = int(plan.step_mask.sum())
     summary = (f"one round step: unprofiled wall {wall * 1e3:.1f} ms; the next (profiled) "
                f"round: device time {busy_s * 1e3:.1f} ms = {100 * busy_s / wall:.1f} % of "
@@ -525,11 +623,13 @@ def profile_round(dev, out_dir: Path, **comm) -> None:
                f"of wall each), aten::mm {mm_s * 1e3:.1f} ms for {mm_flop / 1e12:.2f} "
                f"TFLOP = {mm_flop / mm_s / 1e12:.1f} TFLOP/s; quantize kernels "
                f"{quant_s * 1e3:.3f} ms in {sum(e.count for e in quant)} launches; "
-               f"{steps} client steps, {real} of them unmasked")
+               f"server_update kernel {upd_s * 1e3:.3f} ms in {sum(e.count for e in upd)} "
+               f"launches; {steps} client steps, {real} of them unmasked; peak device memory "
+               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "profile_round.txt").write_text(
-        summary + "\n" + ka.table(sort_by=field, row_limit=40) + "\n")
-    print(f"profile: {summary} -> {out_dir / 'profile_round.txt'}", flush=True)
+    path = out_dir / f"profile_round_{label}.txt"
+    path.write_text(summary + "\n" + ka.table(sort_by=field, row_limit=40) + "\n")
+    print(f"profile {label}: {summary} -> {path}", flush=True)
 
 
 def main() -> int:
@@ -546,6 +646,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
     from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
+    from repro_torch.kernels.server_update.kernel import server_update_kernel
     from repro_torch.launch.train import charlm_e2e_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -571,6 +672,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rr = check_rr_perm(dev)
     quant, dequant = check_quantize(dev)
+    upd = check_server_update(dev)
     torch.cuda.synchronize()
     print(f"kernel checks and timings: {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -625,15 +727,58 @@ def main() -> int:
     del params, ref
     torch.cuda.empty_cache()
 
-    for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd")):
+    # main path 3, FedShuffleMVR with the App. F server step: one launch of
+    # the server_update kernel a round over all parameter tensors
+    torch.cuda.reset_peak_memory_stats()
+    rr_indices_kernel.launches = server_update_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = run_main_path(dev, "device", **MVR)
+    torch.cuda.synchronize()
+    upd["launches"] = server_update_kernel.launches
+    mvr_rr = rr_indices_kernel.launches
+    report_rounds("mvr path (App. F)", res, time.perf_counter() - t0,
+                  torch.cuda.max_memory_allocated())
+    if (upd["launches"], mvr_rr) != (ROUNDS, ROUNDS):
+        raise AssertionError(f"mvr path launches: server_update {upd['launches']}, rr_perm "
+                             f"{mvr_rr} (want {ROUNDS} each)")
+    if not all(torch.isfinite(v).all() for v in res.state.opt["m"].values()):
+        raise AssertionError("mvr path: non-finite gradient estimate")
+    print(f"mvr path launches: server_update {ROUNDS}, rr_perm {mvr_rr} in {ROUNDS} rounds, "
+          f"as predicted", flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    # main path 4, FedShuffleMVR with the exact eq. 14 step (torch, no kernel)
+    torch.cuda.reset_peak_memory_stats()
+    rr_indices_kernel.launches = server_update_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = run_main_path(dev, "device", MVR_EXACT_ROUNDS, mvr_exact=True, **MVR)
+    torch.cuda.synchronize()
+    report_rounds("mvr path (exact eq. 14)", res, time.perf_counter() - t0,
+                  torch.cuda.max_memory_allocated(), MVR_EXACT_ROUNDS)
+    exact_launches = (server_update_kernel.launches, rr_indices_kernel.launches)
+    if exact_launches != (0, MVR_EXACT_ROUNDS):
+        raise AssertionError(f"exact mvr path launches (server_update, rr_perm): "
+                             f"{exact_launches}, want (0, {MVR_EXACT_ROUNDS})")
+    if not all(torch.isfinite(v).all() for v in res.state.opt["m"].values()):
+        raise AssertionError("exact mvr path: non-finite gradient estimate")
+    print(f"exact mvr path launches: server_update 0, rr_perm {MVR_EXACT_ROUNDS}, as predicted",
+          flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd"), MVR,
+                 dict(mvr_exact=True, **MVR)):
         worst, flips = check_small_reference(dev, **comm)
         print(f"CharLM-tiny {comm or 'dense'} on the card vs the port on the CPU: max "
               f"relative diff {worst:.3e}, {flips} level flips", flush=True)
     if args.profile is not None:
-        profile_round(dev, args.profile, **COMM)
+        profile_round(dev, args.profile, "qsgd", **COMM)
+        profile_round(dev, args.profile, "mvr", **MVR)
+        profile_round(dev, args.profile, "mvr_exact", mvr_exact=True, **MVR)
 
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [rr, quant, dequant]}), flush=True)
+    print(json.dumps({"kernels": [rr, quant, dequant, upd]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -11,8 +11,9 @@ CPU tensor) or ``"ref"`` (the plain torch version on any device) where the
 JAX package takes ``"pallas"`` / ``"ref"``.  A default of ``"ref"`` would
 keep the kernel off the card's main path.  A value the port does not
 implement yet (``cohort_mode="vmapped"``, ``exec_mode="bucketed"``, the
-``mvr`` / ``adam`` / ``scaffold`` server opts, ``prefetch > 0`` on the
-cohort engine) raises ``NotImplementedError`` at bind time.
+``adam`` / ``scaffold`` server opts, the ``scaffold`` / ``fedprox`` /
+``local_clip`` local updates, ``prefetch > 0`` on the cohort engine) raises
+``NotImplementedError`` at bind time.
 """
 from __future__ import annotations
 
@@ -97,6 +98,8 @@ class FLConfig:
     # server optimizer
     server_opt: ServerOpt = "sgd"
     momentum: float = 0.9          # used by "momentum"
+    mvr_a: float = 0.1             # MVR a parameter
+    mvr_exact: bool = False        # exact eq.(13-14) vs practical approx (App. F)
     local_update: str = ""         # "" => server opt's paired default ("sgd")
     # cohort execution
     cohort_mode: CohortMode = "vmapped"

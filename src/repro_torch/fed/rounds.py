@@ -41,6 +41,12 @@ again.  ``identity`` in both directions keeps the plane-off op sequence:
 no staging, no bank, no new metric keys.  The port's counterpart of
 ``repro.fed.rounds`` with the fleet, robust, privacy and obs planes off;
 the ``vmapped`` cohort mode is not ported yet.
+
+The server optimizer's momentum tree (``state.opt["m"]``, zeros when the
+optimizer keeps none) rides down to every client's local steps, and the
+server update gets a ``RoundCtx`` (batch, ``lr_mult``, momentum):
+FedShuffleMVR's corrected steps and its server step read them.  With a
+codec, MVR consumes the decoded aggregate.
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from ..utils.pytree import tree_map, tree_sq_norm, tree_zeros_like
 from .comm import (DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, dense_bits, downlink_apply,
                    downlink_round_keys, round_keys, uplink_apply, wire_bits_total)
 from .server import ServerState
-from .strategy import BoundStrategy, FedStrategy, bind_strategy
+from .strategy import BoundStrategy, FedStrategy, RoundCtx, bind_strategy
 
 
 def to_device(x, device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -140,6 +146,13 @@ def build_round_step(loss_fn: Callable,
         lr_mult = to_device(lr_mult, device, torch.float32)
         eta = strat.client_transform(meta, lr_mult)                   # [C]
         coeff = strat.agg_coeffs(meta)                                 # [C]
+        momentum = state.opt.get("m")
+        if momentum is None:
+            # zeros, as stride-0 views of one scalar: no chain that binds
+            # under such an opt reads them (bind_strategy checks needs)
+            zero = {dt: torch.zeros((), dtype=dt, device=device)
+                    for dt in {v.dtype for v in state.params.values()}}
+            momentum = {k: zero[v.dtype].expand_as(v) for k, v in state.params.items()}
         C = meta.valid.shape[0]
         if banked:
             if state.clients is None:
@@ -165,7 +178,7 @@ def build_round_step(loss_fn: Callable,
         for c in range(C):
             p_c = {k: v[c] for k, v in starts.items()} if dl_on else state.params
             delta, loss = strat.local_step(p_c, {k: v[c] for k, v in batch.data.items()},
-                                           batch.step_mask[c], eta[c])
+                                           batch.step_mask[c], eta[c], momentum)
             if up_on:
                 for k, v in delta.items():
                     staged[k][c] = v
@@ -195,7 +208,8 @@ def build_round_step(loss_fn: Callable,
 
             tree_map(commit, state.clients, new_cs, cstate0)
         params, bank = state.params, state.clients
-        state = strat.server_update(state, delta_agg, fl.server_lr)
+        ctx = RoundCtx(batch=batch, lr_mult=lr_mult, momentum=momentum)
+        state = strat.server_update(state, delta_agg, fl.server_lr, ctx)
         if banked:
             state = state._replace(clients=bank)
         valid_sum = torch.clamp_min(meta.valid.sum(), 1.0)

@@ -4,10 +4,11 @@ A :class:`FedStrategy` declares the round recipe as a composition of
 
 * a **(c, w~, q) parametrization** (:class:`~repro_torch.core.algorithms.GenSpec`):
   local step-size normalization, aggregation weighting and normalization;
-* a **server optimizer** from :data:`SERVER_OPTS` (``sgd`` / ``momentum``),
-  declared as a :func:`chain` of pseudo-update transforms;
+* a **server optimizer** from :data:`SERVER_OPTS` (``sgd`` / ``momentum``,
+  declared as a :func:`chain` of pseudo-update transforms, and ``mvr``,
+  FedShuffleMVR's bespoke update);
 * a **local update rule** from :data:`LOCAL_UPDATES` (plain RR-SGD, the empty
-  transform chain);
+  transform chain, or the ``mvr``-corrected steps);
 * optionally an **equalized-step pipeline mode** (``fedavg_min`` /
   ``fedavg_mean``), which the data pipeline applies.
 
@@ -16,28 +17,45 @@ A :class:`FedStrategy` declares the round recipe as a composition of
 calls, the comm plane's two codecs (``fl.uplink`` / ``fl.downlink``,
 ``repro_torch.fed.comm``) and the per-client state they keep included.  The
 port's counterpart of ``repro.fed.strategy`` with the fleet, robust and
-privacy planes off; the ``mvr`` / ``adam`` / ``scaffold`` server opts and
-the non-empty local chains raise ``NotImplementedError`` until they are
-ported.
+privacy planes off; the ``adam`` / ``scaffold`` server opts and the
+``scaffold`` / ``fedprox`` / ``local_clip`` local chains raise
+``NotImplementedError`` until they are ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from ..configs.base import FLConfig
 from ..core import algorithms as _alg
 from ..core.algorithms import GenSpec, PRESETS, agg_coeff, lr_scale
-from ..core.local import build_local_step
+from ..core.local import ClientTransform, build_local_step, full_local_gradient, mvr_transform
+from ..kernels.server_update.ops import apply_fused_update
 from ..utils.pytree import tree_copy, tree_map, tree_zeros_like
 from .comm import DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, build_codec
 from .server import ServerState
 
-# local update name -> its chain of ClientTransforms (core.local)
-LOCAL_UPDATES: dict[str, tuple] = {"sgd": ()}
-_UNPORTED_LOCAL_UPDATES = ("mvr", "scaffold", "fedprox", "local_clip")
+
+class RoundCtx(NamedTuple):
+    """Round inputs a server update may need beyond the delta: ``batch`` is
+    the device RoundBatch (data / step_mask / meta), ``lr_mult`` the
+    schedule multiplier (a 0-dim tensor on the device), and ``momentum`` the
+    momentum tree the clients used this round (zeros when the optimizer
+    keeps none).  ``cstate`` is the cohort's per-client state of stateful
+    client transforms, which the port does not keep yet (always None)."""
+
+    batch: Any
+    lr_mult: Any
+    momentum: Any
+    cstate: Any = None
+
+
+# local update name -> its chain: ClientTransforms (core.local) or factories
+# make(loss_fn, fl) -> ClientTransform, resolved at bind time
+LOCAL_UPDATES: dict[str, tuple] = {"sgd": (), "mvr": (mvr_transform,)}
+_UNPORTED_LOCAL_UPDATES = ("scaffold", "fedprox", "local_clip")
 
 
 # ---------------------------------------------------------------------------
@@ -48,10 +66,16 @@ _UNPORTED_LOCAL_UPDATES = ("mvr", "scaffold", "fedprox", "local_clip")
 
 class ServerTransform(NamedTuple):
     """One link of a server chain: ``init(fl, params) -> opt-state slice``
-    and ``update(fl, delta, opt) -> (delta', opt-state updates)``."""
+    and ``update(fl, delta, opt) -> (delta', opt-state updates)``.
+    ``provides`` names the opt-state keys ``init`` creates plus any semantic
+    capability tags; client transforms declare what they ``need`` against
+    these, and binding validates the pairing.  ``consumes`` names the
+    stateful client transforms whose cohort state the update folds in."""
 
     init: Callable
     update: Callable
+    provides: tuple = ()
+    consumes: tuple = ()
 
 
 def heavy_ball() -> ServerTransform:
@@ -64,18 +88,24 @@ def heavy_ball() -> ServerTransform:
         m = {k: fl.momentum * opt["m"][k] + d for k, d in delta.items()}
         return m, {"m": m}
 
-    return ServerTransform(init, update)
+    return ServerTransform(init, update, provides=("m",))
 
 
 class ServerOpt(NamedTuple):
     """A registered server optimizer: ``init(fl, params) -> opt dict`` and
-    ``make_update(fl) -> update(state, delta_agg, lr) -> ServerState``;
-    ``local_update`` names the client-side rule it pairs with by default."""
+    ``make_update(fl, gen, loss_fn) -> update(state, delta_agg, lr, ctx) ->
+    ServerState`` (``ctx`` a :class:`RoundCtx`); ``local_update`` names the
+    client-side rule it pairs with by default.  ``provides`` lists the
+    opt-state keys / capability tags client transforms may ``need``;
+    ``consumes`` the stateful client transforms whose cohort state the
+    update reads (binding refuses chains missing them)."""
 
     name: str
     init: Callable
     make_update: Callable
     local_update: str = "sgd"
+    provides: tuple = ()
+    consumes: tuple = ()
 
 
 def chain(name: str, *transforms: ServerTransform, local_update: str = "sgd") -> ServerOpt:
@@ -94,8 +124,8 @@ def chain(name: str, *transforms: ServerTransform, local_update: str = "sgd") ->
             opt.update(new)
         return opt
 
-    def make_update(fl: FLConfig):
-        def update(state: ServerState, delta_agg, lr) -> ServerState:
+    def make_update(fl: FLConfig, gen: GenSpec, loss_fn):
+        def update(state: ServerState, delta_agg, lr, ctx) -> ServerState:
             opt = dict(state.opt)
             d = delta_agg
             for t in transforms:
@@ -106,14 +136,83 @@ def chain(name: str, *transforms: ServerTransform, local_update: str = "sgd") ->
 
         return update
 
-    return ServerOpt(name, init, make_update, local_update)
+    provides = tuple(dict.fromkeys(k for t in transforms for k in t.provides))
+    consumes = tuple(dict.fromkeys(k for t in transforms for k in t.consumes))
+    return ServerOpt(name, init, make_update, local_update, provides, consumes)
+
+
+def _mvr_opt() -> ServerOpt:
+    """FedShuffleMVR (§5.1): x still moves by +lr*Delta, but the server
+    maintains the gradient estimate m of eq. 14 (exact) or its App. F
+    approximation, which clients consume in their corrected local steps.
+
+    App. F runs as one launch of the fused ``server_update`` kernel over all
+    parameter tensors (the plain torch version on the CPU), with ``1/eta_l``
+    formed on the device: no host synchronisation.  It multiplies by that
+    reciprocal where the JAX package divides by ``eta_l``, so m agrees with
+    the JAX package's to an ulp of ``ghat``, not bitwise.  The exact eq. 14
+    step is torch and uses no kernel."""
+
+    def init(fl: FLConfig, params) -> dict:
+        opt = {"m": tree_zeros_like(params)}    # gradient estimate (eq. 14)
+        if fl.mvr_exact:
+            # own buffers: params is also ServerState.params
+            opt["x_prev"] = tree_copy(params)
+        return opt
+
+    def make_update(fl: FLConfig, gen: GenSpec, loss_fn):
+        def update(state: ServerState, delta_agg, lr, ctx) -> ServerState:
+            opt = dict(state.opt)
+            batch, meta, momentum = ctx.batch, ctx.batch.meta, ctx.momentum
+            if fl.mvr_exact:
+                wp = meta.valid * meta.weight / meta.prob              # [C]
+
+                def grads_at(p):
+                    # sum_i (valid w/p)_i * grad f_i(p), slot order, fp32
+                    acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in p.items()}
+                    for c in range(wp.shape[0]):
+                        g = full_local_gradient(loss_fn, p, {k: v[c] for k, v in batch.data.items()},
+                                                batch.step_mask[c])
+                        acc = {k: A + wp[c] * g[k] for k, A in acc.items()}
+                    return acc
+
+                g_x = grads_at(state.params)
+                g_prev = grads_at(opt["x_prev"])
+                # m_new = G_x + (1-a) * (m - G_prev)   [= eq. 14 rearranged]
+                opt["m"] = {k: g_x[k] + (1.0 - fl.mvr_a) * (momentum[k].float() - g_prev[k])
+                            for k in g_x}
+                opt["x_prev"] = state.params
+                p = {k: x + (lr * delta_agg[k]).to(x.dtype) for k, x in state.params.items()}
+            else:
+                # App. F: the gradient estimate from the aggregated update.
+                # With FedShuffle's c_i = K_i, Delta_i ~= -eta_l * mean
+                # grad_i, so g_hat = -Delta_agg / eta_l.  For unscaled-step
+                # strategies (c_i = 1), Delta_i ~= -eta_l * K_i * mean grad_i,
+                # so divide by the cohort-average step count too.
+                eta_l = fl.local_lr * ctx.lr_mult
+                if gen.c == "one":
+                    wp_sum = torch.clamp_min(
+                        torch.sum(meta.valid * meta.weight / meta.prob), 1e-9)
+                    k_bar = torch.sum(meta.valid * (meta.weight / meta.prob)
+                                      * meta.num_steps) / wp_sum
+                    eta_l = eta_l * k_bar
+                p, opt["m"] = apply_fused_update(
+                    state.params, delta_agg, {k: v.float() for k, v in momentum.items()},
+                    eta_g=lr, a=fl.mvr_a, inv_eta_l=torch.reciprocal(eta_l))
+            return ServerState(params=p, opt=opt, rnd=state.rnd + 1)
+
+        return update
+
+    return ServerOpt("mvr", init, make_update, local_update="mvr",
+                     provides=("m", "grad_estimate"))
 
 
 SERVER_OPTS: dict[str, ServerOpt] = {
     "sgd": chain("sgd"),
     "momentum": chain("momentum", heavy_ball()),
+    "mvr": _mvr_opt(),
 }
-_UNPORTED_SERVER_OPTS = ("mvr", "adam", "scaffold")
+_UNPORTED_SERVER_OPTS = ("adam", "scaffold")
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +307,8 @@ class BoundStrategy(NamedTuple):
     client_transform: Callable         # (meta, lr_mult) -> eta [C]
     agg_coeffs: Callable               # (meta) -> [C]
     aggregate: Callable                # (stacked deltas, meta) -> delta_agg
-    server_update: Callable            # (state, delta_agg, lr) -> ServerState
-    local_step: Callable               # (params, data, mask, eta) -> (delta, loss)
+    server_update: Callable            # (state, delta_agg, lr, ctx) -> ServerState
+    local_step: Callable               # (params, data, mask, eta, momentum) -> (delta, loss)
     client_state: Callable | None = None  # (params) -> one client's bank row
     #                                      template ({name: {field: tree}}), or
     #                                      None when no plane keeps client state
@@ -303,11 +402,36 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
             raise NotImplementedError(f"local update {local_update!r} is not ported yet")
         raise ValueError(
             f"unknown local update {local_update!r}; have {sorted(LOCAL_UPDATES)}")
-    transforms = LOCAL_UPDATES[local_update]
+    transforms = tuple(t if isinstance(t, ClientTransform) else t(loss_fn, fl)
+                       for t in LOCAL_UPDATES[local_update])
+    state_names = [t.name for t in transforms if t.client_init is not None]
+    missing_state = [k for k in sdef.consumes if k not in state_names]
+    if missing_state:
+        raise ValueError(
+            f"server opt {server_opt!r} consumes per-client state of client "
+            f"transform(s) {missing_state} but local update {local_update!r} "
+            f"keeps no such state — the server update would silently run "
+            f"without its input.  Pair it with a local update carrying "
+            f"{missing_state} (e.g. local_update={missing_state[0]!r}) or "
+            f"pick another server opt.")
+    needs = tuple(dict.fromkeys(k for t in transforms for k in t.needs))
+    missing = [k for k in needs if k not in sdef.provides]
+    if missing:
+        # the round driver zero-fills a missing opt["m"], so e.g. mvr local
+        # steps under server_opt="sgd" would quietly degenerate to a
+        # (1-a)-biased SGD.  Refuse at bind time.
+        raise ValueError(
+            f"local update {local_update!r} reads server opt-state key(s) "
+            f"{missing} that server opt {server_opt!r} does not maintain "
+            f"(provides {list(sdef.provides)}) — the transforms would "
+            f"silently consume zeros.  Pick a server opt providing "
+            f"{missing} (e.g. "
+            + ", ".join(sorted(n for n, o in SERVER_OPTS.items()
+                               if all(k in o.provides for k in missing)))
+            + ") or a local update that does not need them.")
     # comm plane: both directions resolved and validated at bind time
     codec = build_codec(fl, "uplink")
     down_codec = build_codec(fl, "downlink")
-    state_names = [t.name for t in transforms if t.client_init is not None]
     for key, owner in ((UPLINK_STATE_KEY, "the uplink codec's error-feedback residual"),
                        (DOWNLINK_STATE_KEY, "the downlink broadcast's client-held reference")):
         if key in state_names:
@@ -368,7 +492,7 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
         client_transform=client_transform,
         agg_coeffs=agg_coeffs,
         aggregate=aggregate,
-        server_update=sdef.make_update(fl),
+        server_update=sdef.make_update(fl, gen, loss_fn),
         local_step=build_local_step(transforms, loss_fn),
         client_state=client_state,
         codec=codec,

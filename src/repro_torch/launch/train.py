@@ -9,8 +9,10 @@ CUDA index kernel and a qsgd-compressed uplink (the CUDA quantize kernels)::
   PYTHONPATH=src python -m repro_torch.launch.train --config charlm_e2e \\
       --rounds 4 --engine cohort --rr-backend device --prefetch 0 --uplink qsgd
 
-The downlink codec and the quantize backend go through
-``run_charlm_e2e(..., downlink="qsgd", uplink_backend="ref")``.  Runs on
+FedShuffleMVR is ``--server-opt mvr`` (the App. F server step, the CUDA
+``server_update`` kernel); the exact eq. 14 step, the downlink codec and the
+quantize backend go through ``run_charlm_e2e(..., mvr_exact=True)``,
+``downlink="qsgd"``, ``uplink_backend="ref"``.  Runs on
 ``cuda`` unless ``--device cpu`` is given.  The port's counterpart of
 ``repro.launch.train``; ``--arch`` / ``--smoke`` (the model zoo) and
 ``--checkpoint`` are not ported yet.

@@ -43,8 +43,8 @@ def params_from_jax(np_tree: dict, cfg: ArchConfig | None, device, *, axis: int 
 def server_state_from_jax(np_state, cfg: ArchConfig | None, device) -> ServerState:
     """A JAX ``ServerState`` (numpy leaves, e.g. ``jax.tree.map(np.asarray,
     state)``) -> the port's ``ServerState`` on ``device``: params and each
-    optimizer-state tree unstacked like :func:`params_from_jax`, the round
-    counter as an int, and the client bank ``{name: {field: params-like}}``
+    optimizer-state tree unstacked like :func:`params_from_jax` (heavy-ball's
+    or MVR's ``m``, and exact MVR's ``x_prev``), the round counter as an int, and the client bank ``{name: {field: params-like}}``
     (the comm plane's ``"uplink"`` / ``"downlink"`` entries) unstacked along
     the layer axis after the bank axis."""
     clients = None
