@@ -4,12 +4,17 @@
     python3 chip_smoke.py [--profile DIR]
 
 1. prints the card's name and power limit, builds the CUDA kernels from
-   ``src/repro_torch/csrc/{rr_perm,quantize,server_update}.cu`` (one
-   ``nvcc`` each, all started together);
+   ``src/repro_torch/csrc/{rr_perm,quantize,server_update,flash_attention,
+   ssd}.cu`` (one ``nvcc`` each, all started together);
 2. holds each kernel against its plain PyTorch version on the card (and the
-   numpy mirror where there is one), bitwise, at the main paths' shapes and
-   stress shapes, and times both;
-3. drives four main paths through the user entry point, each with every
+   numpy mirror where there is one) at the main paths' shapes and stress
+   shapes, and times both: bitwise for the training paths' three kernels,
+   at the JAX tests' tolerances for flash attention (fp32 2e-5, bf16 2e-2)
+   and the SSD intra-chunk step (atol 3e-5, rtol 3e-4), whose sums run in
+   another order than their plain versions'; flash attention is also timed
+   beside ``F.scaled_dot_product_attention`` with the same band mask, a
+   yardstick the port never calls;
+3. drives five main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
@@ -19,18 +24,27 @@
    (``server_opt="mvr"``) for 4 rounds with the App. F server step (the
    CUDA server_update kernel, one launch a round over all 111 parameter
    tensors) and for 2 rounds with the exact eq. 14 step (torch, no kernel);
+   then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
+   seed 0) through ``launch/serve.py:generate``: batch 4, 2,048-token
+   prompts, 32 greedy tokens (one flash attention and one SSD launch a
+   layer in the prefill, none in decode);
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
    bitwise-identical parameters, the comm metrics equal to the wire's
-   arithmetic, and CharLM-tiny runs on the card (dense, ``ef_qsgd`` /
+   arithmetic, CharLM-tiny runs on the card (dense, ``ef_qsgd`` /
    ``qsgd``, and mvr in both modes) agreeing with the port on the CPU;
+   for serving, finite logits, the prefill with ``backend="ref"`` (the
+   plain versions) and the decode teacher-forced on its cache within a
+   relative error of the norm of 0.1 in bf16 and elementwise in fp32, a
+   full-width fp32 prefill -> decode consistency check, and Hymba-tiny
+   served on the card agreeing with the port on the CPU;
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 With ``--profile DIR`` it also traces one more round of the qsgd and of the
-two mvr main paths with ``torch.profiler`` and writes the kernel-time tables
-to ``DIR``.
+two mvr main paths, and one prefill and one decode step of the serving
+path, with ``torch.profiler`` and writes the kernel-time tables to ``DIR``.
 """
 from __future__ import annotations
 
@@ -47,13 +61,14 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 ROUNDS = 4
 MVR_EXACT_ROUNDS = 2
-KERNELS = ("rr_perm", "quantize", "server_update")
+KERNELS = ("rr_perm", "quantize", "server_update", "flash_attention", "ssd")
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 3.35 TB/s;
 # 64 INT32 lanes per SM x 132 SMs x 1.98 GHz = 16.7e12 integer ops/s; the
 # 67 TFLOP/s fp32 rate counts an FMA as two, so 33.4e12 fp32 instructions/s,
 # which is also the most instructions of any mix the SMs issue (4 schedulers
 # x 32 lanes a clock).
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core rate
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
 # quantize.cu, source-level operations a value (a conversion, division or
@@ -556,6 +571,369 @@ def check_small_reference(dev, **comm) -> tuple[float, int]:
     return worst, flips
 
 
+# flash attention: the JAX tests' tolerances (fp32 2e-5, bf16 2e-2; the
+# sums run in another order; bf16 keeps 8 bits of mantissa), as
+# assert_allclose applies them: |got - want| <= tol + tol * |want|
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# SSD intra-chunk: the JAX test's atol 3e-5 / rtol 3e-4 (fp32 throughout)
+SSD_ATOL, SSD_RTOL = 3e-5, 3e-4
+# the serving main path: Hymba-1.5B at full width, batch 4, 2,048-token
+# prompts (past the 1,024 window, 16 SSD chunks), 32 greedy tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
+# The bf16 serve run against its plain-version twin: bf16 keeps 8 bits, so
+# the kernel and the plain version round the same fp32 value to different
+# bf16 neighbours in a few elements a layer (a 2^-8 step), and 32 layers of
+# random weights amplify those steps: no elementwise bound holds at the
+# logits.  The twin is held to a relative error of the norm,
+# ||kernel - plain|| / ||plain|| <= 0.1, per tensor (a fault of the path,
+# such as a wrong mask, head or chunk, moves it by O(1)); the elementwise
+# bound is held in fp32 at full width (check_serve_fp32).
+SERVE_NORM_TOL = 0.1
+# fp32 at full width: the JAX model test's prefill -> decode tolerance
+FP32_ATOL, FP32_RTOL = 2e-4, 2e-3
+
+
+def _allclose(got, want, atol: float, rtol: float, where: str) -> float:
+    """Fail unless ``got`` is finite and |got - want| <= atol + rtol |want|
+    everywhere; the largest absolute difference."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{where}: non-finite values")
+    bad = d > atol + rtol * w.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{where}: {int(bad.sum())} of {d.numel()} elements off, max "
+                             f"diff {float(d.max()):.3e}")
+    return float(d.max())
+
+
+def _norm_close(got, want, tol: float, where: str) -> float:
+    """Fail unless ``got`` is finite and ||got - want|| <= tol ||want||; the
+    relative error of the norm."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{where}: non-finite values")
+    rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    if rel > tol:
+        raise AssertionError(f"{where}: relative error of the norm {rel:.3e} > {tol}")
+    return rel
+
+
+def band_pairs(T: int, window: int) -> int:
+    """Unmasked (query, key) pairs of causal attention over T positions with
+    a sliding window (0: none)."""
+    w = np.minimum(np.arange(T) + 1, window or T)
+    return int(w.sum())
+
+
+def check_flash(dev) -> dict:
+    """flash attention on the card vs its plain torch version on the card at
+    Hymba-1.5B's prefill shape (q [4, 2048, 25, 64], k/v [4, 2048, 5, 64],
+    window 1024 and 0, bf16 and f32) and stress shapes (ragged T 77 and 1000,
+    a window of 100 and of 30, MQA, head dims 16 and 128), q, k and v read as
+    strided slices of one packed tensor; then the kernel, the plain version
+    and ``F.scaled_dot_product_attention`` (the band mask, ``enable_gqa``)
+    timed at the main path's bf16 shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ops import flash_attend
+
+    B, T, H, KV, hd, W = SERVE_BATCH, SERVE_PROMPT, 25, 5, 64, 1024
+    cases = [(B, T, H, KV, hd, w, dt) for w in (W, 0) for dt in ("bfloat16", "float32")]
+    cases += [(1, 77, 4, 4, 32, 0, "float32"), (2, 1000, 10, 2, 64, 100, "float32"),
+              (2, 1000, 10, 2, 64, 100, "bfloat16"), (1, 300, 8, 1, 128, 0, "bfloat16"),
+              (2, 130, 6, 3, 16, 64, "float32"), (1, 77, 5, 1, 64, 30, "float32")]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for b, t, h, kv, d, w, dt in cases:
+        packed = torch.randn((b, t, h + 2 * kv, d), generator=gen, device=dev).to(getattr(torch, dt))
+        q, k, v = packed.split([h, kv, kv], dim=2)
+        got = flash_attend(q, k, v, window=w)
+        want = flash_attend(q, k, v, window=w, backend="ref")
+        tol = FLASH_TOL[dt]
+        err[dt] = max(err[dt], _allclose(got, want, tol, tol, f"flash {[b, t, h, kv, d]} w={w} {dt}"))
+    torch.cuda.synchronize()
+    print(f"flash_attention check: {len(cases)} cases within the stated tolerance of the plain "
+          f"torch version on the card (max abs diff f32 {err['float32']:.3e}, bf16 "
+          f"{err['bfloat16']:.3e})", flush=True)
+
+    # the main path's call: bf16 q [4, 2048, 25, 64] and k, v [4, 2048, 5, 64]
+    # as the prefill hands them over (contiguous, the model's layout), window 1024
+    q, k, v = (torch.randn((B, T, n, hd), generator=gen, device=dev).to(torch.bfloat16)
+               for n in (H, KV, KV))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    band = (lambda d: (d >= 0) & (d < W))(torch.arange(T, device=dev)[:, None]
+                                          - torch.arange(T, device=dev)[None, :])
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+    _allclose(sdpa().transpose(1, 2), flash_attend(q, k, v, window=W, backend="ref"),
+              FLASH_TOL["bfloat16"], FLASH_TOL["bfloat16"], "SDPA yardstick")
+    ms, call_ms = time_ms(lambda: flash_attention_kernel(qt, kt, vt, window=W), 20)
+    plain_ms, plain_call_ms = time_ms(lambda: flash_attend(q, k, v, window=W, backend="ref"), 3,
+                                      behind_sleep=False)
+    lib_ms, _ = time_ms(sdpa, 20)
+    pairs = band_pairs(T, W) * B * H
+    flops = 4 * hd * pairs                       # q.k and p.v: 2 hd multiply-adds a pair
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+            "launches": None, "max_abs_err": max(err.values()), "max_abs_err_f32": err["float32"],
+            "max_abs_err_bf16": err["bfloat16"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": lib_ms, "library": "F.scaled_dot_product_attention(attn_mask=band, "
+            "enable_gqa=True)", "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+            "shape": [B, T, H, KV, hd], "window": W, "dtype": "bfloat16", "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6}
+
+
+def check_ssd(dev) -> dict:
+    """The SSD intra-chunk kernel on the card vs its plain torch version on
+    the card at Hymba-1.5B's prefill tile (xdt [4, 16, 128, 25, 64], N 16;
+    bf16 as the main path gives it, and f32) and the JAX test's sweep; a
+    strong-decay scan (a = -2 over 64-step chunks) finite and equal to the
+    sequential ``ssd_ref``; mamba2-1.3b's tile (Q 256, N 128) refused; then
+    the kernel and the plain version timed at the main path's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_kernel
+    from repro_torch.kernels.ssd.ops import ssd_intra_chunk, ssd_scan
+    from repro_torch.kernels.ssd.ref import ssd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def inputs(Bz, nc, Q, H, P, N, dtype, decay=None):
+        dt = getattr(torch, dtype)
+        xdt = (torch.randn((Bz, nc, Q, H, P), generator=gen, device=dev) * 0.5).to(dt)
+        a = -F.softplus(torch.randn((Bz, nc, Q, H), generator=gen, device=dev))
+        if decay is not None:
+            a = torch.full_like(a, decay)
+        bm = (torch.randn((Bz, nc, Q, N), generator=gen, device=dev) * 0.5).to(dt)
+        cm = (torch.randn((Bz, nc, Q, N), generator=gen, device=dev) * 0.5).to(dt)
+        return xdt, a, bm, cm
+
+    main = (SERVE_BATCH, SERVE_PROMPT // 128, 128, 25, 64, 16)
+    cases = [main + ("bfloat16",), main + ("float32",), (1, 2, 32, 4, 8, 16, "float32"),
+             (2, 4, 32, 8, 16, 32, "float32"), (1, 4, 64, 4, 32, 16, "float32"),
+             (2, 3, 32, 6, 8, 8, "float32")]
+    max_err = 0.0
+    for *shape, dtype in cases:
+        args = inputs(*shape, dtype)
+        y, s = ssd_intra_chunk(*args)
+        wy, ws = ssd_intra_chunk(*args, backend="ref")
+        for got, want, what in ((y, wy, "y"), (s, ws, "S")):
+            max_err = max(max_err, _allclose(got, want, SSD_ATOL, SSD_RTOL,
+                                             f"ssd {shape} {dtype} {what}"))
+    # strong decay through the whole scan, against the sequential recurrence
+    xdt, a, bm, cm = inputs(2, 2, 64, 4, 16, 16, "float32", decay=-2.0)
+    flat = (xdt.reshape(2, 128, 4, 16), a.reshape(2, 128, 4), bm.reshape(2, 128, 16),
+            cm.reshape(2, 128, 16))
+    y, s = ssd_scan(*flat, 64)
+    ry, rs = ssd_ref(*flat)
+    decay_err = max(_allclose(y, ry, SSD_ATOL, SSD_RTOL, "ssd strong decay y"),
+                    _allclose(s, rs, SSD_ATOL, SSD_RTOL, "ssd strong decay S"))
+    try:
+        ssd_intra_chunk_kernel(*inputs(1, 1, 256, 1, 64, 128, "float32"))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("ssd: mamba2-1.3b's tile (Q 256, N 128) was not refused")
+    torch.cuda.synchronize()
+    print(f"ssd check: {len(cases)} tiles within atol {SSD_ATOL} / rtol {SSD_RTOL} of the plain "
+          f"torch version on the card (max abs diff {max_err:.3e}); strong decay finite, "
+          f"{decay_err:.3e} from ssd_ref; refused: {refused}", flush=True)
+
+    xdt, a, bm, cm = inputs(*main, "bfloat16")
+    ms, call_ms = time_ms(lambda: ssd_intra_chunk_kernel(xdt, a, bm, cm), 20)
+    plain_ms, plain_call_ms = time_ms(lambda: ssd_intra_chunk(xdt, a, bm, cm, backend="ref"), 3,
+                                      behind_sleep=False)
+    Bz, nc, Q, H, P, N = main
+    tri = Q * (Q + 1) // 2
+    # C.B^T once a chunk (lower triangle), y over the triangle, S: multiply-adds x 2
+    flops = 2 * (Bz * nc * tri * N + Bz * nc * H * (tri * P + Q * P * N))
+    nbytes = (2 * xdt.numel() + 4 * a.numel() + 2 * (bm.numel() + cm.numel())
+              + 4 * xdt.numel() + 4 * Bz * nc * H * P * N)
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"name": "ssd_intra_chunk", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:49", "launches": None,
+            "max_abs_err": max_err, "strong_decay_err": decay_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": None,
+            "library_note": "no single PyTorch call computes it", "call_ms": call_ms,
+            "plain_call_ms": plain_call_ms, "shape": list(main), "dtype": "bfloat16",
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
+    """Full-width Hymba-1.5B (bf16, random weights from seed 0) serves batch
+    4 x 2,048-token prompts (numpy seed 1) for 32 greedy tokens through
+    ``generate``, the launch counts zeroed just before and read after the
+    prefill and at the end; then the checks of the serving path."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_kernel
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("hymba-1.5b")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(0, dev)
+    n_params = sum(v.numel() for v in params.values())
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    cache_len = SERVE_PROMPT + SERVE_STEPS + 1
+    generate(model, params, prompts, steps=2, cache_len=cache_len)      # warm-up
+    seen, marks = [], {}
+
+    def on_logits(i, lg):
+        seen.append(lg.float().clone())
+        if i == 0:
+            torch.cuda.synchronize()
+            marks["t"] = time.perf_counter()
+            marks["launches"] = (flash_attention_kernel.launches, ssd_intra_chunk_kernel.launches)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = ssd_intra_chunk_kernel.launches = 0
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, steps=SERVE_STEPS, cache_len=cache_len,
+                   on_logits=on_logits)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    total = (flash_attention_kernel.launches, ssd_intra_chunk_kernel.launches)
+    prefill = marks["launches"]
+    decode = (total[0] - prefill[0], total[1] - prefill[1])
+    flash_row["launches"], ssd_row["launches"] = total
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = (marks["t"] - t0) * 1e3
+    decode_ms = (t1 - marks["t"]) * 1e3 / (SERVE_STEPS - 1)
+    res = {"arch": cfg.name, "params": n_params, "dtype": cfg.dtype, "batch": SERVE_BATCH,
+           "prompt": SERVE_PROMPT, "steps": SERVE_STEPS, "prefill_ms": prefill_ms,
+           "decode_ms_per_step": decode_ms, "decode_tok_per_s": SERVE_BATCH * 1e3 / decode_ms,
+           "e2e_tok_per_s": SERVE_BATCH * SERVE_STEPS / (t1 - t0), "peak_gib": peak / 2**30,
+           "prefill_launches": {"flash_attention": prefill[0], "ssd_intra_chunk": prefill[1]},
+           "decode_launches": {"flash_attention": decode[0], "ssd_intra_chunk": decode[1]}}
+    print(f"serve path: {cfg.name} {n_params} params ({cfg.dtype}), batch {SERVE_BATCH} x "
+          f"{SERVE_PROMPT}-token prompts, {SERVE_STEPS} greedy tokens: prefill "
+          f"{prefill_ms:.2f} ms, decode {decode_ms:.2f} ms a step ({res['decode_tok_per_s']:.1f} "
+          f"tokens/s), {res['e2e_tok_per_s']:.1f} tokens/s end to end, peak device memory "
+          f"{peak / 2**30:.3f} GiB; launches in the prefill: flash_attention {prefill[0]}, "
+          f"ssd_intra_chunk {prefill[1]}; in decode: {decode[0]}, {decode[1]}", flush=True)
+    if prefill != (cfg.n_layers, cfg.n_layers) or decode != (0, 0):
+        raise AssertionError(f"serve launches: prefill {prefill}, decode {decode}, want "
+                             f"({cfg.n_layers}, {cfg.n_layers}) and (0, 0)")
+    if len(seen) != SERVE_STEPS or not all(torch.isfinite(x).all() for x in seen):
+        raise AssertionError("serve path: non-finite logits")
+    if out.shape != (SERVE_BATCH, SERVE_STEPS) or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"serve path: bad tokens {tuple(out.shape)}")
+
+    # the plain versions: prefill logits and caches, then decode teacher-forced
+    # with the kernel run's tokens on the plain run's cache
+    ref_model = build_model(cfg, backend="ref")
+    with torch.inference_mode():
+        lk, ck = model.prefill(params, {"tokens": prompts}, cache_len)
+        lr, cr = ref_model.prefill(params, {"tokens": prompts}, cache_len)
+        pairs = [("logits", lk, lr), ("generate_logits", seen[0], lr[:, -1])]
+        pairs += [(name, ck["layers"][name], cr["layers"][name]) for name in ck["layers"]]
+        rel = {n: _norm_close(g, w, SERVE_NORM_TOL, f"serve {n} vs ref") for n, g, w in pairs}
+        diff = {n: float((g.float() - w.float()).abs().max()) for n, g, w in pairs}
+        del ck, lk, pairs
+        rel["decode_logits"] = diff["decode_logits"] = 0.0
+        for i in range(1, SERVE_STEPS):
+            lg, cr = ref_model.decode_step(params, out[:, i - 1:i], cr)
+            rel["decode_logits"] = max(rel["decode_logits"], _norm_close(
+                seen[i], lg[:, -1], SERVE_NORM_TOL, f"teacher-forced decode step {i}"))
+            diff["decode_logits"] = max(diff["decode_logits"],
+                                        float((seen[i] - lg[:, -1].float()).abs().max()))
+    res["ref_norm_rel_err"], res["ref_max_abs_err"] = rel, diff
+    print(f"serve vs backend='ref' (plain versions), relative error of the norm <= "
+          f"{SERVE_NORM_TOL}: " + ", ".join(f"{k} {v:.3e} (max abs {diff[k]:.3e})"
+                                           for k, v in rel.items()), flush=True)
+    del params, cr, seen
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_serve_fp32(dev) -> dict:
+    """Full-width Hymba-1.5B in fp32 (batch 2, numpy seed 2), elementwise at
+    the JAX model test's tolerance (atol 2e-4, rtol 2e-3): the prefill of
+    2,048 tokens with the kernels against the plain versions (logits and
+    every cache entry); then 3 decoded tokens against the prefill of all
+    2,051 (a ragged last SSD chunk), as the JAX model test does at the
+    reduced size (the prefill's chunked SSD and flash attention sum in
+    another order than the decode's recurrence and plain attention)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_arch("hymba-1.5b"), dtype="float32")
+    model, ref_model = build_model(cfg), build_model(cfg, backend="ref")
+    params = model.init(0, dev)
+    T = SERVE_PROMPT
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, T + 3)), device=dev)
+    errs = {}
+    with torch.inference_mode():
+        lg, cache = model.prefill(params, {"tokens": toks[:, :T]}, T + 5)
+        lr, cr = ref_model.prefill(params, {"tokens": toks[:, :T]}, T + 5)
+        errs["ref_logits"] = _allclose(lg, lr, FP32_ATOL, FP32_RTOL, "fp32 prefill vs ref")
+        for name, x in cache["layers"].items():
+            errs[f"ref_{name}"] = _allclose(x, cr["layers"][name], FP32_ATOL, FP32_RTOL,
+                                            f"fp32 prefill cache {name} vs ref")
+        del cr, lr
+        for i in range(3):
+            lg, cache = model.decode_step(params, toks[:, T + i:T + i + 1], cache)
+        full, _ = model.prefill(params, {"tokens": toks}, T + 5)
+    errs["decode_vs_prefill"] = _allclose(lg, full, FP32_ATOL, FP32_RTOL,
+                                          "fp32 prefill -> decode consistency")
+    print(f"serve fp32 (full width, 2 x {T} prompts), within {FP32_ATOL} + {FP32_RTOL}|ref|: "
+          f"max abs diff " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    del params, cache
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_serve_tiny(dev) -> float:
+    """Hymba-tiny (the reduced config: 2 layers, window 64, SSD chunk 32,
+    fp32) serves the same prompts on the card (the kernels) and on the CPU
+    (the plain versions): equal greedy tokens, logits within 2e-4 + 2e-3 |cpu|."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("hymba-1.5b").reduced()
+    model = build_model(cfg)
+    params = model.init(0, "cpu")
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (2, 100)))
+    out, logits = {}, {}
+    for d in ("cpu", dev):
+        seen = []
+        out[str(d)] = generate(model, {k: v.to(d) for k, v in params.items()}, prompts.to(d),
+                               steps=8, cache_len=110,
+                               on_logits=lambda i, lg, seen=seen: seen.append(lg.cpu()))
+        logits[str(d)] = torch.stack(seen)
+    if not torch.equal(out["cpu"], out[str(dev)].cpu()):
+        raise AssertionError("Hymba-tiny: card and CPU tokens differ")
+    return _allclose(logits[str(dev)], logits["cpu"], 2e-4, 2e-3, "Hymba-tiny card vs CPU")
+
+
 def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
     """One main-path round step (after a warm-up round; ``comm`` overrides
     the FLConfig, e.g. the codecs or the server opt) under torch.profiler:
@@ -632,6 +1010,60 @@ def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
     print(f"profile {label}: {summary} -> {path}", flush=True)
 
 
+def profile_serve(dev, out_dir: Path) -> None:
+    """The serving main path's prefill (4 x 2,048 tokens) and one decode
+    step of full-width Hymba-1.5B under torch.profiler, after a warm-up:
+    the device's busy share of each one's wall time and the kernel-time
+    tables, written to ``out_dir/profile_serve_{prefill,decode}.txt``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("hymba-1.5b")
+    model = build_model(cfg)
+    params = model.init(0, dev)
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    cache_len = SERVE_PROMPT + SERVE_STEPS + 1
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with torch.inference_mode():
+        lg, cache = model.prefill(params, {"tokens": prompts}, cache_len)    # warm-up
+        tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+        model.decode_step(params, tok, cache)
+        phases = {"prefill": lambda: model.prefill(params, {"tokens": prompts}, cache_len),
+                  "decode": lambda: model.decode_step(params, tok, cache)}
+        for label, fn in phases.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            ka = prof.key_averages()
+            field = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") \
+                else "self_cuda_time_total"
+            dev_events = [e for e in ka if e.device_type != DeviceType.CPU]
+            busy_s = sum(getattr(e, field) for e in dev_events) / 1e6
+            n = sum(e.count for e in dev_events)
+            mine = {k: sum(getattr(e, field) for e in dev_events if k in e.key) / 1e3
+                    for k in ("flash_fwd", "ssd_intra_chunk")}
+            summary = (f"serve {label}: unprofiled wall {wall * 1e3:.2f} ms; profiled: device "
+                       f"time {busy_s * 1e3:.2f} ms = {100 * busy_s / wall:.1f} % of that wall, "
+                       f"{n} device kernels/copies ({wall / max(n, 1) * 1e6:.1f} us of wall "
+                       f"each); flash_fwd {mine['flash_fwd']:.2f} ms, ssd_intra_chunk "
+                       f"{mine['ssd_intra_chunk']:.2f} ms")
+            path = out_dir / f"profile_serve_{label}.txt"
+            path.write_text(summary + "\n" + ka.table(sort_by=field, row_limit=30) + "\n")
+            print(f"profile {summary} -> {path}", flush=True)
+    del params, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", type=Path, default=None)
@@ -673,6 +1105,8 @@ def main() -> int:
     rr = check_rr_perm(dev)
     quant, dequant = check_quantize(dev)
     upd = check_server_update(dev)
+    flash = check_flash(dev)
+    ssd = check_ssd(dev)
     torch.cuda.synchronize()
     print(f"kernel checks and timings: {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -767,6 +1201,15 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
 
+    # main path 5, serving Hymba-1.5B: one flash_attention and one
+    # ssd_intra_chunk launch a layer in the prefill, none in decode
+    serve = serve_main_path(dev, flash, ssd)
+    serve["fp32_max_abs_err"] = check_serve_fp32(dev)
+    serve["tiny_card_vs_cpu_err"] = check_serve_tiny(dev)
+    print(f"Hymba-tiny served on the card vs the port on the CPU: equal tokens, logits max abs "
+          f"diff {serve['tiny_card_vs_cpu_err']:.3e}", flush=True)
+    print(json.dumps({"serve": serve}), flush=True)
+
     for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd"), MVR,
                  dict(mvr_exact=True, **MVR)):
         worst, flips = check_small_reference(dev, **comm)
@@ -776,9 +1219,10 @@ def main() -> int:
         profile_round(dev, args.profile, "qsgd", **COMM)
         profile_round(dev, args.profile, "mvr", **MVR)
         profile_round(dev, args.profile, "mvr_exact", mvr_exact=True, **MVR)
+        profile_serve(dev, args.profile)
 
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [rr, quant, dequant, upd]}), flush=True)
+    print(json.dumps({"kernels": [rr, quant, dequant, upd, flash, ssd]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 """Config system: model architecture and FL hyperparameters (the port's copy).
 
 The same frozen dataclasses as ``repro.configs.base``, cut to the fields
-this port implements: ``ArchConfig`` for the dense transformer family and
+this port implements: ``ArchConfig`` for the dense and hybrid (attention +
+Mamba2 SSD, ``SSMConfig``) families with ``reduced()``, and
 ``FLConfig`` with the comm plane's knobs but without those of the planes
 that are not ported yet (fleet, robust, privacy, obs).  Shared fields keep
 the JAX package's names and defaults, so one keyword dict builds both
@@ -17,10 +18,23 @@ implement yet (``cohort_mode="vmapped"``, ``exec_mode="bucketed"``, the
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Literal
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio"]
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 SSD (arXiv:2405.21060)."""
+
+    state_dim: int = 128           # N
+    head_dim: int = 64             # P
+    num_heads: int = 0             # 0 => derived: expand*d_model/head_dim
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 256               # SSD chunk length
 
 
 @dataclass(frozen=True)
@@ -43,6 +57,11 @@ class ArchConfig:
     qkv_bias: bool = False
     rope_kind: Literal["full", "half", "none"] = "full"  # "half" = ChatGLM 2d RoPE
     rope_theta: float = 10000.0
+    sliding_window: int = 0        # 0 => full causal attention
+
+    # optional feature blocks
+    ssm: SSMConfig | None = None
+    hybrid: bool = False           # Hymba parallel attn+SSM heads
 
     # misc
     tie_embeddings: bool = False
@@ -51,6 +70,28 @@ class ArchConfig:
 
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(1, self.n_heads))
+
+    def reduced(self, **overrides) -> "ArchConfig":
+        """A tiny same-family variant for CPU smoke tests (<=2 layers etc.),
+        with the JAX package's defaults: fp32, SSM chunk 32, window 64."""
+        small: dict = dict(
+            n_layers=2,
+            d_model=min(self.d_model, 128),
+            n_heads=min(self.n_heads, 4),
+            d_ff=min(self.d_ff, 256),
+            vocab=min(self.vocab, 512),
+            head_dim=32 if self.head_dim else 0,
+        )
+        small["n_kv_heads"] = min(self.n_kv_heads, small["n_heads"])
+        if self.ssm is not None:
+            small["ssm"] = dataclasses.replace(
+                self.ssm, state_dim=min(self.ssm.state_dim, 16), head_dim=32, num_heads=0, chunk=32
+            )
+        if self.sliding_window:
+            small["sliding_window"] = 64
+        small["dtype"] = "float32"
+        small.update(overrides)
+        return dataclasses.replace(self, **small)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,17 @@
+"""Qwen1.5-0.5B [hf:Qwen/Qwen1.5-0.5B] — dense, QKV bias (a copy of
+``repro.configs.qwen1_5_0_5b``)."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-0.5b",
+    family="dense",
+    citation="hf:Qwen/Qwen1.5-0.5B",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=2816,
+    vocab=151936,
+    qkv_bias=True,
+    tie_embeddings=True,
+)

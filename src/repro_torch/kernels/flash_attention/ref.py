@@ -1,0 +1,48 @@
+"""Flash attention's plain torch version: the port's copy of the JAX
+package's oracle ``repro/kernels/flash_attention/ref.py:attention_ref``.
+
+Scores in fp32 (``q . k * scale``, ``scale = 1 / sqrt(hd)``), -1e30 where
+the causal or window mask hides a key, an fp32 softmax over every key,
+``p @ v`` in fp32, cast to q's dtype at the end.  Always causal: the
+oracle's ``causal=False`` is on no path of the system.  The CUDA kernel
+(``csrc/flash_attention.cu``) computes the same function with an online
+softmax over key tiles, so the two agree to rounding (the sums run in
+another order), not bitwise.  Queries are taken ``Q_CHUNK`` rows at a time
+above ``CHUNK_THRESHOLD`` rows, which bounds the fp32 score tensor and,
+since each row's softmax is its own, does not change a result.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+CHUNK_THRESHOLD = 2048
+Q_CHUNK = 1024
+
+
+def _rows(q, k, v, q0: int, *, window: int):
+    B, H, Tq, hd = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    g = H // KV
+    qg = q.reshape(B, KV, g, Tq, hd).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) / (hd ** 0.5)
+    qpos = torch.arange(q0, q0 + Tq, device=q.device)[:, None]
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    mask = qpos >= kpos
+    if window:
+        mask = mask & (qpos - kpos < window)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return out.reshape(B, H, Tq, hd).to(q.dtype)
+
+
+def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          window: int = 0) -> torch.Tensor:
+    """q [B,H,Tq,hd]; k,v [B,KV,Tk,hd] with H % KV == 0 -> [B,H,Tq,hd] in
+    q's dtype (fp32 softmax), causal: query i at position i sees the keys
+    j <= i (and i - j < window when ``window``)."""
+    Tq = q.shape[2]
+    if Tq <= CHUNK_THRESHOLD:
+        return _rows(q, k, v, 0, window=window)
+    return torch.cat([_rows(q[:, :, q0:q0 + Q_CHUNK], k, v, q0, window=window)
+                      for q0 in range(0, Tq, Q_CHUNK)], dim=2)

@@ -1,0 +1,69 @@
+"""The chunked SSD scan: the intra-chunk kernel plus the cross-chunk
+recurrence in torch (the JAX package's ``repro/kernels/ssd/ops.py``).
+
+``backend="kernel"`` (the default): a CUDA tensor launches the hand-written
+intra-chunk kernel (``kernel.py``) and nothing else, there is no fallback;
+a CPU tensor takes the plain torch version (``ref.ssd_intra_chunk_torch``).
+``backend="ref"``: the plain version on any device.  The cross-chunk
+recurrence is a tiny [B, H, P, N] rescale and add per chunk and stays in
+torch.  The scan is the port's counterpart of ``repro.models.mamba2.
+ssd_chunked`` as well: both compute :func:`ref.ssd_ref`'s recurrence.
+The kernel is forward-only (no backward pass).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .kernel import ssd_intra_chunk_kernel
+from .ref import ssd_intra_chunk_torch
+
+BACKENDS = ("kernel", "ref")
+
+
+def ssd_intra_chunk(xdt, a, Bm, Cm, *, backend: str = "kernel"):
+    """xdt [Bz,nc,Q,H,P]; a [Bz,nc,Q,H] f32; Bm/Cm [Bz,nc,Q,N] -> (y_intra,
+    S_local), fp32."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown ssd backend {backend!r}; have {BACKENDS}")
+    if backend == "ref" or xdt.device.type == "cpu":
+        return ssd_intra_chunk_torch(xdt, a, Bm, Cm)
+    if xdt.device.type == "cuda":
+        return ssd_intra_chunk_kernel(xdt.contiguous(), a.contiguous(), Bm.contiguous(),
+                                      Cm.contiguous())
+    raise ValueError(f"ssd has no kernel for device {xdt.device}")
+
+
+def ssd_scan(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+             chunk: int, state0: torch.Tensor | None = None, *, backend: str = "kernel"):
+    """xdt [B,T,H,P]; a [B,T,H]; Bm/Cm [B,T,N] -> (y [B,T,H,P] in xdt's
+    dtype, final state S [B,H,P,N] fp32), in chunks of ``min(chunk, T)``.
+
+    The JAX package asserts that T is a multiple of the chunk; the port pads
+    a ragged last chunk with steps that leave the state as it is (a = 0,
+    xdt = B = C = 0), which is exact, so a prompt may have any length."""
+    B, T, H, P = xdt.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, T)
+    nc = -(-T // Q)
+    if nc * Q != T:
+        pad = (0, 0, 0, nc * Q - T)
+        xdt = F.pad(xdt, (0, 0) + pad)
+        a, Bm, Cm = F.pad(a, pad), F.pad(Bm, pad), F.pad(Cm, pad)
+    xdt_c = xdt.reshape(B, nc, Q, H, P)
+    a_c = a.reshape(B, nc, Q, H).float()
+    B_c = Bm.reshape(B, nc, Q, N)
+    C_c = Cm.reshape(B, nc, Q, N)
+    y_intra, S_local = ssd_intra_chunk(xdt_c, a_c, B_c, C_c, backend=backend)
+
+    cum = torch.cumsum(a_c, dim=2)                                    # [B,nc,Q,H]
+    decay = torch.exp(cum[:, :, -1])                                  # [B,nc,H]
+    S = (torch.zeros((B, H, P, N), dtype=torch.float32, device=xdt.device)
+         if state0 is None else state0.float())
+    S_prev = []                                   # the state entering each chunk
+    for c in range(nc):
+        S_prev.append(S)
+        S = S * decay[:, c, :, None, None] + S_local[:, c]
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", C_c.float(), torch.stack(S_prev, dim=1))
+    y = y_intra + y_inter * torch.exp(cum)[..., None]
+    return y.reshape(B, nc * Q, H, P)[:, :T].to(xdt.dtype), S

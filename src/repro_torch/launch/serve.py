@@ -1,0 +1,95 @@
+"""Serving launcher: batched prefill + autoregressive decode (the port of
+``repro.launch.serve``).
+
+``generate`` runs ``Model.prefill`` over the prompts (the flash attention
+and SSD kernels on a card), then ``Model.decode_step`` once a token, under
+``torch.inference_mode()``.  The CLI serves the reduced demo config of an
+arch with random weights from seed 0 and prompts from numpy seed 1::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu
+
+It runs on ``cuda`` unless ``--device cpu`` is given; ``--checkpoint`` is
+not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..configs.registry import get_arch
+from ..models.model import Model, build_model
+from ..utils.device import resolve_device
+from ..utils.logging import log
+
+
+@torch.inference_mode()
+def generate(model: Model, params: dict, prompts: torch.Tensor, *, steps: int, cache_len: int,
+             temperature: float = 0.0, generator: torch.Generator | None = None,
+             on_logits: Callable[[int, torch.Tensor], None] | None = None) -> torch.Tensor:
+    """prompts [B, T] int -> generated [B, steps] int64: greedy
+    (``temperature == 0``) or sampled from softmax(logits / temperature)
+    with ``generator`` (a ``torch.Generator`` on the prompts' device).
+
+    ``on_logits(i, logits [B, V])``, if given, sees the prefill's logits
+    (i = 0) and each decode step's (i = 1 .. steps - 1) before the token is
+    picked from them.  The last token needs no decode step, so there are
+    ``steps - 1`` of them."""
+    if temperature > 0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs an explicit torch.Generator")
+    logits, cache = model.prefill(params, {"tokens": prompts}, cache_len)
+    out = []
+    for i in range(steps):
+        last = logits[:, -1]
+        if on_logits is not None:
+            on_logits(i, last)
+        if temperature > 0:
+            probs = torch.softmax(last.float() / temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=generator)
+        else:
+            tok = torch.argmax(last, dim=-1, keepdim=True)
+        out.append(tok)
+        if i + 1 < steps:
+            logits, cache = model.decode_step(params, tok, cache)
+    return torch.cat(out, dim=1)
+
+
+def main(argv: list[str] | None = None) -> torch.Tensor:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.checkpoint:
+        raise NotImplementedError("--checkpoint is not ported yet (ROADMAP 'Modules to port', "
+                                  "item 4: checkpoint and resume)")
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device)
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (args.batch, args.prompt_len)), device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, steps=args.tokens,
+                   cache_len=args.prompt_len + args.tokens + 1, temperature=args.temperature,
+                   generator=gen)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    log(f"served {args.batch}x{args.tokens} tokens in {dt:.2f}s "
+        f"({args.batch * args.tokens / dt:.1f} tok/s) on {device}")
+    for b in range(min(2, args.batch)):
+        print(f"  seq{b}: {out[b].tolist()}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,16 @@
-"""Attention: GQA (llama/qwen-style, optional QKV bias), train path.
+"""Attention: GQA (llama/qwen-style, optional QKV bias), sliding window, and
+the decode caches (linear and ring).
 
-Layouts (the JAX package's): activations [B, T, D]; heads [B, T, H, hd].
-Scores are taken in fp32, masked with -1e30 before an fp32 softmax, as in
-``repro.models.attention``.  The port's counterpart of its full-sequence
-train path; MLA, the query-chunked long-sequence path and the decode caches
-are not ported yet.
+Layouts (the JAX package's): activations [B, T, D]; heads [B, T, H, hd];
+caches [B, S, KV, hd].  :func:`attend` is the port of
+``repro.models.attention.attend``: scores in fp32, masked with -1e30 before
+an fp32 softmax, probabilities cast to v's dtype before ``p @ v``, query
+chunking above ``CHUNK_THRESHOLD``.  It is always causal (the JAX package's
+``causal=False`` serves the cross-attention, not ported).  The train loss
+(:func:`gqa_forward`, under autograd) and the decode step
+(:func:`gqa_decode`) use it; the prefill (:func:`gqa_prefill`) goes through
+the flash attention kernel (``kernels/flash_attention``), which has no
+backward pass.  MLA is not ported yet.
 """
 from __future__ import annotations
 
@@ -12,26 +18,63 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels.flash_attention.ops import flash_attend
 from .layers import apply_rope, dense_init
+
+CHUNK_THRESHOLD = 2048
+Q_CHUNK = 1024
 
 NEG_INF = -1e30
 
 
-def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True):
-    """q [B,T,H,hd], k/v [B,T,KV,hd] -> [B,T,H,hd] (GQA: kv head = h // (H/KV))."""
-    B, T, H, hd = q.shape
+def band_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Causal bool [Tq, Tk]; window=0 => unbounded lookback."""
+    diff = q_pos[:, None] - kv_pos[None, :]
+    m = diff >= 0
+    if window:
+        m = m & (diff < window)
+    return m
+
+
+def _attend_block(q, k, v, mask, scale: float):
+    """q [B,Tq,H,hd], k/v [B,Tk,KV,hd], mask broadcastable to [B,KV,g,Tq,Tk]."""
+    B, Tq, H, hd = q.shape
     KV = k.shape[2]
-    g = H // KV
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
-    qg = q.reshape(B, T, KV, g, hd)
+    qg = q.reshape(B, Tq, KV, H // KV, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale
-    if causal:
-        pos = torch.arange(T, device=q.device)
-        mask = pos[:, None] >= pos[None, :]                          # [Tq, Tk]
-        scores = torch.where(mask, scores, NEG_INF)
+    scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(B, T, H, hd)
+    return out.reshape(B, Tq, H, v.shape[-1])
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor | None = None,
+           kv_pos: torch.Tensor | None = None, *, window: int = 0,
+           kv_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal attention: q [B,Tq,H,hd], k/v [B,Tk,KV,hd] -> [B,Tq,H,hd]
+    (GQA: kv head = h // (H/KV)).
+
+    q_pos [Tq] and kv_pos [Tk] are absolute positions (default 0..T-1);
+    kv_valid optional bool [B,Tk] (decode cache validity).  Above
+    ``CHUNK_THRESHOLD`` queries go ``Q_CHUNK`` at a time, which bounds the
+    fp32 score tensor and changes no result."""
+    B, Tq, H, hd = q.shape
+    dev = q.device
+    q_pos = torch.arange(Tq, device=dev) if q_pos is None else q_pos
+    kv_pos = torch.arange(k.shape[1], device=dev) if kv_pos is None else kv_pos
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+    def mask_for(qp):
+        m = band_mask(qp, kv_pos, window=window)                     # [tq, Tk]
+        if kv_valid is not None:
+            m = m[None, None, None] & kv_valid[:, None, None, None, :]
+        return m
+
+    if Tq <= CHUNK_THRESHOLD:
+        return _attend_block(q, k, v, mask_for(q_pos), scale)
+    return torch.cat([_attend_block(q[:, q0:q0 + Q_CHUNK], k, v,
+                                    mask_for(q_pos[q0:q0 + Q_CHUNK]), scale)
+                      for q0 in range(0, Tq, Q_CHUNK)], dim=1)
 
 
 def gqa_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
@@ -50,8 +93,8 @@ def gqa_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
     return p
 
 
-def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
-    """Causal self-attention of one layer; ``p`` holds its wq/wk/wv/wo."""
+def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    """The roped q [B,T,H,hd] and k [B,T,KV,hd], and v [B,T,KV,hd]."""
     B, T, _ = x.shape
     hd = cfg.hd()
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
@@ -59,5 +102,46 @@ def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tens
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = apply_rope(q.reshape(B, T, cfg.n_heads, hd), positions, cfg.rope_theta, cfg.rope_kind)
     k = apply_rope(k.reshape(B, T, cfg.n_kv_heads, hd), positions, cfg.rope_theta, cfg.rope_kind)
-    v = v.reshape(B, T, cfg.n_kv_heads, hd)
+    return q, k, v.reshape(B, T, cfg.n_kv_heads, hd)
+
+
+def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    """Causal self-attention of one layer (the train loss, under autograd);
+    ``p`` holds its wq/wk/wv/wo."""
+    B, T, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, positions)
     return attend(q, k, v).reshape(B, T, -1) @ p["wo"]
+
+
+def gqa_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
+                window: int = 0, backend: str = "kernel"):
+    """The prefill form of :func:`gqa_forward`: causal (sliding-window when
+    ``window``) attention through the flash attention kernel over prompt
+    positions 0..T-1.  Returns (out, (k, v)) so the caller builds the cache."""
+    B, T, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = flash_attend(q, k, v, window=window, backend=backend)
+    return out.reshape(B, T, -1) @ p["wo"], (k, v)
+
+
+def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict, *,
+               ring: bool = False):
+    """One-token decode.  x [B,1,D]; pos the absolute position (an int).
+
+    cache: {"k": [B,S,KV,hd], "v": ...}, written in place at slot ``pos``
+    (``pos % S`` with ``ring``: a ring cache holds exactly the window, so
+    the window needs no mask of its own).  Returns (out [B,1,D], cache)."""
+    B = x.shape[0]
+    positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _qkv(p, cfg, x, positions)
+    k, v = cache["k"], cache["v"]
+    S = k.shape[1]
+    slot = pos % S if ring else pos
+    k[:, slot] = k_new[:, 0].to(k.dtype)
+    v[:, slot] = v_new[:, 0].to(v.dtype)
+    slots = torch.arange(S, device=x.device)
+    valid = torch.ones_like(slots, dtype=torch.bool) if ring and pos + 1 >= S else slots <= pos
+    # positions are baked into the rotated keys: a validity-only mask
+    out = attend(q, k, v, torch.full((1,), S + 1, device=x.device), torch.zeros_like(slots),
+                 kv_valid=valid[None, :].expand(B, S))
+    return out.reshape(B, 1, -1) @ p["wo"], cache

@@ -1,16 +1,43 @@
-"""Transformer blocks (dense family): init and the train forward.
+"""Transformer blocks: init, the train forward, the prefill and the decode
+step, for the dense family and the hybrid (Hymba: parallel attention + SSD
+branches) family.
 
 A block's parameters are the flat-dict entries under its prefix
-(``blocks/{i}/ln1/scale``, ``blocks/{i}/attn/wq``, …, ``blocks/{i}/mlp/down``).
-The port's counterpart of ``repro.models.blocks`` for the dense family.
+(``blocks/{i}/ln1/scale``, ``blocks/{i}/attn/wq``, …, ``blocks/{i}/mlp/down``;
+the hybrid block adds ``blocks/{i}/mixer/...`` and ``blocks/{i}/branch_scale``).
+A prefill returns the layer's cache entry in the structure its decode step
+takes (``{"k", "v"}``, plus ``{"state", "conv"}`` for the hybrid block).
+The port's counterpart of ``repro.models.blocks`` for these two families.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ArchConfig
-from .attention import gqa_forward, gqa_init
+from .attention import gqa_decode, gqa_forward, gqa_init, gqa_prefill
 from .layers import dense_init, rmsnorm, swiglu
+from .mamba2 import mamba2_decode, mamba2_forward, mamba2_init
+
+ATTN_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+MIXER_KEYS = ("in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D", "gate_norm/scale",
+              "out_proj")
+
+
+def _attn(params: dict, prefix: str) -> dict:
+    return {k: params[f"{prefix}attn/{k}"] for k in ATTN_KEYS if f"{prefix}attn/{k}" in params}
+
+
+def _mixer(params: dict, prefix: str) -> dict:
+    return {k: params[f"{prefix}mixer/{k}"] for k in MIXER_KEYS}
+
+
+def _mlp(params: dict, cfg: ArchConfig, h: torch.Tensor, prefix: str) -> torch.Tensor:
+    x = rmsnorm(params[f"{prefix}ln2/scale"], h, cfg.norm_eps)
+    return h + swiglu(params[f"{prefix}mlp/gate"], params[f"{prefix}mlp/up"],
+                      params[f"{prefix}mlp/down"], x)
+
+
+# -- dense ------------------------------------------------------------------
 
 
 def dense_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefix: str) -> dict:
@@ -25,10 +52,57 @@ def dense_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefi
 
 def dense_block_forward(params: dict, cfg: ArchConfig, h: torch.Tensor,
                         positions: torch.Tensor, prefix: str) -> torch.Tensor:
-    attn = {k: params[f"{prefix}attn/{k}"] for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-            if f"{prefix}attn/{k}" in params}
-    h = h + gqa_forward(attn, cfg, rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps),
-                        positions)
-    x = rmsnorm(params[f"{prefix}ln2/scale"], h, cfg.norm_eps)
-    return h + swiglu(params[f"{prefix}mlp/gate"], params[f"{prefix}mlp/up"],
-                      params[f"{prefix}mlp/down"], x)
+    h = h + gqa_forward(_attn(params, prefix), cfg,
+                        rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), positions)
+    return _mlp(params, cfg, h, prefix)
+
+
+def dense_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
+                        prefix: str, *, window: int = 0, backend: str = "kernel"):
+    """-> (h, {"k", "v"} over the prompt)."""
+    a, (k, v) = gqa_prefill(_attn(params, prefix), cfg,
+                            rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), positions,
+                            window=window, backend=backend)
+    return _mlp(params, cfg, h + a, prefix), {"k": k, "v": v}
+
+
+def dense_block_decode(params: dict, cfg: ArchConfig, h: torch.Tensor, pos: int, cache: dict,
+                       prefix: str, *, ring: bool = False):
+    a, cache = gqa_decode(_attn(params, prefix), cfg,
+                          rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), pos, cache,
+                          ring=ring)
+    return _mlp(params, cfg, h + a, prefix), cache
+
+
+# -- hybrid (Hymba: parallel attention + SSM branches) ------------------------
+
+
+def hybrid_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefix: str) -> dict:
+    p = dense_block_init(gen, cfg, dtype, device, prefix)
+    p.update({f"{prefix}mixer/{k}": v for k, v in mamba2_init(gen, cfg, dtype, device).items()})
+    p[f"{prefix}branch_scale"] = torch.full((2,), 0.5, dtype=torch.float32, device=device)
+    return p
+
+
+def hybrid_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor,
+                         positions: torch.Tensor, prefix: str, *, backend: str = "kernel"):
+    """Both branches on the same normalised input, summed with the layer's
+    branch scales.  -> (h, {"k", "v", "state", "conv"})."""
+    x = rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps)
+    a, (k, v) = gqa_prefill(_attn(params, prefix), cfg, x, positions,
+                            window=cfg.sliding_window, backend=backend)
+    m, mcache = mamba2_forward(_mixer(params, prefix), cfg, x, backend=backend)
+    s = params[f"{prefix}branch_scale"].to(h.dtype)
+    h = h + s[0] * a + s[1] * m
+    return _mlp(params, cfg, h, prefix), {"k": k, "v": v, **mcache}
+
+
+def hybrid_block_decode(params: dict, cfg: ArchConfig, h: torch.Tensor, pos: int, cache: dict,
+                        prefix: str):
+    """Decode always uses the ring cache (its size is the window)."""
+    x = rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps)
+    a, _ = gqa_decode(_attn(params, prefix), cfg, x, pos, cache, ring=True)
+    m, _ = mamba2_decode(_mixer(params, prefix), cfg, x, cache)
+    s = params[f"{prefix}branch_scale"].to(h.dtype)
+    h = h + s[0] * a + s[1] * m
+    return _mlp(params, cfg, h, prefix), cache

@@ -1,14 +1,23 @@
-"""Model assembly: ``init`` / ``loss`` for the dense transformer LM.
+"""Model assembly: ``init`` / ``loss`` / ``prefill`` / ``decode_step``.
 
-One ``Model`` per ArchConfig, the API the FL stack uses:
+One ``Model`` per ArchConfig, the API the FL stack and the serving path use:
 
   * ``init(seed, device) -> params``  (flat dict of tensors, random weights
     drawn with a ``torch.Generator`` on ``device``; shapes only on ``meta``)
-  * ``loss(params, batch) -> (scalar, metrics)``  (the train objective)
+  * ``loss(params, batch) -> (scalar, metrics)``  (the train objective,
+    dense family; gradients come from autograd)
+  * ``init_cache(batch_size, cache_len) -> cache``  (decode state, zeros)
+  * ``prefill(params, batch, cache_len) -> (logits, cache)``
+  * ``decode_step(params, token, cache, ring=False) -> (logits, cache)``
 
-Gradients come from autograd.  The port's counterpart of
-``repro.models.model`` for the dense family; the JAX package's other
-families, prefill and decode are not ported yet.
+The port's counterpart of ``repro.models.model`` for the dense and hybrid
+families.  A cache is ``{"layers": {name: [L, B, ...] tensor}, "pos": int}``
+with the JAX package's entries and layouts; ``decode_step`` writes it in
+place (the JAX step returns a new one) and returns it.  ``backend`` picks
+the prefill's kernels (flash attention, SSD intra-chunk): ``"kernel"`` (the
+default) launches them for CUDA tensors and takes their plain torch
+versions for CPU tensors; ``"ref"`` takes the plain versions on any
+device.  The decode step runs no kernel of the port.
 """
 from __future__ import annotations
 
@@ -18,18 +27,26 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .blocks import dense_block_forward, dense_block_init
+from . import blocks as B
 from .layers import dense_init, embed_init, rmsnorm, softmax_xent
+from .mamba2 import dims as ssm_dims
+
+FAMILIES = ("dense", "hybrid")
+BACKENDS = ("kernel", "ref")
+SEQ_KEYS = ("k", "v")            # sequence-indexed cache entries
 
 
 @dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
+    backend: str = "kernel"
 
     def __post_init__(self):
-        if self.cfg.family != "dense" or self.cfg.rope_kind == "none":
+        if self.cfg.family not in FAMILIES or self.cfg.rope_kind == "none":
             raise NotImplementedError(
-                f"{self.cfg.name}: only the dense family with RoPE is ported yet")
+                f"{self.cfg.name}: only the dense and hybrid families with RoPE are ported yet")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; have {BACKENDS}")
 
     def init(self, seed: int, device) -> dict:
         cfg = self.cfg
@@ -37,27 +54,109 @@ class Model:
         # device "meta" gives the shapes alone (it has no generator)
         gen = (None if torch.device(device).type == "meta"
                else torch.Generator(device=device).manual_seed(seed))
+        init_block = B.hybrid_block_init if cfg.family == "hybrid" else B.dense_block_init
         p = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dt, device)}
         for i in range(cfg.n_layers):
-            p.update(dense_block_init(gen, cfg, dt, device, f"blocks/{i}/"))
+            p.update(init_block(gen, cfg, dt, device, f"blocks/{i}/"))
         p["final_norm/scale"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, dt, device)
         return p
 
+    def _logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(params["final_norm/scale"], h, self.cfg.norm_eps)
+        return h @ (params["embed"].T if self.cfg.tie_embeddings else params["lm_head"])
+
     def loss(self, params: dict, batch: dict):
         cfg = self.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(f"{cfg.name}: the {cfg.family} family's train loss is "
+                                      f"not ported yet (only its serving path)")
         toks = batch["tokens"]
         inputs, labels = toks[..., :-1], toks[..., 1:]
         h = F.embedding(inputs.long(), params["embed"])
         positions = torch.arange(h.shape[1], device=h.device)
         for i in range(cfg.n_layers):
-            h = dense_block_forward(params, cfg, h, positions, f"blocks/{i}/")
-        h = rmsnorm(params["final_norm/scale"], h, cfg.norm_eps)
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        ce = softmax_xent(h @ head, labels).mean()
+            h = B.dense_block_forward(params, cfg, h, positions, f"blocks/{i}/")
+        ce = softmax_xent(self._logits(params, h), labels).mean()
         return ce, {"ce": ce}
 
+    # ---------------------------------------------------------------- serve
 
-def build_model(cfg: ArchConfig) -> Model:
-    return Model(cfg)
+    def cache_spec(self, batch_size: int, cache_len: int) -> dict:
+        """{name: (shape [L, B, ...], dtype)} of the decode cache.  The
+        hybrid family's attention cache is a ring of the window's size."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        L, S, hd = cfg.n_layers, cache_len, cfg.hd()
+        if cfg.family == "hybrid":
+            S = min(S, cfg.sliding_window or S)
+        spec = {"k": ((L, batch_size, S, cfg.n_kv_heads, hd), dt),
+                "v": ((L, batch_size, S, cfg.n_kv_heads, hd), dt)}
+        if cfg.family == "hybrid":
+            d_inner, H, P, N = ssm_dims(cfg)
+            spec["state"] = ((L, batch_size, H, P, N), torch.float32)
+            spec["conv"] = ((L, batch_size, cfg.ssm.conv_width - 1, d_inner + 2 * N), dt)
+        return spec
+
+    def init_cache(self, batch_size: int, cache_len: int, device) -> dict:
+        layers = {k: torch.zeros(shape, dtype=d, device=device)
+                  for k, (shape, d) in self.cache_spec(batch_size, cache_len).items()}
+        return {"layers": layers, "pos": 0}
+
+    def prefill(self, params: dict, batch: dict, cache_len: int):
+        """Forward over the prompts ``batch["tokens"]`` [B, T], collecting
+        decode-ready caches: -> (logits of the last position [B, 1, V],
+        cache at ``pos`` T)."""
+        cfg = self.cfg
+        toks = batch["tokens"]
+        Bsz, T = toks.shape
+        h = F.embedding(toks.long(), params["embed"])
+        positions = torch.arange(T, device=h.device)
+        cache = self.init_cache(Bsz, cache_len, h.device)
+        for i in range(cfg.n_layers):
+            prefix = f"blocks/{i}/"
+            if cfg.family == "hybrid":
+                h, entry = B.hybrid_block_prefill(params, cfg, h, positions, prefix,
+                                                  backend=self.backend)
+            else:
+                h, entry = B.dense_block_prefill(params, cfg, h, positions, prefix,
+                                                 window=cfg.sliding_window, backend=self.backend)
+            for name, x in entry.items():
+                dst = cache["layers"][name][i]
+                if name in SEQ_KEYS:
+                    _fit_cache_entry(dst, x, t=T)
+                else:
+                    dst.copy_(x)
+        cache["pos"] = T
+        return self._logits(params, h[:, -1:]), cache
+
+    def decode_step(self, params: dict, token: torch.Tensor, cache: dict, *, ring: bool = False):
+        """token [B, 1] -> (logits [B, 1, V], cache), the cache written in
+        place and advanced by one position."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        h = F.embedding(token.long(), params["embed"])
+        for i in range(cfg.n_layers):
+            prefix = f"blocks/{i}/"
+            layer = {k: v[i] for k, v in cache["layers"].items()}
+            if cfg.family == "hybrid":
+                h, _ = B.hybrid_block_decode(params, cfg, h, pos, layer, prefix)
+            else:
+                h, _ = B.dense_block_decode(params, cfg, h, pos, layer, prefix, ring=ring)
+        cache["pos"] = pos + 1
+        return self._logits(params, h), cache
+
+
+def _fit_cache_entry(dst: torch.Tensor, x: torch.Tensor, *, t: int) -> None:
+    """Place a prefill's sequence-indexed entry x [B, t, ...] into a cache
+    layer dst [B, S, ...] at slots ``p % S`` (ring-consistent): the last
+    ``min(t, S)`` positions are kept."""
+    S = dst.shape[1]
+    start = max(0, t - S)
+    slots = torch.arange(start, t, device=dst.device) % S
+    dst[:, slots] = x[:, start:t].to(dst.dtype)
+
+
+def build_model(cfg: ArchConfig, backend: str = "kernel") -> Model:
+    return Model(cfg, backend)

@@ -58,9 +58,18 @@ def flatten(tree, prefix: str = "") -> dict:
     return out
 
 
+def np_to_tensor(a) -> torch.Tensor:
+    """A numpy array (a copy of it) as a CPU tensor of the same dtype."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16 (JAX's), which torch cannot read
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def to_torch(tree: dict, device) -> Tree:
-    """Flat dict of numpy arrays -> flat dict of tensors on ``device``."""
-    return {k: torch.from_numpy(np.array(v)).to(device) for k, v in tree.items()}
+    """Flat dict of numpy arrays (bfloat16 ones too) -> flat dict of tensors
+    on ``device``, of the same dtypes."""
+    return {k: np_to_tensor(v).to(device) for k, v in tree.items()}
 
 
 def tree_map(fn, tree, *rest):

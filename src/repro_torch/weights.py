@@ -5,7 +5,10 @@ leaves are stacked on a leading ``[L, ...]`` axis.  The port keeps one flat
 dict per model with the layer index in the key, so :func:`params_from_jax`
 unstacks ``blocks`` into ``blocks/{i}/...``.  Dense weights stay ``[in, out]``
 (the port applies them as ``x @ w``, as the JAX package does), so nothing is
-transposed.  :func:`server_state_from_jax` carries a whole JAX
+transposed; every leaf keeps its dtype (a bf16 model's fp32 SSD leaves
+``A_log``, ``dt_bias``, ``D`` and ``branch_scale`` too).
+:func:`cache_from_jax` carries a serving cache across.
+:func:`server_state_from_jax` carries a whole JAX
 ``ServerState`` across (params, optimizer state and the per-client bank,
 whose stacked leaves are ``[N+1, L, ...]``), so a run can continue in the
 port from a JAX state taken mid-run.  The input is numpy arrays
@@ -17,7 +20,7 @@ import numpy as np
 
 from .configs.base import ArchConfig
 from .fed.server import ServerState
-from .utils.pytree import flatten, to_torch
+from .utils.pytree import flatten, np_to_tensor, to_torch
 
 
 def params_from_jax(np_tree: dict, cfg: ArchConfig | None, device, *, axis: int = 0) -> dict:
@@ -56,3 +59,10 @@ def server_state_from_jax(np_state, cfg: ArchConfig | None, device) -> ServerSta
         params=params_from_jax(np_state.params, cfg, device),
         opt={k: params_from_jax(v, cfg, device) for k, v in np_state.opt.items()},
         rnd=int(np_state.rnd), clients=clients)
+
+
+def cache_from_jax(np_cache: dict, device) -> dict:
+    """A JAX serving cache (``Model.prefill``'s, numpy leaves) -> the port's
+    ``{"layers": {name: [L, B, ...] tensor}, "pos": int}`` on ``device``."""
+    return {"layers": {k: np_to_tensor(v).to(device) for k, v in np_cache["layers"].items()},
+            "pos": int(np_cache["pos"])}
