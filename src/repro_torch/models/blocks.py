@@ -58,19 +58,19 @@ def dense_block_forward(params: dict, cfg: ArchConfig, h: torch.Tensor,
 
 
 def dense_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
-                        prefix: str, *, window: int = 0, backend: str = "kernel"):
-    """-> (h, {"k", "v"} over the prompt)."""
+                        prefix: str, *, backend: str = "kernel"):
+    """Full causal attention (no window). -> (h, {"k", "v"} over the prompt)."""
     a, (k, v) = gqa_prefill(_attn(params, prefix), cfg,
                             rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), positions,
-                            window=window, backend=backend)
+                            backend=backend)
     return _mlp(params, cfg, h + a, prefix), {"k": k, "v": v}
 
 
 def dense_block_decode(params: dict, cfg: ArchConfig, h: torch.Tensor, pos: int, cache: dict,
-                       prefix: str, *, ring: bool = False):
+                       prefix: str):
+    """One token over the linear cache."""
     a, cache = gqa_decode(_attn(params, prefix), cfg,
-                          rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), pos, cache,
-                          ring=ring)
+                          rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), pos, cache)
     return _mlp(params, cfg, h + a, prefix), cache
 
 

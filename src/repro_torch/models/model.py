@@ -8,7 +8,7 @@ One ``Model`` per ArchConfig, the API the FL stack and the serving path use:
     dense family; gradients come from autograd)
   * ``init_cache(batch_size, cache_len) -> cache``  (decode state, zeros)
   * ``prefill(params, batch, cache_len) -> (logits, cache)``
-  * ``decode_step(params, token, cache, ring=False) -> (logits, cache)``
+  * ``decode_step(params, token, cache) -> (logits, cache)``
 
 The port's counterpart of ``repro.models.model`` for the dense and hybrid
 families.  A cache is ``{"layers": {name: [L, B, ...] tensor}, "pos": int}``
@@ -17,7 +17,10 @@ place (the JAX step returns a new one) and returns it.  ``backend`` picks
 the prefill's kernels (flash attention, SSD intra-chunk): ``"kernel"`` (the
 default) launches them for CUDA tensors and takes their plain torch
 versions for CPU tensors; ``"ref"`` takes the plain versions on any
-device.  The decode step runs no kernel of the port.
+device.  The decode step runs no kernel of the port.  The dense family's
+cache is linear, the hybrid family's a ring of the window's size; a dense
+config with a sliding window is not served (its windowed decode is not
+ported) and raises.
 """
 from __future__ import annotations
 
@@ -104,10 +107,17 @@ class Model:
                   for k, (shape, d) in self.cache_spec(batch_size, cache_len).items()}
         return {"layers": layers, "pos": 0}
 
+    def _check_servable(self):
+        cfg = self.cfg
+        if cfg.family == "dense" and cfg.sliding_window:
+            raise NotImplementedError(f"{cfg.name}: serving a dense config with a sliding "
+                                      f"window is not ported yet")
+
     def prefill(self, params: dict, batch: dict, cache_len: int):
         """Forward over the prompts ``batch["tokens"]`` [B, T], collecting
         decode-ready caches: -> (logits of the last position [B, 1, V],
         cache at ``pos`` T)."""
+        self._check_servable()
         cfg = self.cfg
         toks = batch["tokens"]
         Bsz, T = toks.shape
@@ -121,7 +131,7 @@ class Model:
                                                   backend=self.backend)
             else:
                 h, entry = B.dense_block_prefill(params, cfg, h, positions, prefix,
-                                                 window=cfg.sliding_window, backend=self.backend)
+                                                 backend=self.backend)
             for name, x in entry.items():
                 dst = cache["layers"][name][i]
                 if name in SEQ_KEYS:
@@ -131,9 +141,10 @@ class Model:
         cache["pos"] = T
         return self._logits(params, h[:, -1:]), cache
 
-    def decode_step(self, params: dict, token: torch.Tensor, cache: dict, *, ring: bool = False):
+    def decode_step(self, params: dict, token: torch.Tensor, cache: dict):
         """token [B, 1] -> (logits [B, 1, V], cache), the cache written in
         place and advanced by one position."""
+        self._check_servable()
         cfg = self.cfg
         pos = cache["pos"]
         h = F.embedding(token.long(), params["embed"])
@@ -143,7 +154,7 @@ class Model:
             if cfg.family == "hybrid":
                 h, _ = B.hybrid_block_decode(params, cfg, h, pos, layer, prefix)
             else:
-                h, _ = B.dense_block_decode(params, cfg, h, pos, layer, prefix, ring=ring)
+                h, _ = B.dense_block_decode(params, cfg, h, pos, layer, prefix)
         cache["pos"] = pos + 1
         return self._logits(params, h), cache
 

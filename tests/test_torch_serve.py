@@ -14,7 +14,8 @@ bias, tied embeddings), both fp32, T = 128 prompts (past the window).
 * the serve CLI on ``--device cpu``; sampling from an explicit generator;
 * ``backend="kernel"`` on CPU tensors takes the plain versions (no launch),
   the registry refuses the archs the port does not run, and the prefill's
-  kernels are never reached under autograd.
+  kernels are never reached under autograd; a dense config with a sliding
+  window is refused (its windowed decode is not ported).
 """
 import dataclasses
 
@@ -203,3 +204,17 @@ def test_registry_refuses_unported_archs(arch):
         get_arch(arch)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+
+
+def test_windowed_dense_config_is_not_served():
+    """The dense family decodes over a linear cache, so a dense config with
+    a sliding window (windowed prefill, windowed decode) is refused rather
+    than served with a decode that would see the whole cache."""
+    cfg = dataclasses.replace(get_arch("qwen1.5-0.5b").reduced(), sliding_window=16)
+    model = build_model(cfg)
+    params = model.init(0, "cpu")
+    toks = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="sliding window"):
+        model.prefill(params, {"tokens": toks}, 12)
+    with pytest.raises(NotImplementedError, match="sliding window"):
+        model.decode_step(params, toks[:, :1], model.init_cache(1, 12, "cpu"))
