@@ -11,9 +11,12 @@
    shapes, and times both: bitwise for the training paths' three kernels,
    at the JAX tests' tolerances for flash attention (fp32 2e-5, bf16 2e-2)
    and the SSD intra-chunk step (atol 3e-5, rtol 3e-4), whose sums run in
-   another order than their plain versions'; flash attention is also timed
-   beside ``F.scaled_dot_product_attention`` with the same band mask, a
-   yardstick the port never calls;
+   another order than their plain versions'; flash attention's cases run
+   on the kernel its wrapper routes them to (``flash_fwd_mma``, bf16 on the
+   tensor cores, or ``flash_fwd``), and at the serving shape the tensor-core
+   kernel is timed beside ``flash_fwd`` on the same inputs and
+   ``F.scaled_dot_product_attention`` with the same band mask, a yardstick
+   the port never calls;
 3. drives five main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
@@ -26,19 +29,21 @@
    tensors) and for 2 rounds with the exact eq. 14 step (torch, no kernel);
    then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
    seed 0) through ``launch/serve.py:generate``: batch 4, 2,048-token
-   prompts, 32 greedy tokens (one flash attention and one SSD launch a
-   layer in the prefill, none in decode);
+   prompts, 32 greedy tokens (one flash attention launch a layer in the
+   prefill, all on ``flash_fwd_mma``, and one SSD launch; none in decode);
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
    bitwise-identical parameters, the comm metrics equal to the wire's
    arithmetic, CharLM-tiny runs on the card (dense, ``ef_qsgd`` /
    ``qsgd``, and mvr in both modes) agreeing with the port on the CPU;
-   for serving, finite logits, the prefill with ``backend="ref"`` (the
-   plain versions) and the decode teacher-forced on its cache within a
-   relative error of the norm of 0.1 in bf16 and elementwise in fp32, a
-   full-width fp32 prefill -> decode consistency check, and Hymba-tiny
-   served on the card agreeing with the port on the CPU;
+   for serving, finite logits, each layer's flash and SSD launch against
+   its plain version on the path's own inputs (flash within one bf16 step),
+   the bf16 run no further from the plain versions in fp32 than 1.5x the
+   plain bf16 run, a planted one-tile window fault failing both checks, the
+   fp32 prefill elementwise at full width, a full-width fp32 prefill ->
+   decode consistency check, and Hymba-tiny served on the card agreeing
+   with the port on the CPU;
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -633,37 +638,53 @@ def check_flash(dev) -> dict:
     Hymba-1.5B's prefill shape (q [4, 2048, 25, 64], k/v [4, 2048, 5, 64],
     window 1024 and 0, bf16 and f32) and stress shapes (ragged T 77 and 1000,
     a window of 100 and of 30, MQA, head dims 16 and 128), q, k and v read as
-    strided slices of one packed tensor; then the kernel, the plain version
-    and ``F.scaled_dot_product_attention`` (the band mask, ``enable_gqa``)
-    timed at the main path's bf16 shape."""
+    strided slices of one packed tensor, each case on the kernel ``route``
+    picks (bf16: ``mma``; f32: ``simt``), and two bf16 cases that route to
+    ``simt`` (hd 48; a time stride of 14 x 65 elements, not 16-byte
+    aligned); then ``flash_fwd_mma`` (the path's kernel), ``flash_fwd`` on
+    the same bf16 inputs, the plain version and
+    ``F.scaled_dot_product_attention`` (the band mask, ``enable_gqa``) timed
+    at the main path's bf16 shape."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel, route
     from repro_torch.kernels.flash_attention.ops import flash_attend
 
     B, T, H, KV, hd, W = SERVE_BATCH, SERVE_PROMPT, 25, 5, 64, 1024
-    cases = [(B, T, H, KV, hd, w, dt) for w in (W, 0) for dt in ("bfloat16", "float32")]
-    cases += [(1, 77, 4, 4, 32, 0, "float32"), (2, 1000, 10, 2, 64, 100, "float32"),
-              (2, 1000, 10, 2, 64, 100, "bfloat16"), (1, 300, 8, 1, 128, 0, "bfloat16"),
-              (2, 130, 6, 3, 16, 64, "float32"), (1, 77, 5, 1, 64, 30, "float32")]
+    # b, t, h, kv, hd, window, dtype, the packed tensor's last dim, the route
+    cases = [(B, T, H, KV, hd, w, dt, hd, "mma" if dt == "bfloat16" else "simt")
+             for w in (W, 0) for dt in ("bfloat16", "float32")]
+    cases += [(1, 77, 4, 4, 32, 0, "float32", 32, "simt"),
+              (2, 1000, 10, 2, 64, 100, "float32", 64, "simt"),
+              (2, 1000, 10, 2, 64, 100, "bfloat16", 64, "mma"),
+              (1, 300, 8, 1, 128, 0, "bfloat16", 128, "mma"),
+              (2, 130, 6, 3, 16, 64, "float32", 16, "simt"),
+              (1, 77, 5, 1, 64, 30, "float32", 64, "simt"),
+              (1, 200, 4, 2, 48, 50, "bfloat16", 48, "simt"),
+              (2, 1000, 10, 2, 64, 100, "bfloat16", 65, "simt")]
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"float32": 0.0, "bfloat16": 0.0}
-    for b, t, h, kv, d, w, dt in cases:
-        packed = torch.randn((b, t, h + 2 * kv, d), generator=gen, device=dev).to(getattr(torch, dt))
+    for b, t, h, kv, d, w, dt, width, want_route in cases:
+        packed = torch.randn((b, t, h + 2 * kv, width), generator=gen,
+                             device=dev).to(getattr(torch, dt))[..., :d]
         q, k, v = packed.split([h, kv, kv], dim=2)
+        where = f"flash {[b, t, h, kv, d]} w={w} {dt} width {width}"
+        before = flash_attention_kernel.route_launches[want_route]
         got = flash_attend(q, k, v, window=w)
+        if flash_attention_kernel.route_launches[want_route] != before + 1:
+            raise AssertionError(f"{where}: the {want_route} kernel did not launch")
         want = flash_attend(q, k, v, window=w, backend="ref")
         atol = rtol = FLASH_TOL[dt]
         if (b, t, h, kv, d, dt) == (B, T, H, KV, hd, "bfloat16"):
             atol, rtol = FLASH_MAIN_BF16_ATOL, FLASH_MAIN_BF16_RTOL
-        err[dt] = max(err[dt], _allclose(got, want, atol, rtol,
-                                         f"flash {[b, t, h, kv, d]} w={w} {dt}"))
+        err[dt] = max(err[dt], _allclose(got, want, atol, rtol, where))
     torch.cuda.synchronize()
     print(f"flash_attention check: {len(cases)} cases within the stated tolerance of the plain "
-          f"torch version on the card (bf16 at the main path's shape within "
-          f"{FLASH_MAIN_BF16_ATOL} + 2^-7 |ref|; max abs diff f32 {err['float32']:.3e}, bf16 "
-          f"{err['bfloat16']:.3e})", flush=True)
+          f"torch version on the card, each on its route ("
+          f"{sum(c[-1] == 'mma' for c in cases)} mma, {sum(c[-1] == 'simt' for c in cases)} "
+          f"simt; bf16 at the main path's shape within {FLASH_MAIN_BF16_ATOL} + 2^-7 |ref|; "
+          f"max abs diff f32 {err['float32']:.3e}, bf16 {err['bfloat16']:.3e})", flush=True)
 
     # the main path's call: bf16 q [4, 2048, 25, 64] and k, v [4, 2048, 5, 64]
     # as the prefill hands them over (contiguous, the model's layout), window 1024
@@ -678,7 +699,10 @@ def check_flash(dev) -> dict:
 
     _allclose(sdpa().transpose(1, 2), flash_attend(q, k, v, window=W, backend="ref"),
               FLASH_TOL["bfloat16"], FLASH_TOL["bfloat16"], "SDPA yardstick")
+    if route(qt, kt, vt) != "mma":
+        raise AssertionError("flash: the main path's bf16 shape did not route to mma")
     ms, call_ms = time_ms(lambda: flash_attention_kernel(qt, kt, vt, window=W), 20)
+    simt_ms, _ = time_ms(lambda: flash_attention_kernel(qt, kt, vt, window=W, kernel="simt"), 20)
     plain_ms, plain_call_ms = time_ms(lambda: flash_attend(q, k, v, window=W, backend="ref"), 3,
                                       behind_sleep=False)
     lib_ms, _ = time_ms(sdpa, 20)
@@ -686,9 +710,16 @@ def check_flash(dev) -> dict:
     flops = 4 * hd * pairs                       # q.k and p.v: 2 hd multiply-adds a pair
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"flash_attention at bf16 {[B, T, H, KV, hd]}, window {W}: flash_fwd_mma {ms:.4f} ms, "
+          f"flash_fwd {simt_ms:.4f} ms, SDPA {lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{max(t_ops, t_bytes):.4f} ms", flush=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+            "kernel_route": "mma", "design": "flash_fwd_mma: FA2-style mma.sync m16n8k16 bf16, "
+            "4 warps x 16 query rows, 64-key K/V tiles double-buffered by cp.async, online "
+            "softmax in registers, P = P_hi + P_lo in two P.V products",
+            "simt_ms": simt_ms,
             "launches": None, "max_abs_err": max(err.values()), "max_abs_err_f32": err["float32"],
             "max_abs_err_bf16": err["bfloat16"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes else "bytes",
@@ -815,10 +846,12 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
             torch.cuda.synchronize()
             marks["t"] = time.perf_counter()
             marks["launches"] = (flash_attention_kernel.launches, ssd_intra_chunk_kernel.launches)
+            marks["routes"] = dict(flash_attention_kernel.route_launches)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention_kernel.launches = ssd_intra_chunk_kernel.launches = 0
+    flash_attention_kernel.route_launches = dict.fromkeys(flash_attention_kernel.route_launches, 0)
     t0 = time.perf_counter()
     out = generate(model, params, prompts, steps=SERVE_STEPS, cache_len=cache_len,
                    on_logits=on_logits)
@@ -828,6 +861,7 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
     prefill = marks["launches"]
     decode = (total[0] - prefill[0], total[1] - prefill[1])
     flash_row["launches"], ssd_row["launches"] = total
+    routes = marks["routes"]
     peak = torch.cuda.max_memory_allocated()
     prefill_ms = (marks["t"] - t0) * 1e3
     decode_ms = (t1 - marks["t"]) * 1e3 / (SERVE_STEPS - 1)
@@ -835,17 +869,22 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
            "prompt": SERVE_PROMPT, "steps": SERVE_STEPS, "prefill_ms": prefill_ms,
            "decode_ms_per_step": decode_ms, "decode_tok_per_s": SERVE_BATCH * 1e3 / decode_ms,
            "e2e_tok_per_s": SERVE_BATCH * SERVE_STEPS / (t1 - t0), "peak_gib": peak / 2**30,
-           "prefill_launches": {"flash_attention": prefill[0], "ssd_intra_chunk": prefill[1]},
+           "prefill_launches": {"flash_attention": prefill[0], "ssd_intra_chunk": prefill[1],
+                                "flash_attention_by_route": routes},
            "decode_launches": {"flash_attention": decode[0], "ssd_intra_chunk": decode[1]}}
     print(f"serve path: {cfg.name} {n_params} params ({cfg.dtype}), batch {SERVE_BATCH} x "
           f"{SERVE_PROMPT}-token prompts, {SERVE_STEPS} greedy tokens: prefill "
           f"{prefill_ms:.2f} ms, decode {decode_ms:.2f} ms a step ({res['decode_tok_per_s']:.1f} "
           f"tokens/s), {res['e2e_tok_per_s']:.1f} tokens/s end to end, peak device memory "
-          f"{peak / 2**30:.3f} GiB; launches in the prefill: flash_attention {prefill[0]}, "
-          f"ssd_intra_chunk {prefill[1]}; in decode: {decode[0]}, {decode[1]}", flush=True)
+          f"{peak / 2**30:.3f} GiB; launches in the prefill: flash_attention {prefill[0]} "
+          f"({routes}), ssd_intra_chunk {prefill[1]}; in decode: {decode[0]}, {decode[1]}",
+          flush=True)
     if prefill != (cfg.n_layers, cfg.n_layers) or decode != (0, 0):
         raise AssertionError(f"serve launches: prefill {prefill}, decode {decode}, want "
                              f"({cfg.n_layers}, {cfg.n_layers}) and (0, 0)")
+    if routes != {"mma": cfg.n_layers, "simt": 0}:
+        raise AssertionError(f"serve: the prefill's flash launches took {routes}, want all "
+                             f"{cfg.n_layers} on mma")
     if len(seen) != SERVE_STEPS or not all(torch.isfinite(x).all() for x in seen):
         raise AssertionError("serve path: non-finite logits")
     if out.shape != (SERVE_BATCH, SERVE_STEPS) or int(out.max()) >= cfg.vocab:

@@ -19,26 +19,66 @@
 // ms at the bf16 tensor-core rate of 989 TFLOP/s; the bytes (q, k, v read
 // once, o written once) are 62.9 MB, 0.019 ms at 3.35 TB/s.
 //
-// Design (a first kernel that is right; wgmma and TMA come later): one
-// 256-thread block per (query tile of 64 rows, query head, batch).  The
-// block stages its Q tile, then each K and V tile of 64 keys, in shared
-// memory as fp32, and runs a loop over the key tiles from the window's first
-// to the causal last one, so wholly masked tiles are never visited (as the
-// TPU kernel's pl.when skips them).  A thread owns a 4 x 4 micro-tile of the
-// 64 x 64 scores (rows ty + 16 i, keys tx + 16 j) and 4 rows x hd/16 columns
-// of the output accumulator, in registers, with the running max and sum of
-// its 4 rows; the 16 threads that share a row reduce over it with warp
-// shuffles.  The products are fp32 FMAs on the CUDA cores (67 TFLOP/s at
-// most), so the kernel cannot come within 16x of the tensor-core bound.
-// The kernel reads q, k and v in the model's [B, T, H, hd] layout through
-// the element strides it is given (the head dim must be contiguous), so the
-// caller makes no transposed copy.  Rows padded by one float keep the
-// shared-memory reads free of bank conflicts.
+// Two kernels share the grid, one block per (query tile of 64 rows, query
+// head, batch), and the loop over the key tiles from the window's first to
+// the causal last one, so wholly masked tiles are never visited (as the TPU
+// kernel's pl.when skips them).  Both read q, k and v in the model's
+// [B, T, H, hd] layout through the element strides they are given (the head
+// dim must be contiguous), so the caller makes no transposed copy.  The
+// wrapper (kernels/flash_attention/kernel.py:route) picks one before the
+// launch:
+//
+// flash_fwd_mma: bf16 with hd 16, 32, 64 or 128, q, k, v pointers and
+// batch, head and time strides 16-byte aligned (every prefill of the port).
+// FA2-style on the mma.sync tensor cores: 4 warps a block, 16 query rows a
+// warp.  Q is copied once into shared memory and loaded into A fragments
+// (ldmatrix.x4) that stay in registers.  K and V tiles of 64 keys are
+// double-buffered in shared memory by 16-byte cp.async copies, the next
+// tile's copy in flight during this tile's products; keys past Tk are
+// zero-filled (src-size 0).  Shared rows are padded by 16 bytes, so the
+// eight rows an ldmatrix phase reads fall in eight distinct bank groups.
+// S = Q K^T by mma.sync m16n8k16 (bf16 in, fp32 sums), K's B fragments by
+// ldmatrix; the -1e30 mask is applied per element only on tiles that touch
+// the diagonal, the window's edge or the ragged end.  The online softmax
+// runs in registers: a thread holds 16 scores of each of 2 rows, the row max
+// is reduced over the 4 threads of a quad (shuffles 1, 2), l is summed from
+// the fp32 p per thread and over the quad at the end.  O += P V in two
+// products: p = p_hi + p_lo, both rounded to bf16 in registers and reused as
+// A fragments (the m16n8 accumulator layout is the m16n8k16 A layout once
+// pairs are packed); V's B fragments come by ldmatrix.trans; O sums in fp32
+// registers.  Why two: the TPU kernel keeps p in fp32 through P V, and one
+// bf16 p (relative error up to 2^-8 a term, against an l summed in fp32)
+// moves an output by up to 2^-9 |v_j| where one key dominates a row, as in
+// the first rows of every causal prefill: past one bf16 step of a small
+// output.  p_hi + p_lo carries p to ~2^-17, for twice the P V products
+// (1.5x in all).  Epilogue: O / max(l, 1e-30) rounded to bf16, staged through the
+// warp's own rows of Q's shared tile, stored 16 bytes a thread.  Shared
+// memory: 5 tiles of 64 x (hd + 8) bf16, 46,080 bytes at hd 64, 87,040 at
+// hd 128 (opted in past 48 KB).  What bounds it: the products, 96
+// m16n8k16 a warp a key tile at hd 64 (64.2 GFLOP issued at Hymba's shape
+// for 40.3 useful: the split P V, and the masked halves of the diagonal and
+// window-edge tiles), at most ~2/3 of the 989 TFLOP/s through mma.sync (the
+// full rate needs wgmma), with the softmax's exp2 and shuffles between the
+// two products; predicted 0.20-0.45 ms a launch at Hymba's shape.
+//
+// flash_fwd: everything else, fp32 above all (the fp32 checks hold the
+// kernel at 2e-5, which bf16 tensor cores cannot meet).  A first kernel
+// that is right: 256 threads; the block stages its Q tile, then each K and
+// V tile of 64 keys, in shared memory as fp32.  A thread owns a 4 x 4
+// micro-tile of the 64 x 64 scores (rows ty + 16 i, keys tx + 16 j) and 4
+// rows x hd/16 columns of the output accumulator, in registers, with the
+// running max and sum of its 4 rows; the 16 threads that share a row reduce
+// over it with warp shuffles.  The products are fp32 FMAs on the CUDA cores
+// (67 TFLOP/s at most), so it cannot come within 16x of the tensor-core
+// bound.  Rows padded by one float keep the shared-memory reads free of
+// bank conflicts.
 //
 // Masked scores are -1e30, not -inf, as on the TPU: a row whose first
 // visited tile is wholly outside its window adds exp(0) = 1 terms, which the
 // correction exp(-1e30 - m) rescales to exactly 0 once a real key arrives;
-// with Tq <= Tk the row's own key guarantees one does.
+// with Tq <= Tk the row's own key guarantees one does (which is also why
+// flash_fwd_mma zero-fills the rows past Tk: a 0 weight times a NaN of stale
+// shared memory would not vanish).
 // Head dims 1..128 and any Tq, Tk (the ragged last tiles are masked here).
 
 #include <cstdint>
@@ -217,18 +257,277 @@ cudaError_t dispatch(const Args& a, int B, int H, cudaStream_t stream) {
   return launch<T, 8>(a, B, H, stream);
 }
 
-}  // namespace
 
-extern "C" {
+// ---- flash_fwd_mma: bf16 on the mma.sync tensor cores ----
 
-// strides: 12 element strides, (batch, head, time) of q, k, v and o in turn;
-// scale is 1 / sqrt(hd) rounded to fp32 by the caller.  Returns a cudaError_t
-// (0 on success); the head dim must be 1..128 and H a multiple of KV
-// (checked by the caller).
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                           const long long* strides, int B, int H, int KV, int Tq, int Tk,
-                           int hd, int window, float scale, int bf16,
-                           void* stream) {
+constexpr int kMmaThreads = 128;   // 4 warps, 16 query rows each
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled (nothing read) unless ``valid``
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a b for a 16 x 16 (row) by 16 x 8 (col) bf16 tile, fp32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 and packed, the first in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ float bf16_lo(unsigned x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned x) { return __uint_as_float(x & 0xffff0000u); }
+
+template <int HD>
+struct MmaTile {
+  static constexpr int kLd = HD + 8;        // row pitch in bf16: 16 bytes of padding
+  static constexpr int kElems = kBQ * kLd;  // one 64-row tile (kBQ == kBK)
+  static constexpr size_t kSmem = sizeof(__nv_bfloat16) * 5 * kElems;   // Q, 2 K, 2 V
+};
+
+// rows [r0, r0 + 64) of a [T, HD] bf16 matrix with row stride ``st`` into a
+// padded shared tile by cp.async; rows >= T are zero-filled
+template <int HD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long st, int r0, int T) {
+  constexpr int kChunks = HD / 8;                         // 16 bytes a chunk
+  constexpr int kIters = kBQ * kChunks / kMmaThreads;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int i = threadIdx.x + it * kMmaThreads;
+    const int r = i / kChunks, c = i - r * kChunks;
+    const bool in = r0 + r < T;
+    const __nv_bfloat16* g = in ? src + (r0 + r) * st + c * 8 : src;
+    cp_async16(smem_addr(dst + r * MmaTile<HD>::kLd + c * 8), g, in);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(const Args a) {
+  using T = __nv_bfloat16;
+  constexpr int kLd = MmaTile<HD>::kLd, kTile = MmaTile<HD>::kElems;
+  constexpr int KC = HD / 16;              // k-steps of Q K^T
+  constexpr int ND = HD / 8;               // n-tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [64][kLd]
+  T* ks = qs + kTile;                      // [2][64][kLd]
+  T* vs = ks + 2 * kTile;                  // [2][64][kLd]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;  // the quad's row, the thread in the quad
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / a.group;
+  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+
+  // the key tiles any row of this block can see
+  const int last = min(a.Tk - 1, q0 + kBQ - 1);
+  const int first = a.window ? max(0, q0 - a.window + 1) : 0;
+  const int kb = (first / kBK) * kBK;
+  const int n_tiles = last >= kb ? (last - kb) / kBK + 1 : 0;
+
+  load_tile<HD>(qs, qp, a.q_st, q0, a.Tq);
+  if (n_tiles > 0) {
+    load_tile<HD>(ks, kp, a.k_st, kb, a.Tk);
+    load_tile<HD>(vs, vp, a.v_st, kb, a.Tk);
+  }
+  cp_async_commit();
+
+  unsigned qa[KC][4];                      // this warp's 16 Q rows as A fragments
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // rows q0 + 16 warp + g (r = 0) and + 8 (r = 1); scores in log2 units
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float sl2 = a.scale * 1.4426950408889634f;
+  const int row0 = q0 + warp * 16 + g;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = kb + t * kBK;
+    const T* kt = ks + (t & 1) * kTile;
+    const T* vt = vs + (t & 1) * kTile;
+    if (t + 1 < n_tiles) {                 // the next tile's copy flies during this one
+      load_tile<HD>(ks + ((t + 1) & 1) * kTile, kp, a.k_st, k0 + kBK, a.Tk);
+      load_tile<HD>(vs + ((t + 1) & 1) * kTile, vp, a.v_st, k0 + kBK, a.Tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                       // this tile (and Q) landed for every thread
+    if (t == 0) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        ldsm_x4(smem_addr(qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
+                          kc * 16 + (lane >> 4) * 8),
+                qa[kc]);
+    }
+
+    // S = Q K^T: n-tile j holds keys k0 + 8 j .. + 7
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        unsigned kf[4];
+        ldsm_x4(smem_addr(kt + (j * 8 + (lane & 7) + (lane >> 4) * 8) * kLd + kc * 16 +
+                          ((lane >> 3) & 1) * 8),
+                kf);
+        mma_bf16(s[j], qa[kc], kf[0], kf[1]);
+        mma_bf16(s[j + 1], qa[kc], kf[2], kf[3]);
+      }
+    }
+
+    // element e of s[j]: row row0 + 8 (e >> 1), key k0 + 8 j + 2 tig + (e & 1)
+    const bool edge = k0 + kBK - 1 > q0 || k0 + kBK > a.Tk ||
+                      (a.window && q0 + kBQ - 1 - k0 >= a.window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (edge) {
+          const int row = row0 + 8 * (e >> 1), key = k0 + 8 * j + 2 * tig + (e & 1);
+          if (key >= a.Tk || key > row || (a.window && row - key >= a.window)) x = kNegInf;
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax: the row max over the quad, p = 2^(x - m) in fp32
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float corr = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][2 * r] *= corr;
+        o[n][2 * r + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+
+    // O += P_hi V + P_lo V: keys 16 kc .. + 15 are n-tiles 2 kc, 2 kc + 1 of S
+#pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc) {
+      unsigned pa[4], pl[4];               // p_hi and p_lo as A fragments
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {        // a0..a3: rows g, g + 8 of keys +0..7, +8..15
+        const float x0 = s[2 * kc + (i >> 1)][2 * (i & 1)];
+        const float x1 = s[2 * kc + (i >> 1)][2 * (i & 1) + 1];
+        pa[i] = pack_bf16(x0, x1);
+        pl[i] = pack_bf16(x0 - bf16_lo(pa[i]), x1 - bf16_hi(pa[i]));   // p - p_hi, exact
+      }
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        unsigned vf[4];
+        ldsm_x4_trans(smem_addr(vt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
+                                n * 8 + (lane >> 4) * 8),
+                      vf);
+        mma_bf16(o[n], pa, vf[0], vf[1]);
+        mma_bf16(o[n], pl, vf[0], vf[1]);
+        mma_bf16(o[n + 1], pa, vf[2], vf[3]);
+        mma_bf16(o[n + 1], pl, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                       // every warp is done with this stage
+  }
+  cp_async_wait<0>();                      // with no tile, the Q copy is still pending
+  __syncthreads();
+
+  // epilogue: O / max(l, 1e-30) in bf16 through the warp's own 16 rows of qs
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  T* ow = qs + warp * 16 * kLd;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(ow + g * kLd + n * 8 + 2 * tig) =
+        __floats2bfloat162_rn(o[n][0] / l[0], o[n][1] / l[0]);
+    *reinterpret_cast<__nv_bfloat162*>(ow + (g + 8) * kLd + n * 8 + 2 * tig) =
+        __floats2bfloat162_rn(o[n][2] / l[1], o[n][3] / l[1]);
+  }
+  __syncwarp();
+  T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  constexpr int kChunks = HD / 8;
+#pragma unroll
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const int i = lane + 32 * it;
+    const int r = i / kChunks, c = i - r * kChunks;
+    const int row = q0 + warp * 16 + r;
+    if (row < a.Tq)
+      *reinterpret_cast<uint4*>(op + row * a.o_st + c * 8) =
+          *reinterpret_cast<const uint4*>(ow + r * kLd + c * 8);
+  }
+}
+
+template <int HD>
+cudaError_t launch_mma(const Args& a, int B, int H, cudaStream_t stream) {
+  const size_t bytes = MmaTile<HD>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tq + kBQ - 1) / kBQ, H, B);
+  flash_fwd_mma<HD><<<grid, kMmaThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+Args make_args(const void* q, const void* k, const void* v, void* o, const long long* strides,
+               int H, int KV, int Tq, int Tk, int hd, int window, float scale) {
   Args a;
   a.q = q;
   a.k = k;
@@ -244,9 +543,48 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   a.hd = hd;
   a.window = window;
   a.scale = scale;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// strides: 12 element strides, (batch, head, time) of q, k, v and o in turn;
+// scale is 1 / sqrt(hd) rounded to fp32 by the caller.  Returns a cudaError_t
+// (0 on success); the head dim must be 1..128 and H a multiple of KV
+// (checked by the caller).  flash_fwd.
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
+                           const long long* strides, int B, int H, int KV, int Tq, int Tk,
+                           int hd, int window, float scale, int bf16,
+                           void* stream) {
+  const Args a = make_args(q, k, v, o, strides, H, KV, Tq, Tk, hd, window, scale);
   if (Tq == 0 || B == 0 || H == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return int(bf16 ? dispatch<__nv_bfloat16>(a, B, H, s) : dispatch<float>(a, B, H, s));
+}
+
+// flash_fwd_mma, bf16 only: the same arguments; hd must be 16, 32, 64 or
+// 128, and the four pointers and 12 strides 16-byte aligned (8 elements),
+// or it returns cudaErrorInvalidValue without launching.
+int flash_attention_mma_launch(const void* q, const void* k, const void* v, void* o,
+                               const long long* strides, int B, int H, int KV, int Tq, int Tk,
+                               int hd, int window, float scale, void* stream) {
+  const void* ptrs[4] = {q, k, v, o};
+  for (int i = 0; i < 4; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return int(cudaErrorInvalidValue);
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8) return int(cudaErrorInvalidValue);
+  const Args a = make_args(q, k, v, o, strides, H, KV, Tq, Tk, hd, window, scale);
+  if (Tq == 0 || B == 0 || H == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return int(launch_mma<16>(a, B, H, s));
+    case 32: return int(launch_mma<32>(a, B, H, s));
+    case 64: return int(launch_mma<64>(a, B, H, s));
+    case 128: return int(launch_mma<128>(a, B, H, s));
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -1,10 +1,13 @@
 """CUDA kernel wrapper: causal, sliding-window GQA flash attention.
 
-Launches ``flash_fwd`` from ``repro_torch/csrc/flash_attention.cu`` (built
-with ``nvcc`` for ``sm_90a`` at first use, loaded with ``ctypes``) on the
-current stream, one block per (64-row query tile, head, batch); the
-source's header note gives the bound and the design.  Replaces the Pallas
-kernel ``repro/kernels/flash_attention/kernel.py:flash_attention``.
+Launches one of two kernels of ``repro_torch/csrc/flash_attention.cu``
+(built with ``nvcc`` for ``sm_90a`` at first use, loaded with ``ctypes``)
+on the current stream, one block per (64-row query tile, head, batch):
+``flash_fwd_mma`` (bf16 on the ``mma.sync`` tensor cores) where
+:func:`route` says ``"mma"``, else ``flash_fwd`` (fp32 sums on the CUDA
+cores, any head dim up to 128, f32 or bf16).  The source's header note
+gives the bound and both designs.  Replaces the Pallas kernel
+``repro/kernels/flash_attention/kernel.py:flash_attention``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from ..build import load
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HD = 128
+MMA_HDS = (16, 32, 64, 128)     # flash_fwd_mma's head dims
+ROUTES = ("mma", "simt")
 
 
 def _lib() -> ctypes.CDLL:
@@ -25,15 +30,38 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.flash_attention_mma_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return lib
 
 
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which kernel takes these [B,H,T,hd] inputs: ``"mma"`` for bf16 with
+    a head dim of 16, 32, 64 or 128 whose data pointers and batch, head and
+    time strides are 16-byte aligned (``flash_fwd_mma`` copies 16 bytes at
+    a time), ``"simt"`` (``flash_fwd``) for everything else, f32 above all.
+    Decided from dtypes, shapes, strides and pointers alone, before any
+    launch; the device plays no part."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in MMA_HDS:
+        return "simt"
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16 or t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)):
+            return "simt"
+    return "mma"
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                           window: int = 0) -> torch.Tensor:
+                           window: int = 0, kernel: str | None = None) -> torch.Tensor:
     """q [B,H,Tq,hd]; k,v [B,KV,Tk,hd] (f32 or bf16, one dtype, on one CUDA
     device, any strides with a contiguous head dim: transposed views of the
     model's [B,T,H,hd] tensors are read in place) -> [B,H,Tq,hd] in q's
-    dtype, a transposed view of a contiguous [B,Tq,H,hd] tensor."""
+    dtype, a transposed view of a contiguous [B,Tq,H,hd] tensor.
+
+    The kernel is :func:`route`'s choice; ``kernel`` names one instead (to
+    time ``"simt"`` on the inputs ``"mma"`` takes), and ``"mma"`` on inputs
+    it does not take raises."""
     B, H, Tq, hd = q.shape
     KV, Tk = k.shape[1], k.shape[2]
     dev = q.device
@@ -53,18 +81,28 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 0, got {window}")
     if max(B, H) > 65535:
         raise ValueError(f"batch {B} and heads {H} must be <= 65535 (grid dims)")
+    chosen = route(q, k, v)
+    if kernel is not None:
+        if kernel not in ROUTES or (kernel == "mma" and chosen != "mma"):
+            raise ValueError(f"kernel {kernel!r} cannot take these inputs (route: {chosen!r})")
+        chosen = kernel
     out = torch.empty((B, Tq, H, hd), dtype=q.dtype, device=dev).transpose(1, 2)
     strides = np.array([t.stride(i) for t in (q, k, v, out) for i in range(3)], np.int64)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides.ctypes.data,
+            B, H, KV, Tq, Tk, hd, window, 1.0 / hd ** 0.5)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                         strides.ctypes.data, B, H, KV, Tq, Tk, hd, window,
-                                         1.0 / hd ** 0.5, int(q.dtype == torch.bfloat16), stream)
+        if chosen == "mma":
+            err = lib.flash_attention_mma_launch(*args, stream)
+        else:
+            err = lib.flash_attention_launch(*args, int(q.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention_kernel ({chosen}) launch failed: cudaError {err}")
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.route_launches[chosen] += 1
     return out
 
 
 flash_attention_kernel.launches = 0   # launches so far; reset by the caller
+flash_attention_kernel.route_launches = dict.fromkeys(ROUTES, 0)   # the same, by kernel

@@ -13,8 +13,21 @@ the JAX package's.
   chunked case above 2,048 queries, at 2e-5;
 * the dispatch: a CPU tensor takes the plain version under
   ``backend="kernel"``, an input that requires a gradient raises;
+* the routing between the two CUDA kernels (``kernel.route``, decided from
+  dtypes, strides and pointers, so it runs on CPU tensors): ``"mma"`` for
+  the bf16 prefill views of Hymba-1.5B and Qwen1.5-0.5B as ``_qkv`` builds
+  them and for the bf16 stress shapes, ``"simt"`` for f32, hd 48 and views
+  misaligned for 16-byte copies;
+* ``flash_fwd_mma``'s arithmetic, emulated in torch here (tiles of 64
+  keys, the online softmax in log2 units, p = p_hi + p_lo in bf16 through
+  P·V, l from the fp32 p), vs the plain version and JAX's Pallas kernel in
+  interpret mode within one bf16 step (1e-3 + 2^-7·|ref|, the bound the
+  card holds the kernel to at the serving shape), over the windows and GQA
+  groups of ``CUDA_CASES``; and one bf16 rounding of p, which that bound
+  must refuse;
 * on a card (``cuda``-marked, skipped without one): the kernel vs the plain
-  version at those tolerances, ragged T and strided inputs included.
+  version at those tolerances, ragged T and strided inputs included, with
+  the route each case took.
 
 All inputs are made with numpy from a seed; fp32 on the CPU.
 """
@@ -27,10 +40,13 @@ torch = pytest.importorskip("torch")
 from repro.kernels.flash_attention.ops import flash_attend as j_flash  # noqa: E402
 from repro.kernels.flash_attention.ops import reference_attend as j_reference  # noqa: E402
 from repro.models.attention import attend as j_attend  # noqa: E402
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    MMA_HDS, flash_attention_kernel, route)
 from repro_torch.kernels.flash_attention.ops import flash_attend  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_torch  # noqa: E402
-from repro_torch.models.attention import attend  # noqa: E402
+from repro_torch.models.attention import _qkv as t_qkv  # noqa: E402
+from repro_torch.models.attention import attend, gqa_init  # noqa: E402
 
 SWEEP = [
     # B, T, H, KV, hd, window, bq (the JAX test's, then a group of 5 with a window)
@@ -119,6 +135,138 @@ def test_dispatch_cpu_takes_plain_and_autograd_raises():
         flash_attention_kernel(q.detach().transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
 
 
+def _packed_views(b, t, h, kv, d, dtype, *, width=None, offset=0):
+    """q, k, v as [B,H,T,hd] views of one packed [b, t, h + 2 kv, width]
+    tensor (``width`` >= d; the head dim's first d of it), ``offset``
+    elements into its storage, as the stress checks on the card build them."""
+    width = width or d
+    n = b * t * (h + 2 * kv) * width
+    flat = torch.zeros(n + offset, dtype=dtype)[offset:]
+    packed = flat.view(b, t, h + 2 * kv, width)[..., :d]
+    return tuple(x.transpose(1, 2) for x in packed.split([h, kv, kv], dim=2))
+
+
+def _prefill_views(arch: str, T: int = 8):
+    """The [B,H,T,hd] views the prefill hands the kernel: ``_qkv`` of one
+    layer of ``arch`` at full width, bf16 on the CPU."""
+    cfg = get_arch(arch)
+    gen = torch.Generator().manual_seed(0)
+    p = gqa_init(gen, cfg, torch.bfloat16, "cpu")
+    x = torch.randn((1, T, cfg.d_model), generator=gen).to(torch.bfloat16)
+    return tuple(t.transpose(1, 2) for t in t_qkv(p, cfg, x, torch.arange(T)))
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen1.5-0.5b"])
+def test_route_takes_mma_for_the_prefill_views(arch):
+    q, k, v = _prefill_views(arch)
+    assert q.dtype == torch.bfloat16 and q.shape[-1] == 64
+    assert route(q, k, v) == "mma"
+
+
+@pytest.mark.parametrize("b,t,h,kv,d", [(2, 1000, 10, 2, 64), (1, 300, 8, 1, 128)])
+def test_route_takes_mma_for_bf16_stress_shapes(b, t, h, kv, d):
+    assert route(*_packed_views(b, t, h, kv, d, torch.bfloat16)) == "mma"
+
+
+@pytest.mark.parametrize("case", ["float32", "hd48", "stride", "pointer"])
+def test_route_takes_simt_otherwise(case):
+    kw = {"float32": dict(dtype=torch.float32),
+          "hd48": dict(d=48),
+          "stride": dict(width=65),      # a time stride of 12 * 65 elements
+          "pointer": dict(offset=4)}[case]   # 8 bytes into the storage
+    args = dict(b=1, t=70, h=8, kv=2, d=64, dtype=torch.bfloat16) | kw
+    q, k, v = _packed_views(args.pop("b"), args.pop("t"), args.pop("h"), args.pop("kv"),
+                            args.pop("d"), args.pop("dtype"), **args)
+    assert route(q, k, v) == "simt"
+
+
+LOG2E = 1.4426950408889634
+# the serving shape's bound on the card: one bf16 step, plus 1e-3 for the
+# order of the fp32 sums (chip_smoke.py: FLASH_MAIN_BF16_ATOL / _RTOL)
+STEP_ATOL, STEP_RTOL = 1e-3, 2.0 ** -7
+
+
+def _emulate_mma(q, k, v, *, window=0, split=True):
+    """``flash_fwd_mma``'s arithmetic on [B,H,T,hd] bf16 tensors: each
+    64-row query tile visits the 64-key tiles from its window's first to
+    its causal last; scores q.k in fp32 times scale·log2(e), -1e30 where
+    masked; the running max m, p = 2^(x - m) and l summed in fp32; O is
+    rescaled and gains bf16(p)·V, and bf16(p - bf16(p))·V when ``split``
+    (the kernel's two products); O / max(l, 1e-30) rounded to bf16."""
+    B, H, Tq, hd = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    kf, vf = (x.float().repeat_interleave(H // KV, 1) for x in (k, v))
+    sl2 = np.float32(1.0 / hd ** 0.5) * np.float32(LOG2E)
+    out = torch.empty((B, H, Tq, hd))
+    for q0 in range(0, Tq, 64):
+        rows = torch.arange(q0, min(q0 + 64, Tq))[:, None]
+        m = torch.full((B, H, len(rows), 1), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, H, len(rows), hd))
+        first = max(0, q0 - window + 1) if window else 0
+        for k0 in range(first // 64 * 64, min(Tk - 1, q0 + 63) + 1, 64):
+            keys = torch.arange(k0, min(k0 + 64, Tk))[None, :]
+            x = q[:, :, q0:q0 + 64].float() @ kf[:, :, k0:k0 + 64].transpose(-1, -2) * sl2
+            ok = keys <= rows
+            if window:
+                ok = ok & (rows - keys < window)
+            x = torch.where(ok, x, -1e30)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            corr = torch.exp2(m - m_new)
+            m = m_new
+            p = torch.exp2(x - m)
+            l = l * corr + p.sum(-1, keepdim=True)
+            hi = p.bfloat16().float()
+            pv = hi @ vf[:, :, k0:k0 + 64]
+            if split:
+                pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + 64]
+            acc = acc * corr + pv
+        out[:, :, q0:q0 + 64] = acc / l.clamp_min(1e-30)
+    return out.to(torch.bfloat16)
+
+
+EMU_CASES = [
+    # B, T, H, KV, hd, window: the windows and GQA groups of CUDA_CASES
+    (1, 1152, 5, 1, 64, 1024),   # Hymba's group of 5 and window
+    (1, 256, 5, 1, 64, 0),
+    (1, 128, 4, 4, 32, 0),
+    (1, 512, 10, 2, 64, 100),
+    (1, 192, 8, 1, 128, 0),
+    (2, 192, 6, 3, 16, 64),
+    (1, 384, 6, 2, 32, 70),
+    (1, 256, 4, 2, 64, 50),
+]
+
+
+def _bf16_inputs(B, T, H, KV, hd, seed):
+    q, k, v = _qkv(B, T, H, KV, hd, seed=seed)
+    return ([torch.from_numpy(x).to(torch.bfloat16).transpose(1, 2) for x in (q, k, v)],
+            [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)])
+
+
+@pytest.mark.parametrize("B,T,H,KV,hd,window", EMU_CASES)
+def test_mma_numerics_within_one_bf16_step(B, T, H, KV, hd, window):
+    tb, jb = _bf16_inputs(B, T, H, KV, hd, seed=7)
+    got = _emulate_mma(*tb, window=window).float().transpose(1, 2).numpy()
+    ref = flash_attention_torch(*tb, window=window).float().transpose(1, 2).numpy()
+    pal = np.asarray(j_flash(*jb, window=window, interpret=True, bq=64, bk=64), np.float32)
+    np.testing.assert_allclose(got, ref, atol=STEP_ATOL, rtol=STEP_RTOL)
+    np.testing.assert_allclose(got, pal, atol=STEP_ATOL, rtol=STEP_RTOL)
+
+
+def test_one_bf16_rounding_of_p_leaves_the_one_step_bound():
+    """Why the kernel splits p: rounded once to bf16, a p near 1 of a row's
+    dominant key (the first rows of a causal prefill) moves its output by up
+    to 2^-9·|v|, and the bound the card holds the kernel to refuses it."""
+    tb, _ = _bf16_inputs(1, 256, 4, 2, 64, seed=7)
+    ref = flash_attention_torch(*tb, window=0).float()
+    bound = STEP_ATOL + STEP_RTOL * ref.abs()
+    once = (_emulate_mma(*tb, split=False).float() - ref).abs()
+    split = (_emulate_mma(*tb).float() - ref).abs()
+    assert int((once > bound).sum()) > 0
+    assert int((split > bound).sum()) == 0
+
+
 CUDA_CASES = [
     # B, T, H, KV, hd, window, dtype
     (2, 2048, 25, 5, 64, 1024, "bfloat16"),   # Hymba's prefill, batch cut to 2
@@ -127,6 +275,8 @@ CUDA_CASES = [
     (1, 1000, 10, 2, 64, 100, "float32"),     # window not a multiple of the tile
     (1, 300, 8, 1, 128, 0, "bfloat16"),       # MQA, hd 128
     (2, 130, 6, 3, 16, 64, "float32"),        # hd 16
+    (1, 333, 6, 2, 32, 70, "bfloat16"),       # the mma route: ragged T, hd 32
+    (1, 200, 4, 2, 48, 50, "bfloat16"),       # the simt route in bf16: hd 48
 ]
 
 
@@ -140,11 +290,15 @@ def test_cuda_kernel_matches_plain(B, T, H, KV, hd, window, dtype):
     q, k, v = (torch.from_numpy(x).to(dev, tdt) for x in _qkv(B, T, H, KV, hd, seed=6))
     qkv = torch.cat([q, k.repeat(1, 1, H // KV, 1)], dim=2)   # strided q: a slice of it
     q_view = qkv[:, :, :H]
+    want_route = "mma" if dtype == "bfloat16" and hd in MMA_HDS else "simt"
     before = flash_attention_kernel.launches
+    by_route = dict(flash_attention_kernel.route_launches)
     got = flash_attend(q_view, k, v, window=window)
     want = flash_attend(q, k, v, window=window, backend="ref")
     torch.cuda.synchronize()
     assert flash_attention_kernel.launches == before + 1
+    assert {r: n - by_route[r] for r, n in flash_attention_kernel.route_launches.items()} == {
+        r: int(r == want_route) for r in by_route}
     tol = 2e-5 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=tol,
                                rtol=tol)
