@@ -11,22 +11,26 @@
    shapes, and times both: bitwise for the training paths' three kernels,
    at the JAX tests' tolerances for flash attention (fp32 2e-5, bf16 2e-2)
    and the SSD intra-chunk step (atol 3e-5, rtol 3e-4), whose sums run in
-   another order than their plain versions'; flash attention's cases run
-   on the kernel its wrapper routes them to (``flash_fwd_mma``, bf16 on the
-   tensor cores, or ``flash_fwd``), and at the serving shape the tensor-core
-   kernel is timed beside ``flash_fwd`` on the same inputs and
-   ``F.scaled_dot_product_attention`` with the same band mask, a yardstick
-   the port never calls;
+   another order than their plain versions'; the quantize and flash
+   attention cases each assert the route their wrappers choose (quantize:
+   ``warp``, a warp per chunk, at the e2e wire leaves and the largest
+   warp chunk, ``block`` for n % 4 != 0, other chunks and misaligned rows;
+   flash: ``flash_fwd_mma``, bf16 on the tensor cores, or ``flash_fwd``);
+   both quantize routes are timed in turns at one main-path direction, and
+   at the serving shape the tensor-core kernel is timed beside
+   ``flash_fwd`` on the same inputs and ``F.scaled_dot_product_attention``
+   with the same band mask, a yardstick the port never calls;
 3. drives five main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
    (``rr_backend="device"``), first with a dense wire, then with the qsgd
    codec both ways (``uplink="qsgd", downlink="qsgd"``: the CUDA quantize
-   kernels, 12 launches of each a direction a round); then FedShuffleMVR
-   (``server_opt="mvr"``) for 4 rounds with the App. F server step (the
-   CUDA server_update kernel, one launch a round over all 111 parameter
-   tensors) and for 2 rounds with the exact eq. 14 step (torch, no kernel);
+   kernels, 12 launches of each a direction a round, all on the ``warp``
+   route); then FedShuffleMVR (``server_opt="mvr"``) for 4 rounds with the
+   App. F server step (the CUDA server_update kernel, one launch a round
+   over all 111 parameter tensors) and for 2 rounds with the exact eq. 14
+   step (torch, no kernel);
    then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
    seed 0) through ``launch/serve.py:generate``: batch 4, 2,048-token
    prompts, 32 greedy tokens (one flash attention launch a layer in the
@@ -55,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -95,6 +100,46 @@ def rr_ops_per_element(mode: str, rounds: int) -> int:
     (fmix32 = 8, key_combine = 14, a division or modulo counted as one):
     29 for indexing and the epoch key, then wr: 23; rr: 1 + 45 per round."""
     return 29 + (23 if mode == "wr" else 1 + 45 * rounds)
+
+
+def _kernel_name(mangled: str) -> tuple[str, str]:
+    """``_ZN<len><namespace><len>quantize_pack_warp_kernelILi4ELi2EEEv...``
+    -> (``quantize_pack_warp_kernel``, ``<4,2>``); a name that is not
+    mangled is returned as it is, with no template arguments."""
+    m = re.match(r"_ZN?", mangled)
+    i, name = (m.end() if m else 0), None
+    while m and (d := re.match(r"\d+", mangled[i:])):
+        k = int(d.group())
+        name, i = mangled[i + d.end():i + d.end() + k], i + d.end() + k
+    if name is None:
+        return mangled, ""
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    targs = re.findall(r"Li(-?\d+)E", args.group(1)) if args else []
+    return name, f"<{','.join(targs)}>" if targs else ""
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line a kernel (every instance of a template on one line) from
+    ``nvcc -Xptxas -v``: registers a thread and bytes spilled."""
+    found: dict[str, list] = {}
+    name = targs = "?"
+    spill = 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            (name, targs), spill = _kernel_name(line.split("'")[1]), 0
+        elif "spill" in line:
+            spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill", line))
+        elif (regs := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            found.setdefault(name, []).append((targs, int(regs.group(1)), spill,
+                                               int(smem.group(1)) if smem else 0))
+    out = []
+    for name, inst in found.items():
+        regs = ", ".join(f"{t} {r}".strip() for t, r, _, _ in inst)
+        smem = max(x[3] for x in inst)
+        out.append(f"{name}: registers {regs}; spilled {sum(x[2] for x in inst)} bytes"
+                   + (f"; {smem} bytes smem" if smem else ""))
+    return out
 
 
 def time_ms(fn, iters: int, behind_sleep: bool = True) -> tuple[float, float]:
@@ -241,24 +286,41 @@ def _bitwise(a, b) -> bool:
 
 
 def _check_quantize_case(v, keys, chunk: int, bits: int, mirror_chunks: int,
-                         mirror_rows: int) -> tuple[int, float, float]:
+                         mirror_rows: int, want_route: str,
+                         misalign_packed: bool = False) -> tuple[int, float, float]:
     """Kernel vs plain torch on the card over all rows, and vs the numpy
     mirror on the first ``mirror_chunks`` chunks of the first
-    ``mirror_rows`` rows: packed bytes, scales and decoded values.  Returns
-    the number of values checked and the largest absolute difference from
-    the plain version of the packed bytes and of the decoded values."""
+    ``mirror_rows`` rows: packed bytes, scales and decoded values, with both
+    kernels launched on ``want_route`` by their wrappers' own choice (with
+    ``misalign_packed`` the packed bytes are decoded from a copy one byte
+    off 16-byte alignment).  Returns the number of values checked and the
+    largest absolute difference from the plain version of the packed bytes
+    and of the decoded values."""
     import torch
 
     from repro_torch.kernels.quantize import ref
-    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+    from repro_torch.kernels.quantize.kernel import (quantize_pack_kernel, route,
+                                                     unpack_dequantize_kernel)
 
     n = v.shape[1]
+    where = f"quantize chunk={chunk} bits={bits} shape={list(v.shape)}"
+    if route(n, chunk, bits, v.data_ptr()) != want_route:
+        raise AssertionError(f"{where}: route {route(n, chunk, bits, v.data_ptr())!r}, "
+                             f"want {want_route!r}")
+    before = (quantize_pack_kernel.route_launches[want_route],
+              unpack_dequantize_kernel.route_launches[want_route])
     gp, gs = quantize_pack_kernel(v, keys, chunk=chunk, bits=bits)
     wp, ws = ref.quantize_pack_torch(v, keys, chunk=chunk, bits=bits)
+    if misalign_packed:
+        off = torch.empty(gp.numel() + 1, dtype=torch.uint8, device=gp.device)[1:]
+        gp = off.view(gp.shape).copy_(gp)
     gd = unpack_dequantize_kernel(gp, gs, n=n, chunk=chunk, bits=bits)
     wd = ref.unpack_dequantize_torch(wp, ws, n=n, chunk=chunk, bits=bits)
     torch.cuda.synchronize()
-    where = f"quantize chunk={chunk} bits={bits} shape={list(v.shape)}"
+    after = (quantize_pack_kernel.route_launches[want_route],
+             unpack_dequantize_kernel.route_launches[want_route])
+    if after != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"{where}: the {want_route} kernels did not launch")
     err_q = float((gp.int() - wp.int()).abs().max())
     err_d = float((gd - wd).abs().max())
     if not (_bitwise(gp, wp) and _bitwise(gs, ws) and _bitwise(gd, wd)):
@@ -281,9 +343,14 @@ def check_quantize(dev) -> list[dict]:
     """The two quantize kernels on the card vs their plain torch versions on
     the card and the numpy mirror, bitwise, for bits 2 / 4 / 8 at the e2e
     wire leaves (cohort of 8, chunk 256, keys as the codec derives them in
-    round 0) and at stress shapes (ragged tails, chunks of 8 and 1000, keys
-    near 2^32 - 1, all-zero and -0.0 chunks); then both timed over one
-    direction of one main-path round: all 12 wire leaves, 4 bits."""
+    round 0; route ``warp``) and at stress shapes (ragged tails, chunks of
+    8, 256 and 1000 with n % 4 != 0, keys near 2^32 - 1, all-zero and -0.0
+    chunks; route ``block``), and at the warp route's edges (chunk 1024
+    with a ragged tail: ``warp``; rows one element off 16-byte alignment:
+    ``block``); then, over one direction of one main-path round (all 12
+    wire leaves, 4 bits), the ``block`` kernels' bytes against the
+    ``warp`` kernels', and both routes timed in turns (warp, block, block,
+    warp) beside the plain version."""
     import torch
 
     from repro_torch.fed.comm import round_keys
@@ -316,59 +383,88 @@ def check_quantize(dev) -> list[dict]:
     for bits in ref.BITS_CHOICES:
         for v, k in zip(leaves, keys):
             checked += tally(_check_quantize_case(v, k, chunk, bits, mirror_chunks=1024,
-                                                  mirror_rows=2))
-    for c in (8, 256, 1000):
-        n = 37 * c + 5                                            # a ragged last chunk
+                                                  mirror_rows=2, want_route="warp"))
+
+    def stress_rows(c, n, misalign=0):
         nc = -(-n // c)
-        v = torch.randn((5, n), generator=gen, device=dev) * 10.0
+        flat = torch.randn((5 * n + misalign,), generator=gen, device=dev) * 10.0
+        v = flat[misalign:].view(5, n)
         v[1, :2 * c] = 0.0
         v[2] = -0.0
-        k = (2**32 - 1 - torch.arange(5 * nc, device=dev)).reshape(5, nc)
+        return v, (2**32 - 1 - torch.arange(5 * nc, device=dev)).reshape(5, nc)
+
+    # n = 37c + 5: a ragged last chunk and n % 4 != 0; then the warp route's
+    # edges: its largest chunk with a ragged tail of 516 values, and rows
+    # (and packed bytes) off 16-byte alignment
+    cases = [(c, 37 * c + 5, 0, "block") for c in (8, 256, 1000)]
+    cases += [(1024, 37 * 1024 + 516, 0, "warp"), (256, 37 * 256 + 4, 1, "block")]
+    for c, n, misalign, want_route in cases:
+        v, k = stress_rows(c, n, misalign)
         for bits in ref.BITS_CHOICES:
-            stress += tally(_check_quantize_case(v, k, c, bits, mirror_chunks=nc, mirror_rows=5))
-    print(f"quantize check: {checked} values at the e2e wire leaves and {stress} at stress "
-          f"shapes bitwise equal (kernels, plain torch on the card, numpy mirror; "
-          f"bits 2, 4, 8)", flush=True)
+            stress += tally(_check_quantize_case(v, k, c, bits, mirror_chunks=k.shape[1],
+                                                 mirror_rows=5, want_route=want_route,
+                                                 misalign_packed=bool(misalign)))
+    print(f"quantize check: {checked} values at the e2e wire leaves (route warp) and {stress} "
+          f"at stress shapes ({sum(c[-1] == 'warp' for c in cases)} warp, "
+          f"{sum(c[-1] == 'block' for c in cases)} block) bitwise equal (kernels, plain torch "
+          f"on the card, numpy mirror; bits 2, 4, 8)", flush=True)
 
     bits = fl.uplink_bits
     values = sum(v.numel() for v in leaves)
     nchunks = sum(k.numel() for k in keys)
     pb = ref.packed_width(chunk, bits)
-    packs = [quantize_pack_kernel(v, k, chunk=chunk, bits=bits) for v, k in zip(leaves, keys)]
     ns = [v.shape[1] for v in leaves]
 
-    def q_kernel():
-        return [quantize_pack_kernel(v, k, chunk=chunk, bits=bits) for v, k in zip(leaves, keys)]
+    def q_kernel(kernel):
+        return [quantize_pack_kernel(v, k, chunk=chunk, bits=bits, kernel=kernel)
+                for v, k in zip(leaves, keys)]
 
     def q_plain():
         return [ref.quantize_pack_torch(v, k, chunk=chunk, bits=bits) for v, k in zip(leaves, keys)]
 
-    def d_kernel():
-        return [unpack_dequantize_kernel(p, s, n=n, chunk=chunk, bits=bits)
+    def d_kernel(kernel):
+        return [unpack_dequantize_kernel(p, s, n=n, chunk=chunk, bits=bits, kernel=kernel)
                 for (p, s), n in zip(packs, ns)]
 
     def d_plain():
         return [ref.unpack_dequantize_torch(p, s, n=n, chunk=chunk, bits=bits)
                 for (p, s), n in zip(packs, ns)]
 
+    packs = q_kernel("warp")
+    same = all(_bitwise(a, b) for x, y in zip(packs, q_kernel("block")) for a, b in zip(x, y))
+    same = same and all(_bitwise(a, b) for a, b in zip(d_kernel("warp"), d_kernel("block")))
+    if not same:
+        raise AssertionError("quantize at the e2e leaves, 4 bits: block route != warp route")
     # bytes each call must move: every input read once, every output written once
     q_bytes = 4 * values + 8 * nchunks + pb * nchunks + 4 * nchunks
     d_bytes = pb * nchunks + 4 * nchunks + 4 * values
     rows = []
     for name, kern, plain, nbytes in (("quantize_pack", q_kernel, q_plain, q_bytes),
                                       ("unpack_dequantize", d_kernel, d_plain, d_bytes)):
-        # 20 calls of 12 launches fit the launch queue behind the sleep
-        ms, call_ms = time_ms(kern, 20)
+        # 20 calls of 12 launches fit the launch queue behind the sleep; the
+        # routes in turns, warp, block, block, warp
+        turns = [time_ms(lambda r=r: kern(r), 20) for r in ("warp", "block", "block", "warp")]
+        ms, block_ms = (turns[0][0] + turns[3][0]) / 2, (turns[1][0] + turns[2][0]) / 2
+        call_ms = (turns[0][1] + turns[3][1]) / 2
         plain_ms, plain_call_ms = time_ms(plain, 3, behind_sleep=False)
         int_ops, fp_ops = QUANT_OPS[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = max(int_ops * values / INT32_OPS_PER_S,
                     (int_ops + fp_ops) * values / ISSUE_OPS_PER_S) * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        print(f"{name} at the e2e leaves, one direction: warp {ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f} % of bound), block {block_ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms; turns (warp, block, block, warp) "
+              f"{[round(t[0], 4) for t in turns]}", flush=True)
         rows.append({"name": name, "route": "cuda", "source": "src/repro_torch/csrc/quantize.cu",
                      "replaces": ("src/repro/kernels/quantize/kernel.py:53" if name == "quantize_pack"
                                   else "src/repro/kernels/quantize/kernel.py:79"),
-                     "launches": None, "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(t_bytes, t_ops),
+                     "kernel_route": "warp", "design": "one warp per chunk, 8 chunks a block, "
+                     "float4 loads into registers, shuffle max, hoisted hash offset, one "
+                     "vector store of a lane's packed word",
+                     "launches": None, "route_launches": None, "max_abs_err": err[name],
+                     "ms": ms, "block_ms": block_ms, "ms_turns": [t[0] for t in turns],
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": "operations" if t_ops > t_bytes else "bytes",
                      "library_ms": None, "call_ms": call_ms, "plain_call_ms": plain_call_ms,
                      "shape": [C, values // C], "leaves": len(leaves), "chunk": chunk,
@@ -1205,9 +1301,8 @@ def main() -> int:
         list(pool.map(build.load, KERNELS))
     print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in build.LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+        for line in ptxas_summary(log):
+            print(f"  {name}: {line}", flush=True)
 
     t0 = time.perf_counter()
     rr = check_rr_perm(dev)
@@ -1242,11 +1337,15 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     rr_indices_kernel.launches = 0
     quantize_pack_kernel.launches = unpack_dequantize_kernel.launches = 0
+    for kern in (quantize_pack_kernel, unpack_dequantize_kernel):
+        kern.route_launches = dict.fromkeys(kern.route_launches, 0)
     t0 = time.perf_counter()
     res = run_main_path(dev, "device", **COMM)
     torch.cuda.synchronize()
     quant["launches"] = quantize_pack_kernel.launches
     dequant["launches"] = unpack_dequantize_kernel.launches
+    quant["route_launches"] = dict(quantize_pack_kernel.route_launches)
+    dequant["route_launches"] = dict(unpack_dequantize_kernel.route_launches)
     comm_rr = rr_indices_kernel.launches
     report_rounds("comm path (qsgd up and down)", res, time.perf_counter() - t0,
                   torch.cuda.max_memory_allocated())
@@ -1254,8 +1353,12 @@ def main() -> int:
     if (quant["launches"], dequant["launches"], comm_rr) != (want, want, ROUNDS):
         raise AssertionError(f"comm path launches: quantize {quant['launches']}, unpack "
                              f"{dequant['launches']} (want {want}), rr_perm {comm_rr}")
-    print(f"comm path launches: quantize_pack {want}, unpack_dequantize {want}, rr_perm "
-          f"{comm_rr} in {ROUNDS} rounds, as predicted", flush=True)
+    all_warp = {"warp": want, "block": 0}
+    if (quant["route_launches"], dequant["route_launches"]) != (all_warp, all_warp):
+        raise AssertionError(f"comm path routes: quantize {quant['route_launches']}, unpack "
+                             f"{dequant['route_launches']} (want all {want} warp)")
+    print(f"comm path launches: quantize_pack {want}, unpack_dequantize {want} (all on the "
+          f"warp route), rr_perm {comm_rr} in {ROUNDS} rounds, as predicted", flush=True)
     check_comm_metrics(res.metrics.rows, charlm_e2e_config(**COMM)[1])
     params = res.state.params
     del res
