@@ -13,8 +13,9 @@
    and the SSD intra-chunk step (atol 3e-5, rtol 3e-4), whose sums run in
    another order than their plain versions'; the quantize and flash
    attention cases each assert the route their wrappers choose (quantize:
-   ``warp``, a warp per chunk, at the e2e wire leaves and the largest
-   warp chunk, ``block`` for n % 4 != 0, other chunks and misaligned rows;
+   ``warp``, a warp per chunk, at the e2e wire leaves and at every chunk
+   it takes (128 .. 1024), ``block`` for n % 4 != 0, other chunks and
+   misaligned rows;
    flash: ``flash_fwd_mma``, bf16 on the tensor cores, or ``flash_fwd``);
    both quantize routes are timed in turns at one main-path direction, and
    at the serving shape the tensor-core kernel is timed beside
@@ -59,7 +60,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import subprocess
 import sys
 import time
@@ -100,46 +100,6 @@ def rr_ops_per_element(mode: str, rounds: int) -> int:
     (fmix32 = 8, key_combine = 14, a division or modulo counted as one):
     29 for indexing and the epoch key, then wr: 23; rr: 1 + 45 per round."""
     return 29 + (23 if mode == "wr" else 1 + 45 * rounds)
-
-
-def _kernel_name(mangled: str) -> tuple[str, str]:
-    """``_ZN<len><namespace><len>quantize_pack_warp_kernelILi4ELi2EEEv...``
-    -> (``quantize_pack_warp_kernel``, ``<4,2>``); a name that is not
-    mangled is returned as it is, with no template arguments."""
-    m = re.match(r"_ZN?", mangled)
-    i, name = (m.end() if m else 0), None
-    while m and (d := re.match(r"\d+", mangled[i:])):
-        k = int(d.group())
-        name, i = mangled[i + d.end():i + d.end() + k], i + d.end() + k
-    if name is None:
-        return mangled, ""
-    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
-    targs = re.findall(r"Li(-?\d+)E", args.group(1)) if args else []
-    return name, f"<{','.join(targs)}>" if targs else ""
-
-
-def ptxas_summary(log: str) -> list[str]:
-    """One line a kernel (every instance of a template on one line) from
-    ``nvcc -Xptxas -v``: registers a thread and bytes spilled."""
-    found: dict[str, list] = {}
-    name = targs = "?"
-    spill = 0
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            (name, targs), spill = _kernel_name(line.split("'")[1]), 0
-        elif "spill" in line:
-            spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill", line))
-        elif (regs := re.search(r"Used (\d+) registers", line)):
-            smem = re.search(r"(\d+) bytes smem", line)
-            found.setdefault(name, []).append((targs, int(regs.group(1)), spill,
-                                               int(smem.group(1)) if smem else 0))
-    out = []
-    for name, inst in found.items():
-        regs = ", ".join(f"{t} {r}".strip() for t, r, _, _ in inst)
-        smem = max(x[3] for x in inst)
-        out.append(f"{name}: registers {regs}; spilled {sum(x[2] for x in inst)} bytes"
-                   + (f"; {smem} bytes smem" if smem else ""))
-    return out
 
 
 def time_ms(fn, iters: int, behind_sleep: bool = True) -> tuple[float, float]:
@@ -347,7 +307,8 @@ def check_quantize(dev) -> list[dict]:
     8, 256 and 1000 with n % 4 != 0, keys near 2^32 - 1, all-zero and -0.0
     chunks; route ``block``), and at the warp route's edges (chunk 1024
     with a ragged tail: ``warp``; rows one element off 16-byte alignment:
-    ``block``); then, over one direction of one main-path round (all 12
+    ``block``) and every other chunk it takes (128 .. 896 with a ragged
+    tail: ``warp``); then, over one direction of one main-path round (all 12
     wire leaves, 4 bits), the ``block`` kernels' bytes against the
     ``warp`` kernels', and both routes timed in turns (warp, block, block,
     warp) beside the plain version."""
@@ -395,9 +356,12 @@ def check_quantize(dev) -> list[dict]:
 
     # n = 37c + 5: a ragged last chunk and n % 4 != 0; then the warp route's
     # edges: its largest chunk with a ragged tail of 516 values, and rows
-    # (and packed bytes) off 16-byte alignment
+    # (and packed bytes) off 16-byte alignment; then every other chunk the
+    # warp route takes (128 .. 896, 1 .. 7 float4s a lane), each with a
+    # ragged tail, so that each of its kernel instances is held here
     cases = [(c, 37 * c + 5, 0, "block") for c in (8, 256, 1000)]
     cases += [(1024, 37 * 1024 + 516, 0, "warp"), (256, 37 * 256 + 4, 1, "block")]
+    cases += [(c, 9 * c + 132, 0, "warp") for c in range(128, 1024, 128)]
     for c, n, misalign, want_route in cases:
         v, k = stress_rows(c, n, misalign)
         for bits in ref.BITS_CHOICES:
@@ -1301,8 +1265,9 @@ def main() -> int:
         list(pool.map(build.load, KERNELS))
     print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in build.LOGS.items():
-        for line in ptxas_summary(log):
-            print(f"  {name}: {line}", flush=True)
+        for line in log.splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
 
     t0 = time.perf_counter()
     rr = check_rr_perm(dev)

@@ -160,15 +160,18 @@ def test_cpu_dispatch_takes_plain_version_and_kernels_refuse_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [128, 256, 384, 512, 640, 768, 896, 1024])
 @pytest.mark.parametrize("bits", [2, 4, 8])
-def test_cuda_kernels_match_plain_bitwise(bits):
+def test_cuda_kernels_match_plain_bitwise(bits, chunk):
+    """Both routes at every chunk the warp route takes (each of its kernel
+    instances), 4 chunks a row with a ragged last one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
     rng = np.random.default_rng(bits)
-    n, chunk = 1000, 256                      # a ragged last chunk
+    n = 4 * chunk - 24                        # a ragged last chunk; n % 4 == 0
     v = rng.normal(size=(3, n)).astype(np.float32)
-    v[1, :512] = 0.0
+    v[1, :2 * chunk] = 0.0
     keys = torch.from_numpy(rng.integers(2**32 - 512, 2**32, size=(3, 4),
                                          dtype=np.uint64).astype(np.int64))
     want = pref.quantize_pack_torch(torch.from_numpy(v), keys, chunk=chunk, bits=bits)
@@ -330,7 +333,7 @@ def _emulate_warp_dequantize(packed, scale, *, n, chunk, bits):
     return out[:, :n]
 
 
-@pytest.mark.parametrize("chunk", [128, 256, 1024])
+@pytest.mark.parametrize("chunk", [128, 256, 384, 896, 1024])
 @pytest.mark.parametrize("bits", [2, 4, 8])
 def test_warp_lane_layout_emulation_matches_plain_bitwise(bits, chunk):
     rng = np.random.default_rng(100 * bits + chunk)
