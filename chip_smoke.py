@@ -11,16 +11,18 @@
    shapes, and times both: bitwise for the training paths' three kernels,
    at the JAX tests' tolerances for flash attention (fp32 2e-5, bf16 2e-2)
    and the SSD intra-chunk step (atol 3e-5, rtol 3e-4), whose sums run in
-   another order than their plain versions'; the quantize and flash
-   attention cases each assert the route their wrappers choose (quantize:
-   ``warp``, a warp per chunk, at the e2e wire leaves and at every chunk
-   it takes (128 .. 1024), ``block`` for n % 4 != 0, other chunks and
-   misaligned rows;
-   flash: ``flash_fwd_mma``, bf16 on the tensor cores, or ``flash_fwd``);
-   both quantize routes are timed in turns at one main-path direction, and
-   at the serving shape the tensor-core kernel is timed beside
-   ``flash_fwd`` on the same inputs and ``F.scaled_dot_product_attention``
-   with the same band mask, a yardstick the port never calls;
+   another order than their plain versions'; the quantize, flash
+   attention and SSD cases each assert the route their wrappers choose
+   (quantize: ``warp``, a warp per chunk, at the e2e wire leaves and at
+   every chunk it takes (128 .. 1024), ``block`` for n % 4 != 0, other
+   chunks and misaligned rows; flash: ``flash_fwd_mma``, bf16 on the
+   tensor cores, or ``flash_fwd``; SSD: ``ssd_intra_chunk_mma``, bf16 on
+   the tensor cores at Hymba's and mamba2-1.3b's tiles, or
+   ``ssd_intra_chunk``); both quantize routes and both SSD routes are
+   timed in turns at a main-path shape, and at the serving shape the
+   flash tensor-core kernel is timed beside ``flash_fwd`` on the same
+   inputs and ``F.scaled_dot_product_attention`` with the same band mask,
+   a yardstick the port never calls;
 3. drives five main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
@@ -35,7 +37,8 @@
    then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
    seed 0) through ``launch/serve.py:generate``: batch 4, 2,048-token
    prompts, 32 greedy tokens (one flash attention launch a layer in the
-   prefill, all on ``flash_fwd_mma``, and one SSD launch; none in decode);
+   prefill, all on ``flash_fwd_mma``, and one SSD launch, all on
+   ``ssd_intra_chunk_mma``; none in decode);
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
@@ -649,6 +652,9 @@ SSD_ATOL, SSD_RTOL = 3e-5, 3e-4
 # the serving main path: Hymba-1.5B at full width, batch 4, 2,048-token
 # prompts (past the 1,024 window, 16 SSD chunks), 32 greedy tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
+# mamba2-1.3b's SSD tile at the serving shape: 4 x 2,048 tokens in 256-step
+# chunks, 64 heads of P 64 (d_inner 4,096), N 128
+MAMBA2_SSD = (SERVE_BATCH, SERVE_PROMPT // 256, 256, 64, 64, 128)
 # The bf16 serve run: bf16 keeps 8 bits, so the kernel and the plain version
 # round the same fp32 value to different bf16 neighbours in a few elements a
 # layer, and 32 layers of random weights amplify those steps: no elementwise
@@ -792,14 +798,19 @@ def check_flash(dev) -> dict:
 def check_ssd(dev) -> dict:
     """The SSD intra-chunk kernel on the card vs its plain torch version on
     the card at Hymba-1.5B's prefill tile (xdt [4, 16, 128, 25, 64], N 16;
-    bf16 as the main path gives it, and f32) and the JAX test's sweep; a
-    strong-decay scan (a = -2 over 64-step chunks) finite and equal to the
-    sequential ``ssd_ref``; mamba2-1.3b's tile (Q 256, N 128) refused; then
-    the kernel and the plain version timed at the main path's shape."""
+    bf16 as the main path gives it, and f32), mamba2-1.3b's bf16 tile (Q 256,
+    N 128; at 4 heads and at its full 64), a bf16 tile of each other N the
+    tensor-core route takes, bf16 strong decay and the JAX test's sweep,
+    each case on the kernel ``route`` picks (``mma`` for bf16 at P 64,
+    ``simt`` for f32 and the rest); a strong-decay scan (a = -2 over
+    64-step chunks) finite and equal to the sequential ``ssd_ref``;
+    mamba2-1.3b's tile in f32 refused; then the two routes in turns and the
+    plain version timed at the main path's shape, and ``mma`` at
+    mamba2-1.3b's full tile."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_kernel
+    from repro_torch.kernels.ssd.kernel import route, ssd_intra_chunk_kernel
     from repro_torch.kernels.ssd.ops import ssd_intra_chunk, ssd_scan
     from repro_torch.kernels.ssd.ref import ssd_ref
 
@@ -816,17 +827,30 @@ def check_ssd(dev) -> dict:
         return xdt, a, bm, cm
 
     main = (SERVE_BATCH, SERVE_PROMPT // 128, 128, 25, 64, 16)
-    cases = [main + ("bfloat16",), main + ("float32",), (1, 2, 32, 4, 8, 16, "float32"),
-             (2, 4, 32, 8, 16, 32, "float32"), (1, 4, 64, 4, 32, 16, "float32"),
-             (2, 3, 32, 6, 8, 8, "float32")]
-    max_err = 0.0
-    for *shape, dtype in cases:
-        args = inputs(*shape, dtype)
+    # shape, dtype, the decay (None: -softplus(randn)), the route
+    cases = [(main, "bfloat16", None, "mma"), (main, "float32", None, "simt"),
+             ((1, 2, 32, 4, 8, 16), "float32", None, "simt"),
+             ((2, 4, 32, 8, 16, 32), "float32", None, "simt"),
+             ((1, 4, 64, 4, 32, 16), "float32", None, "simt"),
+             ((2, 3, 32, 6, 8, 8), "float32", None, "simt"),
+             ((2, 2, 256, 4, 64, 128), "bfloat16", None, "mma"),   # mamba2-1.3b's tile
+             (MAMBA2_SSD, "bfloat16", None, "mma"),                # ... at full width
+             ((2, 3, 64, 6, 64, 32), "bfloat16", None, "mma"),
+             ((1, 2, 192, 3, 64, 64), "bfloat16", None, "mma"),
+             ((2, 2, 128, 4, 64, 16), "bfloat16", -2.0, "mma"),    # strong decay
+             ((1, 2, 32, 4, 8, 16), "bfloat16", None, "simt")]
+    max_err = {"mma": 0.0, "simt": 0.0}
+    for shape, dtype, decay, want_route in cases:
+        args = inputs(*shape, dtype, decay)
+        where = f"ssd {list(shape)} {dtype} decay {decay}"
+        before = ssd_intra_chunk_kernel.route_launches[want_route]
         y, s = ssd_intra_chunk(*args)
+        if ssd_intra_chunk_kernel.route_launches[want_route] != before + 1:
+            raise AssertionError(f"{where}: the {want_route} kernel did not launch")
         wy, ws = ssd_intra_chunk(*args, backend="ref")
         for got, want, what in ((y, wy, "y"), (s, ws, "S")):
-            max_err = max(max_err, _allclose(got, want, SSD_ATOL, SSD_RTOL,
-                                             f"ssd {shape} {dtype} {what}"))
+            max_err[want_route] = max(max_err[want_route], _allclose(
+                got, want, SSD_ATOL, SSD_RTOL, f"{where} {what}"))
     # strong decay through the whole scan, against the sequential recurrence
     xdt, a, bm, cm = inputs(2, 2, 64, 4, 16, 16, "float32", decay=-2.0)
     flat = (xdt.reshape(2, 128, 4, 16), a.reshape(2, 128, 4), bm.reshape(2, 128, 16),
@@ -840,16 +864,30 @@ def check_ssd(dev) -> dict:
     except ValueError as e:
         refused = str(e)
     else:
-        raise AssertionError("ssd: mamba2-1.3b's tile (Q 256, N 128) was not refused")
+        raise AssertionError("ssd: mamba2-1.3b's tile (Q 256, N 128) in f32 was not refused")
     torch.cuda.synchronize()
     print(f"ssd check: {len(cases)} tiles within atol {SSD_ATOL} / rtol {SSD_RTOL} of the plain "
-          f"torch version on the card (max abs diff {max_err:.3e}); strong decay finite, "
-          f"{decay_err:.3e} from ssd_ref; refused: {refused}", flush=True)
+          f"torch version on the card, each on its route "
+          f"({sum(c[-1] == 'mma' for c in cases)} mma, {sum(c[-1] == 'simt' for c in cases)} "
+          f"simt; max abs diff mma {max_err['mma']:.3e}, simt {max_err['simt']:.3e}); strong "
+          f"decay finite, {decay_err:.3e} from ssd_ref; refused: {refused}", flush=True)
 
     xdt, a, bm, cm = inputs(*main, "bfloat16")
-    ms, call_ms = time_ms(lambda: ssd_intra_chunk_kernel(xdt, a, bm, cm), 20)
+    if route(xdt, a, bm, cm) != "mma":
+        raise AssertionError("ssd: the main path's bf16 tile did not route to mma")
+    turns = {"mma": [], "simt": []}
+    for k in ("mma", "simt", "simt", "mma"):
+        turns[k].append(time_ms(lambda k=k: ssd_intra_chunk_kernel(xdt, a, bm, cm, kernel=k), 20))
+    ms, call_ms = (float(np.mean([t[i] for t in turns["mma"]])) for i in (0, 1))
+    simt_ms = float(np.mean([t[0] for t in turns["simt"]]))
     plain_ms, plain_call_ms = time_ms(lambda: ssd_intra_chunk(xdt, a, bm, cm, backend="ref"), 3,
                                       behind_sleep=False)
+    m2 = inputs(*MAMBA2_SSD, "bfloat16")
+    m2_ms, _ = time_ms(lambda: ssd_intra_chunk_kernel(*m2, kernel="mma"), 20)
+    Bz, nc, Q, H, P, N = MAMBA2_SSD   # xdt bf16 in, y fp32 out; a; B, C bf16; S fp32
+    m2_bytes = (2 + 4) * m2[0].numel() + 4 * m2[1].numel() + 2 * 2 * m2[2].numel() \
+        + 4 * Bz * nc * H * P * N
+    del m2
     Bz, nc, Q, H, P, N = main
     tri = Q * (Q + 1) // 2
     # C.B^T once a chunk (lower triangle), y over the triangle, S: multiply-adds x 2
@@ -857,14 +895,27 @@ def check_ssd(dev) -> dict:
     nbytes = (2 * xdt.numel() + 4 * a.numel() + 2 * (bm.numel() + cm.numel())
               + 4 * xdt.numel() + 4 * Bz * nc * H * P * N)
     t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"ssd_intra_chunk at bf16 {list(main)}: ssd_intra_chunk_mma "
+          f"{[round(t[0], 5) for t in turns['mma']]} ms, ssd_intra_chunk (simt) "
+          f"{[round(t[0], 5) for t in turns['simt']]} ms in turns (mma, simt, simt, mma), plain "
+          f"{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms; at mamba2-1.3b's tile "
+          f"{list(MAMBA2_SSD)}: ssd_intra_chunk_mma {m2_ms:.4f} ms, byte bound "
+          f"{m2_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
     return {"name": "ssd_intra_chunk", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
-            "replaces": "src/repro/kernels/ssd/kernel.py:49", "launches": None,
-            "max_abs_err": max_err, "strong_decay_err": decay_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "replaces": "src/repro/kernels/ssd/kernel.py:49", "kernel_route": "mma",
+            "design": "ssd_intra_chunk_mma: mma.sync m16n8k16 bf16, 4 warps x 16 rows of a "
+            "64-row tile, 64-step B/xdt tiles double-buffered by cp.async, C.B^T and the decay "
+            "mask in registers, L in three bf16 parts and dec.B in two, cum in fp64",
+            "simt_ms": simt_ms, "turns_ms": {k: [t[0] for t in v] for k, v in turns.items()},
+            "launches": None, "route_launches": None, "max_abs_err": max(max_err.values()),
+            "max_abs_err_mma": max_err["mma"], "max_abs_err_simt": max_err["simt"],
+            "strong_decay_err": decay_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": None,
             "library_note": "no single PyTorch call computes it", "call_ms": call_ms,
             "plain_call_ms": plain_call_ms, "shape": list(main), "dtype": "bfloat16",
-            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "mamba2_shape": list(MAMBA2_SSD),
+            "mamba2_ms": m2_ms, "mamba2_bound_ms": m2_bytes / HBM_BYTES_PER_S * 1e3}
 
 
 def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
@@ -907,11 +958,13 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
             marks["t"] = time.perf_counter()
             marks["launches"] = (flash_attention_kernel.launches, ssd_intra_chunk_kernel.launches)
             marks["routes"] = dict(flash_attention_kernel.route_launches)
+            marks["ssd_routes"] = dict(ssd_intra_chunk_kernel.route_launches)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention_kernel.launches = ssd_intra_chunk_kernel.launches = 0
     flash_attention_kernel.route_launches = dict.fromkeys(flash_attention_kernel.route_launches, 0)
+    ssd_intra_chunk_kernel.route_launches = dict.fromkeys(ssd_intra_chunk_kernel.route_launches, 0)
     t0 = time.perf_counter()
     out = generate(model, params, prompts, steps=SERVE_STEPS, cache_len=cache_len,
                    on_logits=on_logits)
@@ -921,7 +974,8 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
     prefill = marks["launches"]
     decode = (total[0] - prefill[0], total[1] - prefill[1])
     flash_row["launches"], ssd_row["launches"] = total
-    routes = marks["routes"]
+    routes, ssd_routes = marks["routes"], marks["ssd_routes"]
+    ssd_row["route_launches"] = dict(ssd_intra_chunk_kernel.route_launches)
     peak = torch.cuda.max_memory_allocated()
     prefill_ms = (marks["t"] - t0) * 1e3
     decode_ms = (t1 - marks["t"]) * 1e3 / (SERVE_STEPS - 1)
@@ -930,21 +984,23 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
            "decode_ms_per_step": decode_ms, "decode_tok_per_s": SERVE_BATCH * 1e3 / decode_ms,
            "e2e_tok_per_s": SERVE_BATCH * SERVE_STEPS / (t1 - t0), "peak_gib": peak / 2**30,
            "prefill_launches": {"flash_attention": prefill[0], "ssd_intra_chunk": prefill[1],
-                                "flash_attention_by_route": routes},
+                                "flash_attention_by_route": routes,
+                                "ssd_intra_chunk_by_route": ssd_routes},
            "decode_launches": {"flash_attention": decode[0], "ssd_intra_chunk": decode[1]}}
     print(f"serve path: {cfg.name} {n_params} params ({cfg.dtype}), batch {SERVE_BATCH} x "
           f"{SERVE_PROMPT}-token prompts, {SERVE_STEPS} greedy tokens: prefill "
           f"{prefill_ms:.2f} ms, decode {decode_ms:.2f} ms a step ({res['decode_tok_per_s']:.1f} "
           f"tokens/s), {res['e2e_tok_per_s']:.1f} tokens/s end to end, peak device memory "
           f"{peak / 2**30:.3f} GiB; launches in the prefill: flash_attention {prefill[0]} "
-          f"({routes}), ssd_intra_chunk {prefill[1]}; in decode: {decode[0]}, {decode[1]}",
+          f"({routes}), ssd_intra_chunk {prefill[1]} ({ssd_routes}); in decode: {decode[0]}, "
+          f"{decode[1]}",
           flush=True)
     if prefill != (cfg.n_layers, cfg.n_layers) or decode != (0, 0):
         raise AssertionError(f"serve launches: prefill {prefill}, decode {decode}, want "
                              f"({cfg.n_layers}, {cfg.n_layers}) and (0, 0)")
-    if routes != {"mma": cfg.n_layers, "simt": 0}:
-        raise AssertionError(f"serve: the prefill's flash launches took {routes}, want all "
-                             f"{cfg.n_layers} on mma")
+    if routes != {"mma": cfg.n_layers, "simt": 0} or ssd_routes != routes:
+        raise AssertionError(f"serve: the prefill's flash launches took {routes} and its SSD "
+                             f"launches {ssd_routes}, want all {cfg.n_layers} of each on mma")
     if len(seen) != SERVE_STEPS or not all(torch.isfinite(x).all() for x in seen):
         raise AssertionError("serve path: non-finite logits")
     if out.shape != (SERVE_BATCH, SERVE_STEPS) or int(out.max()) >= cfg.vocab:

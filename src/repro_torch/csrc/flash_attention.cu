@@ -85,6 +85,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;            // query rows a block
@@ -262,57 +264,6 @@ cudaError_t dispatch(const Args& a, int B, int H, cudaStream_t stream) {
 
 constexpr int kMmaThreads = 128;   // 4 warps, 16 query rows each
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled (nothing read) unless ``valid``
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a b for a 16 x 16 (row) by 16 x 8 (col) bf16 tile, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16 and packed, the first in the low half
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-__device__ __forceinline__ float bf16_lo(unsigned x) { return __uint_as_float(x << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned x) { return __uint_as_float(x & 0xffff0000u); }
-
 template <int HD>
 struct MmaTile {
   static constexpr int kLd = HD + 8;        // row pitch in bf16: 16 bytes of padding
@@ -466,8 +417,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(const Args a) {
       for (int i = 0; i < 4; ++i) {        // a0..a3: rows g, g + 8 of keys +0..7, +8..15
         const float x0 = s[2 * kc + (i >> 1)][2 * (i & 1)];
         const float x1 = s[2 * kc + (i >> 1)][2 * (i & 1) + 1];
-        pa[i] = pack_bf16(x0, x1);
-        pl[i] = pack_bf16(x0 - bf16_lo(pa[i]), x1 - bf16_hi(pa[i]));   // p - p_hi, exact
+        split_bf16(x0, x1, pa[i], pl[i]);
       }
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {

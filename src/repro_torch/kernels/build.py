@@ -3,9 +3,10 @@
 Each source under ``repro_torch/csrc/`` compiles on its own into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds).  Libraries go to ``build/torch_kernels/`` at the repository root,
-named by a hash of their source, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is built when a module is imported: the
-first call of a kernel wrapper builds what it needs.
+named by a hash of their source and the shared headers (``csrc/*.cuh``),
+so an edited source or header is rebuilt and an unchanged one is reused.
+Nothing is built when a module is imported: the first call of a kernel
+wrapper builds what it needs.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     if name not in _LIBS:
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        digest = hashlib.sha256(b"".join(
+            p.read_bytes() for p in (src, *sorted(CSRC.glob("*.cuh"))))).hexdigest()[:16]
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -13,7 +13,11 @@ function the CUDA kernel computes.
   ``y_i = sum_{j<=i} exp(cum_i - cum_j) (C_i . B_j) xdt_j`` and its local
   state ``S = sum_j exp(cum_end - cum_j) B_j (x) xdt_j``, in fp32.  It masks
   *before* the exp (``exp(-inf) = 0`` above the diagonal), so strong decay
-  gives no inf * 0 = NaN, as the JAX kernel's mask-after form does.
+  gives no inf * 0 = NaN, as the JAX kernel's mask-after form does.  cum
+  is summed in float64 and rounded once to fp32, as torch's float cumsum
+  does on the CPU; on the card that cumsum sums in fp32 in step order,
+  which moves cum_i - cum_j by up to ~1e-4 at a 256-step chunk, enough to
+  put y past the kernel's tolerance by itself.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ def ssd_intra_chunk_torch(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     [Bz,nc,Q,H,P], S_local [Bz,nc,H,P,N]), both fp32."""
     Q = xdt.shape[2]
     x, Bf, Cf = xdt.float(), Bm.float(), Cm.float()
-    cum = torch.cumsum(a.float(), dim=2)                              # [Bz,nc,Q,H]
+    cum = torch.cumsum(a.double(), dim=2).float()                     # [Bz,nc,Q,H]
     total = cum[:, :, -1]                                             # [Bz,nc,H]
     scores = torch.einsum("bcin,bcjn->bcij", Cf, Bf)                  # [Bz,nc,Qi,Qj]
     idx = torch.arange(Q, device=xdt.device)

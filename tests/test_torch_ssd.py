@@ -12,8 +12,20 @@
   before masking and return NaN there);
 * ``mamba2_forward`` (prefill, its decode cache) and ``mamba2_decode`` vs
   JAX's at the init-scale decay;
+* the routing between the kernel's two routes (``route``, on CPU tensors):
+  ``mma`` = ``ssd_intra_chunk_mma``, bf16 on the tensor cores at Hymba's
+  and mamba2-1.3b's tiles, and ``simt`` = ``ssd_intra_chunk`` for the rest,
+  f32 above all;
+* a torch emulation of ``ssd_intra_chunk_mma``'s arithmetic (bf16
+  operands, fp32 sums of 16-wide k steps, L split into three bf16 parts
+  and dec·B into two, cum in fp64, the select before the exp) vs JAX's
+  Pallas kernel over the sweep and vs the plain version at Q 128 / N 16
+  and Q 256 / N 128; strong decay through it; what leaves the bound: one
+  bf16 L, two bf16 parts of L at mamba2-1.3b's full tile, cum summed in
+  fp32 step by step;
 * on a card (``cuda``-marked, skipped without one): the kernel vs the plain
-  version, and the tile that exceeds a block's shared memory raises.
+  version, each case on its route, and the f32 tile that exceeds a block's
+  shared memory raises.
 
 Tolerance: the JAX test's atol 3e-5 / rtol 3e-4 (fp32; the chunked form
 sums in another order than the recurrence).  Inputs from numpy seeds.
@@ -32,7 +44,7 @@ from repro.kernels.ssd.kernel import ssd_intra_chunk as j_intra  # noqa: E402
 from repro.kernels.ssd.ref import ssd_ref as j_ssd_ref  # noqa: E402
 from repro.models import mamba2 as jm2  # noqa: E402
 from repro_torch.configs.base import ArchConfig, SSMConfig  # noqa: E402
-from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_kernel  # noqa: E402
+from repro_torch.kernels.ssd.kernel import route, ssd_intra_chunk_kernel  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd_intra_chunk, ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_torch, ssd_ref  # noqa: E402
 from repro_torch.models import mamba2  # noqa: E402
@@ -138,12 +150,189 @@ def test_mamba2_forward_and_decode_match_jax():
         np.testing.assert_allclose(c["state"].numpy(), np.asarray(jc["state"]), **TOL)
 
 
+def _chunked(xdt, a, Bm, Cm, Bz, nc):
+    """The [B, T, ...] arrays of :func:`_inputs` cut into chunks."""
+    Q = xdt.shape[1] // nc
+    return (xdt.reshape(Bz, nc, Q, *xdt.shape[2:]), a.reshape(Bz, nc, Q, a.shape[-1]),
+            Bm.reshape(Bz, nc, Q, -1), Cm.reshape(Bz, nc, Q, -1))
+
+
+def _zeros(shape, dtype, offset=0):
+    """A contiguous zero tensor whose data starts ``offset`` elements into
+    its storage (offset 1 of bf16: rows 2 bytes off 16-byte alignment)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+def _route_args(Bz, nc, Q, H, P, N, dtype=torch.bfloat16, offset=0):
+    return (_zeros((Bz, nc, Q, H, P), dtype, offset), _zeros((Bz, nc, Q, H), torch.float32),
+            _zeros((Bz, nc, Q, N), dtype, offset), _zeros((Bz, nc, Q, N), dtype, offset))
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-1.3b"])
+def test_route_takes_mma_for_the_bf16_tiles(arch):
+    ssm = ARCHS[arch].ssm
+    Q, P, N = ssm.chunk, ssm.head_dim, ssm.state_dim
+    assert (Q, P, N) == {"hymba-1.5b": (128, 64, 16), "mamba2-1.3b": (256, 64, 128)}[arch]
+    assert route(*_route_args(2, 3, Q, 4, P, N)) == "mma"
+
+
+@pytest.mark.parametrize("case", ["float32", "pointer", "P32", "N24", "Q96", "Q32", "Q2048"])
+def test_route_takes_simt_otherwise(case):
+    kw = {"float32": dict(dtype=torch.float32), "pointer": dict(offset=1),
+          "P32": dict(P=32), "N24": dict(N=24), "Q96": dict(Q=96), "Q32": dict(Q=32),
+          "Q2048": dict(Q=2048)}[case]
+    args = dict(Bz=1, nc=2, Q=128, H=3, P=64, N=16) | kw
+    assert route(*_route_args(**args)) == "simt"
+
+
+def _ksum(lhs, rhs):
+    """lhs [..., M, K] @ rhs [..., K, N] as the tensor cores sum it: fp32
+    products of 16-wide k steps, added one after the other in fp32."""
+    out = 0.0
+    for k in range(0, lhs.shape[-1], 16):
+        out = out + lhs[..., k:k + 16] @ rhs[..., k:k + 16, :]
+    return out
+
+
+def _bf16_parts(v, n):
+    """v as n bf16 parts: each the rest of v after the parts before it,
+    rounded to bf16 (the rests are exact in fp32)."""
+    parts = []
+    for _ in range(n):
+        parts.append(v.bfloat16().float())
+        v = v - parts[-1]
+    return parts
+
+
+def _emulate_mma(xdt, a, Bm, Cm, *, l_parts=3, cum=None):
+    """``ssd_intra_chunk_mma``'s arithmetic on [Bz,nc,Q,H,P] / [Bz,nc,Q,N]
+    tensors: xdt, B and C rounded to bf16 (the kernel's inputs); cum summed
+    in fp64 and rounded once to fp32 (or ``cum`` as given); per 64-row tile
+    of i and 64-step tile of j up to the diagonal, scores = C B^T, L =
+    exp(cum_i - cum_j) scores with the exponential selected only where j <=
+    i, y += L_hi X + L_mid X + L_lo X (L in ``l_parts`` bf16 parts); S =
+    X^T (dec B)_hi + X^T (dec B)_lo with dec_j = exp(cum_end - cum_j); every
+    product summed in fp32 over 16-wide k steps."""
+    Bz, nc, Q, H, P = xdt.shape
+    x = xdt.bfloat16().float().permute(0, 1, 3, 2, 4)                # [Bz,nc,H,Q,P]
+    Bf, Cf = Bm.bfloat16().float(), Cm.bfloat16().float()
+    if cum is None:
+        cum = torch.cumsum(a.double(), dim=2).float()
+    cum = cum.permute(0, 1, 3, 2)                                     # [Bz,nc,H,Q]
+
+    y = torch.zeros_like(x)
+    for i0 in range(0, Q, 64):
+        i = torch.arange(i0, min(i0 + 64, Q))
+        for j0 in range(0, i0 + 1, 64):
+            j = torch.arange(j0, min(j0 + 64, Q))
+            scores = _ksum(Cf[:, :, i], Bf[:, :, j].transpose(-1, -2))[:, :, None]
+            diff = cum[..., i, None] - cum[..., None, j]
+            L = torch.exp(torch.where(j[None, :] <= i[:, None], diff, -torch.inf)) * scores
+            for part in _bf16_parts(L, l_parts):
+                y[..., i, :] += _ksum(part, x[..., j, :])
+    dec = torch.exp(cum[..., -1:] - cum)                              # [Bz,nc,H,Q]
+    s = sum(_ksum(x.transpose(-1, -2), part)
+            for part in _bf16_parts(dec[..., None] * Bf[:, :, None], 2))   # [Bz,nc,H,P,N]
+    return y.permute(0, 1, 3, 2, 4), s
+
+
+def _bf16_valued(*xs):
+    """float32 arrays holding bf16 values (the kernel's inputs, exactly)."""
+    return [torch.from_numpy(x).bfloat16().float().numpy() for x in xs]
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk,hb", SWEEP)
+def test_mma_emulation_matches_jax_kernel(B, T, H, P, N, chunk, hb):
+    xdt, a, Bm, Cm = _inputs(B, T, H, P, N, seed=5)
+    xdt, Bm, Cm = _bf16_valued(xdt, Bm, Cm)
+    shaped = _chunked(xdt, a, Bm, Cm, B, T // chunk)
+    y, s = _emulate_mma(*_t(*shaped))
+    jy, js = j_intra(*shaped, hb=hb, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **TOL)
+
+
+# Bz, nc, Q, H, P, N: Hymba-1.5B's tile and mamba2-1.3b's, few heads
+MMA_TILES = [(1, 2, 128, 4, 64, 16), (1, 1, 256, 2, 64, 128)]
+
+
+def _tile_inputs(Bz, nc, Q, H, P, N, seed, decay=None):
+    xdt, a, Bm, Cm = _inputs(Bz, nc * Q, H, P, N, seed=seed, decay=decay)
+    xdt, Bm, Cm = _bf16_valued(xdt, Bm, Cm)
+    return _t(*_chunked(xdt, a, Bm, Cm, Bz, nc))
+
+
+@pytest.mark.parametrize("shape", MMA_TILES)
+def test_mma_emulation_matches_plain(shape):
+    args = _tile_inputs(*shape, seed=6)
+    for got, want in zip(_emulate_mma(*args), ssd_intra_chunk_torch(*args)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_mma_emulation_strong_decay_is_finite():
+    args = _tile_inputs(2, 2, 128, 4, 64, 16, seed=2, decay=-2.0)
+    got = _emulate_mma(*args)
+    assert all(torch.isfinite(g).all() for g in got)
+    for g, want in zip(got, ssd_intra_chunk_torch(*args)):
+        np.testing.assert_allclose(g.numpy(), want.numpy(), **TOL)
+
+
+def _off(got, want):
+    """How many elements of ``got`` are off atol 3e-5 / rtol 3e-4 of ``want``."""
+    return int(((got - want).abs() > TOL["atol"] + TOL["rtol"] * want.abs()).sum())
+
+
+def test_one_bf16_rounding_of_l_leaves_the_bound():
+    """Why the kernel splits L: rounded once to bf16 (2^-9 relative a term),
+    L moves y at Hymba's tile far past atol 3e-5 / rtol 3e-4; in parts it
+    stays within it."""
+    args = _tile_inputs(*MMA_TILES[0], seed=6)
+    want = ssd_intra_chunk_torch(*args)[0]
+    assert _off(_emulate_mma(*args, l_parts=1)[0], want) > want.numel() // 10
+    assert _off(_emulate_mma(*args)[0], want) == 0
+
+
+def test_two_bf16_parts_of_l_leave_the_bound_at_mamba2_scale():
+    """Why three parts: L_hi + L_lo (2^-17 relative a term) keeps Hymba's
+    prefill within the bound, but at mamba2-1.3b's tile (Q 256, N 128:
+    |C.B| up to ~20), with 32 of its 64 heads at a 4 x 2,048-token prefill,
+    a few of 16.8 M outputs leave it; L_hi + L_mid + L_lo (2^-26) holds
+    them."""
+    args = _tile_inputs(4, 8, 256, 32, 64, 128, seed=1)
+    off = {2: 0, 3: 0}
+    for b in range(4):                     # a batch row at a time, to bound the memory
+        row = [t[b:b + 1] for t in args]
+        want = ssd_intra_chunk_torch(*row)[0]
+        for n in off:
+            off[n] += _off(_emulate_mma(*row, l_parts=n)[0], want)
+    assert off[2] > 0 and off[3] == 0
+
+
+def test_fp32_step_order_cum_leaves_the_bound():
+    """Why the kernel and the plain version sum cum in fp64: summed in fp32
+    step by step (as torch's cumsum along this dim does on the card), cum
+    reaches ~200 at a 256-step chunk and its rounding alone moves y past
+    atol 3e-5 / rtol 3e-4 at mamba2-1.3b's tile."""
+    args = _tile_inputs(2, 2, 256, 4, 64, 128, seed=11)
+    want = ssd_intra_chunk_torch(*args)[0]
+    steps = torch.zeros_like(args[1])
+    run = torch.zeros_like(args[1][:, :, 0])
+    for j in range(steps.shape[2]):
+        run = run + args[1][:, :, j]
+        steps[:, :, j] = run
+    assert _off(_emulate_mma(*args, cum=steps)[0], want) > 0
+    assert _off(_emulate_mma(*args)[0], want) == 0
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype", [((2, 16, 128, 25, 64, 16), "bfloat16"),   # Hymba, Bz 2
-                                         ((2, 4, 32, 8, 16, 32), "float32"),
-                                         ((1, 4, 64, 4, 32, 16), "float32"),
-                                         ((2, 3, 32, 6, 8, 8), "float32")])
-def test_cuda_kernel_matches_plain(shape, dtype):
+@pytest.mark.parametrize("shape,dtype,want_route", [
+    ((2, 16, 128, 25, 64, 16), "bfloat16", "mma"),    # Hymba, Bz 2
+    ((1, 1, 256, 2, 64, 128), "bfloat16", "mma"),     # mamba2-1.3b's tile
+    ((2, 4, 32, 8, 16, 32), "float32", "simt"),
+    ((1, 4, 64, 4, 32, 16), "float32", "simt"),
+    ((2, 3, 32, 6, 8, 8), "float32", "simt")])
+def test_cuda_kernel_matches_plain(shape, dtype, want_route):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     Bz, nc, Q, H, P, N = shape
@@ -153,14 +342,15 @@ def test_cuda_kernel_matches_plain(shape, dtype):
             torch.from_numpy(a.reshape(Bz, nc, Q, H)).to(dev),
             torch.from_numpy(Bm.reshape(Bz, nc, Q, N)).to(dev, tdt),
             torch.from_numpy(Cm.reshape(Bz, nc, Q, N)).to(dev, tdt))
-    before = ssd_intra_chunk_kernel.launches
+    assert route(*args) == want_route
+    before = ssd_intra_chunk_kernel.route_launches[want_route]
     y, s = ssd_intra_chunk(*args)
     wy, ws = ssd_intra_chunk(*args, backend="ref")
     torch.cuda.synchronize()
-    assert ssd_intra_chunk_kernel.launches == before + 1
+    assert ssd_intra_chunk_kernel.route_launches[want_route] == before + 1
     np.testing.assert_allclose(y.cpu().numpy(), wy.cpu().numpy(), **TOL)
     np.testing.assert_allclose(s.cpu().numpy(), ws.cpu().numpy(), **TOL)
-    with pytest.raises(ValueError, match="shared memory"):   # mamba2-1.3b's tile
+    with pytest.raises(ValueError, match="shared memory"):   # mamba2-1.3b's tile in f32
         z = torch.zeros
         ssd_intra_chunk_kernel(z((1, 1, 256, 1, 64), device=dev), z((1, 1, 256, 1), device=dev),
                                z((1, 1, 256, 128), device=dev), z((1, 1, 256, 128), device=dev))
