@@ -39,19 +39,20 @@
 // phase hits eight distinct bank groups; shared memory does not grow with
 // Q * N (28,672 bytes at Hymba's tile, 72,704 at mamba2-1.3b's).  Warp 0
 // forms cum [Q] by a warp scan (a is strided by H) in fp64, rounded once to
-// fp32, as the plain version does.  Per j tile, in registers: C B^T by
-// mma.sync m16n8k16 (bf16 in, fp32 sums; C and B are exact in bf16, so
-// this needs no split), the decay and the mask (the mask only on the
-// diagonal tile, where warp w also skips the steps past its rows), L split
-// into three bf16 parts reused as A fragments (the m16n8 accumulator layout
-// is the A layout once pairs are packed), and y += L_hi X + L_mid X + L_lo X
-// with X's B fragments by ldmatrix.trans.  The block of the last row tile
-// streams every j tile and also forms S = X^T (dec B), dec_j =
-// exp(cum_{Q-1} - cum_j): X^T's A fragments come by ldmatrix.trans (exact),
-// B's by ldmatrix.trans are scaled by dec in fp32 and split into hi + lo;
-// warp w holds S's rows p = 16 w .. 16 w + 15.  y and S are stored from the
-// accumulators in fp32, 8 bytes a thread, each quad writing 32 consecutive
-// bytes of a row.
+// fp32, as the plain version does.  Per 16 steps of a j tile, in registers:
+// C B^T by mma.sync m16n8k16 (bf16 in, fp32 sums; C and B are exact in
+// bf16, so this needs no split), the decay and the mask (the mask only on
+// the diagonal tile, where warp w also skips the steps past its rows), L
+// split into three bf16 parts reused as A fragments (the m16n8 accumulator
+// layout is the A layout once pairs are packed), and y += L_hi X + L_mid X
+// + L_lo X with X's B fragments by ldmatrix.trans; taking 16 steps at a
+// time keeps 8 scores a thread live, not 32, so Hymba's N 16 fits 5 blocks
+// a SM.  The block of the last row tile streams every j tile and also
+// forms S = X^T (dec B), dec_j = exp(cum_{Q-1} - cum_j): X^T's A fragments
+// come by ldmatrix.trans (exact), B's by ldmatrix.trans are scaled by dec
+// in fp32 and split into hi + lo; warp w holds S's rows p = 16 w .. 16 w +
+// 15.  y and S are stored from the accumulators in fp32, 8 bytes a thread,
+// each quad writing 32 consecutive bytes of a row.
 //
 // Why the splits and the fp64 scan: the contract is atol 3e-5 / rtol 3e-4
 // against fp32, and tests/test_torch_ssd.py holds a CPU emulation of this
@@ -65,7 +66,7 @@
 // test_one_bf16_rounding_of_l_leaves_the_bound,
 // test_two_bf16_parts_of_l_leave_the_bound_at_mamba2_scale and
 // test_fp32_step_order_cum_leaves_the_bound show each on the CPU.
-
+//
 // ssd_intra_chunk: everything else, f32 above all.  A first kernel that is
 // right: one 256-thread block per (head, chunk, batch), 1,600 blocks at
 // Hymba's prefill.  The block stages the chunk's xdt column of its head
@@ -222,8 +223,11 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld, const __nv
   }
 }
 
+// At N 16 (Hymba) the kernel fits 5 blocks a SM in registers without
+// spilling; the larger N need their registers for S's accumulators.
 template <int N>
-__global__ void __launch_bounds__(kMmaThreads) ssd_intra_chunk_mma(const Args a) {
+__global__ void __launch_bounds__(kMmaThreads, N == 16 ? 5 : 1)
+    ssd_intra_chunk_mma(const Args a) {
   using T = __nv_bfloat16;
   constexpr int kLdB = MmaTile<N>::kLdB, kLdX = MmaTile<N>::kLdX;
   constexpr int KC = N / 16;               // k-steps of C B^T
@@ -303,49 +307,41 @@ __global__ void __launch_bounds__(kMmaThreads) ssd_intra_chunk_mma(const Args a)
                           kc * 16 + (lane >> 4) * 8),
                 ca[kc]);
     }
-    // on the diagonal tile, warp w's rows see steps j0 .. j0 + 16 w + 15 only
+    // steps j0 + 16 kc .. + 15 in turn; on the diagonal tile, warp w's rows
+    // see steps j0 .. j0 + 16 w + 15 only
     const bool diag = jt == t;
-
-    // scores = C B^T: n-tile jn holds steps j0 + 8 jn .. + 7
-    float sc[8][4];
-#pragma unroll
-    for (int jn = 0; jn < 8; ++jn) sc[jn][0] = sc[jn][1] = sc[jn][2] = sc[jn][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-#pragma unroll
-      for (int jn = 0; jn < 8; jn += 2) {
-        if (diag && jn > 2 * warp) continue;
-        unsigned bf[4];
-        ldsm_x4(smem_addr(bt + (jn * 8 + (lane & 7) + (lane >> 4) * 8) * kLdB + kc * 16 +
-                          ((lane >> 3) & 1) * 8),
-                bf);
-        mma_bf16(sc[jn], ca[kc], bf[0], bf[1]);
-        mma_bf16(sc[jn + 1], ca[kc], bf[2], bf[3]);
-      }
-    }
-
-    // L = select(j <= i, exp(cum_i - cum_j) scores, 0); element e of sc[jn]:
-    // row row0 + 8 (e >> 1), step j0 + 8 jn + 2 tig + (e & 1)
-#pragma unroll
-    for (int jn = 0; jn < 8; ++jn) {
-      const int j = j0 + 8 * jn + 2 * tig;
-      const float cj[2] = {cum[j], cum[j + 1]};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool in = !diag || j + (e & 1) <= row0 + 8 * (e >> 1);
-        sc[jn][e] = in ? expf(ci[e >> 1] - cj[e & 1]) * sc[jn][e] : 0.f;
-      }
-    }
-
-    // y += L_hi X + L_mid X + L_lo X: steps 16 kc .. + 15 are n-tiles 2 kc, 2 kc + 1 of L
 #pragma unroll
     for (int kc = 0; kc < kT / 16; ++kc) {
       if (diag && kc > warp) continue;
-      unsigned lf[3][4];                   // L_hi, L_mid and L_lo as A fragments
+      // scores = C B^T: n-tile h holds steps j0 + 16 kc + 8 h .. + 7
+      float sc[2][4] = {};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)          // a0..a3: rows g, g + 8 of steps +0..7, +8..15
-        split3_bf16(sc[2 * kc + (i >> 1)][2 * (i & 1)], sc[2 * kc + (i >> 1)][2 * (i & 1) + 1],
-                    lf[0][i], lf[1][i], lf[2][i]);
+      for (int k = 0; k < KC; ++k) {
+        unsigned bf[4];
+        ldsm_x4(smem_addr(bt + (kc * 16 + (lane & 7) + (lane >> 4) * 8) * kLdB + k * 16 +
+                          ((lane >> 3) & 1) * 8),
+                bf);
+        mma_bf16(sc[0], ca[k], bf[0], bf[1]);
+        mma_bf16(sc[1], ca[k], bf[2], bf[3]);
+      }
+      // L = select(j <= i, exp(cum_i - cum_j) scores, 0); element e of sc[h]:
+      // row row0 + 8 (e >> 1), step j0 + 16 kc + 8 h + 2 tig + (e & 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = j0 + 16 * kc + 8 * h + 2 * tig;
+        const float cj[2] = {cum[j], cum[j + 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = !diag || j + (e & 1) <= row0 + 8 * (e >> 1);
+          sc[h][e] = in ? expf(ci[e >> 1] - cj[e & 1]) * sc[h][e] : 0.f;
+        }
+      }
+      // y += L_hi X + L_mid X + L_lo X; a0..a3: rows g, g + 8 of steps +0..7, +8..15
+      unsigned lf[3][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split3_bf16(sc[i >> 1][2 * (i & 1)], sc[i >> 1][2 * (i & 1) + 1], lf[0][i], lf[1][i],
+                    lf[2][i]);
 #pragma unroll
       for (int n = 0; n < NY; n += 2) {
         unsigned xf[4];
