@@ -795,18 +795,49 @@ def check_flash(dev) -> dict:
             "mbytes": nbytes / 1e6}
 
 
+def _off(got, want, atol: float, rtol: float) -> tuple[int, float]:
+    """How many elements of ``got`` are off atol + rtol |want|, and the
+    largest |got - want| / (atol + rtol |want|): 1 is the edge of the bound."""
+    w = want.double()
+    share = (got.double() - w).abs() / (atol + rtol * w.abs())
+    return int((share > 1).sum()), float(share.max())
+
+
+def ssd_dense(xdt, a, bm, cm, dtype, cum=None):
+    """The SSD intra-chunk step (y, S) written out with every cast,
+    exponential and sum in ``dtype``, cum = cumsum(a) in ``dtype`` unless
+    given: in float64 the witness that the kernel and its plain version are
+    held to, independent of both; in float32 with an fp32 ``cum`` the plain
+    version's arithmetic with that cum."""
+    import torch
+
+    Q = xdt.shape[2]
+    x, b, c = xdt.to(dtype), bm.to(dtype), cm.to(dtype)
+    cum = (torch.cumsum(a.to(dtype), dim=2) if cum is None else cum).to(dtype)
+    idx = torch.arange(Q, device=xdt.device)
+    tri = (idx[:, None] >= idx[None, :])[:, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    L = torch.exp(torch.where(tri, diff, -torch.inf)) * torch.einsum(
+        "bcin,bcjn->bcij", c, b)[..., None]
+    y = torch.einsum("bcijh,bcjhp->bcihp", L, x)
+    decay = torch.exp(cum[:, :, -1:] - cum)
+    return y, torch.einsum("bcqn,bcqhp->bchpn", b, decay[..., None] * x)
+
+
 def check_ssd(dev) -> dict:
     """The SSD intra-chunk kernel on the card vs its plain torch version on
     the card at Hymba-1.5B's prefill tile (xdt [4, 16, 128, 25, 64], N 16;
     bf16 as the main path gives it, and f32), mamba2-1.3b's bf16 tile (Q 256,
-    N 128; at 4 heads and at its full 64), a bf16 tile of each other N the
-    tensor-core route takes, bf16 strong decay and the JAX test's sweep,
-    each case on the kernel ``route`` picks (``mma`` for bf16 at P 64,
-    ``simt`` for f32 and the rest); a strong-decay scan (a = -2 over
-    64-step chunks) finite and equal to the sequential ``ssd_ref``;
-    mamba2-1.3b's tile in f32 refused; then the two routes in turns and the
-    plain version timed at the main path's shape, and ``mma`` at
-    mamba2-1.3b's full tile."""
+    N 128; at 4 heads and at its full 64), bf16 strong decay and the JAX
+    test's sweep, each case on the kernel ``route`` picks (``mma`` for bf16
+    at P 64, N 16 or 128, ``simt`` for f32 and the rest); on every ``mma``
+    case the kernel and the plain version also against ``ssd_dense`` in
+    fp64, with the plain version's arithmetic on an fp32 cum (torch's
+    cumsum on the card, and one rounded once from fp64) read beside them;
+    a strong-decay scan (a = -2 over 64-step chunks) finite and equal to
+    the sequential ``ssd_ref``; mamba2-1.3b's tile in f32 refused; then the
+    two routes in turns and the plain version timed at the main path's
+    shape, and ``mma`` at mamba2-1.3b's full tile."""
     import torch
     import torch.nn.functional as F
 
@@ -835,11 +866,10 @@ def check_ssd(dev) -> dict:
              ((2, 3, 32, 6, 8, 8), "float32", None, "simt"),
              ((2, 2, 256, 4, 64, 128), "bfloat16", None, "mma"),   # mamba2-1.3b's tile
              (MAMBA2_SSD, "bfloat16", None, "mma"),                # ... at full width
-             ((2, 3, 64, 6, 64, 32), "bfloat16", None, "mma"),
-             ((1, 2, 192, 3, 64, 64), "bfloat16", None, "mma"),
              ((2, 2, 128, 4, 64, 16), "bfloat16", -2.0, "mma"),    # strong decay
              ((1, 2, 32, 4, 8, 16), "bfloat16", None, "simt")]
     max_err = {"mma": 0.0, "simt": 0.0}
+    witness = []
     for shape, dtype, decay, want_route in cases:
         args = inputs(*shape, dtype, decay)
         where = f"ssd {list(shape)} {dtype} decay {decay}"
@@ -851,6 +881,27 @@ def check_ssd(dev) -> dict:
         for got, want, what in ((y, wy, "y"), (s, ws, "S")):
             max_err[want_route] = max(max_err[want_route], _allclose(
                 got, want, SSD_ATOL, SSD_RTOL, f"{where} {what}"))
+        if want_route != "mma":
+            continue
+        # the same step in fp64 throughout: elements off the bound, and the
+        # worst share of it, of y and S
+        exact = ssd_dense(*args, torch.float64)
+        a32 = args[1]
+        row = {"shape": list(shape), "decay": decay}
+        for name, out in (("kernel", (y, s)), ("plain", (wy, ws)),
+                          ("plain, fp32 cumsum", ssd_dense(*args, torch.float32,
+                                                           cum=torch.cumsum(a32, dim=2))),
+                          ("plain, fp32 cum rounded once", ssd_dense(
+                              *args, torch.float32, cum=torch.cumsum(a32.double(), dim=2).float()))):
+            row[name] = [_off(g, w, SSD_ATOL, SSD_RTOL) for g, w in zip(out, exact)]
+        del exact
+        witness.append(row)
+        print(f"ssd fp64 witness {where}: (elements off atol {SSD_ATOL} / rtol {SSD_RTOL}, worst "
+              f"share of the bound) of y, S: " + "; ".join(
+                  f"{k} {v}" for k, v in row.items() if k not in ("shape", "decay")), flush=True)
+        for name in ("kernel", "plain"):
+            if any(n for n, _ in row[name]):
+                raise AssertionError(f"{where}: the {name} is off the fp64 witness: {row[name]}")
     # strong decay through the whole scan, against the sequential recurrence
     xdt, a, bm, cm = inputs(2, 2, 64, 4, 16, 16, "float32", decay=-2.0)
     flat = (xdt.reshape(2, 128, 4, 16), a.reshape(2, 128, 4), bm.reshape(2, 128, 16),
@@ -905,11 +956,13 @@ def check_ssd(dev) -> dict:
             "replaces": "src/repro/kernels/ssd/kernel.py:49", "kernel_route": "mma",
             "design": "ssd_intra_chunk_mma: mma.sync m16n8k16 bf16, 4 warps x 16 rows of a "
             "64-row tile, 64-step B/xdt tiles double-buffered by cp.async, C.B^T and the decay "
-            "mask in registers, L in three bf16 parts and dec.B in two, cum in fp64",
+            "mask in registers, L in two bf16 parts at N 16 and three at N 128, dec.B in two, "
+            "cum in fp64 kept as fp32 hi + lo",
             "simt_ms": simt_ms, "turns_ms": {k: [t[0] for t in v] for k, v in turns.items()},
             "launches": None, "route_launches": None, "max_abs_err": max(max_err.values()),
             "max_abs_err_mma": max_err["mma"], "max_abs_err_simt": max_err["simt"],
-            "strong_decay_err": decay_err, "ms": ms, "plain_ms": plain_ms,
+            "strong_decay_err": decay_err, "fp64_witness": witness, "ms": ms,
+            "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": None,
             "library_note": "no single PyTorch call computes it", "call_ms": call_ms,

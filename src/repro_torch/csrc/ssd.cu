@@ -27,45 +27,51 @@
 // the launch.
 //
 // ssd_intra_chunk_mma: bf16 xdt, B and C with 16-byte-aligned rows, P 64,
-// N 16, 32, 64 or 128, Q a multiple of 64 up to 1024 (Hymba's Q 128 / N 16
-// and mamba2-1.3b's Q 256 / N 128).  The y part is flash attention with the
-// softmax replaced by the decay mask: scores = C B^T, L = select(j <= i,
-// exp(cum_i - cum_j) scores, 0), y = L xdt.  One 128-thread block per
-// (64-row tile of i, head, chunk, batch), 3,200 at Hymba's prefill; warp w
-// owns rows 16 w .. 16 w + 15 of the tile, and their C rows stay in
-// registers as A fragments.  The tiles of 64 steps j up to the diagonal
-// (B [64, N], and xdt [64, P] of this head) stream through a double-buffered
-// shared ring by 16-byte cp.async, rows padded by 16 bytes so each ldmatrix
-// phase hits eight distinct bank groups; shared memory does not grow with
-// Q * N (28,672 bytes at Hymba's tile, 72,704 at mamba2-1.3b's).  Warp 0
-// forms cum [Q] by a warp scan (a is strided by H) in fp64, rounded once to
-// fp32, as the plain version does.  Per 16 steps of a j tile, in registers:
-// C B^T by mma.sync m16n8k16 (bf16 in, fp32 sums; C and B are exact in
-// bf16, so this needs no split), the decay and the mask (the mask only on
-// the diagonal tile, where warp w also skips the steps past its rows), L
-// split into three bf16 parts reused as A fragments (the m16n8 accumulator
-// layout is the A layout once pairs are packed), and y += L_hi X + L_mid X
-// + L_lo X with X's B fragments by ldmatrix.trans; taking 16 steps at a
-// time keeps 8 scores a thread live, not 32, so Hymba's N 16 fits 5 blocks
-// a SM.  The block of the last row tile streams every j tile and also
-// forms S = X^T (dec B), dec_j = exp(cum_{Q-1} - cum_j): X^T's A fragments
-// come by ldmatrix.trans (exact), B's by ldmatrix.trans are scaled by dec
-// in fp32 and split into hi + lo; warp w holds S's rows p = 16 w .. 16 w +
-// 15.  y and S are stored from the accumulators in fp32, 8 bytes a thread,
-// each quad writing 32 consecutive bytes of a row.
+// N 16 or 128, Q 64, 128, 192 or 256: the state dims and chunks of the
+// configs (Hymba's Q 128 / N 16, mamba2-1.3b's Q 256 / N 128).  The y part
+// is flash attention with the softmax replaced by the decay mask: scores =
+// C B^T, L = select(j <= i, exp(cum_i - cum_j) scores, 0), y = L xdt.  One
+// 128-thread block per (64-row tile of i, head, chunk, batch), 3,200 at
+// Hymba's prefill; warp w owns rows 16 w .. 16 w + 15 of the tile, and
+// their C rows stay in registers as A fragments.  The tiles of 64 steps j
+// up to the diagonal (B [64, N], and xdt [64, P] of this head) stream
+// through a double-buffered shared ring by 16-byte cp.async, rows padded by
+// 16 bytes so each ldmatrix phase hits eight distinct bank groups; shared
+// memory does not grow with Q * N (29,184 bytes at Hymba's tile, 73,728 at
+// mamba2-1.3b's).  Warp 0 forms cum [Q] by a warp scan (a is strided by H)
+// in fp64 and keeps it as two fp32 parts, hi + lo; the exponents are
+// (hi_i - hi_j) + (lo_i - lo_j), within ~1e-6 of the fp64 difference the
+// plain version rounds once to fp32.  Per 16 steps
+// of a j tile, in registers: C B^T by mma.sync m16n8k16 (bf16 in, fp32
+// sums; C and B are exact in bf16, so this needs no split), the decay and
+// the mask (the mask only on the diagonal tile, where warp w also skips the
+// steps past its rows), L split into bf16 parts reused as A fragments (the
+// m16n8 accumulator layout is the A layout once pairs are packed), two at
+// N 16 and three at N 128, and y += L_hi X + L_lo X (+ L_mid X) with X's B
+// fragments by ldmatrix.trans; taking 16 steps at a time keeps 8 scores a
+// thread live, not 32, so Hymba's N 16 fits 5 blocks a SM.  The block of
+// the last row tile streams every j tile and also forms S = X^T (dec B),
+// dec_j = exp(cum_{Q-1} - cum_j): X^T's A fragments come by ldmatrix.trans
+// (exact), B's by ldmatrix.trans are scaled by dec in fp32 and split into
+// hi + lo; warp w holds S's rows p = 16 w .. 16 w + 15.  y and S are stored
+// from the accumulators in fp32, 8 bytes a thread, each quad writing 32
+// consecutive bytes of a row.
 //
 // Why the splits and the fp64 scan: the contract is atol 3e-5 / rtol 3e-4
 // against fp32, and tests/test_torch_ssd.py holds a CPU emulation of this
 // kernel's arithmetic (_emulate_mma) to it.  One bf16 rounding of L (2^-9
 // relative a term) moves y by ~1e-2 at Hymba's tile, and one of dec B moves
-// S by ~3e-3; hi + lo (2^-17) holds S, and y at Hymba's tile, but not y at
-// N 128, where |C.B| reaches ~20: at 32 heads of mamba2-1.3b's tile a few
-// of 16.8 M outputs leave the bound, so L takes three parts (2^-26), for a
-// third L X product.  An fp32 scan's rounding alone moves cum_i - cum_j,
-// |cum| ~200 at Q 256, by ~1e-4 and y past the bound.  The tests
-// test_one_bf16_rounding_of_l_leaves_the_bound,
+// S by ~3e-3; hi + lo (2^-17) holds S, and y at N 16, but not y at N 128,
+// where |C.B| reaches ~20: at 32 heads of mamba2-1.3b's tile a few of 16.8
+// M outputs leave the bound, so there L takes three parts (2^-26), for a
+// third L X product.  cum in fp32, |cum| ~200 at Q 256, is off by ~8e-6
+// rounded once and by ~1e-4 summed step by step in fp32; either moves cum_i
+// - cum_j, and y past the bound of the step computed in fp64 throughout.
+// The tests test_one_bf16_rounding_of_l_leaves_the_bound,
 // test_two_bf16_parts_of_l_leave_the_bound_at_mamba2_scale and
-// test_fp32_step_order_cum_leaves_the_bound show each on the CPU.
+// test_fp32_step_order_cum_leaves_the_bound show each on the CPU;
+// test_mma_emulation_and_plain_match_fp64 holds the emulation and the plain
+// version to the fp64 step.
 //
 // ssd_intra_chunk: everything else, f32 above all.  A first kernel that is
 // right: one 256-thread block per (head, chunk, batch), 1,600 blocks at
@@ -194,7 +200,7 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk(const Args a) {
 constexpr int kMmaThreads = 128;   // 4 warps, 16 rows of y each
 constexpr int kT = 64;             // rows of y a block; steps j a tile
 constexpr int kP = 64;             // the head dim P the route takes
-constexpr int kMaxQ = 1024;
+constexpr int kMaxQ = 256;
 
 template <int N>
 struct MmaTile {
@@ -202,9 +208,9 @@ struct MmaTile {
   static constexpr int kLdX = kP + 8;
   static constexpr int kB = kT * kLdB;      // elements of one B or C tile
   static constexpr int kX = kT * kLdX;
-  // C, 2 B, 2 X tiles, then cum and dec [Q] in fp32
+  // C, 2 B, 2 X tiles, then cum's hi and lo parts and dec [Q] in fp32
   static size_t smem(int Q) {
-    return sizeof(__nv_bfloat16) * (3 * kB + 2 * kX) + 2 * sizeof(float) * size_t(Q);
+    return sizeof(__nv_bfloat16) * (3 * kB + 2 * kX) + 3 * sizeof(float) * size_t(Q);
   }
 };
 
@@ -224,7 +230,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld, const __nv
 }
 
 // At N 16 (Hymba) the kernel fits 5 blocks a SM in registers without
-// spilling; the larger N need their registers for S's accumulators.
+// spilling; N 128 needs its registers for S's accumulators.
 template <int N>
 __global__ void __launch_bounds__(kMmaThreads, N == 16 ? 5 : 1)
     ssd_intra_chunk_mma(const Args a) {
@@ -233,13 +239,15 @@ __global__ void __launch_bounds__(kMmaThreads, N == 16 ? 5 : 1)
   constexpr int KC = N / 16;               // k-steps of C B^T
   constexpr int NS = N / 8;                // n-tiles of S
   constexpr int NY = kP / 8;               // n-tiles of y
+  constexpr int kLParts = N <= 16 ? 2 : 3;  // bf16 parts of L (the source note says why)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cs = reinterpret_cast<T*>(smem_raw);  // [64][kLdB]: this tile's C rows
   T* bs = cs + MmaTile<N>::kB;             // [2][64][kLdB]
   T* xs = bs + 2 * MmaTile<N>::kB;         // [2][64][kLdX]
   const int Q = a.Q, H = a.H, nt = Q / kT;
-  float* cum = reinterpret_cast<float*>(xs + 2 * MmaTile<N>::kX);   // [Q]
-  float* dec = cum + Q;                    // [Q]: exp(cum_{Q-1} - cum_j)
+  float* cum = reinterpret_cast<float*>(xs + 2 * MmaTile<N>::kX);   // [Q]: cum's hi part
+  float* cuml = cum + Q;                   // [Q]: its lo part, fp32(cum - hi)
+  float* dec = cuml + Q;                   // [Q]: exp(cum_{Q-1} - cum_j)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;  // the quad's row, the thread in the quad
   const int t = blockIdx.x % nt, h = blockIdx.x / nt;
@@ -255,7 +263,7 @@ __global__ void __launch_bounds__(kMmaThreads, N == 16 ? 5 : 1)
   load_rows<N>(bs, kLdB, bp, N, 0);
   load_rows<kP>(xs, kLdX, xp, xst, 0);
   cp_async_commit();
-  if (warp == 0) {                         // cum by a warp scan in fp64, rounded once to fp32
+  if (warp == 0) {                         // cum by a warp scan in fp64, kept as hi + lo
     const float* ah = a.a + chunk * Q * H + h;
     const int per = Q / 32, j0 = lane * per;
     double run = 0.0;                      // the lane's Q/32 consecutive steps
@@ -269,16 +277,19 @@ __global__ void __launch_bounds__(kMmaThreads, N == 16 ? 5 : 1)
     double acc = incl - run;               // the sum of the lanes before this one
     for (int j = j0; j < j0 + per; ++j) {
       acc += ah[j * H];
-      cum[j] = float(acc);
+      const float hi = float(acc);
+      cum[j] = hi;
+      cuml[j] = float(acc - double(hi));
     }
   }
   __syncthreads();
   if (owner) {
-    const float total = cum[Q - 1];
-    for (int j = tid; j < Q; j += kMmaThreads) dec[j] = expf(total - cum[j]);
+    const float total = cum[Q - 1], total_lo = cuml[Q - 1];
+    for (int j = tid; j < Q; j += kMmaThreads)
+      dec[j] = expf((total - cum[j]) + (total_lo - cuml[j]));
   }
   const int row0 = i0 + warp * 16 + g;     // this thread's rows row0 (r = 0) and row0 + 8
-  const float ci[2] = {cum[row0], cum[row0 + 8]};
+  const float ci[2] = {cum[row0], cum[row0 + 8]}, cil[2] = {cuml[row0], cuml[row0 + 8]};
 
   unsigned ca[KC][4];                      // the warp's 16 C rows as A fragments
   float y[NY][4], sacc[NS][4];
@@ -329,19 +340,24 @@ __global__ void __launch_bounds__(kMmaThreads, N == 16 ? 5 : 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int j = j0 + 16 * kc + 8 * h + 2 * tig;
-        const float cj[2] = {cum[j], cum[j + 1]};
+        const float cj[2] = {cum[j], cum[j + 1]}, cjl[2] = {cuml[j], cuml[j + 1]};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool in = !diag || j + (e & 1) <= row0 + 8 * (e >> 1);
-          sc[h][e] = in ? expf(ci[e >> 1] - cj[e & 1]) * sc[h][e] : 0.f;
+          const float d = (ci[e >> 1] - cj[e & 1]) + (cil[e >> 1] - cjl[e & 1]);
+          sc[h][e] = in ? expf(d) * sc[h][e] : 0.f;
         }
       }
-      // y += L_hi X + L_mid X + L_lo X; a0..a3: rows g, g + 8 of steps +0..7, +8..15
-      unsigned lf[3][4];
+      // y += the L parts times X; a0..a3: rows g, g + 8 of steps +0..7, +8..15
+      unsigned lf[kLParts][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        split3_bf16(sc[i >> 1][2 * (i & 1)], sc[i >> 1][2 * (i & 1) + 1], lf[0][i], lf[1][i],
-                    lf[2][i]);
+      for (int i = 0; i < 4; ++i) {
+        const float l0 = sc[i >> 1][2 * (i & 1)], l1 = sc[i >> 1][2 * (i & 1) + 1];
+        if constexpr (kLParts == 3)
+          split3_bf16(l0, l1, lf[0][i], lf[1][i], lf[2][i]);
+        else
+          split_bf16(l0, l1, lf[0][i], lf[1][i]);
+      }
 #pragma unroll
       for (int n = 0; n < NY; n += 2) {
         unsigned xf[4];
@@ -349,7 +365,7 @@ __global__ void __launch_bounds__(kMmaThreads, N == 16 ? 5 : 1)
                                 n * 8 + (lane >> 4) * 8),
                       xf);
 #pragma unroll
-        for (int part = 0; part < 3; ++part) {
+        for (int part = 0; part < kLParts; ++part) {
           mma_bf16(y[n], lf[part], xf[0], xf[1]);
           mma_bf16(y[n + 1], lf[part], xf[2], xf[3]);
         }
@@ -445,7 +461,7 @@ long long ssd_smem_bytes(int Q, int P, int N) {
 }
 
 // ssd_intra_chunk_mma, bf16 xdt, B and C only: the same arguments; P must be
-// 64, N 16, 32, 64 or 128, Q a multiple of 64 up to 1024, the xdt, B and C
+// 64, N 16 or 128, Q a multiple of 64 up to 256, the xdt, B and C
 // pointers 16-byte aligned and y and S 8-byte aligned, or it returns
 // cudaErrorInvalidValue without launching.
 int ssd_intra_chunk_mma_launch(const void* xdt, const float* a, const void* B, const void* C,
@@ -463,8 +479,6 @@ int ssd_intra_chunk_mma_launch(const void* xdt, const float* a, const void* B, c
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (N) {
     case 16: return int(launch_mma<16>(args, Bz, s));
-    case 32: return int(launch_mma<32>(args, Bz, s));
-    case 64: return int(launch_mma<64>(args, Bz, s));
     case 128: return int(launch_mma<128>(args, Bz, s));
     default: return int(cudaErrorInvalidValue);
   }

@@ -21,8 +21,8 @@ from ..build import load
 DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("mma", "simt")
 MMA_P = 64                      # ssd_intra_chunk_mma's head dim
-MMA_NS = (16, 32, 64, 128)      # its state dims
-MMA_TILE, MMA_MAX_Q = 64, 1024  # its chunk lengths: multiples of the tile up to the max
+MMA_NS = (16, 128)              # its state dims: Hymba's and mamba2-1.3b's
+MMA_TILE, MMA_MAX_Q = 64, 256   # its chunk lengths: multiples of the tile up to the max
 
 
 def _lib() -> ctypes.CDLL:
@@ -40,7 +40,7 @@ def _lib() -> ctypes.CDLL:
 
 def route(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor) -> str:
     """Which kernel takes these inputs: ``"mma"`` for bf16 xdt, B and C and
-    f32 a, with P 64, N 16, 32, 64 or 128 and Q a multiple of 64 up to 1024,
+    f32 a, with P 64, N 16 or 128 and Q 64, 128, 192 or 256,
     whose data pointers and row strides are 16-byte aligned
     (``ssd_intra_chunk_mma`` copies 16 bytes at a time); ``"simt"``
     (``ssd_intra_chunk``) for everything else, f32 above all.  Decided from

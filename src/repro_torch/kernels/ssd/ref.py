@@ -14,10 +14,14 @@ function the CUDA kernel computes.
   state ``S = sum_j exp(cum_end - cum_j) B_j (x) xdt_j``, in fp32.  It masks
   *before* the exp (``exp(-inf) = 0`` above the diagonal), so strong decay
   gives no inf * 0 = NaN, as the JAX kernel's mask-after form does.  cum
-  is summed in float64 and rounded once to fp32, as torch's float cumsum
-  does on the CPU; on the card that cumsum sums in fp32 in step order,
-  which moves cum_i - cum_j by up to ~1e-4 at a 256-step chunk, enough to
-  put y past the kernel's tolerance by itself.
+  is summed in float64, and the exponents cum_i - cum_j and cum_end - cum_j
+  are formed in float64 and rounded once to fp32.  An fp32 cum, at |cum| ~
+  200 in a 256-step chunk, is off by up to half an fp32 step (~8e-6) when
+  rounded once and by ~1e-4 when summed in fp32 step by step (torch's float
+  cumsum on the card); either error alone, through exponents near 0 and
+  |C_i . B_j| ~ 20 at N 128, moves y past atol 3e-5 / rtol 3e-4 of the
+  step computed in fp64 throughout.  The fp64 exponents keep y within 0.03
+  of that bound of it (tests/test_torch_ssd.py).
 """
 from __future__ import annotations
 
@@ -45,14 +49,13 @@ def ssd_intra_chunk_torch(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     [Bz,nc,Q,H,P], S_local [Bz,nc,H,P,N]), both fp32."""
     Q = xdt.shape[2]
     x, Bf, Cf = xdt.float(), Bm.float(), Cm.float()
-    cum = torch.cumsum(a.double(), dim=2).float()                     # [Bz,nc,Q,H]
-    total = cum[:, :, -1]                                             # [Bz,nc,H]
+    cum = torch.cumsum(a.double(), dim=2)                             # [Bz,nc,Q,H] fp64
     scores = torch.einsum("bcin,bcjn->bcij", Cf, Bf)                  # [Bz,nc,Qi,Qj]
     idx = torch.arange(Q, device=xdt.device)
     tri = (idx[:, None] >= idx[None, :])[:, :, None]                  # [Qi,Qj,1]
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]              # [Bz,nc,Qi,Qj,H]
+    diff = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).float()    # [Bz,nc,Qi,Qj,H]
     seg = torch.exp(torch.where(tri, diff, -torch.inf))
     y = torch.einsum("bcijh,bcjhp->bcihp", seg * scores[..., None], x)
-    decay = torch.exp(total[:, :, None, :] - cum)                     # [Bz,nc,Q,H]
+    decay = torch.exp((cum[:, :, -1:] - cum).float())                 # [Bz,nc,Q,H]
     s = torch.einsum("bcqn,bcqhp->bchpn", Bf, decay[..., None] * x)
     return y, s

@@ -17,12 +17,13 @@
   and mamba2-1.3b's tiles, and ``simt`` = ``ssd_intra_chunk`` for the rest,
   f32 above all;
 * a torch emulation of ``ssd_intra_chunk_mma``'s arithmetic (bf16
-  operands, fp32 sums of 16-wide k steps, L split into three bf16 parts
-  and dec·B into two, cum in fp64, the select before the exp) vs JAX's
-  Pallas kernel over the sweep and vs the plain version at Q 128 / N 16
-  and Q 256 / N 128; strong decay through it; what leaves the bound: one
-  bf16 L, two bf16 parts of L at mamba2-1.3b's full tile, cum summed in
-  fp32 step by step;
+  operands, fp32 sums of 16-wide k steps, L split into bf16 parts, two at
+  N 16 and three above, dec·B into two, cum in fp64, the select before the
+  exp) vs JAX's Pallas kernel over the sweep and vs the plain version at
+  Q 128 / N 16 and Q 256 / N 128; both vs the same step computed in fp64
+  throughout; strong decay through it; what leaves the bound: one bf16 L,
+  two bf16 parts of L at mamba2-1.3b's full tile, cum summed in fp32 step
+  by step (against the plain version and against fp64);
 * on a card (``cuda``-marked, skipped without one): the kernel vs the plain
   version, each case on its route, and the f32 tile that exceeds a block's
   shared memory raises.
@@ -177,10 +178,12 @@ def test_route_takes_mma_for_the_bf16_tiles(arch):
     assert route(*_route_args(2, 3, Q, 4, P, N)) == "mma"
 
 
-@pytest.mark.parametrize("case", ["float32", "pointer", "P32", "N24", "Q96", "Q32", "Q2048"])
+@pytest.mark.parametrize("case", ["float32", "pointer", "P32", "N24", "N32", "N64", "Q96",
+                                  "Q32", "Q320", "Q2048"])
 def test_route_takes_simt_otherwise(case):
     kw = {"float32": dict(dtype=torch.float32), "pointer": dict(offset=1),
-          "P32": dict(P=32), "N24": dict(N=24), "Q96": dict(Q=96), "Q32": dict(Q=32),
+          "P32": dict(P=32), "N24": dict(N=24), "N32": dict(N=32), "N64": dict(N=64),
+          "Q96": dict(Q=96), "Q32": dict(Q=32), "Q320": dict(Q=320),
           "Q2048": dict(Q=2048)}[case]
     args = dict(Bz=1, nc=2, Q=128, H=3, P=64, N=16) | kw
     assert route(*_route_args(**args)) == "simt"
@@ -205,21 +208,29 @@ def _bf16_parts(v, n):
     return parts
 
 
-def _emulate_mma(xdt, a, Bm, Cm, *, l_parts=3, cum=None):
+def _emulate_mma(xdt, a, Bm, Cm, *, l_parts=None, cum=None):
     """``ssd_intra_chunk_mma``'s arithmetic on [Bz,nc,Q,H,P] / [Bz,nc,Q,N]
     tensors: xdt, B and C rounded to bf16 (the kernel's inputs); cum summed
-    in fp64 and rounded once to fp32 (or ``cum`` as given); per 64-row tile
-    of i and 64-step tile of j up to the diagonal, scores = C B^T, L =
-    exp(cum_i - cum_j) scores with the exponential selected only where j <=
-    i, y += L_hi X + L_mid X + L_lo X (L in ``l_parts`` bf16 parts); S =
+    in fp64 and kept as two fp32 parts hi + lo, the exponents formed as
+    (hi_i - hi_j) + (lo_i - lo_j) (or ``cum`` as given, an fp32 cum with no
+    lo part); per 64-row tile of i and 64-step tile of j up to the
+    diagonal, scores = C B^T, L = exp(cum_i - cum_j) scores with the
+    exponential selected only where j <= i, y += L_hi X + L_lo X (+ L_mid X): L in ``l_parts`` bf16 parts, by
+    default as ``ssd.cu``'s kLParts, two at N <= 16 and three above; S =
     X^T (dec B)_hi + X^T (dec B)_lo with dec_j = exp(cum_end - cum_j); every
     product summed in fp32 over 16-wide k steps."""
     Bz, nc, Q, H, P = xdt.shape
+    if l_parts is None:
+        l_parts = 2 if Bm.shape[-1] <= 16 else 3
     x = xdt.bfloat16().float().permute(0, 1, 3, 2, 4)                # [Bz,nc,H,Q,P]
     Bf, Cf = Bm.bfloat16().float(), Cm.bfloat16().float()
     if cum is None:
-        cum = torch.cumsum(a.double(), dim=2).float()
-    cum = cum.permute(0, 1, 3, 2)                                     # [Bz,nc,H,Q]
+        c64 = torch.cumsum(a.double(), dim=2)
+        hi = c64.float()
+        lo = (c64 - hi.double()).float()
+    else:
+        hi, lo = cum, torch.zeros_like(cum)
+    hi, lo = (c.permute(0, 1, 3, 2) for c in (hi, lo))                # [Bz,nc,H,Q]
 
     y = torch.zeros_like(x)
     for i0 in range(0, Q, 64):
@@ -227,11 +238,11 @@ def _emulate_mma(xdt, a, Bm, Cm, *, l_parts=3, cum=None):
         for j0 in range(0, i0 + 1, 64):
             j = torch.arange(j0, min(j0 + 64, Q))
             scores = _ksum(Cf[:, :, i], Bf[:, :, j].transpose(-1, -2))[:, :, None]
-            diff = cum[..., i, None] - cum[..., None, j]
+            diff = (hi[..., i, None] - hi[..., None, j]) + (lo[..., i, None] - lo[..., None, j])
             L = torch.exp(torch.where(j[None, :] <= i[:, None], diff, -torch.inf)) * scores
             for part in _bf16_parts(L, l_parts):
                 y[..., i, :] += _ksum(part, x[..., j, :])
-    dec = torch.exp(cum[..., -1:] - cum)                              # [Bz,nc,H,Q]
+    dec = torch.exp((hi[..., -1:] - hi) + (lo[..., -1:] - lo))        # [Bz,nc,H,Q]
     s = sum(_ksum(x.transpose(-1, -2), part)
             for part in _bf16_parts(dec[..., None] * Bf[:, :, None], 2))   # [Bz,nc,H,P,N]
     return y.permute(0, 1, 3, 2, 4), s
@@ -285,8 +296,8 @@ def _off(got, want):
 
 def test_one_bf16_rounding_of_l_leaves_the_bound():
     """Why the kernel splits L: rounded once to bf16 (2^-9 relative a term),
-    L moves y at Hymba's tile far past atol 3e-5 / rtol 3e-4; in parts it
-    stays within it."""
+    L moves y at Hymba's tile far past atol 3e-5 / rtol 3e-4; in the two
+    parts the kernel takes at N 16 it stays within it."""
     args = _tile_inputs(*MMA_TILES[0], seed=6)
     want = ssd_intra_chunk_torch(*args)[0]
     assert _off(_emulate_mma(*args, l_parts=1)[0], want) > want.numel() // 10
@@ -309,21 +320,82 @@ def test_two_bf16_parts_of_l_leave_the_bound_at_mamba2_scale():
     assert off[2] > 0 and off[3] == 0
 
 
-def test_fp32_step_order_cum_leaves_the_bound():
-    """Why the kernel and the plain version sum cum in fp64: summed in fp32
-    step by step (as torch's cumsum along this dim does on the card), cum
-    reaches ~200 at a 256-step chunk and its rounding alone moves y past
-    atol 3e-5 / rtol 3e-4 at mamba2-1.3b's tile."""
-    args = _tile_inputs(2, 2, 256, 4, 64, 128, seed=11)
-    want = ssd_intra_chunk_torch(*args)[0]
-    steps = torch.zeros_like(args[1])
-    run = torch.zeros_like(args[1][:, :, 0])
-    for j in range(steps.shape[2]):
-        run = run + args[1][:, :, j]
+def _fp32_cums(a):
+    """Two fp32 cums of a [Bz,nc,Q,H]: summed in fp32 step by step (as
+    torch's float cumsum along this dim does on the card), and summed in
+    fp64 and rounded once (as it does on the CPU)."""
+    steps = torch.zeros_like(a)
+    run = torch.zeros_like(a[:, :, 0])
+    for j in range(a.shape[2]):
+        run = run + a[:, :, j]
         steps[:, :, j] = run
-    assert _off(_emulate_mma(*args, cum=steps)[0], want) > 0
-    assert _off(_emulate_mma(*args)[0], want) == 0
+    return {"steps": steps, "rounded once": torch.cumsum(a.double(), dim=2).float()}
 
+
+# half of mamba2-1.3b's 4 x 2,048-token prefill at 16 of its 64 heads
+MAMBA2_PART = (4, 8, 256, 16, 64, 128)
+
+
+def test_fp32_step_order_cum_leaves_the_bound():
+    """Why the kernel keeps cum in fp64 (as hi + lo): with an fp32 cum,
+    |cum| ~200 at a 256-step chunk, summed step by step or rounded once,
+    the kernel's arithmetic moves y past atol 3e-5 / rtol 3e-4 of the plain
+    version at mamba2-1.3b's tile; with hi + lo it does not."""
+    args = _tile_inputs(*MAMBA2_PART, seed=1)
+    off = {"steps": 0, "rounded once": 0, "hi + lo": 0}
+    for b in range(args[0].shape[0]):      # a batch row at a time, to bound the memory
+        row = [t[b:b + 1] for t in args]
+        want = ssd_intra_chunk_torch(*row)[0]
+        for name, cum in _fp32_cums(row[1]).items():
+            off[name] += _off(_emulate_mma(*row, cum=cum)[0], want)
+        off["hi + lo"] += _off(_emulate_mma(*row)[0], want)
+    assert off["steps"] > 0 and off["rounded once"] > 0 and off["hi + lo"] == 0, off
+
+
+def _dense(xdt, a, Bm, Cm, dtype, cum=None):
+    """The intra-chunk step (y, S) with every cast, exponential and sum in
+    ``dtype``, cum = cumsum(a) in ``dtype`` unless given: in float64, a
+    witness for the rounding of the fp32 versions, independent of both."""
+    Q = xdt.shape[2]
+    x, Bf, Cf = xdt.to(dtype), Bm.to(dtype), Cm.to(dtype)
+    cum = (torch.cumsum(a.to(dtype), dim=2) if cum is None else cum).to(dtype)
+    idx = torch.arange(Q)
+    tri = (idx[:, None] >= idx[None, :])[:, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    L = torch.exp(torch.where(tri, diff, -torch.inf)) * torch.einsum(
+        "bcin,bcjn->bcij", Cf, Bf)[..., None]
+    y = torch.einsum("bcijh,bcjhp->bcihp", L, x)
+    decay = torch.exp(cum[:, :, -1:] - cum)
+    return y, torch.einsum("bcqn,bcqhp->bchpn", Bf, decay[..., None] * x)
+
+
+@pytest.mark.parametrize("shape", MMA_TILES)
+def test_mma_emulation_and_plain_match_fp64(shape):
+    """The kernel's arithmetic and the plain version it is held to are each
+    within atol 3e-5 / rtol 3e-4 of the step computed in fp64 throughout."""
+    args = _tile_inputs(*shape, seed=6)
+    wit = _dense(*args, torch.float64)
+    for got in (_emulate_mma(*args), ssd_intra_chunk_torch(*args)):
+        for g, w in zip(got, wit):
+            np.testing.assert_allclose(g.double().numpy(), w.numpy(), **TOL)
+
+
+def test_fp32_step_order_cum_misses_fp64():
+    """Why the plain version forms its exponents in fp64: as it was before,
+    with an fp32 cum (step by step on the card, rounded once on the CPU),
+    it leaves atol 3e-5 / rtol 3e-4 of the step computed in fp64 throughout
+    at mamba2-1.3b's tile; as it is, and the kernel's arithmetic, do not."""
+    args = _tile_inputs(*MAMBA2_PART, seed=1)
+    off = {"steps": 0, "rounded once": 0, "plain": 0, "kernel": 0}
+    for b in range(args[0].shape[0]):
+        row = [t[b:b + 1] for t in args]
+        wit = _dense(*row, torch.float64)[0]
+        for name, cum in _fp32_cums(row[1]).items():
+            off[name] += _off(_dense(*row, torch.float32, cum=cum)[0].double(), wit)
+        off["plain"] += _off(ssd_intra_chunk_torch(*row)[0].double(), wit)
+        off["kernel"] += _off(_emulate_mma(*row)[0].double(), wit)
+    assert off["steps"] > 0 and off["rounded once"] > 0, off
+    assert off["plain"] == 0 and off["kernel"] == 0, off
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,want_route", [
