@@ -33,7 +33,11 @@
    route); then FedShuffleMVR (``server_opt="mvr"``) for 4 rounds with the
    App. F server step (the CUDA server_update kernel, one launch a round
    over all 111 parameter tensors) and for 2 rounds with the exact eq. 14
-   step (torch, no kernel);
+   step (torch, no kernel); then the same four training paths in the
+   vmapped cohort mode (``cohort_mode="vmapped"``, the JAX package's
+   default: every client's local steps batched over the cohort), with the
+   same launch counts, each path's round wall, device kernels in a round
+   and peak memory printed beside the sequential path's;
    then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
    seed 0) through ``launch/serve.py:generate``: batch 4, 2,048-token
    prompts, 32 greedy tokens (one flash attention launch a layer in the
@@ -43,8 +47,10 @@
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
    bitwise-identical parameters, the comm metrics equal to the wire's
-   arithmetic, CharLM-tiny runs on the card (dense, ``ef_qsgd`` /
-   ``qsgd``, and mvr in both modes) agreeing with the port on the CPU;
+   arithmetic, the vmapped dense parameters within ``VMAPPED_SEQ_RTOL`` of
+   the sequential run's, CharLM-tiny runs on the card (dense, ``ef_qsgd`` /
+   ``qsgd``, mvr in both modes, and dense vmapped) agreeing with the port
+   on the CPU;
    for serving, finite logits, each layer's flash and SSD launch against
    its plain version on the path's own inputs (flash within one bf16 step),
    the bf16 run no further from the plain versions in fp32 than 1.5x the
@@ -55,13 +61,15 @@
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-With ``--profile DIR`` it also traces one more round of the qsgd and of the
-two mvr main paths, and one prefill and one decode step of the serving
-path, with ``torch.profiler`` and writes the kernel-time tables to ``DIR``.
+With ``--profile DIR`` it also traces one more round of the vmapped dense,
+the qsgd and the two mvr main paths, and one prefill and one decode step of
+the serving path, with ``torch.profiler`` and writes the kernel-time tables
+to ``DIR``.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -93,6 +101,14 @@ ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
 QUANT_OPS = {"quantize_pack": (21, 11), "unpack_dequantize": (5, 3)}
 COMM = dict(uplink="qsgd", downlink="qsgd")
 MVR = dict(server_opt="mvr")
+VMAPPED = dict(cohort_mode="vmapped")
+# the vmapped dense main path against the sequential one: each leaf within
+# this share of its largest magnitude.  The modes sum in other orders
+# (batched against single products, the einsum aggregate against the slot
+# loop); their CPU twin (CharLM at 3 x 256, the main path's FL config, 4
+# rounds) differs by 1.2e-7 of a leaf's largest magnitude, and the bound
+# leaves ~80x of that for cuBLAS picking other algorithms on the card.
+VMAPPED_SEQ_RTOL = 1e-5
 # server_update.cu: fp32 operations a value (negate, 4 multiplies, 2 adds;
 # 1 - a once a thread)
 SERVER_UPDATE_OPS = 7
@@ -159,6 +175,7 @@ def check_rr_perm(dev) -> dict:
     numpy mirror, bitwise; timings at the main path's shape."""
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels.rr_perm import ref
     from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
 
@@ -213,6 +230,15 @@ def check_rr_perm(dev) -> dict:
     ms, call_ms = time_ms(lambda: rr_indices_kernel(prekey, s, e, B=B, K=k_max, rounds=R), 200)
     plain_ms, plain_call_ms = time_ms(
         lambda: ref.rr_indices_torch(prekey, s, e, B, k_max, rounds=R), 20, behind_sleep=False)
+    # the card's launch floor: a kernel that does nothing, from the same library
+    lib = build.load("rr_perm")
+    lib.empty_launch.argtypes, lib.empty_launch.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def empty():
+        if lib.empty_launch(torch.cuda.current_stream(dev).cuda_stream) != 0:
+            raise RuntimeError("empty_kernel launch failed")
+
+    empty_ms, empty_call_ms = time_ms(empty, 200)
     n = C * k_max * B
     bytes_moved = 4 * n + C * (8 + 4 + 4)
     ops = n * rr_ops_per_element("rr", R)
@@ -222,7 +248,8 @@ def check_rr_perm(dev) -> dict:
             "launches": None, "max_abs_err": max_err, "mismatches": mismatches,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
-            "call_ms": call_ms, "plain_call_ms": plain_call_ms, "shape": [C, k_max, B]}
+            "call_ms": call_ms, "plain_call_ms": plain_call_ms, "shape": [C, k_max, B],
+            "empty_kernel_ms": empty_ms, "empty_kernel_call_ms": empty_call_ms}
 
 
 def e2e_wire_leaves() -> list[int]:
@@ -523,9 +550,10 @@ def run_main_path(dev, rr_backend: str, rounds: int = ROUNDS, server_opt: str = 
                           rr_backend=rr_backend, prefetch=0, **kw)
 
 
-def report_rounds(label: str, res, wall: float, peak: int, rounds: int = ROUNDS) -> None:
+def report_rounds(label: str, res, wall: float, peak: int, rounds: int = ROUNDS) -> float:
     """Print a main-path run's rounds and fail on non-finite losses or
-    parameters."""
+    parameters; returns the mean wall time (ms) of the rounds after the
+    first."""
     import torch
 
     from repro_torch.utils.pytree import tree_count_params
@@ -543,6 +571,7 @@ def report_rounds(label: str, res, wall: float, peak: int, rounds: int = ROUNDS)
         raise AssertionError(f"{label}: bad loss rows {rows}")
     if not all(torch.isfinite(v).all() for v in res.state.params.values()):
         raise AssertionError(f"{label}: non-finite parameters")
+    return (rows[-1]["elapsed_s"] - rows[0]["elapsed_s"]) / (rounds - 1) * 1e3
 
 
 def check_comm_metrics(rows, fl) -> None:
@@ -572,7 +601,8 @@ def check_small_reference(dev, **comm) -> tuple[float, int]:
     """CharLM-tiny, two cohort-engine rounds on the card vs the port on the
     CPU (fp32, TF32 off): the largest relative parameter difference and the
     number of level flips.  With a dense wire every element is within 1e-4
-    of its leaf's max (``comm`` may also pick the server opt, e.g. mvr).
+    of its leaf's max (``comm`` may also pick the server opt, e.g. mvr, or
+    the cohort mode).
     With a codec an element may instead sit on the other side of a
     stochastic level boundary, because the inputs differ by an ulp: it may
     differ by at most one uplink level a round (server_lr * coefficient *
@@ -591,9 +621,9 @@ def check_small_reference(dev, **comm) -> tuple[float, int]:
     from repro_torch.models.model import build_model
 
     rounds = 2
-    fl = FLConfig(num_clients=4, cohort_size=2, local_batch=2, algorithm="fedshuffle",
-                  local_lr=0.05, mean_samples=3, cohort_mode="sequential", seed=1,
-                  engine="cohort", rr_backend="device", prefetch=0, **comm)
+    fl = FLConfig(**dict(num_clients=4, cohort_size=2, local_batch=2, algorithm="fedshuffle",
+                         local_lr=0.05, mean_samples=3, cohort_mode="sequential", seed=1,
+                         engine="cohort", rr_backend="device", prefetch=0) | comm)
     model = build_model(CHARLM_TINY)
     loss_fn = make_loss(model)
     params = model.init(0, "cpu")
@@ -1211,14 +1241,11 @@ def check_serve_tiny(dev) -> float:
     return _allclose(logits[str(dev)], logits["cpu"], 2e-4, 2e-3, "Hymba-tiny card vs CPU")
 
 
-def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
-    """One main-path round step (after a warm-up round; ``comm`` overrides
-    the FLConfig, e.g. the codecs or the server opt) under torch.profiler:
-    the kernel-time table and the device's busy share of the round's wall
-    time, written to ``out_dir/profile_round_<label>.txt``."""
+def round_setup(dev, warm_up: bool = True, **comm):
+    """A main-path round step built by hand (``comm`` overrides the
+    FLConfig), its state (after one warm-up round with ``warm_up``) and what
+    the tracing reads: ``(step, state, eng, strat, task, fl)``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.federated import Population
     from repro_torch.data.tasks import CharLMTask
@@ -1239,8 +1266,50 @@ def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
     strat = bind_strategy(None, fl, loss_fn, num_clients=fl.num_clients)
     step = build_round_step(loss_fn, strat, fl, plane=eng.plane, device=dev)
     state = strat.init(model.init(0, dev))
-    state, _ = step(state, eng.device_plan(0))     # warm-up round
+    if warm_up:
+        state, _ = step(state, eng.device_plan(0))
     torch.cuda.synchronize()
+    return step, state, eng, strat, task, fl
+
+
+def device_events(ka):
+    """The device-side rows of ``key_averages()`` (kernels, copies; CPU ops
+    repeat their kernels' time) and the name of their time field."""
+    from torch.autograd import DeviceType
+
+    field = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    return [e for e in ka if e.device_type != DeviceType.CPU], field
+
+
+def round_kernels(dev, **comm) -> tuple[int, float]:
+    """(device kernels and copies, their device ms) of one main-path round
+    step, traced with torch.profiler (CUDA activity only, which keeps the
+    trace small).  No warm-up round: it runs after the path's own run, in
+    the same process, and a round's kernels do not change with its index."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step, state, eng, *_ = round_setup(dev, warm_up=False, **comm)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, mets = step(state, eng.device_plan(0))
+        float(mets["local_loss"])
+        torch.cuda.synchronize()
+    dev_events, field = device_events(prof.key_averages())
+    del state
+    torch.cuda.empty_cache()
+    return sum(e.count for e in dev_events), sum(getattr(e, field) for e in dev_events) / 1e3
+
+
+def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
+    """One main-path round step (after a warm-up round; ``comm`` overrides
+    the FLConfig, e.g. the codecs, the server opt or the cohort mode) under
+    torch.profiler: the kernel-time table and the device's busy share of the
+    round's wall time, written to ``out_dir/profile_round_<label>.txt``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step, state, eng, strat, task, fl = round_setup(dev, **comm)
     t0 = time.perf_counter()
     state, mets = step(state, eng.device_plan(1))  # an unprofiled round: its wall time
     float(mets["local_loss"])
@@ -1250,13 +1319,10 @@ def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
         float(mets["local_loss"])
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    field = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") \
-        else "self_cuda_time_total"
-    # device-side events only (kernels, copies); CPU ops repeat their kernels' time
-    dev_events = [e for e in ka if e.device_type != DeviceType.CPU]
+    dev_events, field = device_events(ka)
     busy_s = sum(getattr(e, field) for e in dev_events) / 1e6
     launches = sum(e.count for e in dev_events)
-    mm_s = sum(getattr(e, field) for e in ka if e.key == "aten::mm") / 1e6
+    mm_s = sum(getattr(e, field) for e in ka if e.key in ("aten::mm", "aten::bmm")) / 1e6
     quant = [e for e in dev_events if "quantize" in e.key]
     quant_s = sum(getattr(e, field) for e in quant) / 1e6
     upd = [e for e in dev_events if "server_update" in e.key]
@@ -1275,7 +1341,8 @@ def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
     summary = (f"one round step: unprofiled wall {wall * 1e3:.1f} ms; the next (profiled) "
                f"round: device time {busy_s * 1e3:.1f} ms = {100 * busy_s / wall:.1f} % of "
                f"that wall, {launches} device kernels/copies ({wall / launches * 1e6:.1f} us "
-               f"of wall each), aten::mm {mm_s * 1e3:.1f} ms for {mm_flop / 1e12:.2f} "
+               f"of wall each), aten::mm + aten::bmm {mm_s * 1e3:.1f} ms for "
+               f"{mm_flop / 1e12:.2f} "
                f"TFLOP = {mm_flop / mm_s / 1e12:.1f} TFLOP/s; quantize kernels "
                f"{quant_s * 1e3:.3f} ms in {sum(e.count for e in quant)} launches; "
                f"server_update kernel {upd_s * 1e3:.3f} ms in {sum(e.count for e in upd)} "
@@ -1287,13 +1354,109 @@ def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
     print(f"profile {label}: {summary} -> {path}", flush=True)
 
 
+def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> None:
+    """Main path 6: the four training paths again in the vmapped cohort mode
+    (every client's local steps batched over the cohort), each with its
+    launch counts set to 0 just before and read just after, written into
+    ``rows`` (the kernels line's rows, key ``vmapped_launches``).  Checks:
+    dense: rr_perm once a round, parameters bitwise equal to the
+    ``device_ref`` run and within ``VMAPPED_SEQ_RTOL`` of the sequential
+    run's ``seq_params``; qsgd both ways: 96 + 96 quantize launches, all on
+    ``warp``, bitwise equal to the ``uplink_backend="ref"`` run; MVR App. F:
+    one server_update launch a round, a finite gradient estimate; MVR exact:
+    no server_update launch.  Prints each path's mean round wall after the
+    first round, its device kernels and copies in one round (traced after
+    the run) and its peak memory beside the sequential path's (``seq``:
+    label -> (round wall ms, peak bytes, kernels and copies in a round, their
+    device ms; the last two traced for the dense path alone, "not traced"
+    for the others))."""
+    import torch
+
+    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+    from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
+    from repro_torch.kernels.server_update.kernel import server_update_kernel
+    from repro_torch.launch.train import charlm_e2e_config
+
+    kernels = {"rr_perm": rr_indices_kernel, "quantize_pack": quantize_pack_kernel,
+               "unpack_dequantize": unpack_dequantize_kernel,
+               "server_update": server_update_kernel}
+    nq = 2 * len(e2e_wire_leaves()) * ROUNDS
+    paths = [("dense", {}, ROUNDS, {"rr_perm": ROUNDS}),
+             ("qsgd", COMM, ROUNDS, {"rr_perm": ROUNDS, "quantize_pack": nq,
+                                     "unpack_dequantize": nq}),
+             ("mvr", MVR, ROUNDS, {"rr_perm": ROUNDS, "server_update": ROUNDS}),
+             ("mvr_exact", dict(mvr_exact=True, **MVR), MVR_EXACT_ROUNDS,
+              {"rr_perm": MVR_EXACT_ROUNDS, "server_update": 0})]
+    for label, kw, rounds, want in paths:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels.values():
+            kern.launches = 0
+            if hasattr(kern, "route_launches"):
+                kern.route_launches = dict.fromkeys(kern.route_launches, 0)
+        t0 = time.perf_counter()
+        res = run_main_path(dev, "device", rounds, **kw, **VMAPPED)
+        torch.cuda.synchronize()
+        got = {name: kern.launches for name, kern in kernels.items()}
+        routes = {name: dict(kern.route_launches) for name, kern in kernels.items()
+                  if hasattr(kern, "route_launches")}
+        peak = torch.cuda.max_memory_allocated()
+        wall = report_rounds(f"vmapped {label} path", res, time.perf_counter() - t0, peak, rounds)
+        for name, n in got.items():
+            rows[name].setdefault("vmapped_launches", {})[label] = n
+        bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        if bad:
+            raise AssertionError(f"vmapped {label} path launches (got, want): {bad}")
+        if label == "qsgd" and routes != {k: {"warp": nq, "block": 0} for k in routes}:
+            raise AssertionError(f"vmapped qsgd path routes: {routes} (want all {nq} warp)")
+        print(f"vmapped {label} path launches: {got}, as predicted", flush=True)
+        params = res.state.params
+        if label.startswith("mvr") and not all(torch.isfinite(v).all()
+                                               for v in res.state.opt["m"].values()):
+            raise AssertionError(f"vmapped {label} path: non-finite gradient estimate")
+        if label == "qsgd":
+            check_comm_metrics(res.metrics.rows, charlm_e2e_config(**COMM)[1])
+        del res
+        if label == "dense":
+            worst = max(float((params[k] - v).abs().max() / v.abs().max())
+                        for k, v in seq_params.items())
+            if worst > VMAPPED_SEQ_RTOL:
+                raise AssertionError(f"vmapped vs sequential dense params: {worst:.3e} of a "
+                                     f"leaf's max (bound {VMAPPED_SEQ_RTOL})")
+            print(f"vmapped vs sequential dense params: largest difference {worst:.3e} of its "
+                  f"leaf's max (bound {VMAPPED_SEQ_RTOL})", flush=True)
+        twin = {"dense": dict(rr_backend="device_ref"), "qsgd": dict(uplink_backend="ref")}
+        if label in twin:
+            torch.cuda.empty_cache()
+            t = dict(twin[label])
+            ref = run_main_path(dev, t.pop("rr_backend", "device"), rounds, **t, **kw,
+                                **VMAPPED).state.params
+            differ = [k for k in ref if not torch.equal(params[k], ref[k])]
+            if differ:
+                raise AssertionError(f"vmapped {label} path vs its plain-kernel twin: "
+                                     f"params differ in {differ}")
+            print(f"vmapped {label} path with {twin[label]}: parameters bitwise equal",
+                  flush=True)
+            del ref
+        del params
+        t0 = time.perf_counter()
+        n, busy_ms = round_kernels(dev, **kw, **VMAPPED)
+        s_wall, s_peak, s_n, s_busy = seq[label]
+        s_busy = f"{s_busy:.1f}" if isinstance(s_busy, float) else s_busy
+        print(f"vmapped vs sequential, {label}: round wall {wall:.1f} vs {s_wall:.1f} ms "
+              f"({s_wall / wall:.2f}x); device kernels and copies in a round {n} vs {s_n}, "
+              f"their device time {busy_ms:.1f} vs {s_busy} ms; peak "
+              f"{peak / 2**30:.3f} vs {s_peak / 2**30:.3f} GiB (traced in "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+
+
 def profile_serve(dev, out_dir: Path) -> None:
     """The serving main path's prefill (4 x 2,048 tokens) and one decode
     step of full-width Hymba-1.5B under torch.profiler, after a warm-up:
     the device's busy share of each one's wall time and the kernel-time
     tables, written to ``out_dir/profile_serve_{prefill,decode}.txt``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_arch
@@ -1322,9 +1485,7 @@ def profile_serve(dev, out_dir: Path) -> None:
                 fn()
                 torch.cuda.synchronize()
             ka = prof.key_averages()
-            field = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") \
-                else "self_cuda_time_total"
-            dev_events = [e for e in ka if e.device_type != DeviceType.CPU]
+            dev_events, field = device_events(ka)
             busy_s = sum(getattr(e, field) for e in dev_events) / 1e6
             n = sum(e.count for e in dev_events)
             mine = {k: sum(getattr(e, field) for e in dev_events if k in e.key) / 1e3
@@ -1381,6 +1542,9 @@ def main() -> int:
     t0 = time.perf_counter()
     rr = check_rr_perm(dev)
     quant, dequant = check_quantize(dev)
+    print(f"rr_perm at the main path's {rr['shape']}: {rr['ms']:.5f} ms a launch; an empty "
+          f"kernel from the same library: {rr['empty_kernel_ms']:.5f} ms on the device, "
+          f"{rr['empty_kernel_call_ms']:.5f} ms a call on the host", flush=True)
     upd = check_server_update(dev)
     flash = check_flash(dev)
     ssd = check_ssd(dev)
@@ -1394,7 +1558,8 @@ def main() -> int:
     res = run_main_path(dev, "device")
     torch.cuda.synchronize()
     rr["launches"] = rr_indices_kernel.launches
-    report_rounds("main path", res, time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+    peak = torch.cuda.max_memory_allocated()
+    seq = {"dense": (report_rounds("main path", res, time.perf_counter() - t0, peak), peak)}
     if rr["launches"] != ROUNDS:
         raise AssertionError(f"rr_perm launched {rr['launches']} times in {ROUNDS} rounds")
     ref = run_main_path(dev, "device_ref").state.params
@@ -1403,7 +1568,13 @@ def main() -> int:
         raise AssertionError(f"device vs device_ref params differ in {differ}")
     print("main path with the plain rr version (device_ref): parameters bitwise equal",
           flush=True)
+    seq_params = res.state.params     # held against the vmapped dense path below
     del res, ref
+    t0 = time.perf_counter()
+    seq["dense"] += round_kernels(dev)
+    print(f"main path: one round {seq['dense'][2]} device kernels and copies, "
+          f"{seq['dense'][3]:.1f} ms of device time (traced in {time.perf_counter() - t0:.1f} s)",
+          flush=True)
 
     # main path 2, qsgd both ways: 12 wire leaves a direction, one launch
     # of each quantize kernel a leaf and direction
@@ -1421,8 +1592,9 @@ def main() -> int:
     quant["route_launches"] = dict(quantize_pack_kernel.route_launches)
     dequant["route_launches"] = dict(unpack_dequantize_kernel.route_launches)
     comm_rr = rr_indices_kernel.launches
-    report_rounds("comm path (qsgd up and down)", res, time.perf_counter() - t0,
-                  torch.cuda.max_memory_allocated())
+    peak = torch.cuda.max_memory_allocated()
+    seq["qsgd"] = (report_rounds("comm path (qsgd up and down)", res, time.perf_counter() - t0,
+                                 peak), peak, "not traced", "not traced")
     want = 2 * len(e2e_wire_leaves()) * ROUNDS
     if (quant["launches"], dequant["launches"], comm_rr) != (want, want, ROUNDS):
         raise AssertionError(f"comm path launches: quantize {quant['launches']}, unpack "
@@ -1455,8 +1627,9 @@ def main() -> int:
     torch.cuda.synchronize()
     upd["launches"] = server_update_kernel.launches
     mvr_rr = rr_indices_kernel.launches
-    report_rounds("mvr path (App. F)", res, time.perf_counter() - t0,
-                  torch.cuda.max_memory_allocated())
+    peak = torch.cuda.max_memory_allocated()
+    seq["mvr"] = (report_rounds("mvr path (App. F)", res, time.perf_counter() - t0, peak),
+                  peak, "not traced", "not traced")
     if (upd["launches"], mvr_rr) != (ROUNDS, ROUNDS):
         raise AssertionError(f"mvr path launches: server_update {upd['launches']}, rr_perm "
                              f"{mvr_rr} (want {ROUNDS} each)")
@@ -1473,8 +1646,9 @@ def main() -> int:
     t0 = time.perf_counter()
     res = run_main_path(dev, "device", MVR_EXACT_ROUNDS, mvr_exact=True, **MVR)
     torch.cuda.synchronize()
-    report_rounds("mvr path (exact eq. 14)", res, time.perf_counter() - t0,
-                  torch.cuda.max_memory_allocated(), MVR_EXACT_ROUNDS)
+    peak = torch.cuda.max_memory_allocated()
+    seq["mvr_exact"] = (report_rounds("mvr path (exact eq. 14)", res, time.perf_counter() - t0,
+                                      peak, MVR_EXACT_ROUNDS), peak, "not traced", "not traced")
     exact_launches = (server_update_kernel.launches, rr_indices_kernel.launches)
     if exact_launches != (0, MVR_EXACT_ROUNDS):
         raise AssertionError(f"exact mvr path launches (server_update, rr_perm): "
@@ -1486,6 +1660,12 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
 
+    # main path 6, the four training paths in the vmapped cohort mode
+    vmapped_main_paths(dev, seq, seq_params,
+                       {"rr_perm": rr, "quantize_pack": quant, "unpack_dequantize": dequant,
+                        "server_update": upd})
+    del seq_params
+
     # main path 5, serving Hymba-1.5B: one flash_attention and one
     # ssd_intra_chunk launch a layer in the prefill, none in decode
     serve = serve_main_path(dev, flash, ssd)
@@ -1496,11 +1676,12 @@ def main() -> int:
     print(json.dumps({"serve": serve}), flush=True)
 
     for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd"), MVR,
-                 dict(mvr_exact=True, **MVR)):
+                 dict(mvr_exact=True, **MVR), VMAPPED):
         worst, flips = check_small_reference(dev, **comm)
         print(f"CharLM-tiny {comm or 'dense'} on the card vs the port on the CPU: max "
               f"relative diff {worst:.3e}, {flips} level flips", flush=True)
     if args.profile is not None:
+        profile_round(dev, args.profile, "vmapped", **VMAPPED)
         profile_round(dev, args.profile, "qsgd", **COMM)
         profile_round(dev, args.profile, "mvr", **MVR)
         profile_round(dev, args.profile, "mvr_exact", mvr_exact=True, **MVR)

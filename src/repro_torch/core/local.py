@@ -13,9 +13,20 @@ c_i = 1).  Every update is fp32 math cast back to the parameter dtype.
 ``local_sgd`` / ``local_mvr`` are the frozen references;
 :func:`build_local_step` runs a chain of :class:`ClientTransform` links, and
 the empty chain and the ``("mvr",)`` chain reproduce them bit for bit.
-Gradients come from autograd.  The port's counterpart of
-``repro.core.local``; the ``scaffold`` / ``prox`` / ``clip`` transforms and
-persistent per-client chain state are not ported yet.
+Gradients come from autograd.
+
+:func:`build_cohort_step` runs the same chain for a whole cohort at once,
+every client's steps batched over a leading ``[C]`` axis (the JAX package's
+``jax.vmap`` of the per-client step).  The per-client loss runs vmapped,
+forward only (:func:`cohort_loss`), and one ``torch.autograd.grad`` of the
+cohort's summed loss gives every slot its own gradient: slot c's loss reads
+slot c's parameters and data alone.  Autograd records the batched operations
+the vmapped forward issues, so the backward pass is batched too and needs
+no per-operation batching rules.
+
+The port's counterpart of ``repro.core.local``; the ``scaffold`` / ``prox``
+/ ``clip`` transforms and persistent per-client chain state are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -159,7 +170,9 @@ def build_local_step(transforms: tuple, loss_fn: Callable) -> Callable:
 def mvr_transform(loss_fn: Callable, fl) -> ClientTransform:
     """MVR-corrected direction (paper eq. 12-13):
     ``d' = d + (1-a) * (m - g(x))`` with ``g(x)`` the same RR sample's
-    gradient at the round-start point.  Needs a server *gradient estimate* in
+    gradient at the round-start point (each slot's own, stacked, when the
+    chain is resolved over :func:`cohort_loss` for the batched cohort step).
+    Needs a server *gradient estimate* in
     ``opt['m']``, declared as the tag ``grad_estimate`` so that only the
     ``mvr`` server opt satisfies it (heavy-ball's ``m`` is a momentum of
     aggregated deltas, another quantity at another scale)."""
@@ -187,3 +200,99 @@ def full_local_gradient(loss_fn: Callable, params: dict, data: dict,
         acc = {n: A + m * g[n].to(A.dtype) for n, A in acc.items()}
     denom = torch.clamp_min(step_mask.sum(), 1.0)
     return {n: A / denom for n, A in acc.items()}
+
+
+# ---------------------------------------------------------------------------
+# The cohort at once: every client's steps batched over a leading [C] axis
+# ---------------------------------------------------------------------------
+
+
+def cohort_loss(loss_fn: Callable) -> Callable:
+    """``loss_fn`` over a leading [C] client axis of params and microbatch:
+    ``(params [C, ...], mb [C, B, ...]) -> (sum of the C losses, losses [C])``.
+
+    The gradient of the sum w.r.t. the stacked params is each slot's own
+    gradient, stacked, so :func:`grad` of this loss at a stacked point is a
+    per-client gradient for every slot (what a chain link sees as its loss
+    in :func:`build_cohort_step`)."""
+    per_slot = torch.func.vmap(lambda p, mb: loss_fn(p, mb)[0])
+
+    def loss(params, mb):
+        losses = per_slot(params, mb)
+        return losses.sum(), losses
+
+    return loss
+
+
+def _per_slot(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A [C] vector shaped to broadcast over ``like``'s [C, ...] slots."""
+    return v.view(-1, *([1] * (like.dim() - 1)))
+
+
+def _cohort_start(params: dict, C: int, stacked: bool) -> dict:
+    # a shared tree as its stride-0 [C] broadcast (a view: no copy)
+    return params if stacked else {n: v.expand(C, *v.shape) for n, v in params.items()}
+
+
+def build_cohort_step(transforms: tuple, loss_fn: Callable) -> Callable:
+    """The local update of a transform chain for the whole cohort at once:
+
+        cohort(params, data, step_mask, eta, momentum=None, *, stacked=False)
+            -> (deltas [C, ...], losses [C])
+
+    ``data`` leaves are [C, K, B, ...], ``step_mask`` [C, K] and ``eta``
+    [C].  ``params`` is the one tree every client starts from or, with
+    ``stacked``, a [C, ...] tree of per-slot start points; ``momentum`` is
+    the server tree every slot sees.  ``loss_fn`` is the per-client loss;
+    ``transforms`` must be resolved over :func:`cohort_loss` of it, because
+    their StepCtx carries the leading [C] axis (``x``, ``y``, ``mb``,
+    ``loss``, ``grad``; ``mask`` and ``eta`` are [C]).  Every slot follows
+    :func:`build_local_step`'s update rule element for element."""
+    closs = cohort_loss(loss_fn)
+
+    def value_and_grads(y, mb):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in y.items()}
+        with torch.enable_grad():
+            total, losses = closs(leaves, mb)
+            grads = torch.autograd.grad(total, list(leaves.values()))
+        return losses.detach(), dict(zip(leaves, grads))
+
+    def cohort(params, data, step_mask, eta, momentum=None, *, stacked=False):
+        x = _cohort_start(params, step_mask.shape[0], stacked)
+        y, losses = x, []
+        carries = [t.init(x) for t in transforms]
+        for k in range(step_mask.shape[1]):
+            m = step_mask[:, k]
+            mb = {n: v[:, k] for n, v in data.items()}
+            loss, g = value_and_grads(y, mb)
+            d = {n: v.float() for n, v in g.items()}
+            ctx = StepCtx(x=x, y=y, mb=mb, mask=m, eta=eta, loss=loss, grad=g,
+                          momentum=momentum)
+            for i, t in enumerate(transforms):
+                d, new = t.update(ctx, d, carries[i])
+                # a masked step must be an exact no-op for carry state too
+                carries[i] = {n: torch.where(_per_slot(m, c) > 0, new[n], c)
+                              for n, c in carries[i].items()}
+            s = eta * m
+            y = {n: (p.float() - _per_slot(s, p) * d[n]).to(p.dtype) for n, p in y.items()}
+            losses.append(loss * m)
+        denom = torch.clamp_min(step_mask.sum(1), 1.0)
+        return tree_sub(y, x), torch.stack(losses, 1).sum(1) / denom
+
+    return cohort
+
+
+def cohort_full_local_gradient(loss_fn: Callable, params: dict, data: dict,
+                               step_mask: torch.Tensor) -> dict:
+    """:func:`full_local_gradient` of every slot at one shared point
+    ``params``: ``data`` [C, K, B, ...], ``step_mask`` [C, K]; returns the
+    per-slot masked-mean gradients [C, ...]."""
+    closs = cohort_loss(loss_fn)
+    x = _cohort_start(params, step_mask.shape[0], stacked=False)
+    acc = {n: torch.zeros(v.shape, dtype=torch.float32, device=v.device) for n, v in x.items()}
+    for k in range(step_mask.shape[1]):
+        m = step_mask[:, k]
+        g = grad(closs, x, {n: v[:, k] for n, v in data.items()})
+        acc = {n: A + _per_slot(m, A) * g[n].to(A.dtype) for n, A in acc.items()}
+    denom = torch.clamp_min(step_mask.sum(1), 1.0)
+    return {n: A / _per_slot(denom, A) for n, A in acc.items()}

@@ -7,14 +7,23 @@ returns
 
 The driver owns only cohort execution; local step sizes, aggregation
 coefficients and the server optimizer come from the bound strategy hooks
-(``repro_torch.fed.strategy``).  The cohort runs ``sequential``: a Python loop
-over the slots, each client on the whole device, accumulating
+(``repro_torch.fed.strategy``).  Two cohort modes (``fl.cohort_mode``), the
+JAX package's, compute the same math
 
     Delta = sum_i coeff_i * (y_i - x),   coeff_i = valid_i * w~_i / q_i^S
     x    <- x + eta_g * Delta            (+ server optimizer state)
 
-in slot order into an ``fl.accum_dtype`` accumulator, with per-client local
-steps y <- y - (eta_l / c_i) * g over the masked RR stream.
+with per-client local steps y <- y - (eta_l / c_i) * g over the masked RR
+stream:
+
+* ``vmapped`` (the default) — the cohort's clients run their local steps
+  together, one batch over a leading ``[C]`` axis (the strategy's
+  ``cohort_step``: each step's kernels are issued once for the cohort), and
+  the stacked deltas are aggregated by the strategy's ``aggregate`` hook
+  (``weighted_sum``, an fp32 einsum over the client axis).
+* ``sequential`` — a Python loop over the slots, each client on the whole
+  device, accumulating ``coeff_i * Delta_i`` in slot order into an
+  ``fl.accum_dtype`` accumulator (the only mode that reads it).
 
 The step consumes either a ``RoundBatch`` (legacy host assembly) or, when
 built with ``plane=`` (a cohort-engine ``DevicePlane``), an ``IndexPlan`` —
@@ -24,23 +33,23 @@ the reshuffling streams there).  Host (numpy) inputs are moved to the step's
 device first.
 
 With a non-identity uplink codec (``fl.uplink``; ``repro_torch.fed.comm``)
-the loop stages the clients' deltas as a slot-order ``[C]`` stack, the codec
-runs once on the stack (one launch of each quantize kernel per wire leaf),
-and the decoded deltas are accumulated in slot order by the same rule.
-With a non-identity downlink codec (``fl.downlink``) each slot's round-start
-params are reconstructed from its banked reference before the cohort runs,
-``ref_i + decode(encode(x - ref_i))``, and each client trains from, and
-measures its update against, its own reconstruction.  EF residuals, DIANA
-shifts and the downlink references live in the per-client bank
-(``ServerState.clients``): the cohort's rows are gathered at ``ids =
-where(valid, client_id, N)`` and committed back masked (padding slots write
-what they read).  Unlike the JAX package, which returns a new bank, the
-commit updates the bank in place (15.1 GB at CharLM-100M's 32 clients; a
-copy would double it), so a state passed to a round step must not be used
-again.  ``identity`` in both directions keeps the plane-off op sequence:
-no staging, no bank, no new metric keys.  The port's counterpart of
-``repro.fed.rounds`` with the fleet, robust, privacy and obs planes off;
-the ``vmapped`` cohort mode is not ported yet.
+the codec runs once on the slot-order ``[C]`` stack of deltas (one launch of
+each quantize kernel per wire leaf): the sequential loop stages the stack
+and accumulates the decoded deltas in slot order by the same rule; the
+vmapped mode's stack is its batched output.  With a non-identity downlink
+codec (``fl.downlink``) each slot's round-start params are reconstructed
+from its banked reference before the cohort runs, ``ref_i +
+decode(encode(x - ref_i))``, and each client trains from, and measures its
+update against, its own reconstruction.  EF residuals, DIANA shifts and the
+downlink references live in the per-client bank (``ServerState.clients``):
+the cohort's rows are gathered at ``ids = where(valid, client_id, N)`` and
+committed back masked (padding slots write what they read).  Unlike the JAX
+package, which returns a new bank, the commit updates the bank in place
+(15.1 GB at CharLM-100M's 32 clients; a copy would double it), so a state
+passed to a round step must not be used again.  ``identity`` in both
+directions keeps the plane-off op sequence: no staging, no bank, no new
+metric keys.  The port's counterpart of ``repro.fed.rounds`` with the
+fleet, robust, privacy and obs planes off and the padded execution mode.
 
 The server optimizer's momentum tree (``state.opt["m"]``, zeros when the
 optimizer keeps none) rides down to every client's local steps, and the
@@ -128,6 +137,56 @@ def build_round_step(loss_fn: Callable,
             return keyfn(fl.seed, meta.client_id, rnd)
         return torch.zeros_like(meta.client_id)
 
+    def uplink(deltas, new_cs, meta, rnd):
+        # the codec on the slot-order [C] stack; EF state into the cohort's rows
+        dhat, ef2 = apply_up(deltas, new_cs.get(UPLINK_STATE_KEY, {}),
+                             slot_keys(codec, round_keys, meta, rnd))
+        if codec.client_init is not None:
+            new_cs = {**new_cs, UPLINK_STATE_KEY: ef2}
+        return dhat, new_cs
+
+    def run_sequential(state, batch, starts, eta, momentum, new_cs):
+        """The slots one after another, accumulated in slot order."""
+        meta = batch.meta
+        C = meta.valid.shape[0]
+        coeff = strat.agg_coeffs(meta)                                 # [C]
+        acc = tree_zeros_like(state.params, dtype=acc_dt)
+        if up_on:
+            staged = {k: torch.empty((C, *v.shape), dtype=v.dtype, device=v.device)
+                      for k, v in state.params.items()}
+        losses = []
+        for c in range(C):
+            p_c = {k: v[c] for k, v in starts.items()} if dl_on else state.params
+            delta, loss = strat.local_step(p_c, {k: v[c] for k, v in batch.data.items()},
+                                           batch.step_mask[c], eta[c], momentum)
+            if up_on:
+                for k, v in delta.items():
+                    staged[k][c] = v
+            else:
+                acc = add_weighted(acc, delta, coeff[c])
+            losses.append(loss)
+        if up_on:
+            # the decoded deltas accumulated in slot order by the same rule
+            dhat, new_cs = uplink(staged, new_cs, meta, state.rnd)
+            del staged
+            for c in range(C):
+                acc = add_weighted(acc, {k: v[c] for k, v in dhat.items()}, coeff[c])
+            del dhat
+        delta_agg = {k: a.to(state.params[k].dtype) for k, a in acc.items()}
+        return delta_agg, torch.stack(losses), new_cs
+
+    def run_vmapped(state, batch, starts, eta, momentum, new_cs):
+        """The slots' local steps batched over the cohort, then the strategy's
+        aggregate of the (decoded) stack."""
+        x = starts if dl_on else state.params
+        deltas, losses = strat.cohort_step(x, batch.data, batch.step_mask, eta, momentum,
+                                           stacked=dl_on)
+        if up_on:
+            deltas, new_cs = uplink(deltas, new_cs, batch.meta, state.rnd)
+        return strat.aggregate(deltas, batch.meta), losses, new_cs
+
+    run_cohort = run_vmapped if fl.cohort_mode == "vmapped" else run_sequential
+
     @torch.no_grad()
     def round_step(state: ServerState, batch, lr_mult=1.0):
         if isinstance(batch, IndexPlan):
@@ -145,7 +204,6 @@ def build_round_step(loss_fn: Callable,
         meta = batch.meta
         lr_mult = to_device(lr_mult, device, torch.float32)
         eta = strat.client_transform(meta, lr_mult)                   # [C]
-        coeff = strat.agg_coeffs(meta)                                 # [C]
         momentum = state.opt.get("m")
         if momentum is None:
             # zeros, as stride-0 views of one scalar: no chain that binds
@@ -153,7 +211,6 @@ def build_round_step(loss_fn: Callable,
             zero = {dt: torch.zeros((), dtype=dt, device=device)
                     for dt in {v.dtype for v in state.params.values()}}
             momentum = {k: zero[v.dtype].expand_as(v) for k, v in state.params.items()}
-        C = meta.valid.shape[0]
         if banked:
             if state.clients is None:
                 raise TypeError("round_step got a ServerState without the client state "
@@ -163,40 +220,14 @@ def build_round_step(loss_fn: Callable,
             cstate0 = tree_map(lambda b: b.index_select(0, ids), state.clients)
         else:
             cstate0 = {}
-        new_cs = cstate0
+        new_cs, starts = cstate0, None
         if dl_on:
             # each slot's round-start params, reconstructed once from its
             # reference before the cohort runs; committed as its next reference
             starts = apply_down(state.params, cstate0[DOWNLINK_STATE_KEY]["ref"],
                                 slot_keys(down, downlink_round_keys, meta, state.rnd))
             new_cs = {**cstate0, DOWNLINK_STATE_KEY: {"ref": starts}}
-        acc = tree_zeros_like(state.params, dtype=acc_dt)
-        if up_on:
-            staged = {k: torch.empty((C, *v.shape), dtype=v.dtype, device=v.device)
-                      for k, v in state.params.items()}
-        losses = []
-        for c in range(C):
-            p_c = {k: v[c] for k, v in starts.items()} if dl_on else state.params
-            delta, loss = strat.local_step(p_c, {k: v[c] for k, v in batch.data.items()},
-                                           batch.step_mask[c], eta[c], momentum)
-            if up_on:
-                for k, v in delta.items():
-                    staged[k][c] = v
-            else:
-                acc = add_weighted(acc, delta, coeff[c])
-            losses.append(loss)
-        if up_on:
-            # the uplink on the staged slot-order stack, then the same
-            # accumulation of the decoded deltas in slot order
-            dhat, ef2 = apply_up(staged, new_cs.get(UPLINK_STATE_KEY, {}),
-                                 slot_keys(codec, round_keys, meta, state.rnd))
-            del staged
-            if codec.client_init is not None:
-                new_cs = {**new_cs, UPLINK_STATE_KEY: ef2}
-            for c in range(C):
-                acc = add_weighted(acc, {k: v[c] for k, v in dhat.items()}, coeff[c])
-            del dhat
-        delta_agg = {k: a.to(state.params[k].dtype) for k, a in acc.items()}
+        delta_agg, losses, new_cs = run_cohort(state, batch, starts, eta, momentum, new_cs)
         if banked:
             # masked commit: valid slots write their new rows, padding slots
             # what they read; then every slot scatters to its own row
@@ -214,7 +245,7 @@ def build_round_step(loss_fn: Callable,
             state = state._replace(clients=bank)
         valid_sum = torch.clamp_min(meta.valid.sum(), 1.0)
         metrics = {
-            "local_loss": (torch.stack(losses) * meta.valid).sum() / valid_sum,
+            "local_loss": (losses * meta.valid).sum() / valid_sum,
             "delta_norm": torch.sqrt(tree_sq_norm(delta_agg)),
             "cohort": meta.valid.sum(),
         }

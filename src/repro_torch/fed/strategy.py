@@ -31,7 +31,8 @@ import torch
 from ..configs.base import FLConfig
 from ..core import algorithms as _alg
 from ..core.algorithms import GenSpec, PRESETS, agg_coeff, lr_scale
-from ..core.local import ClientTransform, build_local_step, full_local_gradient, mvr_transform
+from ..core.local import (ClientTransform, build_cohort_step, build_local_step, cohort_loss,
+                          cohort_full_local_gradient, full_local_gradient, mvr_transform)
 from ..kernels.server_update.ops import apply_fused_update
 from ..utils.pytree import tree_copy, tree_map, tree_zeros_like
 from .comm import DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, build_codec
@@ -93,8 +94,9 @@ def heavy_ball() -> ServerTransform:
 
 class ServerOpt(NamedTuple):
     """A registered server optimizer: ``init(fl, params) -> opt dict`` and
-    ``make_update(fl, gen, loss_fn) -> update(state, delta_agg, lr, ctx) ->
-    ServerState`` (``ctx`` a :class:`RoundCtx`); ``local_update`` names the
+    ``make_update(fl, gen, loss_fn, cohort_mode) -> update(state, delta_agg,
+    lr, ctx) -> ServerState`` (``ctx`` a :class:`RoundCtx`; ``cohort_mode``
+    as the round driver runs the cohort); ``local_update`` names the
     client-side rule it pairs with by default.  ``provides`` lists the
     opt-state keys / capability tags client transforms may ``need``;
     ``consumes`` the stateful client transforms whose cohort state the
@@ -124,7 +126,7 @@ def chain(name: str, *transforms: ServerTransform, local_update: str = "sgd") ->
             opt.update(new)
         return opt
 
-    def make_update(fl: FLConfig, gen: GenSpec, loss_fn):
+    def make_update(fl: FLConfig, gen: GenSpec, loss_fn, cohort_mode):
         def update(state: ServerState, delta_agg, lr, ctx) -> ServerState:
             opt = dict(state.opt)
             d = delta_agg
@@ -151,7 +153,9 @@ def _mvr_opt() -> ServerOpt:
     formed on the device: no host synchronisation.  It multiplies by that
     reciprocal where the JAX package divides by ``eta_l``, so m agrees with
     the JAX package's to an ulp of ``ghat``, not bitwise.  The exact eq. 14
-    step is torch and uses no kernel."""
+    step is torch and uses no kernel: its full local gradients run client by
+    client in the sequential cohort mode and batched over the cohort in the
+    vmapped one."""
 
     def init(fl: FLConfig, params) -> dict:
         opt = {"m": tree_zeros_like(params)}    # gradient estimate (eq. 14)
@@ -160,7 +164,7 @@ def _mvr_opt() -> ServerOpt:
             opt["x_prev"] = tree_copy(params)
         return opt
 
-    def make_update(fl: FLConfig, gen: GenSpec, loss_fn):
+    def make_update(fl: FLConfig, gen: GenSpec, loss_fn, cohort_mode):
         def update(state: ServerState, delta_agg, lr, ctx) -> ServerState:
             opt = dict(state.opt)
             batch, meta, momentum = ctx.batch, ctx.batch.meta, ctx.momentum
@@ -168,7 +172,13 @@ def _mvr_opt() -> ServerOpt:
                 wp = meta.valid * meta.weight / meta.prob              # [C]
 
                 def grads_at(p):
-                    # sum_i (valid w/p)_i * grad f_i(p), slot order, fp32
+                    # sum_i (valid w/p)_i * grad f_i(p), fp32
+                    if cohort_mode == "vmapped":
+                        gs = cohort_full_local_gradient(loss_fn, p, batch.data,
+                                                        batch.step_mask)
+                        return {k: torch.einsum("c,c...->...", wp.float(), g)
+                                for k, g in gs.items()}
+                    # sequential: slot order
                     acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in p.items()}
                     for c in range(wp.shape[0]):
                         g = full_local_gradient(loss_fn, p, {k: v[c] for k, v in batch.data.items()},
@@ -309,6 +319,10 @@ class BoundStrategy(NamedTuple):
     aggregate: Callable                # (stacked deltas, meta) -> delta_agg
     server_update: Callable            # (state, delta_agg, lr, ctx) -> ServerState
     local_step: Callable               # (params, data, mask, eta, momentum) -> (delta, loss)
+    cohort_step: Callable              # the same chain batched over the cohort:
+    #                                      (params, data [C, ...], mask [C, K],
+    #                                      eta [C], momentum, *, stacked) ->
+    #                                      (deltas [C, ...], losses [C])
     client_state: Callable | None = None  # (params) -> one client's bank row
     #                                      template ({name: {field: tree}}), or
     #                                      None when no plane keeps client state
@@ -333,11 +347,8 @@ def _check_config(fl: FLConfig) -> None:
         if fl.exec_mode == "bucketed":
             raise NotImplementedError("exec_mode='bucketed' is not ported yet")
         raise ValueError(f"unknown exec_mode {fl.exec_mode!r}; have ('padded', 'bucketed')")
-    if fl.cohort_mode != "sequential":
-        if fl.cohort_mode == "vmapped":
-            raise NotImplementedError(
-                "cohort_mode='vmapped' is not ported yet; use cohort_mode='sequential'")
-        raise ValueError(f"unknown cohort_mode {fl.cohort_mode!r}")
+    if fl.cohort_mode not in ("vmapped", "sequential"):
+        raise ValueError(f"unknown cohort_mode {fl.cohort_mode!r}; have ('vmapped', 'sequential')")
     if fl.engine == "cohort":
         from .cohort.engine import BACKENDS  # deferred: cohort imports rounds
         from .cohort.scheduler import PARTICIPATION
@@ -402,8 +413,15 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
             raise NotImplementedError(f"local update {local_update!r} is not ported yet")
         raise ValueError(
             f"unknown local update {local_update!r}; have {sorted(LOCAL_UPDATES)}")
-    transforms = tuple(t if isinstance(t, ClientTransform) else t(loss_fn, fl)
-                       for t in LOCAL_UPDATES[local_update])
+
+    def resolve(loss):
+        return tuple(t if isinstance(t, ClientTransform) else t(loss, fl)
+                     for t in LOCAL_UPDATES[local_update])
+
+    transforms = resolve(loss_fn)
+    # the batched cohort step's links see stacked [C] points: their loss is
+    # the cohort's (per-slot gradients through one autograd pass)
+    cohort_transforms = resolve(cohort_loss(loss_fn))
     state_names = [t.name for t in transforms if t.client_init is not None]
     missing_state = [k for k in sdef.consumes if k not in state_names]
     if missing_state:
@@ -492,8 +510,9 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
         client_transform=client_transform,
         agg_coeffs=agg_coeffs,
         aggregate=aggregate,
-        server_update=sdef.make_update(fl, gen, loss_fn),
+        server_update=sdef.make_update(fl, gen, loss_fn, fl.cohort_mode),
         local_step=build_local_step(transforms, loss_fn),
+        cohort_step=build_cohort_step(cohort_transforms, loss_fn),
         client_state=client_state,
         codec=codec,
         down_codec=down_codec,

@@ -251,7 +251,6 @@ def test_weighted_sum_matches_jax():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(cohort_mode="vmapped"), "vmapped"),
     (dict(exec_mode="bucketed"), "bucketed"),
     (dict(server_opt="adam"), "adam"),
     (dict(local_update="scaffold"), "scaffold"),
