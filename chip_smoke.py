@@ -36,8 +36,9 @@
    step (torch, no kernel); then the same four training paths in the
    vmapped cohort mode (``cohort_mode="vmapped"``, the JAX package's
    default: every client's local steps batched over the cohort), with the
-   same launch counts, each path's round wall, device kernels in a round
-   and peak memory printed beside the sequential path's;
+   same launch counts, each path's round wall and peak memory printed
+   beside the sequential path's, and the device kernels in a dense round
+   in both modes (``--profile`` traces the other paths' rounds);
    then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
    seed 0) through ``launch/serve.py:generate``: batch 4, 2,048-token
    prompts, 32 greedy tokens (one flash attention launch a layer in the
@@ -49,8 +50,8 @@
    bitwise-identical parameters, the comm metrics equal to the wire's
    arithmetic, the vmapped dense parameters within ``VMAPPED_SEQ_RTOL`` of
    the sequential run's, CharLM-tiny runs on the card (dense, ``ef_qsgd`` /
-   ``qsgd``, mvr in both modes, and dense vmapped) agreeing with the port
-   on the CPU;
+   ``qsgd``, mvr App. F and exact, each sequential and vmapped, and dense
+   vmapped) agreeing with the port on the CPU;
    for serving, finite logits, each layer's flash and SSD launch against
    its plain version on the path's own inputs (flash within one bf16 step),
    the bf16 run no further from the plain versions in fp32 than 1.5x the
@@ -61,10 +62,10 @@
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-With ``--profile DIR`` it also traces one more round of the vmapped dense,
-the qsgd and the two mvr main paths, and one prefill and one decode step of
-the serving path, with ``torch.profiler`` and writes the kernel-time tables
-to ``DIR``.
+With ``--profile DIR`` it also traces one more round of the vmapped dense
+main path and of the qsgd and the two mvr main paths in both modes, and one
+prefill and one decode step of the serving path, with ``torch.profiler``
+and writes the kernel-time tables to ``DIR``.
 """
 from __future__ import annotations
 
@@ -1282,6 +1283,21 @@ def device_events(ka):
     return [e for e in ka if e.device_type != DeviceType.CPU], field
 
 
+def count_device(prof) -> tuple[int, float]:
+    """(device kernels and copies, their device ms) of a finished
+    torch.profiler trace, read from its raw kineto events: building
+    ``key_averages()`` costs ~0.2 ms an event, this ~3 us (a sequential
+    round has ~240 k).  ``profile_round`` prints both."""
+    from torch.autograd import DeviceType
+
+    n, ns = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            n += 1
+            ns += e.duration_ns()
+    return n, ns / 1e6
+
+
 def round_kernels(dev, **comm) -> tuple[int, float]:
     """(device kernels and copies, their device ms) of one main-path round
     step, traced with torch.profiler (CUDA activity only, which keeps the
@@ -1295,10 +1311,9 @@ def round_kernels(dev, **comm) -> tuple[int, float]:
         state, mets = step(state, eng.device_plan(0))
         float(mets["local_loss"])
         torch.cuda.synchronize()
-    dev_events, field = device_events(prof.key_averages())
     del state
     torch.cuda.empty_cache()
-    return sum(e.count for e in dev_events), sum(getattr(e, field) for e in dev_events) / 1e3
+    return count_device(prof)
 
 
 def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
@@ -1322,6 +1337,7 @@ def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
     dev_events, field = device_events(ka)
     busy_s = sum(getattr(e, field) for e in dev_events) / 1e6
     launches = sum(e.count for e in dev_events)
+    raw = count_device(prof)
     mm_s = sum(getattr(e, field) for e in ka if e.key in ("aten::mm", "aten::bmm")) / 1e6
     quant = [e for e in dev_events if "quantize" in e.key]
     quant_s = sum(getattr(e, field) for e in quant) / 1e6
@@ -1341,8 +1357,8 @@ def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
     summary = (f"one round step: unprofiled wall {wall * 1e3:.1f} ms; the next (profiled) "
                f"round: device time {busy_s * 1e3:.1f} ms = {100 * busy_s / wall:.1f} % of "
                f"that wall, {launches} device kernels/copies ({wall / launches * 1e6:.1f} us "
-               f"of wall each), aten::mm + aten::bmm {mm_s * 1e3:.1f} ms for "
-               f"{mm_flop / 1e12:.2f} "
+               f"of wall each; count_device: {raw[0]}, {raw[1]:.1f} ms), aten::mm + aten::bmm "
+               f"{mm_s * 1e3:.1f} ms for {mm_flop / 1e12:.2f} "
                f"TFLOP = {mm_flop / mm_s / 1e12:.1f} TFLOP/s; quantize kernels "
                f"{quant_s * 1e3:.3f} ms in {sum(e.count for e in quant)} launches; "
                f"server_update kernel {upd_s * 1e3:.3f} ms in {sum(e.count for e in upd)} "
@@ -1365,11 +1381,11 @@ def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> None:
     ``warp``, bitwise equal to the ``uplink_backend="ref"`` run; MVR App. F:
     one server_update launch a round, a finite gradient estimate; MVR exact:
     no server_update launch.  Prints each path's mean round wall after the
-    first round, its device kernels and copies in one round (traced after
-    the run) and its peak memory beside the sequential path's (``seq``:
-    label -> (round wall ms, peak bytes, kernels and copies in a round, their
-    device ms; the last two traced for the dense path alone, "not traced"
-    for the others))."""
+    first round and its peak memory beside the sequential path's, and for
+    the dense path the device kernels and copies in one round (traced after
+    the run; ``--profile`` traces the others) beside the sequential path's
+    (``seq``: label -> (round wall ms, peak bytes, kernels and copies in a
+    round, their device ms; the last two for the dense path alone))."""
     import torch
 
     from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
@@ -1439,15 +1455,17 @@ def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> None:
                   flush=True)
             del ref
         del params
-        t0 = time.perf_counter()
-        n, busy_ms = round_kernels(dev, **kw, **VMAPPED)
-        s_wall, s_peak, s_n, s_busy = seq[label]
-        s_busy = f"{s_busy:.1f}" if isinstance(s_busy, float) else s_busy
+        s_wall, s_peak, *s_kernels = seq[label]
+        traced = ""
+        if label == "dense":
+            t0 = time.perf_counter()
+            n, busy_ms = round_kernels(dev, **kw, **VMAPPED)
+            traced = (f"; device kernels and copies in a round {n} vs {s_kernels[0]}, their "
+                      f"device time {busy_ms:.1f} vs {s_kernels[1]:.1f} ms (traced in "
+                      f"{time.perf_counter() - t0:.1f} s)")
         print(f"vmapped vs sequential, {label}: round wall {wall:.1f} vs {s_wall:.1f} ms "
-              f"({s_wall / wall:.2f}x); device kernels and copies in a round {n} vs {s_n}, "
-              f"their device time {busy_ms:.1f} vs {s_busy} ms; peak "
-              f"{peak / 2**30:.3f} vs {s_peak / 2**30:.3f} GiB (traced in "
-              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+              f"({s_wall / wall:.2f}x); peak {peak / 2**30:.3f} vs {s_peak / 2**30:.3f} "
+              f"GiB{traced}", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -1594,7 +1612,7 @@ def main() -> int:
     comm_rr = rr_indices_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     seq["qsgd"] = (report_rounds("comm path (qsgd up and down)", res, time.perf_counter() - t0,
-                                 peak), peak, "not traced", "not traced")
+                                 peak), peak)
     want = 2 * len(e2e_wire_leaves()) * ROUNDS
     if (quant["launches"], dequant["launches"], comm_rr) != (want, want, ROUNDS):
         raise AssertionError(f"comm path launches: quantize {quant['launches']}, unpack "
@@ -1629,7 +1647,7 @@ def main() -> int:
     mvr_rr = rr_indices_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     seq["mvr"] = (report_rounds("mvr path (App. F)", res, time.perf_counter() - t0, peak),
-                  peak, "not traced", "not traced")
+                  peak)
     if (upd["launches"], mvr_rr) != (ROUNDS, ROUNDS):
         raise AssertionError(f"mvr path launches: server_update {upd['launches']}, rr_perm "
                              f"{mvr_rr} (want {ROUNDS} each)")
@@ -1648,7 +1666,7 @@ def main() -> int:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     seq["mvr_exact"] = (report_rounds("mvr path (exact eq. 14)", res, time.perf_counter() - t0,
-                                      peak, MVR_EXACT_ROUNDS), peak, "not traced", "not traced")
+                                      peak, MVR_EXACT_ROUNDS), peak)
     exact_launches = (server_update_kernel.launches, rr_indices_kernel.launches)
     if exact_launches != (0, MVR_EXACT_ROUNDS):
         raise AssertionError(f"exact mvr path launches (server_update, rr_perm): "
@@ -1661,10 +1679,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # main path 6, the four training paths in the vmapped cohort mode
+    t0 = time.perf_counter()
     vmapped_main_paths(dev, seq, seq_params,
                        {"rr_perm": rr, "quantize_pack": quant, "unpack_dequantize": dequant,
                         "server_update": upd})
     del seq_params
+    print(f"vmapped main paths: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # main path 5, serving Hymba-1.5B: one flash_attention and one
     # ssd_intra_chunk launch a layer in the prefill, none in decode
@@ -1676,15 +1696,19 @@ def main() -> int:
     print(json.dumps({"serve": serve}), flush=True)
 
     for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd"), MVR,
-                 dict(mvr_exact=True, **MVR), VMAPPED):
+                 dict(mvr_exact=True, **MVR), VMAPPED, VMAPPED | MVR,
+                 dict(mvr_exact=True, **MVR, **VMAPPED)):
+        t0 = time.perf_counter()
         worst, flips = check_small_reference(dev, **comm)
         print(f"CharLM-tiny {comm or 'dense'} on the card vs the port on the CPU: max "
-              f"relative diff {worst:.3e}, {flips} level flips", flush=True)
+              f"relative diff {worst:.3e}, {flips} level flips ({time.perf_counter() - t0:.1f} "
+              f"s)", flush=True)
     if args.profile is not None:
         profile_round(dev, args.profile, "vmapped", **VMAPPED)
-        profile_round(dev, args.profile, "qsgd", **COMM)
-        profile_round(dev, args.profile, "mvr", **MVR)
-        profile_round(dev, args.profile, "mvr_exact", mvr_exact=True, **MVR)
+        for label, comm in (("qsgd", COMM), ("mvr", MVR),
+                            ("mvr_exact", dict(mvr_exact=True, **MVR))):
+            profile_round(dev, args.profile, label, **comm)
+            profile_round(dev, args.profile, f"vmapped_{label}", **comm, **VMAPPED)
         profile_serve(dev, args.profile)
 
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s", flush=True)

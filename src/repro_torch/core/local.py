@@ -188,18 +188,27 @@ def mvr_transform(loss_fn: Callable, fl) -> ClientTransform:
                            needs=("grad_estimate",))
 
 
+def _masked_mean(grad_at: Callable, like: dict, step_mask: torch.Tensor,
+                 bcast: Callable) -> dict:
+    """fp32 sum over steps k of ``m_k * grad_at(k)``, over max(sum m_k, 1):
+    ``step_mask``'s last axis is k, and ``bcast(v, leaf)`` shapes a mask
+    value (or the count) to broadcast over a leaf of ``like``."""
+    acc = {n: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+           for n, v in like.items()}
+    for k in range(step_mask.shape[-1]):
+        m, g = step_mask[..., k], grad_at(k)
+        acc = {n: A + bcast(m, A) * g[n].to(A.dtype) for n, A in acc.items()}
+    denom = torch.clamp_min(step_mask.sum(-1), 1.0)
+    return {n: A / bcast(denom, A) for n, A in acc.items()}
+
+
 def full_local_gradient(loss_fn: Callable, params: dict, data: dict,
                         step_mask: torch.Tensor) -> dict:
     """Masked-mean gradient over the client's local data (one unbiased pass
     per epoch; across the whole RR stream the mean equals grad f_i up to the
     wrap padding of partial batches).  Used by exact FedShuffleMVR (eq. 14)."""
-    acc = {n: torch.zeros_like(v, dtype=torch.float32) for n, v in params.items()}
-    for k in range(step_mask.shape[0]):
-        m = step_mask[k]
-        g = grad(loss_fn, params, _step_batch(data, k))
-        acc = {n: A + m * g[n].to(A.dtype) for n, A in acc.items()}
-    denom = torch.clamp_min(step_mask.sum(), 1.0)
-    return {n: A / denom for n, A in acc.items()}
+    return _masked_mean(lambda k: grad(loss_fn, params, _step_batch(data, k)), params,
+                        step_mask, lambda v, like: v)
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +260,7 @@ def build_cohort_step(transforms: tuple, loss_fn: Callable) -> Callable:
     closs = cohort_loss(loss_fn)
 
     def value_and_grads(y, mb):
+        # value_and_grad of the summed cohort loss, keeping the losses [C]
         leaves = {k: v.detach().requires_grad_(True) for k, v in y.items()}
         with torch.enable_grad():
             total, losses = closs(leaves, mb)
@@ -289,10 +299,5 @@ def cohort_full_local_gradient(loss_fn: Callable, params: dict, data: dict,
     per-slot masked-mean gradients [C, ...]."""
     closs = cohort_loss(loss_fn)
     x = _cohort_start(params, step_mask.shape[0], stacked=False)
-    acc = {n: torch.zeros(v.shape, dtype=torch.float32, device=v.device) for n, v in x.items()}
-    for k in range(step_mask.shape[1]):
-        m = step_mask[:, k]
-        g = grad(closs, x, {n: v[:, k] for n, v in data.items()})
-        acc = {n: A + _per_slot(m, A) * g[n].to(A.dtype) for n, A in acc.items()}
-    denom = torch.clamp_min(step_mask.sum(1), 1.0)
-    return {n: A / _per_slot(denom, A) for n, A in acc.items()}
+    return _masked_mean(lambda k: grad(closs, x, {n: v[:, k] for n, v in data.items()}), x,
+                        step_mask, _per_slot)
