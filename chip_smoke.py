@@ -22,8 +22,11 @@
    timed in turns at a main-path shape, and at the serving shape the
    flash tensor-core kernel is timed beside ``flash_fwd`` on the same
    inputs and ``F.scaled_dot_product_attention`` with the same band mask,
-   a yardstick the port never calls;
-3. drives five main paths through the user entry point, each with every
+   a yardstick the port never calls; flash attention's non-causal mode
+   is held the same way (both routes, SeamlessM4T-medium's encoder and
+   cross-attention shapes, a ragged Tk, a window) and timed at those two
+   shapes beside unmasked SDPA;
+3. drives seven main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
@@ -43,7 +46,12 @@
    seed 0) through ``launch/serve.py:generate``: batch 4, 2,048-token
    prompts, 32 greedy tokens (one flash attention launch a layer in the
    prefill, all on ``flash_fwd_mma``, and one SSD launch, all on
-   ``ssd_intra_chunk_mma``; none in decode);
+   ``ssd_intra_chunk_mma``; none in decode); then serving full-width
+   SeamlessM4T-medium (the audio encoder-decoder: 12 + 12 layers of 1024,
+   bf16) the same way: batch 4, 256-token prompts over 1,024 encoder
+   frames, 32 greedy tokens (12 non-causal encoder, 12 causal
+   self-attention and 12 non-causal cross-attention flash launches a
+   prefill, all on ``flash_fwd_mma``; none in decode);
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
@@ -58,7 +66,10 @@
    plain bf16 run, a planted one-tile window fault failing both checks, the
    fp32 prefill elementwise at full width, a full-width fp32 prefill ->
    decode consistency check, and Hymba-tiny served on the card agreeing
-   with the port on the CPU;
+   with the port on the CPU; for the audio path the same checks of the
+   prefill over random frames (the planted fault: the encoder's and the
+   cross-attention's flash launched causal), and SeamlessM4T-tiny served
+   on the card agreeing with the port on the CPU;
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -683,6 +694,9 @@ SSD_ATOL, SSD_RTOL = 3e-5, 3e-4
 # the serving main path: Hymba-1.5B at full width, batch 4, 2,048-token
 # prompts (past the 1,024 window, 16 SSD chunks), 32 greedy tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
+# the audio serving path: SeamlessM4T-medium at full width, batch 4,
+# 256-token decoder prompts over 1,024 encoder frames, 32 greedy tokens
+AUDIO_PROMPT, AUDIO_FRAMES = 256, 1024
 # mamba2-1.3b's SSD tile at the serving shape: 4 x 2,048 tokens in 256-step
 # chunks, 64 heads of P 64 (d_inner 4,096), N 128
 MAMBA2_SSD = (SERVE_BATCH, SERVE_PROMPT // 256, 256, 64, 64, 128)
@@ -741,7 +755,8 @@ def check_flash(dev) -> dict:
     aligned); then ``flash_fwd_mma`` (the path's kernel), ``flash_fwd`` on
     the same bf16 inputs, the plain version and
     ``F.scaled_dot_product_attention`` (the band mask, ``enable_gqa``) timed
-    at the main path's bf16 shape."""
+    at the main path's bf16 shape.  Then the non-causal mode
+    (:func:`check_flash_noncausal`)."""
     import torch
     import torch.nn.functional as F
 
@@ -823,7 +838,94 @@ def check_flash(dev) -> dict:
             "library_ms": lib_ms, "library": "F.scaled_dot_product_attention(attn_mask=band, "
             "enable_gqa=True)", "call_ms": call_ms, "plain_call_ms": plain_call_ms,
             "shape": [B, T, H, KV, hd], "window": W, "dtype": "bfloat16", "gflop": flops / 1e9,
-            "mbytes": nbytes / 1e6}
+            "mbytes": nbytes / 1e6, "noncausal": check_flash_noncausal(dev)}
+
+
+def check_flash_noncausal(dev) -> dict:
+    """flash attention's non-causal mode (``causal=False``: the audio
+    encoder's self-attention and the decoder's cross-attention) on the card
+    vs its plain torch version on the card: SeamlessM4T-medium's encoder
+    shape (q, k, v [4, 1024, 16, 64]) and cross-attention shape (q [4, 256,
+    16, 64], k/v [4, 1024, 16, 64]) in bf16 on ``mma`` and f32 on ``simt``,
+    a ragged Tk below Tq, a window, hd 32 with both lengths ragged; q and
+    k/v strided slices of two packed tensors; every bf16 case within one
+    bf16 step, every f32 case at 2e-5.  Then ``flash_fwd_mma``,
+    ``flash_fwd``, the plain version and ``F.scaled_dot_product_attention``
+    (no mask) timed at both path shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ops import flash_attend
+
+    B, H, hd = SERVE_BATCH, 16, 64
+    # b, tq, tk, h, kv, hd, window, dtype, the route
+    cases = [(B, tq, AUDIO_FRAMES, H, H, hd, 0, dt, "mma" if dt == "bfloat16" else "simt")
+             for tq in (AUDIO_FRAMES, AUDIO_PROMPT) for dt in ("bfloat16", "float32")]
+    cases += [(1, 200, 77, 4, 2, 64, 0, dt, r) for dt, r in (("bfloat16", "mma"),
+                                                            ("float32", "simt"))]
+    cases += [(2, 300, 1000, 10, 2, 64, 100, dt, r) for dt, r in (("bfloat16", "mma"),
+                                                                 ("float32", "simt"))]
+    cases += [(1, 130, 333, 6, 3, 32, 0, "bfloat16", "mma")]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for b, tq, tk, h, kv, d, w, dt, want_route in cases:
+        tdt = getattr(torch, dt)
+        q = torch.randn((b, tq, 2 * h, d), generator=gen, device=dev).to(tdt)[:, :, :h]
+        k, v = torch.randn((b, tk, 2 * kv, d), generator=gen, device=dev).to(tdt).split(kv, 2)
+        before = (flash_attention_kernel.launches, flash_attention_kernel.route_launches[want_route],
+                  flash_attention_kernel.mode_launches["noncausal"])
+        got = flash_attend(q, k, v, causal=False, window=w)
+        after = (flash_attention_kernel.launches, flash_attention_kernel.route_launches[want_route],
+                 flash_attention_kernel.mode_launches["noncausal"])
+        where = f"flash non-causal q {[b, tq, h, d]} k/v {[b, tk, kv, d]} w={w} {dt}"
+        if [a - z for a, z in zip(after, before)] != [1, 1, 1]:
+            raise AssertionError(f"{where}: not one non-causal {want_route} launch")
+        want = flash_attend(q, k, v, causal=False, window=w, backend="ref")
+        atol, rtol = ((FLASH_MAIN_BF16_ATOL, FLASH_MAIN_BF16_RTOL) if dt == "bfloat16"
+                      else (FLASH_TOL[dt], FLASH_TOL[dt]))
+        diff = _allclose(got, want, atol, rtol, where)
+        err[dt] = max(err[dt], diff)
+        print(f"  {where}: route {want_route}, 1 launch, max abs diff {diff:.3e}", flush=True)
+    torch.cuda.synchronize()
+    print(f"flash_attention non-causal check: {len(cases)} cases (bf16 within "
+          f"{FLASH_MAIN_BF16_ATOL} + 2^-7 |ref|, f32 within {FLASH_TOL['float32']}) of the plain "
+          f"torch version on the card; max abs diff f32 {err['float32']:.3e}, bf16 "
+          f"{err['bfloat16']:.3e}", flush=True)
+
+    res = {"max_abs_err_f32": err["float32"], "max_abs_err_bf16": err["bfloat16"],
+           "cases": len(cases), "library": "F.scaled_dot_product_attention (no mask)"}
+    for label, tq in (("encoder", AUDIO_FRAMES), ("cross", AUDIO_PROMPT)):
+        # the path's call: contiguous [B, T, 16, 64] tensors, the model's layout
+        q = torch.randn((B, tq, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, AUDIO_FRAMES, H, hd), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        _allclose(sdpa().transpose(1, 2), flash_attend(q, k, v, causal=False, backend="ref"),
+                  FLASH_TOL["bfloat16"], FLASH_TOL["bfloat16"], f"SDPA yardstick ({label})")
+        ms, _ = time_ms(lambda: flash_attention_kernel(qt, kt, vt, causal=False), 20)
+        simt_ms, _ = time_ms(lambda: flash_attention_kernel(qt, kt, vt, causal=False,
+                                                            kernel="simt"), 20)
+        plain_ms, _ = time_ms(lambda: flash_attend(q, k, v, causal=False, backend="ref"), 3,
+                              behind_sleep=False)
+        lib_ms, _ = time_ms(sdpa, 20)
+        flops = 4 * hd * B * H * tq * AUDIO_FRAMES   # every (query, key) pair
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        res[label] = {"shape_q": [B, tq, H, hd], "shape_kv": [B, AUDIO_FRAMES, H, hd],
+                      "dtype": "bfloat16", "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+        print(f"flash_attention non-causal ({label}) at bf16 q {[B, tq, H, hd]}, k/v "
+              f"{[B, AUDIO_FRAMES, H, hd]}: flash_fwd_mma {ms:.4f} ms, flash_fwd {simt_ms:.4f} ms, "
+              f"SDPA {lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+              f"({res[label]['bound_by']})", flush=True)
+    return res
 
 
 def _off(got, want, atol: float, rtol: float) -> tuple[int, float]:
@@ -1048,6 +1150,7 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     flash_attention_kernel.launches = ssd_intra_chunk_kernel.launches = 0
     flash_attention_kernel.route_launches = dict.fromkeys(flash_attention_kernel.route_launches, 0)
+    flash_attention_kernel.mode_launches = dict.fromkeys(flash_attention_kernel.mode_launches, 0)
     ssd_intra_chunk_kernel.route_launches = dict.fromkeys(ssd_intra_chunk_kernel.route_launches, 0)
     t0 = time.perf_counter()
     out = generate(model, params, prompts, steps=SERVE_STEPS, cache_len=cache_len,
@@ -1108,9 +1211,9 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
     layer_err = {"flash_attention": 0.0, "ssd_intra_chunk": 0.0}
     last = {}
 
-    def flash_checked(q, k, v, *, window):
-        got = flash_attention_kernel(q, k, v, window=window)
-        want = flash_attention_torch(q, k, v, window=window)
+    def flash_checked(q, k, v, *, causal=True, window=0):
+        got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        want = flash_attention_torch(q, k, v, causal=causal, window=window)
         layer_err["flash_attention"] = max(layer_err["flash_attention"], _allclose(
             got, want, FLASH_MAIN_BF16_ATOL, FLASH_MAIN_BF16_RTOL, "flash on the path's inputs"))
         last["flash"] = (q, k, v, window, want)
@@ -1216,17 +1319,18 @@ def check_serve_fp32(dev) -> dict:
     return errs
 
 
-def check_serve_tiny(dev) -> float:
-    """Hymba-tiny (the reduced config: 2 layers, window 64, SSD chunk 32,
-    fp32) serves the same prompts on the card (the kernels) and on the CPU
-    (the plain versions): equal greedy tokens, logits within 2e-4 + 2e-3 |cpu|."""
+def check_serve_tiny(dev, arch: str = "hymba-1.5b") -> float:
+    """The reduced config of ``arch`` (Hymba-tiny: 2 layers, window 64, SSD
+    chunk 32; SeamlessM4T-tiny: 2 + 2 layers over 32 frames; fp32) serves
+    the same prompts on the card (the kernels) and on the CPU (the plain
+    versions): equal greedy tokens, logits within 2e-4 + 2e-3 |cpu|."""
     import torch
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import build_model
 
-    cfg = get_arch("hymba-1.5b").reduced()
+    cfg = get_arch(arch).reduced()
     model = build_model(cfg)
     params = model.init(0, "cpu")
     prompts = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (2, 100)))
@@ -1238,8 +1342,215 @@ def check_serve_tiny(dev) -> float:
                                on_logits=lambda i, lg, seen=seen: seen.append(lg.cpu()))
         logits[str(d)] = torch.stack(seen)
     if not torch.equal(out["cpu"], out[str(dev)].cpu()):
-        raise AssertionError("Hymba-tiny: card and CPU tokens differ")
-    return _allclose(logits[str(dev)], logits["cpu"], 2e-4, 2e-3, "Hymba-tiny card vs CPU")
+        raise AssertionError(f"{arch} tiny: card and CPU tokens differ")
+    return _allclose(logits[str(dev)], logits["cpu"], 2e-4, 2e-3, f"{arch} tiny card vs CPU")
+
+
+def _flash_counts() -> tuple[int, dict, dict]:
+    """flash attention's launches so far: in all, by route, by mode."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel as fk
+
+    return fk.launches, dict(fk.route_launches), dict(fk.mode_launches)
+
+
+def serve_audio_path(dev, flash_row: dict) -> dict:
+    """Full-width SeamlessM4T-medium (12 + 12 layers of 1024, vocab 256,206,
+    bf16, random weights from seed 0) serves batch 4 x 256-token decoder
+    prompts (numpy seed 1) over 1,024 encoder frames (``generate``'s zero
+    frame embeddings) for 32 greedy tokens through ``generate``, the flash
+    counts zeroed just before and read after the prefill and at the end:
+    12 non-causal encoder launches, 12 causal self-attention and 12
+    non-causal cross-attention launches a prefill, all on ``mma``, none in
+    decode.  One prefill and one decode step are traced for their device
+    time.  Then the precision check on ``Model.prefill`` with frames from
+    numpy seed 2 (:func:`check_audio_prefill`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel as fk
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("seamless-m4t-medium")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(0, dev)
+    n_params = sum(v.numel() for v in params.values())
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SERVE_BATCH, AUDIO_PROMPT)), device=dev)
+    cache_len = AUDIO_PROMPT + SERVE_STEPS + 1
+    generate(model, params, prompts, steps=2, cache_len=cache_len)      # warm-up
+    seen, marks = [], {}
+
+    def on_logits(i, lg):
+        seen.append(lg.float().clone())
+        if i == 0:
+            torch.cuda.synchronize()
+            marks["t"] = time.perf_counter()
+            marks["counts"] = _flash_counts()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.launches = 0
+    fk.route_launches = dict.fromkeys(fk.route_launches, 0)
+    fk.mode_launches = dict.fromkeys(fk.mode_launches, 0)
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, steps=SERVE_STEPS, cache_len=cache_len,
+                   on_logits=on_logits)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    total, prefill = _flash_counts(), marks["counts"]
+    decode = (total[0] - prefill[0], {r: total[1][r] - prefill[1][r] for r in total[1]},
+              {m: total[2][m] - prefill[2][m] for m in total[2]})
+    prefill_ms = (marks["t"] - t0) * 1e3
+    decode_ms = (t1 - marks["t"]) * 1e3 / (SERVE_STEPS - 1)
+    L = cfg.n_layers
+    res = {"arch": cfg.name, "params": n_params, "dtype": cfg.dtype, "batch": SERVE_BATCH,
+           "prompt": AUDIO_PROMPT, "frames": AUDIO_FRAMES, "steps": SERVE_STEPS,
+           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "decode_tok_per_s": SERVE_BATCH * 1e3 / decode_ms,
+           "e2e_tok_per_s": SERVE_BATCH * SERVE_STEPS / (t1 - t0), "peak_gib": peak / 2**30,
+           "prefill_launches": {"flash_attention": prefill[0], "by_route": prefill[1],
+                                "by_mode": prefill[2]},
+           "decode_launches": {"flash_attention": decode[0], "by_route": decode[1],
+                               "by_mode": decode[2]}}
+    print(f"serve audio path: {cfg.name} {n_params} params ({cfg.dtype}), batch {SERVE_BATCH} "
+          f"x {AUDIO_PROMPT}-token prompts over {AUDIO_FRAMES} frames, {SERVE_STEPS} greedy "
+          f"tokens: prefill {prefill_ms:.2f} ms, decode {decode_ms:.2f} ms a step "
+          f"({res['decode_tok_per_s']:.1f} tokens/s), {res['e2e_tok_per_s']:.1f} tokens/s end "
+          f"to end, peak device memory {peak / 2**30:.3f} GiB; flash_attention launches in the "
+          f"prefill: {prefill[0]} (by route {prefill[1]}, by mode {prefill[2]}); in decode: "
+          f"{decode[0]} (by route {decode[1]}, by mode {decode[2]})", flush=True)
+    want = (3 * L, {"mma": 3 * L, "simt": 0}, {"causal": L, "noncausal": 2 * L})
+    if prefill != want or decode[0] != 0:
+        raise AssertionError(f"serve audio launches: prefill {prefill}, decode {decode[0]}; "
+                             f"want {want} and 0")
+    if len(seen) != SERVE_STEPS or not all(torch.isfinite(x).all() for x in seen):
+        raise AssertionError("serve audio path: non-finite logits")
+    if out.shape != (SERVE_BATCH, SERVE_STEPS) or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"serve audio path: bad tokens {tuple(out.shape)}")
+    flash_row["launches_by_path"] = {"hymba-1.5b": flash_row["launches"], cfg.name: total[0]}
+    flash_row["launches"] += total[0]
+    flash_row["noncausal"]["launches"] = total[2]["noncausal"]
+
+    # one prefill and one decode step traced (CUDA activity only): device
+    # time, kernels and copies, flash's share
+    batch = {"tokens": prompts, "frames": torch.zeros(
+        (SERVE_BATCH, cfg.src_frames, cfg.d_model), dtype=torch.float32, device=dev)}
+    with torch.inference_mode():
+        lg, cache = model.prefill(params, batch, cache_len)
+        tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+        for label, fn in (("prefill", lambda: model.prefill(params, batch, cache_len)),
+                          ("decode", lambda: model.decode_step(params, tok, cache))):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            n, dev_ms = count_device(prof)
+            flash_ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                           if "flash_fwd" in e.name()) / 1e6
+            res[f"{label}_trace"] = {"kernels": n, "device_ms": dev_ms, "flash_ms": flash_ms}
+            print(f"serve audio {label} traced: {n} device kernels and copies, {dev_ms:.2f} ms "
+                  f"of device time, flash_fwd {flash_ms:.2f} ms", flush=True)
+    del cache, lg, seen
+    res.update(check_audio_prefill(dev, model, params, prompts, cache_len))
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_audio_prefill(dev, model, params: dict, prompts, cache_len: int) -> dict:
+    """``Model.prefill`` of full-width SeamlessM4T-medium over random frame
+    embeddings (numpy seed 2, so the encoder's input varies across the
+    batch): the kernel run (bf16) and the plain run (``backend="ref"``,
+    bf16) each against the plain run in fp32 on the same weights, by the
+    relative error of the norm of the logits and every cache entry (k, v,
+    xk, xv), the kernel run within ``SERVE_ANCHOR_RATIO`` times the plain
+    run; each flash launch of the kernel run within one bf16 step of the
+    plain version on the same inputs.  A planted fault, the encoder's and
+    the cross-attention's flash launched causal, must fail both checks."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.kernels.flash_attention.ops as fops
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    from repro_torch.models.model import build_model
+
+    cfg = model.cfg
+    frames = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(SERVE_BATCH, AUDIO_FRAMES, cfg.d_model)).astype(np.float32), device=dev)
+    batch = {"tokens": prompts, "frames": frames}
+
+    def twin(m, p) -> dict:
+        lg, c = m.prefill(p, batch, cache_len)
+        r = {"logits": lg[:, -1].float()}
+        r.update({k: v.float() for k, v in c["layers"].items()})
+        return r
+
+    layer_err = {"causal": 0.0, "noncausal": 0.0}
+    last = {}
+
+    def flash_checked(q, k, v, *, causal=True, window=0):
+        got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        want = flash_attention_torch(q, k, v, causal=causal, window=window)
+        mode = "causal" if causal else "noncausal"
+        layer_err[mode] = max(layer_err[mode], _allclose(
+            got, want, FLASH_MAIN_BF16_ATOL, FLASH_MAIN_BF16_RTOL,
+            f"{mode} flash on the audio path's inputs"))
+        if not causal:
+            last["cross" if q.shape[2] != k.shape[2] else "encoder"] = (q, k, v, want)
+        return got
+
+    def flash_faulty(q, k, v, *, causal=True, window=0):
+        return flash_attention_kernel(q, k, v, causal=True, window=window)
+
+    with torch.inference_mode():
+        fops.flash_attention_kernel = flash_checked
+        try:
+            kernel = twin(model, params)
+        finally:
+            fops.flash_attention_kernel = flash_attention_kernel
+        # the planted fault, layer by layer: the last encoder and cross
+        # launches' inputs through the causal kernel must leave the bound
+        fault_off = {}
+        for label, (q, k, v, want) in last.items():
+            d = (flash_attention_kernel(q, k, v, causal=True).float() - want.float()).abs()
+            fault_off[label] = int((d > FLASH_MAIN_BF16_ATOL
+                                    + FLASH_MAIN_BF16_RTOL * want.float().abs()).sum())
+        last.clear()
+        ref = twin(build_model(cfg, backend="ref"), params)
+        fops.flash_attention_kernel = flash_faulty
+        try:
+            fault = twin(model, params)["logits"]
+        finally:
+            fops.flash_attention_kernel = flash_attention_kernel
+        anchor = twin(build_model(dataclasses.replace(cfg, dtype="float32"), backend="ref"),
+                      {k: v.float() for k, v in params.items()})
+    print(f"serve audio prefill's flash inputs, {cfg.enc_layers} + {cfg.n_layers} layers, "
+          f"within {FLASH_MAIN_BF16_ATOL} + 2^-7 |ref| of the plain version: max abs diff "
+          f"causal {layer_err['causal']:.3e}, non-causal {layer_err['noncausal']:.3e}; launched "
+          f"causal instead: elements off {fault_off}", flush=True)
+    if set(fault_off) != {"encoder", "cross"} or min(fault_off.values()) == 0:
+        raise AssertionError(f"serve audio: the layer check passed a causal fault {fault_off}")
+    errs = {n: (_rel_norm(kernel[n], anchor[n]), _rel_norm(ref[n], anchor[n])) for n in anchor}
+    errs["fault_logits"] = (_rel_norm(fault, anchor["logits"]), errs["logits"][1])
+    print(f"serve audio bf16 prefill vs the plain version in fp32, relative error of the norm, "
+          f"kernel run / plain run (bound {SERVE_ANCHOR_RATIO}x): " + ", ".join(
+              f"{n} {k:.3e} / {r:.3e} = {k / r:.3f}x" for n, (k, r) in errs.items()), flush=True)
+    off = [n for n, (k, r) in errs.items() if n != "fault_logits" and k > SERVE_ANCHOR_RATIO * r]
+    if off:
+        raise AssertionError(f"serve audio bf16: the kernel run strays more than "
+                             f"{SERVE_ANCHOR_RATIO}x as far from fp32 as the plain run in {off}")
+    k, r = errs["fault_logits"]
+    if k <= SERVE_ANCHOR_RATIO * r:
+        raise AssertionError(f"serve audio bf16: the check passed a causal fault ({k / r:.3f}x)")
+    return {"layer_max_abs_err": layer_err, "layer_fault_elements_off": fault_off,
+            "vs_fp32_rel_err": {n: {"kernel": k, "ref": r, "ratio": k / r}
+                                for n, (k, r) in errs.items()}}
 
 
 def round_setup(dev, warm_up: bool = True, **comm):
@@ -1694,6 +2005,17 @@ def main() -> int:
     print(f"Hymba-tiny served on the card vs the port on the CPU: equal tokens, logits max abs "
           f"diff {serve['tiny_card_vs_cpu_err']:.3e}", flush=True)
     print(json.dumps({"serve": serve}), flush=True)
+
+    # main path 7, serving SeamlessM4T-medium: 12 non-causal encoder, 12
+    # causal self-attention and 12 non-causal cross-attention flash launches
+    # a prefill, none in decode
+    t0 = time.perf_counter()
+    audio = serve_audio_path(dev, flash)
+    audio["tiny_card_vs_cpu_err"] = check_serve_tiny(dev, "seamless-m4t-medium")
+    print(f"SeamlessM4T-tiny served on the card vs the port on the CPU: equal tokens, logits max "
+          f"abs diff {audio['tiny_card_vs_cpu_err']:.3e}", flush=True)
+    print(json.dumps({"serve_audio": audio}), flush=True)
+    print(f"audio serve path: {time.perf_counter() - t0:.1f} s", flush=True)
 
     for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd"), MVR,
                  dict(mvr_exact=True, **MVR), VMAPPED, VMAPPED | MVR,

@@ -1,8 +1,9 @@
 """Config system: model architecture and FL hyperparameters (the port's copy).
 
 The same frozen dataclasses as ``repro.configs.base``, cut to the fields
-this port implements: ``ArchConfig`` for the dense and hybrid (attention +
-Mamba2 SSD, ``SSMConfig``) families with ``reduced()``, and
+this port implements: ``ArchConfig`` for the dense, hybrid (attention +
+Mamba2 SSD, ``SSMConfig``) and audio (encoder-decoder) families with
+``reduced()``, and
 ``FLConfig`` with the comm plane's knobs but without those of the planes
 that are not ported yet (fleet, robust, privacy, obs).  Shared fields keep
 the JAX package's names and defaults, so one keyword dict builds both
@@ -63,6 +64,10 @@ class ArchConfig:
     ssm: SSMConfig | None = None
     hybrid: bool = False           # Hymba parallel attn+SSM heads
 
+    # encoder-decoder (audio) stub
+    enc_layers: int = 0            # >0 => encoder-decoder
+    src_frames: int = 1024         # audio frontend stub: #frame embeddings
+
     # misc
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
@@ -73,7 +78,8 @@ class ArchConfig:
 
     def reduced(self, **overrides) -> "ArchConfig":
         """A tiny same-family variant for CPU smoke tests (<=2 layers etc.),
-        with the JAX package's defaults: fp32, SSM chunk 32, window 64."""
+        with the JAX package's defaults: fp32, SSM chunk 32, 2 encoder
+        layers over 32 frames, window 64."""
         small: dict = dict(
             n_layers=2,
             d_model=min(self.d_model, 128),
@@ -87,6 +93,9 @@ class ArchConfig:
             small["ssm"] = dataclasses.replace(
                 self.ssm, state_dim=min(self.ssm.state_dim, 16), head_dim=32, num_heads=0, chunk=32
             )
+        if self.enc_layers:
+            small["enc_layers"] = 2
+            small["src_frames"] = 32
         if self.sliding_window:
             small["sliding_window"] = 64
         small["dtype"] = "float32"

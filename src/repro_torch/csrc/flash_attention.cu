@@ -1,65 +1,74 @@
-// Causal, sliding-window GQA flash attention (forward only), on Hopper.
+// GQA flash attention (forward only), causal or not, with an optional sliding
+// window, on Hopper.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py:
-// flash_attention (body _flash_kernel).  For q [B, H, Tq, hd] and k, v
-// [B, KV, Tk, hd] (f32 or bf16, all one dtype; kv head = h / (H / KV)):
+// flash_attention (body _flash_kernel), both of its modes.  For q
+// [B, H, Tq, hd] and k, v [B, KV, Tk, hd] (f32 or bf16, all one dtype;
+// kv head = h / (H / KV)):
 //
 //   s_ij = (q_i . k_j) * scale,  scale = 1 / sqrt(hd)       (fp32 sums)
-//   s_ij = -1e30 where j > i, or i - j >= window (window > 0), or j >= Tk
+//   s_ij = -1e30 where j > i (causal only), or i - j >= window (window > 0),
+//          or j >= Tk
 //   o_i  = sum_j softmax_j(s_i) v_j / max(l_i, 1e-30)       (online, fp32)
 //
 // stored in q's dtype.  Positions are the indices 0..Tq-1 and 0..Tk-1, as in
-// the TPU kernel; attention is always causal (the TPU kernel's causal=False
-// is on no path of the system).  The plain torch version is
+// the TPU kernel.  The causal mode serves the decoders' self-attention; the
+// non-causal one (causal = 0, the TPU kernel's causal=False) the audio
+// encoder's self-attention and the decoder's cross-attention over the
+// encoder memory, where Tq and Tk differ (256 and 1,024 at SeamlessM4T-
+// medium's serving shape).  The plain torch version is
 // repro_torch/kernels/flash_attention/ref.py:flash_attention_torch.
 //
 // Bound on an H100: operations.  At Hymba-1.5B's prefill (B 4, T 2048, H 25,
 // KV 5, hd 64, window 1024) a layer has 1,573,376 unmasked (query, key)
 // pairs a (batch, head), 4 * hd FLOP each (QK^T and PV): 40.3 GFLOP, 0.041
 // ms at the bf16 tensor-core rate of 989 TFLOP/s; the bytes (q, k, v read
-// once, o written once) are 62.9 MB, 0.019 ms at 3.35 TB/s.
+// once, o written once) are 62.9 MB, 0.019 ms at 3.35 TB/s.  Non-causal at
+// SeamlessM4T-medium's encoder (B 4, T 1024, H = KV = 16, hd 64): 17.18
+// GFLOP, 0.0174 ms, bound by operations; its cross-attention (Tq 256, Tk
+// 1024): 4.29 GFLOP (0.0043 ms) but 21.0 MB (0.0063 ms), bound by bytes.
 //
 // Two kernels share the grid, one block per (query tile of 64 rows, query
 // head, batch), and the loop over the key tiles from the window's first to
-// the causal last one, so wholly masked tiles are never visited (as the TPU
-// kernel's pl.when skips them).  Both read q, k and v in the model's
-// [B, T, H, hd] layout through the element strides they are given (the head
-// dim must be contiguous), so the caller makes no transposed copy.  The
+// the causal last one (the last of Tk when not causal), so wholly masked
+// tiles are never visited (as the TPU kernel's pl.when skips them).  Both
+// read q, k and v in the model's [B, T, H, hd] layout through the element
+// strides they are given (the head dim must be contiguous), so the caller
+// makes no transposed copy.  The
 // wrapper (kernels/flash_attention/kernel.py:route) picks one before the
 // launch:
 //
-// flash_fwd_mma: bf16 with hd 16, 32, 64 or 128, q, k, v pointers and
-// batch, head and time strides 16-byte aligned (every prefill of the port).
-// FA2-style on the mma.sync tensor cores: 4 warps a block, 16 query rows a
-// warp.  Q is copied once into shared memory and loaded into A fragments
-// (ldmatrix.x4) that stay in registers.  K and V tiles of 64 keys are
-// double-buffered in shared memory by 16-byte cp.async copies, the next
-// tile's copy in flight during this tile's products; keys past Tk are
-// zero-filled (src-size 0).  Shared rows are padded by 16 bytes, so the
-// eight rows an ldmatrix phase reads fall in eight distinct bank groups.
-// S = Q K^T by mma.sync m16n8k16 (bf16 in, fp32 sums), K's B fragments by
-// ldmatrix; the -1e30 mask is applied per element only on tiles that touch
-// the diagonal, the window's edge or the ragged end.  The online softmax
-// runs in registers: a thread holds 16 scores of each of 2 rows, the row max
-// is reduced over the 4 threads of a quad (shuffles 1, 2), l is summed from
-// the fp32 p per thread and over the quad at the end.  O += P V in two
-// products: p = p_hi + p_lo, both rounded to bf16 in registers and reused as
-// A fragments (the m16n8 accumulator layout is the m16n8k16 A layout once
-// pairs are packed); V's B fragments come by ldmatrix.trans; O sums in fp32
-// registers.  Why two: the TPU kernel keeps p in fp32 through P V, and one
-// bf16 p (relative error up to 2^-8 a term, against an l summed in fp32)
-// moves an output by up to 2^-9 |v_j| where one key dominates a row, as in
-// the first rows of every causal prefill: past one bf16 step of a small
-// output.  p_hi + p_lo carries p to ~2^-17, for twice the P V products
-// (1.5x in all).  Epilogue: O / max(l, 1e-30) rounded to bf16, staged through the
-// warp's own rows of Q's shared tile, stored 16 bytes a thread.  Shared
-// memory: 5 tiles of 64 x (hd + 8) bf16, 46,080 bytes at hd 64, 87,040 at
-// hd 128 (opted in past 48 KB).  What bounds it: the products, 96
-// m16n8k16 a warp a key tile at hd 64 (64.2 GFLOP issued at Hymba's shape
-// for 40.3 useful: the split P V, and the masked halves of the diagonal and
-// window-edge tiles), at most ~2/3 of the 989 TFLOP/s through mma.sync (the
-// full rate needs wgmma), with the softmax's exp2 and shuffles between the
-// two products; predicted 0.20-0.45 ms a launch at Hymba's shape.
+// flash_fwd_mma: bf16 with hd 16, 32, 64 or 128, q, k, v pointers and batch,
+// head and time strides 16-byte aligned (every prefill of the port).  FA2-style
+// on the mma.sync tensor cores: 4 warps a block, 16 query rows a warp.  Q is
+// copied once into shared memory and loaded into A fragments (ldmatrix.x4) that
+// stay in registers.  K and V tiles of 64 keys are double-buffered in shared
+// memory by 16-byte cp.async copies, the next tile's copy in flight during this
+// tile's products; keys past Tk are zero-filled (src-size 0).  Shared rows are
+// padded by 16 bytes, so the eight rows an ldmatrix phase reads fall in eight
+// distinct bank groups.  S = Q K^T by mma.sync m16n8k16 (bf16 in, fp32 sums),
+// K's B fragments by ldmatrix; the -1e30 mask is applied per element only on
+// tiles that touch the diagonal (causal only), the window's edge or the ragged
+// end.  The online softmax runs in registers: a thread holds 16 scores of each
+// of 2 rows, the row max is reduced over the 4 threads of a quad (shuffles 1,
+// 2), l is summed from the fp32 p per thread and over the quad at the end.  O
+// += P V in two products: p = p_hi + p_lo, both rounded to bf16 in registers
+// and reused as A fragments (the m16n8 accumulator layout is the m16n8k16 A
+// layout once pairs are packed); V's B fragments come by ldmatrix.trans; O sums
+// in fp32 registers.  Why two: the TPU kernel keeps p in fp32 through P V, and
+// one bf16 p (relative error up to 2^-8 a term, against an l summed in fp32)
+// moves an output by up to 2^-9 |v_j| where one key dominates a row, as in the
+// first rows of every causal prefill: past one bf16 step of a small
+// output.  p_hi + p_lo carries p to ~2^-17, for twice the P V products (1.5x in
+// all).  Epilogue: O / max(l, 1e-30) rounded to bf16, staged through the warp's
+// own rows of Q's shared tile, stored 16 bytes a thread.  Shared memory: 5
+// tiles of 64 x (hd + 8) bf16, 46,080 bytes at hd 64, 87,040 at hd 128 (opted
+// in past 48 KB).  What bounds it: the products, 96 m16n8k16 a warp a key tile
+// at hd 64 (64.2 GFLOP issued at Hymba's shape for 40.3 useful: the split P V,
+// and the masked halves of the diagonal and window-edge tiles), at most ~2/3 of
+// the 989 TFLOP/s through mma.sync (the full rate needs wgmma), with the
+// softmax's exp2 and shuffles between the two products; predicted 0.20-0.45 ms
+// a launch at Hymba's shape.
 //
 // flash_fwd: everything else, fp32 above all (the fp32 checks hold the
 // kernel at 2e-5, which bf16 tensor cores cannot meet).  A first kernel
@@ -75,10 +84,16 @@
 //
 // Masked scores are -1e30, not -inf, as on the TPU: a row whose first
 // visited tile is wholly outside its window adds exp(0) = 1 terms, which the
-// correction exp(-1e30 - m) rescales to exactly 0 once a real key arrives;
-// with Tq <= Tk the row's own key guarantees one does (which is also why
-// flash_fwd_mma zero-fills the rows past Tk: a 0 weight times a NaN of stale
-// shared memory would not vanish).
+// correction exp(-1e30 - m) rescales to exactly 0 once a real key arrives
+// (which is also why flash_fwd_mma zero-fills the rows past Tk: a 0 weight
+// times a NaN of stale shared memory would not vanish).  One does arrive for
+// every row i < Tk - 1 + window (any row without a window), in both modes:
+// key Tk - 1 is in row i's window, and so is a causal row's own key
+// min(i, Tk - 1); the loop visits every tile up to Tk - 1 in the non-causal
+// mode and up to the row's own tile in the causal one.  Rows i >= Tk - 1 +
+// window see no key at all (the TPU kernel returns 0 there, its oracle the
+// mean of v); the wrapper refuses such inputs (ref.py:
+// check_every_row_sees_a_key), so both modes hold for any Tq and Tk.
 // Head dims 1..128 and any Tq, Tk (the ragged last tiles are masked here).
 
 #include <cstdint>
@@ -104,6 +119,7 @@ struct Args {
   long long v_sb, v_sh, v_st;      // of v [B, KV, Tk, hd]
   long long o_sb, o_sh, o_st;      // of o [B, H, Tq, hd]
   int group, Tq, Tk, hd, window;
+  int causal;                      // 0: every key (Tq and Tk may differ)
   float scale;
 };
 
@@ -149,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
   }
 
   // the key tiles any row of this block can see
-  const int last = min(a.Tk - 1, q0 + kBQ - 1);
+  const int last = a.causal ? min(a.Tk - 1, q0 + kBQ - 1) : a.Tk - 1;
   const int first = a.window ? max(0, q0 - a.window + 1) : 0;
   for (int k0 = (first / kBK) * kBK; k0 <= last; k0 += kBK) {
     __syncthreads();                   // the previous tile's ks, vs, ps are consumed
@@ -185,7 +201,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
-        const bool ok = key < a.Tk && key <= row && (!a.window || row - key < a.window);
+        const bool ok = key < a.Tk && (!a.causal || key <= row) &&
+                        (!a.window || row - key < a.window);
         s[i][j] = ok ? s[i][j] * a.scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -307,7 +324,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(const Args a) {
   const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
   // the key tiles any row of this block can see
-  const int last = min(a.Tk - 1, q0 + kBQ - 1);
+  const int last = a.causal ? min(a.Tk - 1, q0 + kBQ - 1) : a.Tk - 1;
   const int first = a.window ? max(0, q0 - a.window + 1) : 0;
   const int kb = (first / kBK) * kBK;
   const int n_tiles = last >= kb ? (last - kb) / kBK + 1 : 0;
@@ -367,7 +384,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(const Args a) {
     }
 
     // element e of s[j]: row row0 + 8 (e >> 1), key k0 + 8 j + 2 tig + (e & 1)
-    const bool edge = k0 + kBK - 1 > q0 || k0 + kBK > a.Tk ||
+    const bool edge = (a.causal && k0 + kBK - 1 > q0) || k0 + kBK > a.Tk ||
                       (a.window && q0 + kBQ - 1 - k0 >= a.window);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -376,7 +393,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(const Args a) {
         float x = s[j][e] * sl2;
         if (edge) {
           const int row = row0 + 8 * (e >> 1), key = k0 + 8 * j + 2 * tig + (e & 1);
-          if (key >= a.Tk || key > row || (a.window && row - key >= a.window)) x = kNegInf;
+          if (key >= a.Tk || (a.causal && key > row) || (a.window && row - key >= a.window))
+            x = kNegInf;
         }
         s[j][e] = x;
       }
@@ -477,7 +495,7 @@ cudaError_t launch_mma(const Args& a, int B, int H, cudaStream_t stream) {
 }
 
 Args make_args(const void* q, const void* k, const void* v, void* o, const long long* strides,
-               int H, int KV, int Tq, int Tk, int hd, int window, float scale) {
+               int H, int KV, int Tq, int Tk, int hd, int window, int causal, float scale) {
   Args a;
   a.q = q;
   a.k = k;
@@ -492,6 +510,7 @@ Args make_args(const void* q, const void* k, const void* v, void* o, const long 
   a.Tk = Tk;
   a.hd = hd;
   a.window = window;
+  a.causal = causal;
   a.scale = scale;
   return a;
 }
@@ -501,14 +520,15 @@ Args make_args(const void* q, const void* k, const void* v, void* o, const long 
 extern "C" {
 
 // strides: 12 element strides, (batch, head, time) of q, k, v and o in turn;
-// scale is 1 / sqrt(hd) rounded to fp32 by the caller.  Returns a cudaError_t
-// (0 on success); the head dim must be 1..128 and H a multiple of KV
-// (checked by the caller).  flash_fwd.
+// causal: 1 for the causal mode, 0 for every key; scale is 1 / sqrt(hd)
+// rounded to fp32 by the caller.  Returns a cudaError_t (0 on success); the
+// head dim must be 1..128, H a multiple of KV, and every query row must see
+// a key (checked by the caller).  flash_fwd.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            const long long* strides, int B, int H, int KV, int Tq, int Tk,
-                           int hd, int window, float scale, int bf16,
+                           int hd, int window, int causal, float scale, int bf16,
                            void* stream) {
-  const Args a = make_args(q, k, v, o, strides, H, KV, Tq, Tk, hd, window, scale);
+  const Args a = make_args(q, k, v, o, strides, H, KV, Tq, Tk, hd, window, causal, scale);
   if (Tq == 0 || B == 0 || H == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return int(bf16 ? dispatch<__nv_bfloat16>(a, B, H, s) : dispatch<float>(a, B, H, s));
@@ -519,13 +539,13 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
 // or it returns cudaErrorInvalidValue without launching.
 int flash_attention_mma_launch(const void* q, const void* k, const void* v, void* o,
                                const long long* strides, int B, int H, int KV, int Tq, int Tk,
-                               int hd, int window, float scale, void* stream) {
+                               int hd, int window, int causal, float scale, void* stream) {
   const void* ptrs[4] = {q, k, v, o};
   for (int i = 0; i < 4; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return int(cudaErrorInvalidValue);
   for (int i = 0; i < 12; ++i)
     if (strides[i] % 8) return int(cudaErrorInvalidValue);
-  const Args a = make_args(q, k, v, o, strides, H, KV, Tq, Tk, hd, window, scale);
+  const Args a = make_args(q, k, v, o, strides, H, KV, Tq, Tk, hd, window, causal, scale);
   if (Tq == 0 || B == 0 || H == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {

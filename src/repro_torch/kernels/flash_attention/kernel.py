@@ -1,4 +1,5 @@
-"""CUDA kernel wrapper: causal, sliding-window GQA flash attention.
+"""CUDA kernel wrapper: GQA flash attention, causal or not, with an optional
+sliding window.
 
 Launches one of two kernels of ``repro_torch/csrc/flash_attention.cu``
 (built with ``nvcc`` for ``sm_90a`` at first use, loaded with ``ctypes``)
@@ -17,23 +18,27 @@ import numpy as np
 import torch
 
 from ..build import load
+from .ref import check_every_row_sees_a_key
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HD = 128
 MMA_HDS = (16, 32, 64, 128)     # flash_fwd_mma's head dims
 ROUTES = ("mma", "simt")
+MODES = ("causal", "noncausal")
+# the C entry points' parameters, in order (csrc/flash_attention.cu, extern
+# "C"): q, k, v, o, strides; B, H, KV, Tq, Tk, hd, window, causal; scale;
+# then flash_attention_launch's bf16 flag; the stream
+_HEAD = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
+ARGTYPES = {"flash_attention_launch": _HEAD + [ctypes.c_int, ctypes.c_void_p],
+            "flash_attention_mma_launch": _HEAD + [ctypes.c_void_p]}
 
 
 def _lib() -> ctypes.CDLL:
     lib = load("flash_attention")
-    fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    fn = lib.flash_attention_mma_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -53,17 +58,22 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                           window: int = 0, kernel: str | None = None) -> torch.Tensor:
+                           causal: bool = True, window: int = 0,
+                           kernel: str | None = None) -> torch.Tensor:
     """q [B,H,Tq,hd]; k,v [B,KV,Tk,hd] (f32 or bf16, one dtype, on one CUDA
     device, any strides with a contiguous head dim: transposed views of the
     model's [B,T,H,hd] tensors are read in place) -> [B,H,Tq,hd] in q's
-    dtype, a transposed view of a contiguous [B,Tq,H,hd] tensor.
+    dtype, a transposed view of a contiguous [B,Tq,H,hd] tensor.  Query i
+    sees the keys j <= i when ``causal``, every key otherwise (Tq may
+    differ from Tk), and only those with i - j < window when ``window``;
+    inputs where a row would see no key raise ``ValueError``.
 
     The kernel is :func:`route`'s choice; ``kernel`` names one instead (to
     time ``"simt"`` on the inputs ``"mma"`` takes), and ``"mma"`` on inputs
     it does not take raises."""
     B, H, Tq, hd = q.shape
     KV, Tk = k.shape[1], k.shape[2]
+    check_every_row_sees_a_key(Tq, Tk, window)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_kernel needs CUDA tensors, got {dev}")
@@ -89,7 +99,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Tq, H, hd), dtype=q.dtype, device=dev).transpose(1, 2)
     strides = np.array([t.stride(i) for t in (q, k, v, out) for i in range(3)], np.int64)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides.ctypes.data,
-            B, H, KV, Tq, Tk, hd, window, 1.0 / hd ** 0.5)
+            B, H, KV, Tq, Tk, hd, window, int(causal), 1.0 / hd ** 0.5)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -101,8 +111,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention_kernel ({chosen}) launch failed: cudaError {err}")
     flash_attention_kernel.launches += 1
     flash_attention_kernel.route_launches[chosen] += 1
+    flash_attention_kernel.mode_launches[MODES[not causal]] += 1
     return out
 
 
 flash_attention_kernel.launches = 0   # launches so far; reset by the caller
 flash_attention_kernel.route_launches = dict.fromkeys(ROUTES, 0)   # the same, by kernel
+flash_attention_kernel.mode_launches = dict.fromkeys(MODES, 0)     # the same, by mode

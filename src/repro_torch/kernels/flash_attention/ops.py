@@ -19,10 +19,11 @@ from .ref import flash_attention_torch
 BACKENDS = ("kernel", "ref")
 
 
-def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int = 0,
-                 backend: str = "kernel") -> torch.Tensor:
-    """Causal (sliding-window when ``window``) attention: q [B,Tq,H,hd],
-    k/v [B,Tk,KV,hd] -> [B,Tq,H,hd] in q's dtype."""
+def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                 window: int = 0, backend: str = "kernel") -> torch.Tensor:
+    """Causal, or with ``causal=False`` over every key, attention (sliding-
+    window when ``window``): q [B,Tq,H,hd], k/v [B,Tk,KV,hd] -> [B,Tq,H,hd]
+    in q's dtype."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; have {BACKENDS}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -30,9 +31,9 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: i
                            "call it under torch.no_grad() or torch.inference_mode()")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if backend == "ref" or q.device.type == "cpu":
-        out = flash_attention_torch(qt, kt, vt, window=window)
+        out = flash_attention_torch(qt, kt, vt, causal=causal, window=window)
     elif q.device.type == "cuda":
-        out = flash_attention_kernel(qt, kt, vt, window=window)
+        out = flash_attention_kernel(qt, kt, vt, causal=causal, window=window)
     else:
         raise ValueError(f"flash attention has no kernel for device {q.device}")
     return out.transpose(1, 2)

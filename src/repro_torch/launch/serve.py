@@ -3,10 +3,13 @@
 
 ``generate`` runs ``Model.prefill`` over the prompts (the flash attention
 and SSD kernels on a card), then ``Model.decode_step`` once a token, under
-``torch.inference_mode()``.  The CLI serves the reduced demo config of an
-arch with random weights from seed 0 and prompts from numpy seed 1::
+``torch.inference_mode()``.  An audio encoder-decoder encodes zero frame
+embeddings, as the JAX package's ``generate`` does.  The CLI serves the
+reduced demo config of an arch with random weights from seed 0 and prompts
+from numpy seed 1::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium --device cpu
 
 It runs on ``cuda`` unless ``--device cpu`` is given; ``--checkpoint`` is
 not ported yet.
@@ -40,7 +43,11 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, *, steps: int, c
     ``steps - 1`` of them."""
     if temperature > 0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs an explicit torch.Generator")
-    logits, cache = model.prefill(params, {"tokens": prompts}, cache_len)
+    batch = {"tokens": prompts}
+    if model.cfg.family == "audio":
+        batch["frames"] = torch.zeros((prompts.shape[0], model.cfg.src_frames, model.cfg.d_model),
+                                      dtype=torch.float32, device=prompts.device)
+    logits, cache = model.prefill(params, batch, cache_len)
     out = []
     for i in range(steps):
         last = logits[:, -1]

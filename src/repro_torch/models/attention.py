@@ -1,13 +1,14 @@
-"""Attention: GQA (llama/qwen-style, optional QKV bias), sliding window, and
-the decode caches (linear and ring).
+"""Attention: GQA (llama/qwen-style, optional QKV bias), sliding window,
+cross-attention over an encoder memory, and the decode caches (linear and
+ring).
 
 Layouts (the JAX package's): activations [B, T, D]; heads [B, T, H, hd];
 caches [B, S, KV, hd].  :func:`attend` is the port of
 ``repro.models.attention.attend``: scores in fp32, masked with -1e30 before
 an fp32 softmax, probabilities cast to v's dtype before ``p @ v``, query
-chunking above ``CHUNK_THRESHOLD``.  It is always causal (the JAX package's
-``causal=False`` serves the cross-attention, not ported).  The train loss
-(:func:`gqa_forward`, under autograd) and the decode step
+chunking above ``CHUNK_THRESHOLD``; causal unless ``causal=False`` (the
+audio encoder's self-attention and the decoder's cross-attention).  The
+train loss (:func:`gqa_forward`, under autograd) and the decode step
 (:func:`gqa_decode`) use it; the prefill (:func:`gqa_prefill`) goes through
 the flash attention kernel (``kernels/flash_attention``), which has no
 backward pass.  MLA is not ported yet.
@@ -27,10 +28,11 @@ Q_CHUNK = 1024
 NEG_INF = -1e30
 
 
-def band_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int = 0) -> torch.Tensor:
-    """Causal bool [Tq, Tk]; window=0 => unbounded lookback."""
+def band_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int = 0,
+              causal: bool = True) -> torch.Tensor:
+    """bool [Tq, Tk]; window=0 => unbounded lookback."""
     diff = q_pos[:, None] - kv_pos[None, :]
-    m = diff >= 0
+    m = diff >= 0 if causal else torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
     if window:
         m = m & (diff < window)
     return m
@@ -49,10 +51,10 @@ def _attend_block(q, k, v, mask, scale: float):
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor | None = None,
-           kv_pos: torch.Tensor | None = None, *, window: int = 0,
+           kv_pos: torch.Tensor | None = None, *, causal: bool = True, window: int = 0,
            kv_valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Causal attention: q [B,Tq,H,hd], k/v [B,Tk,KV,hd] -> [B,Tq,H,hd]
-    (GQA: kv head = h // (H/KV)).
+    """Causal attention, or over every key with ``causal=False``: q
+    [B,Tq,H,hd], k/v [B,Tk,KV,hd] -> [B,Tq,H,hd] (GQA: kv head = h // (H/KV)).
 
     q_pos [Tq] and kv_pos [Tk] are absolute positions (default 0..T-1);
     kv_valid optional bool [B,Tk] (decode cache validity).  Above
@@ -65,7 +67,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tenso
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
     def mask_for(qp):
-        m = band_mask(qp, kv_pos, window=window)                     # [tq, Tk]
+        m = band_mask(qp, kv_pos, window=window, causal=causal)      # [tq, Tk]
         if kv_valid is not None:
             m = m[None, None, None] & kv_valid[:, None, None, None, :]
         return m
@@ -93,16 +95,20 @@ def gqa_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
     return p
 
 
+def _proj(p: dict, cfg: ArchConfig, x: torch.Tensor, name: str, heads: int) -> torch.Tensor:
+    """x @ w{name} (+ b{name}) as [B, T, heads, hd]."""
+    y = x @ p[f"w{name}"]
+    if cfg.qkv_bias:
+        y = y + p[f"b{name}"]
+    return y.reshape(*x.shape[:2], heads, cfg.hd())
+
+
 def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
     """The roped q [B,T,H,hd] and k [B,T,KV,hd], and v [B,T,KV,hd]."""
-    B, T, _ = x.shape
-    hd = cfg.hd()
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.reshape(B, T, cfg.n_heads, hd), positions, cfg.rope_theta, cfg.rope_kind)
-    k = apply_rope(k.reshape(B, T, cfg.n_kv_heads, hd), positions, cfg.rope_theta, cfg.rope_kind)
-    return q, k, v.reshape(B, T, cfg.n_kv_heads, hd)
+    q = apply_rope(_proj(p, cfg, x, "q", cfg.n_heads), positions, cfg.rope_theta, cfg.rope_kind)
+    k = apply_rope(_proj(p, cfg, x, "k", cfg.n_kv_heads), positions, cfg.rope_theta,
+                   cfg.rope_kind)
+    return q, k, _proj(p, cfg, x, "v", cfg.n_kv_heads)
 
 
 def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
@@ -114,24 +120,39 @@ def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tens
 
 
 def gqa_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
-                window: int = 0, backend: str = "kernel"):
-    """The prefill form of :func:`gqa_forward`: causal (sliding-window when
-    ``window``) attention through the flash attention kernel over prompt
-    positions 0..T-1.  Returns (out, (k, v)) so the caller builds the cache."""
+                causal: bool = True, window: int = 0, kv_override=None, backend: str = "kernel"):
+    """The prefill form of :func:`gqa_forward`: attention through the flash
+    attention kernel over prompt positions 0..T-1, causal (sliding-window
+    when ``window``) or, with ``causal=False``, over every key.
+    ``kv_override=(k, v)`` [B, S, KV, hd] is cross-attention: the encoder
+    memory as K/V, and no RoPE on q.  Returns (out, (k, v)) so the caller
+    builds the cache."""
     B, T, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, positions)
-    out = flash_attend(q, k, v, window=window, backend=backend)
+    if kv_override is None:
+        q, k, v = _qkv(p, cfg, x, positions)
+    else:
+        q, (k, v) = _proj(p, cfg, x, "q", cfg.n_heads), kv_override
+    out = flash_attend(q, k, v, causal=causal, window=window, backend=backend)
     return out.reshape(B, T, -1) @ p["wo"], (k, v)
 
 
-def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict, *,
-               ring: bool = False):
+def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict | None, *,
+               ring: bool = False, cross_kv=None):
     """One-token decode.  x [B,1,D]; pos the absolute position (an int).
 
     cache: {"k": [B,S,KV,hd], "v": ...}, written in place at slot ``pos``
     (``pos % S`` with ``ring``: a ring cache holds exactly the window, so
-    the window needs no mask of its own).  Returns (out [B,1,D], cache)."""
+    the window needs no mask of its own).  ``cross_kv=(k, v)`` [B,S,KV,hd]
+    bypasses the cache: cross-attention over the whole encoder memory, no
+    RoPE, nothing written.  Returns (out [B,1,D], cache)."""
     B = x.shape[0]
+    if cross_kv is not None:
+        k, v = cross_kv
+        S = k.shape[1]
+        out = attend(_proj(p, cfg, x, "q", cfg.n_heads), k, v,
+                     torch.full((1,), pos, device=x.device), torch.arange(S, device=x.device),
+                     causal=False, kv_valid=torch.ones((B, S), dtype=torch.bool, device=x.device))
+        return out.reshape(B, 1, -1) @ p["wo"], cache
     positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _qkv(p, cfg, x, positions)
     k, v = cache["k"], cache["v"]

@@ -1,13 +1,16 @@
 """Transformer blocks: init, the train forward, the prefill and the decode
-step, for the dense family and the hybrid (Hymba: parallel attention + SSD
-branches) family.
+step, for the dense family, the hybrid (Hymba: parallel attention + SSD
+branches) family and the audio encoder-decoder.
 
 A block's parameters are the flat-dict entries under its prefix
 (``blocks/{i}/ln1/scale``, ``blocks/{i}/attn/wq``, …, ``blocks/{i}/mlp/down``;
-the hybrid block adds ``blocks/{i}/mixer/...`` and ``blocks/{i}/branch_scale``).
+the hybrid block adds ``blocks/{i}/mixer/...`` and ``blocks/{i}/branch_scale``;
+an encoder block is a dense one under ``enc_blocks/{i}/``; a decoder block
+has ``self/``, ``ln_x/`` and ``cross/`` in place of ``attn/``).
 A prefill returns the layer's cache entry in the structure its decode step
-takes (``{"k", "v"}``, plus ``{"state", "conv"}`` for the hybrid block).
-The port's counterpart of ``repro.models.blocks`` for these two families.
+takes (``{"k", "v"}``, plus ``{"state", "conv"}`` for the hybrid block and
+``{"xk", "xv"}``, the encoder memory's K/V, for the decoder block).  The
+port's counterpart of ``repro.models.blocks`` for these families.
 """
 from __future__ import annotations
 
@@ -23,8 +26,8 @@ MIXER_KEYS = ("in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D", "gate_norm
               "out_proj")
 
 
-def _attn(params: dict, prefix: str) -> dict:
-    return {k: params[f"{prefix}attn/{k}"] for k in ATTN_KEYS if f"{prefix}attn/{k}" in params}
+def _attn(params: dict, prefix: str, name: str = "attn") -> dict:
+    return {k: params[f"{prefix}{name}/{k}"] for k in ATTN_KEYS if f"{prefix}{name}/{k}" in params}
 
 
 def _mixer(params: dict, prefix: str) -> dict:
@@ -40,14 +43,22 @@ def _mlp(params: dict, cfg: ArchConfig, h: torch.Tensor, prefix: str) -> torch.T
 # -- dense ------------------------------------------------------------------
 
 
-def dense_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefix: str) -> dict:
+def _attn_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefix: str,
+               pairs=(("ln1", "attn"),)) -> dict:
+    """Each (norm, attention) pair of ``pairs``, then ln2 and the MLP."""
     D = cfg.d_model
-    p = {f"{prefix}ln1/scale": torch.ones((D,), dtype=dtype, device=device)}
-    p.update({f"{prefix}attn/{k}": v for k, v in gqa_init(gen, cfg, dtype, device).items()})
+    p = {}
+    for ln, attn in pairs:
+        p[f"{prefix}{ln}/scale"] = torch.ones((D,), dtype=dtype, device=device)
+        p.update({f"{prefix}{attn}/{k}": v for k, v in gqa_init(gen, cfg, dtype, device).items()})
     p[f"{prefix}ln2/scale"] = torch.ones((D,), dtype=dtype, device=device)
     for name, (i, o) in (("gate", (D, cfg.d_ff)), ("up", (D, cfg.d_ff)), ("down", (cfg.d_ff, D))):
         p[f"{prefix}mlp/{name}"] = dense_init(gen, i, o, dtype, device)
     return p
+
+
+def dense_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefix: str) -> dict:
+    return _attn_init(gen, cfg, dtype, device, prefix)
 
 
 def dense_block_forward(params: dict, cfg: ArchConfig, h: torch.Tensor,
@@ -106,3 +117,61 @@ def hybrid_block_decode(params: dict, cfg: ArchConfig, h: torch.Tensor, pos: int
     s = params[f"{prefix}branch_scale"].to(h.dtype)
     h = h + s[0] * a + s[1] * m
     return _mlp(params, cfg, h, prefix), cache
+
+
+# -- encoder/decoder blocks (audio enc-dec) -----------------------------------
+
+
+enc_block_init = dense_block_init
+
+
+def enc_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
+                      prefix: str, *, backend: str = "kernel") -> torch.Tensor:
+    """Self-attention over every frame (non-causal flash), then the MLP."""
+    a, _ = gqa_prefill(_attn(params, prefix), cfg,
+                       rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), positions,
+                       causal=False, backend=backend)
+    return _mlp(params, cfg, h + a, prefix)
+
+
+def dec_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefix: str) -> dict:
+    return _attn_init(gen, cfg, dtype, device, prefix, (("ln1", "self"), ("ln_x", "cross")))
+
+
+def cross_kv(params: dict, cfg: ArchConfig, enc_out: torch.Tensor, prefix: str):
+    """The encoder memory's K/V [B, S, KV, hd] for one decoder layer's
+    cross-attention (computed once a prefill, kept in the cache)."""
+    B, S, _ = enc_out.shape
+    p = _attn(params, prefix, "cross")
+    k, v = enc_out @ p["wk"], enc_out @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(B, S, cfg.n_kv_heads, cfg.hd()), v.reshape(B, S, cfg.n_kv_heads, cfg.hd()))
+
+
+def dec_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
+                      xkv: tuple, prefix: str, *, backend: str = "kernel"):
+    """Causal self-attention, then non-causal cross-attention over the
+    encoder memory ``xkv = (xk, xv)``, both through flash, then the MLP.
+    -> (h, {"k", "v"} over the prompt)."""
+    a, (k, v) = gqa_prefill(_attn(params, prefix, "self"), cfg,
+                            rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), positions,
+                            backend=backend)
+    h = h + a
+    c, _ = gqa_prefill(_attn(params, prefix, "cross"), cfg,
+                       rmsnorm(params[f"{prefix}ln_x/scale"], h, cfg.norm_eps), positions,
+                       causal=False, kv_override=xkv, backend=backend)
+    return _mlp(params, cfg, h + c, prefix), {"k": k, "v": v}
+
+
+def dec_block_decode(params: dict, cfg: ArchConfig, h: torch.Tensor, pos: int, cache: dict,
+                     prefix: str):
+    """One token: self-attention over the linear cache ``{"k", "v"}``
+    (written in place), cross-attention over ``{"xk", "xv"}``."""
+    a, _ = gqa_decode(_attn(params, prefix, "self"), cfg,
+                      rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), pos, cache)
+    h = h + a
+    c, _ = gqa_decode(_attn(params, prefix, "cross"), cfg,
+                      rmsnorm(params[f"{prefix}ln_x/scale"], h, cfg.norm_eps), pos, None,
+                      cross_kv=(cache["xk"], cache["xv"]))
+    return _mlp(params, cfg, h + c, prefix), cache

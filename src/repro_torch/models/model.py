@@ -6,26 +6,32 @@ One ``Model`` per ArchConfig, the API the FL stack and the serving path use:
     drawn with a ``torch.Generator`` on ``device``; shapes only on ``meta``)
   * ``loss(params, batch) -> (scalar, metrics)``  (the train objective,
     dense family; gradients come from autograd)
-  * ``init_cache(batch_size, cache_len) -> cache``  (decode state, zeros)
+  * ``init_cache(batch_size, cache_len, device) -> cache``  (decode state,
+    zeros)
   * ``prefill(params, batch, cache_len) -> (logits, cache)``
   * ``decode_step(params, token, cache) -> (logits, cache)``
 
-The port's counterpart of ``repro.models.model`` for the dense and hybrid
-families.  A cache is ``{"layers": {name: [L, B, ...] tensor}, "pos": int}``
-with the JAX package's entries and layouts; ``decode_step`` writes it in
-place (the JAX step returns a new one) and returns it.  ``backend`` picks
-the prefill's kernels (flash attention, SSD intra-chunk): ``"kernel"`` (the
-default) launches them for CUDA tensors and takes their plain torch
-versions for CPU tensors; ``"ref"`` takes the plain versions on any
-device.  The decode step runs no kernel of the port.  The dense family's
-cache is linear, the hybrid family's a ring of the window's size; a dense
-config with a sliding window is not served (its windowed decode is not
-ported) and raises.
+The port's counterpart of ``repro.models.model`` for the dense, hybrid and
+audio (encoder-decoder) families.  A cache is ``{"layers": {name: [L, B,
+...] tensor}, "pos": int}`` with the JAX package's entries and layouts;
+``decode_step`` writes it in place (the JAX step returns a new one) and
+returns it.  ``backend`` picks the prefill's kernels (flash attention, SSD
+intra-chunk): ``"kernel"`` (the default) launches them for CUDA tensors and
+takes their plain torch versions for CPU tensors; ``"ref"`` takes the plain
+versions on any device.  The decode step runs no kernel of the port.  The
+dense family's cache is linear, the hybrid family's a ring of the window's
+size; a dense config with a sliding window is not served (its windowed
+decode is not ported) and raises.  The audio family runs its encoder once
+a prefill over ``batch["frames"]`` [B, src_frames, d_model] (the frame
+embeddings the stubbed front end would give), with sinusoidal positions
+(``rope_kind="none"``) on both sides; its cache adds the encoder memory's
+K/V per decoder layer (``xk``, ``xv``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,9 +40,18 @@ from . import blocks as B
 from .layers import dense_init, embed_init, rmsnorm, softmax_xent
 from .mamba2 import dims as ssm_dims
 
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "hybrid", "audio")
 BACKENDS = ("kernel", "ref")
 SEQ_KEYS = ("k", "v")            # sequence-indexed cache entries
+
+
+def sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Absolute sinusoidal embeddings [..., dim] in fp32 (used when
+    rope_kind == 'none'); the caller casts to the activations' dtype."""
+    half = dim // 2
+    freqs = np.exp(-np.log(10000.0) * np.arange(half) / max(1, half)).astype(np.float32)
+    ang = positions[..., None].float() * torch.from_numpy(freqs).to(positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[..., :dim]
 
 
 @dataclass(frozen=True)
@@ -45,9 +60,11 @@ class Model:
     backend: str = "kernel"
 
     def __post_init__(self):
-        if self.cfg.family not in FAMILIES or self.cfg.rope_kind == "none":
+        cfg = self.cfg
+        if cfg.family not in FAMILIES or (cfg.rope_kind == "none") != (cfg.family == "audio"):
             raise NotImplementedError(
-                f"{self.cfg.name}: only the dense and hybrid families with RoPE are ported yet")
+                f"{cfg.name}: only the dense and hybrid families with RoPE and the audio "
+                f"family with sinusoidal positions are ported yet")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; have {BACKENDS}")
 
@@ -57,8 +74,13 @@ class Model:
         # device "meta" gives the shapes alone (it has no generator)
         gen = (None if torch.device(device).type == "meta"
                else torch.Generator(device=device).manual_seed(seed))
-        init_block = B.hybrid_block_init if cfg.family == "hybrid" else B.dense_block_init
+        init_block = {"hybrid": B.hybrid_block_init,
+                      "audio": B.dec_block_init}.get(cfg.family, B.dense_block_init)
         p = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dt, device)}
+        if cfg.family == "audio":
+            for i in range(cfg.enc_layers):
+                p.update(B.enc_block_init(gen, cfg, dt, device, f"enc_blocks/{i}/"))
+            p["enc_norm/scale"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
         for i in range(cfg.n_layers):
             p.update(init_block(gen, cfg, dt, device, f"blocks/{i}/"))
         p["final_norm/scale"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
@@ -72,6 +94,10 @@ class Model:
 
     def loss(self, params: dict, batch: dict):
         cfg = self.cfg
+        if cfg.family == "audio":
+            raise NotImplementedError(f"{cfg.name}: the audio family's train loss (the JAX "
+                                      f"package's _loss_encdec) is not ported yet (ROADMAP "
+                                      f"'Modules to port', item 10)")
         if cfg.family != "dense":
             raise NotImplementedError(f"{cfg.name}: the {cfg.family} family's train loss is "
                                       f"not ported yet (only its serving path)")
@@ -86,9 +112,11 @@ class Model:
 
     # ---------------------------------------------------------------- serve
 
-    def cache_spec(self, batch_size: int, cache_len: int) -> dict:
+    def cache_spec(self, batch_size: int, cache_len: int, src_len: int = 0) -> dict:
         """{name: (shape [L, B, ...], dtype)} of the decode cache.  The
-        hybrid family's attention cache is a ring of the window's size."""
+        hybrid family's attention cache is a ring of the window's size; the
+        audio family's adds the encoder memory's K/V over ``src_len``
+        frames (``cfg.src_frames`` when 0)."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         L, S, hd = cfg.n_layers, cache_len, cfg.hd()
@@ -96,15 +124,19 @@ class Model:
             S = min(S, cfg.sliding_window or S)
         spec = {"k": ((L, batch_size, S, cfg.n_kv_heads, hd), dt),
                 "v": ((L, batch_size, S, cfg.n_kv_heads, hd), dt)}
+        if cfg.family == "audio":
+            src = src_len or cfg.src_frames
+            spec["xk"] = ((L, batch_size, src, cfg.n_kv_heads, hd), dt)
+            spec["xv"] = ((L, batch_size, src, cfg.n_kv_heads, hd), dt)
         if cfg.family == "hybrid":
             d_inner, H, P, N = ssm_dims(cfg)
             spec["state"] = ((L, batch_size, H, P, N), torch.float32)
             spec["conv"] = ((L, batch_size, cfg.ssm.conv_width - 1, d_inner + 2 * N), dt)
         return spec
 
-    def init_cache(self, batch_size: int, cache_len: int, device) -> dict:
+    def init_cache(self, batch_size: int, cache_len: int, device, src_len: int = 0) -> dict:
         layers = {k: torch.zeros(shape, dtype=d, device=device)
-                  for k, (shape, d) in self.cache_spec(batch_size, cache_len).items()}
+                  for k, (shape, d) in self.cache_spec(batch_size, cache_len, src_len).items()}
         return {"layers": layers, "pos": 0}
 
     def _check_servable(self):
@@ -113,8 +145,20 @@ class Model:
             raise NotImplementedError(f"{cfg.name}: serving a dense config with a sliding "
                                       f"window is not ported yet")
 
+    def _encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """The audio encoder over frame embeddings [B, S, d_model]: the
+        sinusoid added, ``enc_layers`` non-causal blocks, the final norm."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        pos = torch.arange(frames.shape[1], device=frames.device)
+        h = frames.to(dt) + sinusoid(pos, cfg.d_model)[None].to(dt)
+        for i in range(cfg.enc_layers):
+            h = B.enc_block_prefill(params, cfg, h, pos, f"enc_blocks/{i}/", backend=self.backend)
+        return rmsnorm(params["enc_norm/scale"], h, cfg.norm_eps)
+
     def prefill(self, params: dict, batch: dict, cache_len: int):
-        """Forward over the prompts ``batch["tokens"]`` [B, T], collecting
+        """Forward over the prompts ``batch["tokens"]`` [B, T] (and, for the
+        audio family, the encoder over ``batch["frames"]``), collecting
         decode-ready caches: -> (logits of the last position [B, 1, V],
         cache at ``pos`` T)."""
         self._check_servable()
@@ -123,10 +167,19 @@ class Model:
         Bsz, T = toks.shape
         h = F.embedding(toks.long(), params["embed"])
         positions = torch.arange(T, device=h.device)
-        cache = self.init_cache(Bsz, cache_len, h.device)
+        if cfg.family == "audio":
+            h = h + sinusoid(positions, cfg.d_model)[None].to(h.dtype)
+            enc_out = self._encode(params, batch["frames"])
+        cache = self.init_cache(Bsz, cache_len, h.device,
+                                batch["frames"].shape[1] if cfg.family == "audio" else 0)
         for i in range(cfg.n_layers):
             prefix = f"blocks/{i}/"
-            if cfg.family == "hybrid":
+            if cfg.family == "audio":
+                xk, xv = B.cross_kv(params, cfg, enc_out, prefix)
+                h, entry = B.dec_block_prefill(params, cfg, h, positions, (xk, xv), prefix,
+                                               backend=self.backend)
+                entry.update(xk=xk, xv=xv)
+            elif cfg.family == "hybrid":
                 h, entry = B.hybrid_block_prefill(params, cfg, h, positions, prefix,
                                                   backend=self.backend)
             else:
@@ -148,10 +201,14 @@ class Model:
         cfg = self.cfg
         pos = cache["pos"]
         h = F.embedding(token.long(), params["embed"])
+        if cfg.family == "audio":
+            h = h + sinusoid(torch.full((1,), pos, device=h.device), cfg.d_model)[None].to(h.dtype)
         for i in range(cfg.n_layers):
             prefix = f"blocks/{i}/"
             layer = {k: v[i] for k, v in cache["layers"].items()}
-            if cfg.family == "hybrid":
+            if cfg.family == "audio":
+                h, _ = B.dec_block_decode(params, cfg, h, pos, layer, prefix)
+            elif cfg.family == "hybrid":
                 h, _ = B.hybrid_block_decode(params, cfg, h, pos, layer, prefix)
             else:
                 h, _ = B.dense_block_decode(params, cfg, h, pos, layer, prefix)

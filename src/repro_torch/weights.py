@@ -3,7 +3,8 @@
 ``repro.models.model.Model.init`` returns a nested pytree whose per-layer
 leaves are stacked on a leading ``[L, ...]`` axis.  The port keeps one flat
 dict per model with the layer index in the key, so :func:`params_from_jax`
-unstacks ``blocks`` into ``blocks/{i}/...``.  Dense weights stay ``[in, out]``
+unstacks ``blocks`` into ``blocks/{i}/...`` (and an encoder-decoder's
+``enc_blocks`` into ``enc_blocks/{i}/...``).  Dense weights stay ``[in, out]``
 (the port applies them as ``x @ w``, as the JAX package does), so nothing is
 transposed; every leaf keeps its dtype (a bf16 model's fp32 SSD leaves
 ``A_log``, ``dt_bias``, ``D`` and ``branch_scale`` too).
@@ -25,19 +26,19 @@ from .utils.pytree import flatten, np_to_tensor, to_torch
 
 def params_from_jax(np_tree: dict, cfg: ArchConfig | None, device, *, axis: int = 0) -> dict:
     """A JAX param tree (numpy leaves) -> the port's flat dict on ``device``.
-    The layer axis of a ``blocks`` leaf is ``axis`` (1 in a per-client bank,
-    whose leaves lead with the bank axis); ``cfg`` may be None for a tree
-    without ``blocks``."""
+    The layer axis of a ``blocks`` (``cfg.n_layers``) or ``enc_blocks``
+    (``cfg.enc_layers``) leaf is ``axis`` (1 in a per-client bank, whose
+    leaves lead with the bank axis); ``cfg`` may be None for a tree without
+    them."""
     flat = {}
     for name, leaf in flatten(np_tree).items():
-        if name.startswith("blocks/"):
+        stack, _, rest = name.partition("/")
+        if stack in ("blocks", "enc_blocks"):
             leaf = np.asarray(leaf)
-            if cfg is None or leaf.shape[axis] != cfg.n_layers:
-                raise ValueError(f"{name}: layer axis {leaf.shape[axis]} != n_layers "
-                                 f"{cfg and cfg.n_layers}")
-            rest = name[len("blocks/"):]
-            flat.update({f"blocks/{i}/{rest}": np.take(leaf, i, axis=axis)
-                         for i in range(cfg.n_layers)})
+            n = cfg and (cfg.n_layers if stack == "blocks" else cfg.enc_layers)
+            if cfg is None or leaf.shape[axis] != n:
+                raise ValueError(f"{name}: layer axis {leaf.shape[axis]} != {n} layers")
+            flat.update({f"{stack}/{i}/{rest}": np.take(leaf, i, axis=axis) for i in range(n)})
         else:
             flat[name] = leaf
     return to_torch(flat, device)
@@ -63,6 +64,7 @@ def server_state_from_jax(np_state, cfg: ArchConfig | None, device) -> ServerSta
 
 def cache_from_jax(np_cache: dict, device) -> dict:
     """A JAX serving cache (``Model.prefill``'s, numpy leaves) -> the port's
-    ``{"layers": {name: [L, B, ...] tensor}, "pos": int}`` on ``device``."""
+    ``{"layers": {name: [L, B, ...] tensor}, "pos": int}`` on ``device``,
+    every entry carried (an encoder-decoder's ``xk`` and ``xv`` too)."""
     return {"layers": {k: np_to_tensor(v).to(device) for k, v in np_cache["layers"].items()},
             "pos": int(np_cache["pos"])}

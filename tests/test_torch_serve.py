@@ -1,11 +1,15 @@
 """The PyTorch port's serving path (``Model.prefill`` / ``decode_step`` and
 ``launch/serve.py:generate``) against the JAX package's, on
 ``hymba-1.5b.reduced(n_kv_heads=2)`` (the hybrid family: window 64, SSD
-chunk 32, groups of 2 heads) and ``qwen1.5-0.5b.reduced()`` (dense, QKV
-bias, tied embeddings), both fp32, T = 128 prompts (past the window).
+chunk 32, groups of 2 heads), ``qwen1.5-0.5b.reduced()`` (dense, QKV
+bias, tied embeddings) and ``seamless-m4t-medium.reduced()`` (the audio
+encoder-decoder: 2 + 2 layers, sinusoidal positions, 32 frames from numpy
+seed 3, so the decoder's cross-attention has Tq 128 > Tk 32), all fp32,
+T = 128 prompts (past the window).
 
-* ``params_from_jax`` carries the JAX tree across (a bf16 one too, with its
-  fp32 SSD leaves); ``cache_from_jax`` a cache;
+* ``params_from_jax`` carries the JAX tree across (``enc_blocks`` too; a
+  bf16 one with its fp32 SSD leaves); ``cache_from_jax`` a cache (``xk``
+  and ``xv`` too);
 * the prefill's last logits and every cache entry, three decode steps, the
   ring-cache twin of ``test_sliding_window_ring_decode_matches_windowed_
   forward``, and greedy ``generate`` tokens vs JAX's: atol 2e-5 / rtol 2e-4
@@ -15,7 +19,8 @@ bias, tied embeddings), both fp32, T = 128 prompts (past the window).
 * ``backend="kernel"`` on CPU tensors takes the plain versions (no launch),
   the registry refuses the archs the port does not run, and the prefill's
   kernels are never reached under autograd; a dense config with a sliding
-  window is refused (its windowed decode is not ported).
+  window is refused (its windowed decode is not ported), and so is the
+  audio family's train loss.
 """
 import dataclasses
 
@@ -38,7 +43,7 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.weights import cache_from_jax, params_from_jax  # noqa: E402
 
 TOL = dict(atol=2e-5, rtol=2e-4)
-ARCH_KW = {"hymba-1.5b": dict(n_kv_heads=2), "qwen1.5-0.5b": {}}
+ARCH_KW = {"hymba-1.5b": dict(n_kv_heads=2), "qwen1.5-0.5b": {}, "seamless-m4t-medium": {}}
 B, T, EXTRA = 2, 128, 3
 
 
@@ -61,9 +66,17 @@ class Setup:
         self.params = params_from_jax(jax.tree.map(np.asarray, self.jparams), self.cfg, "cpu")
         self.toks = np.random.default_rng(1).integers(
             0, self.cfg.vocab, (B, T + EXTRA)).astype(np.int32)
+        # the audio family's frame embeddings, for both prefills
+        self.frames = ({"frames": np.random.default_rng(3).normal(
+            size=(B, self.cfg.src_frames, self.cfg.d_model)).astype(np.float32)}
+            if self.cfg.family == "audio" else {})
         self.cache_len = T + EXTRA + 2
         self.jprefill = jax.jit(lambda p, b, n=self.cache_len: self.jmodel.prefill(p, b, n))
         self.jdecode = jax.jit(self.jmodel.decode_step)
+
+
+def _torch(arrays: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in arrays.items()}
 
 
 @pytest.fixture(scope="module", params=list(ARCH_KW))
@@ -78,7 +91,10 @@ def test_port_config_matches_registry(setup):
 def test_params_from_jax_carries_every_leaf(setup):
     jflat = jax.tree_util.tree_flatten_with_path(setup.jparams)[0]
     n_blocks = sum(1 for path, _ in jflat if path[0].key == "blocks")
-    assert len(setup.params) == len(jflat) + (setup.cfg.n_layers - 1) * n_blocks
+    n_enc = sum(1 for path, _ in jflat if path[0].key == "enc_blocks")
+    assert (n_enc > 0) == (setup.cfg.family == "audio")
+    assert len(setup.params) == (len(jflat) + (setup.cfg.n_layers - 1) * n_blocks
+                                 + (setup.cfg.enc_layers - 1) * n_enc)
     assert setup.params.keys() == setup.model.init(0, "meta").keys()
     for k, v in setup.model.init(0, "meta").items():
         assert setup.params[k].shape == v.shape and setup.params[k].dtype == v.dtype, k
@@ -100,10 +116,10 @@ def test_params_from_jax_bf16_tree_keeps_fp32_leaves():
 
 def test_prefill_and_decode_match_jax(setup):
     s = setup
-    jl, jc = s.jprefill(s.jparams, {"tokens": s.toks[:, :T]})
+    jl, jc = s.jprefill(s.jparams, {"tokens": s.toks[:, :T], **s.frames})
     with torch.inference_mode():
-        lg, cache = s.model.prefill(s.params, {"tokens": torch.from_numpy(s.toks[:, :T])},
-                                    s.cache_len)
+        lg, cache = s.model.prefill(s.params, {"tokens": torch.from_numpy(s.toks[:, :T]),
+                                               **_torch(s.frames)}, s.cache_len)
     np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
     want = cache_from_jax(jax.tree.map(np.asarray, jc), "cpu")
     assert cache["pos"] == want["pos"] == T
@@ -122,7 +138,7 @@ def test_prefill_and_decode_match_jax(setup):
 
 def test_decode_continues_a_jax_cache(setup):
     s = setup
-    _, jc = s.jprefill(s.jparams, {"tokens": s.toks[:, :T]})
+    _, jc = s.jprefill(s.jparams, {"tokens": s.toks[:, :T], **s.frames})
     cache = cache_from_jax(jax.tree.map(np.asarray, jc), "cpu")
     tok = s.toks[:, T:T + 1]
     jl, _ = s.jdecode(s.jparams, tok, jc)
@@ -195,10 +211,13 @@ def test_kernel_backend_on_cpu_takes_plain_versions_and_needs_no_grad():
         build_model(cfg).loss(params, {"tokens": toks})
     with pytest.raises(ValueError, match="backend"):
         build_model(cfg, backend="pallas")
+    audio = get_arch("seamless-m4t-medium").reduced()
+    with pytest.raises(NotImplementedError, match="train loss.*item 10"):
+        build_model(audio).loss(build_model(audio).init(0, "cpu"), {"tokens": toks})
 
 
 @pytest.mark.parametrize("arch", ["qwen2-72b", "mamba2-1.3b", "deepseek-v3-671b",
-                                  "seamless-m4t-medium"])
+                                  "llava-next-mistral-7b", "vision-tiny"])
 def test_registry_refuses_unported_archs(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_arch(arch)
