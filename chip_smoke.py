@@ -81,6 +81,7 @@ and writes the kernel-time tables to ``DIR``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -760,7 +761,7 @@ def check_flash(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel, route
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
     from repro_torch.kernels.flash_attention.ops import flash_attend
 
     B, T, H, KV, hd, W = SERVE_BATCH, SERVE_PROMPT, 25, 5, 64, 1024
@@ -802,43 +803,52 @@ def check_flash(dev) -> dict:
     # as the prefill hands them over (contiguous, the model's layout), window 1024
     q, k, v = (torch.randn((B, T, n, hd), generator=gen, device=dev).to(torch.bfloat16)
                for n in (H, KV, KV))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     band = (lambda d: (d >= 0) & (d < W))(torch.arange(T, device=dev)[:, None]
                                           - torch.arange(T, device=dev)[None, :])
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
-
-    _allclose(sdpa().transpose(1, 2), flash_attend(q, k, v, window=W, backend="ref"),
-              FLASH_TOL["bfloat16"], FLASH_TOL["bfloat16"], "SDPA yardstick")
-    if route(qt, kt, vt) != "mma":
-        raise AssertionError("flash: the main path's bf16 shape did not route to mma")
-    ms, call_ms = time_ms(lambda: flash_attention_kernel(qt, kt, vt, window=W), 20)
-    simt_ms, _ = time_ms(lambda: flash_attention_kernel(qt, kt, vt, window=W, kernel="simt"), 20)
-    plain_ms, plain_call_ms = time_ms(lambda: flash_attend(q, k, v, window=W, backend="ref"), 3,
-                                      behind_sleep=False)
-    lib_ms, _ = time_ms(sdpa, 20)
-    pairs = band_pairs(T, W) * B * H
-    flops = 4 * hd * pairs                       # q.k and p.v: 2 hd multiply-adds a pair
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"flash_attention at bf16 {[B, T, H, KV, hd]}, window {W}: flash_fwd_mma {ms:.4f} ms, "
-          f"flash_fwd {simt_ms:.4f} ms, SDPA {lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{max(t_ops, t_bytes):.4f} ms", flush=True)
+    t = time_flash(q, k, v, lambda qt, kt, vt: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band, enable_gqa=True), 4 * hd * band_pairs(T, W) * B * H, window=W)
+    print(f"flash_attention at bf16 {[B, T, H, KV, hd]}, window {W}: flash_fwd_mma {t['ms']:.4f} "
+          f"ms, flash_fwd {t['simt_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms", flush=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
             "kernel_route": "mma", "design": "flash_fwd_mma: FA2-style mma.sync m16n8k16 bf16, "
             "4 warps x 16 query rows, 64-key K/V tiles double-buffered by cp.async, online "
             "softmax in registers, P = P_hi + P_lo in two P.V products",
-            "simt_ms": simt_ms,
             "launches": None, "max_abs_err": max(err.values()), "max_abs_err_f32": err["float32"],
-            "max_abs_err_bf16": err["bfloat16"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "library_ms": lib_ms, "library": "F.scaled_dot_product_attention(attn_mask=band, "
-            "enable_gqa=True)", "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-            "shape": [B, T, H, KV, hd], "window": W, "dtype": "bfloat16", "gflop": flops / 1e9,
-            "mbytes": nbytes / 1e6, "noncausal": check_flash_noncausal(dev)}
+            "max_abs_err_bf16": err["bfloat16"], **t,
+            "library": "F.scaled_dot_product_attention(attn_mask=band, enable_gqa=True)",
+            "shape": [B, T, H, KV, hd], "window": W, "dtype": "bfloat16",
+            "noncausal": check_flash_noncausal(dev)}
+
+
+def time_flash(q, k, v, sdpa, flops: int, **kw) -> dict:
+    """``flash_fwd_mma`` (the route the path takes: a failure unless ``route``
+    picks it), ``flash_fwd``, the plain version and ``sdpa(qt, kt, vt)``, the
+    library yardstick on the [B, heads, T, hd] views, timed on the same bf16
+    q [B, Tq, H, hd] and k/v [B, Tk, KV, hd] (the model's layout), with
+    ``flash_attend``'s ``kw`` (causal, window); the bound from ``flops`` and
+    the bytes of q, k and v read and the output written once."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel, route
+    from repro_torch.kernels.flash_attention.ops import flash_attend
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    _allclose(sdpa(qt, kt, vt).transpose(1, 2), flash_attend(q, k, v, backend="ref", **kw),
+              FLASH_TOL["bfloat16"], FLASH_TOL["bfloat16"], f"SDPA yardstick {kw}")
+    if route(qt, kt, vt) != "mma":
+        raise AssertionError(f"flash {kw}: the path's bf16 shape did not route to mma")
+    ms, call_ms = time_ms(lambda: flash_attention_kernel(qt, kt, vt, **kw), 20)
+    simt_ms, _ = time_ms(lambda: flash_attention_kernel(qt, kt, vt, kernel="simt", **kw), 20)
+    plain_ms, plain_call_ms = time_ms(lambda: flash_attend(q, k, v, backend="ref", **kw), 3,
+                                      behind_sleep=False)
+    lib_ms, _ = time_ms(lambda: sdpa(qt, kt, vt), 20)
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ms": ms, "call_ms": call_ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
+            "plain_call_ms": plain_call_ms, "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes", "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6}
 
 
 def check_flash_noncausal(dev) -> dict:
@@ -900,31 +910,14 @@ def check_flash_noncausal(dev) -> dict:
         q = torch.randn((B, tq, H, hd), generator=gen, device=dev).to(torch.bfloat16)
         k, v = (torch.randn((B, AUDIO_FRAMES, H, hd), generator=gen, device=dev)
                 .to(torch.bfloat16) for _ in range(2))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-        def sdpa(qt=qt, kt=kt, vt=vt):
-            return F.scaled_dot_product_attention(qt, kt, vt)
-
-        _allclose(sdpa().transpose(1, 2), flash_attend(q, k, v, causal=False, backend="ref"),
-                  FLASH_TOL["bfloat16"], FLASH_TOL["bfloat16"], f"SDPA yardstick ({label})")
-        ms, _ = time_ms(lambda: flash_attention_kernel(qt, kt, vt, causal=False), 20)
-        simt_ms, _ = time_ms(lambda: flash_attention_kernel(qt, kt, vt, causal=False,
-                                                            kernel="simt"), 20)
-        plain_ms, _ = time_ms(lambda: flash_attend(q, k, v, causal=False, backend="ref"), 3,
-                              behind_sleep=False)
-        lib_ms, _ = time_ms(sdpa, 20)
-        flops = 4 * hd * B * H * tq * AUDIO_FRAMES   # every (query, key) pair
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        t = time_flash(q, k, v, F.scaled_dot_product_attention,
+                       4 * hd * B * H * tq * AUDIO_FRAMES, causal=False)   # every (query, key)
         res[label] = {"shape_q": [B, tq, H, hd], "shape_kv": [B, AUDIO_FRAMES, H, hd],
-                      "dtype": "bfloat16", "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes),
-                      "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+                      "dtype": "bfloat16", **t}
         print(f"flash_attention non-causal ({label}) at bf16 q {[B, tq, H, hd]}, k/v "
-              f"{[B, AUDIO_FRAMES, H, hd]}: flash_fwd_mma {ms:.4f} ms, flash_fwd {simt_ms:.4f} ms, "
-              f"SDPA {lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-              f"({res[label]['bound_by']})", flush=True)
+              f"{[B, AUDIO_FRAMES, H, hd]}: flash_fwd_mma {t['ms']:.4f} ms, flash_fwd "
+              f"{t['simt_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
     return res
 
 
@@ -1104,14 +1097,153 @@ def check_ssd(dev) -> dict:
             "mamba2_ms": m2_ms, "mamba2_bound_ms": m2_bytes / HBM_BYTES_PER_S * 1e3}
 
 
+def zero_counts(*kernels) -> None:
+    """Set each kernel wrapper's launch counts to 0: in all, by route and,
+    where it has modes, by mode."""
+    for kern in kernels:
+        kern.launches = 0
+        for attr in ("route_launches", "mode_launches"):
+            if hasattr(kern, attr):
+                setattr(kern, attr, dict.fromkeys(getattr(kern, attr), 0))
+
+
+def read_counts(*kernels) -> tuple:
+    """Each wrapper's (launches, by route, by mode; {} without modes)."""
+    return tuple((kern.launches, dict(kern.route_launches),
+                  dict(getattr(kern, "mode_launches", {}))) for kern in kernels)
+
+
+def timed_generate(model, params, prompts, cache_len: int, kernels) -> dict:
+    """``generate`` of ``SERVE_STEPS`` greedy tokens after a 2-token
+    warm-up, the launch counts of ``kernels`` zeroed just before and read
+    after the prefill (at the first logits) and at the end: the tokens,
+    every step's logits (finite, or a failure), the counts of the prefill
+    and of decode (each :func:`read_counts`), and the times and peak
+    memory."""
+    import torch
+
+    from repro_torch.launch.serve import generate
+
+    generate(model, params, prompts, steps=2, cache_len=cache_len)      # warm-up
+    seen, marks = [], {}
+
+    def on_logits(i, lg):
+        seen.append(lg.float().clone())
+        if i == 0:
+            torch.cuda.synchronize()
+            marks["t"] = time.perf_counter()
+            marks["counts"] = read_counts(*kernels)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*kernels)
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, steps=SERVE_STEPS, cache_len=cache_len,
+                   on_logits=on_logits)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    total, prefill = read_counts(*kernels), marks["counts"]
+    decode = tuple((t[0] - p[0], {r: t[1][r] - p[1][r] for r in t[1]},
+                    {m: t[2][m] - p[2][m] for m in t[2]}) for t, p in zip(total, prefill))
+    name = model.cfg.name
+    if len(seen) != SERVE_STEPS or not all(torch.isfinite(x).all() for x in seen):
+        raise AssertionError(f"serve {name}: non-finite logits")
+    if out.shape != (len(prompts), SERVE_STEPS) or int(out.max()) >= model.cfg.vocab:
+        raise AssertionError(f"serve {name}: bad tokens {tuple(out.shape)}")
+    decode_ms = (t1 - marks["t"]) * 1e3 / (SERVE_STEPS - 1)
+    return {"tokens": out, "logits": seen, "total": total, "prefill": prefill, "decode": decode,
+            "stats": {"prefill_ms": (marks["t"] - t0) * 1e3, "decode_ms_per_step": decode_ms,
+                      "decode_tok_per_s": len(prompts) * 1e3 / decode_ms,
+                      "e2e_tok_per_s": len(prompts) * SERVE_STEPS / (t1 - t0),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}}
+
+
+@contextlib.contextmanager
+def swapped(swaps: dict):
+    """Set ``module.name = fn`` for each ``(module, name): fn`` of ``swaps``
+    and restore the old values on exit."""
+    old = {key: getattr(*key) for key in swaps}
+    for (module, name), fn in swaps.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for (module, name), fn in old.items():
+            setattr(module, name, fn)
+
+
+def flash_checked(err: dict, last: dict, kind):
+    """A stand-in for ``flash_attention.ops.flash_attention_kernel`` that
+    launches the kernel and holds each launch within one bf16 step of the
+    plain version on the same inputs: ``err[kind(q, k, causal)]`` keeps the
+    largest difference and ``last[kind(q, k, causal)]`` the last launch's
+    (q, k, v, window, the plain version's output)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+
+    def checked(q, k, v, *, causal=True, window=0):
+        got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        want = flash_attention_torch(q, k, v, causal=causal, window=window)
+        name = kind(q, k, causal)
+        err[name] = max(err.get(name, 0.0), _allclose(
+            got, want, FLASH_MAIN_BF16_ATOL, FLASH_MAIN_BF16_RTOL, f"{name} flash on the path's "
+            "inputs"))
+        last[name] = (q, k, v, window, want)
+        return got
+    return checked
+
+
+def anchor_check(label: str, model, params: dict, twin, checked: dict, fault_model,
+                 fault_swaps: dict, fault_name: str, served: dict | None = None) -> dict:
+    """The bf16 serving run held against the plain versions in fp32 on the
+    same (bf16-valued) weights, by the relative error of the norm of every
+    entry of ``twin(m, p, decode)`` (a dict of fp32 tensors): the kernel
+    run (``model`` with the layer checks ``checked`` swapped in, no decode;
+    ``served`` replaces its entries by what ``generate`` gave) may stray at
+    most ``SERVE_ANCHOR_RATIO`` times as far as the plain versions' own
+    bf16 run, and the planted fault (``fault_model`` with ``fault_swaps``)
+    must stray further at the logits.  -> the relative errors."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import build_model
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        with swapped(checked):
+            kernel = twin(model, params, decode=False)
+        kernel.update(served or {})
+        ref = twin(build_model(cfg, backend="ref"), params)
+        anchor = twin(build_model(dataclasses.replace(cfg, dtype="float32"), backend="ref"),
+                      {k: v.float() for k, v in params.items()})
+        with swapped(fault_swaps):
+            fault = twin(fault_model, params, decode=False)["logits"]
+    errs = {n: (_rel_norm(kernel[n], anchor[n]), _rel_norm(ref[n], anchor[n])) for n in anchor}
+    errs["fault_logits"] = (_rel_norm(fault, anchor["logits"]), errs["logits"][1])
+    print(f"{label} bf16 vs the plain versions in fp32, relative error of the norm, kernel run / "
+          f"plain run (bound {SERVE_ANCHOR_RATIO}x): " + ", ".join(
+              f"{n} {k:.3e} / {r:.3e} = {k / r:.3f}x" for n, (k, r) in errs.items()), flush=True)
+    off = [n for n, (k, r) in errs.items() if n != "fault_logits" and k > SERVE_ANCHOR_RATIO * r]
+    if off:
+        raise AssertionError(f"{label} bf16: the kernel run strays more than "
+                             f"{SERVE_ANCHOR_RATIO}x as far from fp32 as the plain run in {off}")
+    k, r = errs["fault_logits"]
+    if k <= SERVE_ANCHOR_RATIO * r:
+        raise AssertionError(f"{label} bf16: the check passed {fault_name} ({k / r:.3f}x)")
+    return {n: {"kernel": k, "ref": r, "ratio": k / r} for n, (k, r) in errs.items()}
+
+
 def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
     """Full-width Hymba-1.5B (bf16, random weights from seed 0) serves batch
     4 x 2,048-token prompts (numpy seed 1) for 32 greedy tokens through
-    ``generate``, the launch counts zeroed just before and read after the
-    prefill and at the end; then the checks of the serving path: finite
-    logits, and the run's prefill logits, caches and decode logits no
-    further from the plain versions in fp32 than ``SERVE_ANCHOR_RATIO``
-    times the plain versions' own bf16 run (a planted fault must fail it)."""
+    ``generate`` (:func:`timed_generate`); then the checks of the serving
+    path: the run's prefill logits, caches and decode logits no further
+    from the plain versions in fp32 than ``SERVE_ANCHOR_RATIO`` times the
+    plain versions' own bf16 run (:func:`anchor_check`; the window one key
+    tile short must fail it), and each launch of the kernel run's prefill
+    against its plain version on the same inputs (the window one key tile
+    short must fail that too)."""
     import dataclasses
 
     import torch
@@ -1120,10 +1252,8 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
     import repro_torch.kernels.ssd.ops as sops
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
-    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
     from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_kernel
     from repro_torch.kernels.ssd.ref import ssd_intra_chunk_torch
-    from repro_torch.launch.serve import generate
     from repro_torch.models.model import build_model
 
     cfg = get_arch("hymba-1.5b")
@@ -1134,68 +1264,37 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
     prompts = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
     cache_len = SERVE_PROMPT + SERVE_STEPS + 1
-    generate(model, params, prompts, steps=2, cache_len=cache_len)      # warm-up
-    seen, marks = [], {}
-
-    def on_logits(i, lg):
-        seen.append(lg.float().clone())
-        if i == 0:
-            torch.cuda.synchronize()
-            marks["t"] = time.perf_counter()
-            marks["launches"] = (flash_attention_kernel.launches, ssd_intra_chunk_kernel.launches)
-            marks["routes"] = dict(flash_attention_kernel.route_launches)
-            marks["ssd_routes"] = dict(ssd_intra_chunk_kernel.route_launches)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    flash_attention_kernel.launches = ssd_intra_chunk_kernel.launches = 0
-    flash_attention_kernel.route_launches = dict.fromkeys(flash_attention_kernel.route_launches, 0)
-    flash_attention_kernel.mode_launches = dict.fromkeys(flash_attention_kernel.mode_launches, 0)
-    ssd_intra_chunk_kernel.route_launches = dict.fromkeys(ssd_intra_chunk_kernel.route_launches, 0)
-    t0 = time.perf_counter()
-    out = generate(model, params, prompts, steps=SERVE_STEPS, cache_len=cache_len,
-                   on_logits=on_logits)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    total = (flash_attention_kernel.launches, ssd_intra_chunk_kernel.launches)
-    prefill = marks["launches"]
-    decode = (total[0] - prefill[0], total[1] - prefill[1])
-    flash_row["launches"], ssd_row["launches"] = total
-    routes, ssd_routes = marks["routes"], marks["ssd_routes"]
-    ssd_row["route_launches"] = dict(ssd_intra_chunk_kernel.route_launches)
-    peak = torch.cuda.max_memory_allocated()
-    prefill_ms = (marks["t"] - t0) * 1e3
-    decode_ms = (t1 - marks["t"]) * 1e3 / (SERVE_STEPS - 1)
+    run = timed_generate(model, params, prompts, cache_len,
+                         (flash_attention_kernel, ssd_intra_chunk_kernel))
+    (flash_total, ssd_total), (flash_pre, ssd_pre) = run["total"], run["prefill"]
+    prefill, routes, ssd_routes = (flash_pre[0], ssd_pre[0]), flash_pre[1], ssd_pre[1]
+    decode = (run["decode"][0][0], run["decode"][1][0])
+    flash_row["launches"], ssd_row["launches"] = flash_total[0], ssd_total[0]
+    ssd_row["route_launches"] = ssd_total[1]
+    st = run["stats"]
     res = {"arch": cfg.name, "params": n_params, "dtype": cfg.dtype, "batch": SERVE_BATCH,
-           "prompt": SERVE_PROMPT, "steps": SERVE_STEPS, "prefill_ms": prefill_ms,
-           "decode_ms_per_step": decode_ms, "decode_tok_per_s": SERVE_BATCH * 1e3 / decode_ms,
-           "e2e_tok_per_s": SERVE_BATCH * SERVE_STEPS / (t1 - t0), "peak_gib": peak / 2**30,
+           "prompt": SERVE_PROMPT, "steps": SERVE_STEPS, **st,
            "prefill_launches": {"flash_attention": prefill[0], "ssd_intra_chunk": prefill[1],
                                 "flash_attention_by_route": routes,
                                 "ssd_intra_chunk_by_route": ssd_routes},
            "decode_launches": {"flash_attention": decode[0], "ssd_intra_chunk": decode[1]}}
     print(f"serve path: {cfg.name} {n_params} params ({cfg.dtype}), batch {SERVE_BATCH} x "
           f"{SERVE_PROMPT}-token prompts, {SERVE_STEPS} greedy tokens: prefill "
-          f"{prefill_ms:.2f} ms, decode {decode_ms:.2f} ms a step ({res['decode_tok_per_s']:.1f} "
-          f"tokens/s), {res['e2e_tok_per_s']:.1f} tokens/s end to end, peak device memory "
-          f"{peak / 2**30:.3f} GiB; launches in the prefill: flash_attention {prefill[0]} "
-          f"({routes}), ssd_intra_chunk {prefill[1]} ({ssd_routes}); in decode: {decode[0]}, "
-          f"{decode[1]}",
-          flush=True)
+          f"{st['prefill_ms']:.2f} ms, decode {st['decode_ms_per_step']:.2f} ms a step "
+          f"({st['decode_tok_per_s']:.1f} tokens/s), {st['e2e_tok_per_s']:.1f} tokens/s end to "
+          f"end, peak device memory {st['peak_gib']:.3f} GiB; launches in the prefill: "
+          f"flash_attention {prefill[0]} ({routes}), ssd_intra_chunk {prefill[1]} "
+          f"({ssd_routes}); in decode: {decode[0]}, {decode[1]}", flush=True)
     if prefill != (cfg.n_layers, cfg.n_layers) or decode != (0, 0):
         raise AssertionError(f"serve launches: prefill {prefill}, decode {decode}, want "
                              f"({cfg.n_layers}, {cfg.n_layers}) and (0, 0)")
     if routes != {"mma": cfg.n_layers, "simt": 0} or ssd_routes != routes:
         raise AssertionError(f"serve: the prefill's flash launches took {routes} and its SSD "
                              f"launches {ssd_routes}, want all {cfg.n_layers} of each on mma")
-    if len(seen) != SERVE_STEPS or not all(torch.isfinite(x).all() for x in seen):
-        raise AssertionError("serve path: non-finite logits")
-    if out.shape != (SERVE_BATCH, SERVE_STEPS) or int(out.max()) >= cfg.vocab:
-        raise AssertionError(f"serve path: bad tokens {tuple(out.shape)}")
 
-    # the twin runs, each teacher-forced with the kernel run's tokens: the
-    # plain versions in bf16, and the anchor, the plain versions in fp32 on
-    # the same (bf16-valued) weights
+    # the twin runs, each teacher-forced with the kernel run's tokens
+    out, seen = run["tokens"], run["logits"]
+
     def twin(m, p, decode: bool = True) -> dict:
         lg, c = m.prefill(p, {"tokens": prompts}, cache_len)
         r = {"logits": lg[:, -1].float()}
@@ -1208,72 +1307,40 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
 
     # the kernel twin's prefill holds each launch against the plain version
     # on the same inputs, the activations of the path's own 32 layers
-    layer_err = {"flash_attention": 0.0, "ssd_intra_chunk": 0.0}
-    last = {}
-
-    def flash_checked(q, k, v, *, causal=True, window=0):
-        got = flash_attention_kernel(q, k, v, causal=causal, window=window)
-        want = flash_attention_torch(q, k, v, causal=causal, window=window)
-        layer_err["flash_attention"] = max(layer_err["flash_attention"], _allclose(
-            got, want, FLASH_MAIN_BF16_ATOL, FLASH_MAIN_BF16_RTOL, "flash on the path's inputs"))
-        last["flash"] = (q, k, v, window, want)
-        return got
+    layer_err, last = {}, {}
 
     def ssd_checked(*args):
         out = ssd_intra_chunk_kernel(*args)
         for got, want in zip(out, ssd_intra_chunk_torch(*args)):
-            layer_err["ssd_intra_chunk"] = max(layer_err["ssd_intra_chunk"], _allclose(
+            layer_err["ssd_intra_chunk"] = max(layer_err.get("ssd_intra_chunk", 0.0), _allclose(
                 got, want, SSD_ATOL, SSD_RTOL, "ssd on the path's inputs"))
         return out
 
+    checked = {(fops, "flash_attention_kernel"):
+               flash_checked(layer_err, last, lambda q, k, causal: "flash_attention"),
+               (sops, "ssd_intra_chunk_kernel"): ssd_checked}
+    # the planted fault: the window one key tile (64) short
+    fault_model = build_model(dataclasses.replace(cfg, sliding_window=cfg.sliding_window - 64))
+    res["vs_fp32_rel_err"] = anchor_check(
+        "serve", model, params, twin, checked, fault_model, {}, "a window one tile short",
+        {"logits": seen[0], "decode_logits": torch.stack(seen[1:])})
+    # and layer by layer: the last layer's attention with the window one
+    # key tile short must leave the bound
+    q, k, v, window, want = last.pop("flash_attention")
     with torch.inference_mode():
-        fops.flash_attention_kernel, sops.ssd_intra_chunk_kernel = flash_checked, ssd_checked
-        try:
-            kernel = twin(model, params, decode=False)
-        finally:
-            fops.flash_attention_kernel = flash_attention_kernel
-            sops.ssd_intra_chunk_kernel = ssd_intra_chunk_kernel
-        # the planted fault: the last layer's attention with the window one
-        # key tile (64) short must leave the bound
-        q, k, v, window, want = last.pop("flash")
-        q_numel = q.numel()
         d = (flash_attention_kernel(q, k, v, window=window - 64).float() - want.float()).abs()
-        fault_off = int((d > FLASH_MAIN_BF16_ATOL + FLASH_MAIN_BF16_RTOL * want.float().abs()).sum())
-        fault_diff = float(d.max())
-        del q, k, v, want, d
-        kernel["logits"], kernel["decode_logits"] = seen[0], torch.stack(seen[1:])
-        ref = twin(build_model(cfg, backend="ref"), params)
-        anchor = twin(build_model(dataclasses.replace(cfg, dtype="float32"), backend="ref"),
-                      {k: v.float() for k, v in params.items()})
-        # the planted fault: the window one key tile (64) short
-        fault_cfg = dataclasses.replace(cfg, sliding_window=cfg.sliding_window - 64)
-        fault = twin(build_model(fault_cfg), params, decode=False)["logits"]
+    fault_off = int((d > FLASH_MAIN_BF16_ATOL + FLASH_MAIN_BF16_RTOL * want.float().abs()).sum())
     res["layer_max_abs_err"] = layer_err
-    res["layer_fault"] = {"elements_off": fault_off, "max_abs_diff": fault_diff}
+    res["layer_fault"] = {"elements_off": fault_off, "max_abs_diff": float(d.max())}
     print(f"serve path's kernel inputs, {cfg.n_layers} layers: flash_attention within "
           f"{FLASH_MAIN_BF16_ATOL} + 2^-7 |ref| of its plain version (max abs diff "
           f"{layer_err['flash_attention']:.3e}), ssd_intra_chunk within atol {SSD_ATOL} / rtol "
           f"{SSD_RTOL} (max abs diff {layer_err['ssd_intra_chunk']:.3e}); the window one tile "
-          f"short: {fault_off} of {q_numel} elements off, max abs diff {fault_diff:.3e}",
+          f"short: {fault_off} of {q.numel()} elements off, max abs diff {float(d.max()):.3e}",
           flush=True)
     if fault_off == 0:
         raise AssertionError("serve: the layer check passed a window one tile short")
-    errs = {n: (_rel_norm(kernel[n], anchor[n]), _rel_norm(ref[n], anchor[n])) for n in anchor}
-    errs["fault_logits"] = (_rel_norm(fault, anchor["logits"]), errs["logits"][1])
-    res["vs_fp32_rel_err"] = {n: {"kernel": k, "ref": r, "ratio": k / r} for n, (k, r) in
-                              errs.items()}
-    print(f"serve bf16 vs the plain versions in fp32, relative error of the norm, kernel run / "
-          f"plain run (bound {SERVE_ANCHOR_RATIO}x): " + ", ".join(
-              f"{n} {k:.3e} / {r:.3e} = {k / r:.3f}x" for n, (k, r) in errs.items()), flush=True)
-    off = [n for n, (k, r) in errs.items() if n != "fault_logits" and k > SERVE_ANCHOR_RATIO * r]
-    if off:
-        raise AssertionError(f"serve bf16: the kernel run strays more than "
-                             f"{SERVE_ANCHOR_RATIO}x as far from fp32 as the plain run in {off}")
-    k, r = errs["fault_logits"]
-    if k <= SERVE_ANCHOR_RATIO * r:
-        raise AssertionError(f"serve bf16: the check passed a window one tile short "
-                             f"({k / r:.3f}x)")
-    del params, seen, kernel, ref, anchor
+    del params, seen, run, q, k, v, want, d
     torch.cuda.empty_cache()
     return res
 
@@ -1346,30 +1413,22 @@ def check_serve_tiny(dev, arch: str = "hymba-1.5b") -> float:
     return _allclose(logits[str(dev)], logits["cpu"], 2e-4, 2e-3, f"{arch} tiny card vs CPU")
 
 
-def _flash_counts() -> tuple[int, dict, dict]:
-    """flash attention's launches so far: in all, by route, by mode."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel as fk
-
-    return fk.launches, dict(fk.route_launches), dict(fk.mode_launches)
-
-
 def serve_audio_path(dev, flash_row: dict) -> dict:
     """Full-width SeamlessM4T-medium (12 + 12 layers of 1024, vocab 256,206,
     bf16, random weights from seed 0) serves batch 4 x 256-token decoder
     prompts (numpy seed 1) over 1,024 encoder frames (``generate``'s zero
-    frame embeddings) for 32 greedy tokens through ``generate``, the flash
-    counts zeroed just before and read after the prefill and at the end:
-    12 non-causal encoder launches, 12 causal self-attention and 12
-    non-causal cross-attention launches a prefill, all on ``mma``, none in
-    decode.  One prefill and one decode step are traced for their device
-    time.  Then the precision check on ``Model.prefill`` with frames from
-    numpy seed 2 (:func:`check_audio_prefill`)."""
+    frame embeddings) for 32 greedy tokens through ``generate``
+    (:func:`timed_generate`): 12 non-causal encoder launches, 12 causal
+    self-attention and 12 non-causal cross-attention launches a prefill,
+    all on ``mma``, none in decode.  One prefill and one decode step are
+    traced for their device time.  Then the precision check on
+    ``Model.prefill`` with frames from numpy seed 2
+    (:func:`check_audio_prefill`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel as fk
-    from repro_torch.launch.serve import generate
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
     from repro_torch.models.model import build_model
 
     cfg = get_arch("seamless-m4t-medium")
@@ -1380,60 +1439,30 @@ def serve_audio_path(dev, flash_row: dict) -> dict:
     prompts = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (SERVE_BATCH, AUDIO_PROMPT)), device=dev)
     cache_len = AUDIO_PROMPT + SERVE_STEPS + 1
-    generate(model, params, prompts, steps=2, cache_len=cache_len)      # warm-up
-    seen, marks = [], {}
-
-    def on_logits(i, lg):
-        seen.append(lg.float().clone())
-        if i == 0:
-            torch.cuda.synchronize()
-            marks["t"] = time.perf_counter()
-            marks["counts"] = _flash_counts()
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fk.launches = 0
-    fk.route_launches = dict.fromkeys(fk.route_launches, 0)
-    fk.mode_launches = dict.fromkeys(fk.mode_launches, 0)
-    t0 = time.perf_counter()
-    out = generate(model, params, prompts, steps=SERVE_STEPS, cache_len=cache_len,
-                   on_logits=on_logits)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    peak = torch.cuda.max_memory_allocated()
-    total, prefill = _flash_counts(), marks["counts"]
-    decode = (total[0] - prefill[0], {r: total[1][r] - prefill[1][r] for r in total[1]},
-              {m: total[2][m] - prefill[2][m] for m in total[2]})
-    prefill_ms = (marks["t"] - t0) * 1e3
-    decode_ms = (t1 - marks["t"]) * 1e3 / (SERVE_STEPS - 1)
-    L = cfg.n_layers
+    run = timed_generate(model, params, prompts, cache_len, (flash_attention_kernel,))
+    (total,), (prefill,), (decode,) = run["total"], run["prefill"], run["decode"]
+    st, L = run["stats"], cfg.n_layers
     res = {"arch": cfg.name, "params": n_params, "dtype": cfg.dtype, "batch": SERVE_BATCH,
-           "prompt": AUDIO_PROMPT, "frames": AUDIO_FRAMES, "steps": SERVE_STEPS,
-           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-           "decode_tok_per_s": SERVE_BATCH * 1e3 / decode_ms,
-           "e2e_tok_per_s": SERVE_BATCH * SERVE_STEPS / (t1 - t0), "peak_gib": peak / 2**30,
+           "prompt": AUDIO_PROMPT, "frames": AUDIO_FRAMES, "steps": SERVE_STEPS, **st,
            "prefill_launches": {"flash_attention": prefill[0], "by_route": prefill[1],
                                 "by_mode": prefill[2]},
            "decode_launches": {"flash_attention": decode[0], "by_route": decode[1],
                                "by_mode": decode[2]}}
     print(f"serve audio path: {cfg.name} {n_params} params ({cfg.dtype}), batch {SERVE_BATCH} "
           f"x {AUDIO_PROMPT}-token prompts over {AUDIO_FRAMES} frames, {SERVE_STEPS} greedy "
-          f"tokens: prefill {prefill_ms:.2f} ms, decode {decode_ms:.2f} ms a step "
-          f"({res['decode_tok_per_s']:.1f} tokens/s), {res['e2e_tok_per_s']:.1f} tokens/s end "
-          f"to end, peak device memory {peak / 2**30:.3f} GiB; flash_attention launches in the "
-          f"prefill: {prefill[0]} (by route {prefill[1]}, by mode {prefill[2]}); in decode: "
-          f"{decode[0]} (by route {decode[1]}, by mode {decode[2]})", flush=True)
+          f"tokens: prefill {st['prefill_ms']:.2f} ms, decode {st['decode_ms_per_step']:.2f} ms "
+          f"a step ({st['decode_tok_per_s']:.1f} tokens/s), {st['e2e_tok_per_s']:.1f} tokens/s "
+          f"end to end, peak device memory {st['peak_gib']:.3f} GiB; flash_attention launches "
+          f"in the prefill: {prefill[0]} (by route {prefill[1]}, by mode {prefill[2]}); in "
+          f"decode: {decode[0]} (by route {decode[1]}, by mode {decode[2]})", flush=True)
     want = (3 * L, {"mma": 3 * L, "simt": 0}, {"causal": L, "noncausal": 2 * L})
     if prefill != want or decode[0] != 0:
         raise AssertionError(f"serve audio launches: prefill {prefill}, decode {decode[0]}; "
                              f"want {want} and 0")
-    if len(seen) != SERVE_STEPS or not all(torch.isfinite(x).all() for x in seen):
-        raise AssertionError("serve audio path: non-finite logits")
-    if out.shape != (SERVE_BATCH, SERVE_STEPS) or int(out.max()) >= cfg.vocab:
-        raise AssertionError(f"serve audio path: bad tokens {tuple(out.shape)}")
     flash_row["launches_by_path"] = {"hymba-1.5b": flash_row["launches"], cfg.name: total[0]}
     flash_row["launches"] += total[0]
     flash_row["noncausal"]["launches"] = total[2]["noncausal"]
+    del run
 
     # one prefill and one decode step traced (CUDA activity only): device
     # time, kernels and copies, flash's share
@@ -1454,7 +1483,7 @@ def serve_audio_path(dev, flash_row: dict) -> dict:
             res[f"{label}_trace"] = {"kernels": n, "device_ms": dev_ms, "flash_ms": flash_ms}
             print(f"serve audio {label} traced: {n} device kernels and copies, {dev_ms:.2f} ms "
                   f"of device time, flash_fwd {flash_ms:.2f} ms", flush=True)
-    del cache, lg, seen
+    del cache, lg
     res.update(check_audio_prefill(dev, model, params, prompts, cache_len))
     del params
     torch.cuda.empty_cache()
@@ -1464,93 +1493,56 @@ def serve_audio_path(dev, flash_row: dict) -> dict:
 def check_audio_prefill(dev, model, params: dict, prompts, cache_len: int) -> dict:
     """``Model.prefill`` of full-width SeamlessM4T-medium over random frame
     embeddings (numpy seed 2, so the encoder's input varies across the
-    batch): the kernel run (bf16) and the plain run (``backend="ref"``,
-    bf16) each against the plain run in fp32 on the same weights, by the
-    relative error of the norm of the logits and every cache entry (k, v,
-    xk, xv), the kernel run within ``SERVE_ANCHOR_RATIO`` times the plain
-    run; each flash launch of the kernel run within one bf16 step of the
-    plain version on the same inputs.  A planted fault, the encoder's and
-    the cross-attention's flash launched causal, must fail both checks."""
-    import dataclasses
-
+    batch), its logits and every cache entry (k, v, xk, xv) held to
+    :func:`anchor_check`; each flash launch of the kernel run within one
+    bf16 step of the plain version on the same inputs.  A planted fault,
+    the encoder's and the cross-attention's flash launched causal, must
+    fail both checks."""
     import torch
 
     import repro_torch.kernels.flash_attention.ops as fops
     from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
-    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
-    from repro_torch.models.model import build_model
 
     cfg = model.cfg
     frames = torch.as_tensor(np.random.default_rng(2).normal(
         size=(SERVE_BATCH, AUDIO_FRAMES, cfg.d_model)).astype(np.float32), device=dev)
     batch = {"tokens": prompts, "frames": frames}
 
-    def twin(m, p) -> dict:
+    def twin(m, p, decode: bool = True) -> dict:
         lg, c = m.prefill(p, batch, cache_len)
         r = {"logits": lg[:, -1].float()}
         r.update({k: v.float() for k, v in c["layers"].items()})
         return r
 
-    layer_err = {"causal": 0.0, "noncausal": 0.0}
-    last = {}
-
-    def flash_checked(q, k, v, *, causal=True, window=0):
-        got = flash_attention_kernel(q, k, v, causal=causal, window=window)
-        want = flash_attention_torch(q, k, v, causal=causal, window=window)
-        mode = "causal" if causal else "noncausal"
-        layer_err[mode] = max(layer_err[mode], _allclose(
-            got, want, FLASH_MAIN_BF16_ATOL, FLASH_MAIN_BF16_RTOL,
-            f"{mode} flash on the audio path's inputs"))
-        if not causal:
-            last["cross" if q.shape[2] != k.shape[2] else "encoder"] = (q, k, v, want)
-        return got
+    def kind(q, k, causal):
+        return "self" if causal else "cross" if q.shape[2] != k.shape[2] else "encoder"
 
     def flash_faulty(q, k, v, *, causal=True, window=0):
         return flash_attention_kernel(q, k, v, causal=True, window=window)
 
+    layer_err, last = {}, {}
+    errs = anchor_check(
+        "serve audio", model, params, twin,
+        {(fops, "flash_attention_kernel"): flash_checked(layer_err, last, kind)}, model,
+        {(fops, "flash_attention_kernel"): flash_faulty}, "a causal fault")
+    # the planted fault, layer by layer: the last encoder and cross
+    # launches' inputs through the causal kernel must leave the bound
+    fault_off = {}
     with torch.inference_mode():
-        fops.flash_attention_kernel = flash_checked
-        try:
-            kernel = twin(model, params)
-        finally:
-            fops.flash_attention_kernel = flash_attention_kernel
-        # the planted fault, layer by layer: the last encoder and cross
-        # launches' inputs through the causal kernel must leave the bound
-        fault_off = {}
-        for label, (q, k, v, want) in last.items():
+        for label in ("encoder", "cross"):
+            q, k, v, _, want = last.pop(label)
             d = (flash_attention_kernel(q, k, v, causal=True).float() - want.float()).abs()
             fault_off[label] = int((d > FLASH_MAIN_BF16_ATOL
                                     + FLASH_MAIN_BF16_RTOL * want.float().abs()).sum())
-        last.clear()
-        ref = twin(build_model(cfg, backend="ref"), params)
-        fops.flash_attention_kernel = flash_faulty
-        try:
-            fault = twin(model, params)["logits"]
-        finally:
-            fops.flash_attention_kernel = flash_attention_kernel
-        anchor = twin(build_model(dataclasses.replace(cfg, dtype="float32"), backend="ref"),
-                      {k: v.float() for k, v in params.items()})
+    last.clear()
     print(f"serve audio prefill's flash inputs, {cfg.enc_layers} + {cfg.n_layers} layers, "
           f"within {FLASH_MAIN_BF16_ATOL} + 2^-7 |ref| of the plain version: max abs diff "
-          f"causal {layer_err['causal']:.3e}, non-causal {layer_err['noncausal']:.3e}; launched "
-          f"causal instead: elements off {fault_off}", flush=True)
-    if set(fault_off) != {"encoder", "cross"} or min(fault_off.values()) == 0:
+          + ", ".join(f"{n} {e:.3e}" for n, e in layer_err.items())
+          + f"; launched causal instead: elements off {fault_off}", flush=True)
+    if min(fault_off.values()) == 0:
         raise AssertionError(f"serve audio: the layer check passed a causal fault {fault_off}")
-    errs = {n: (_rel_norm(kernel[n], anchor[n]), _rel_norm(ref[n], anchor[n])) for n in anchor}
-    errs["fault_logits"] = (_rel_norm(fault, anchor["logits"]), errs["logits"][1])
-    print(f"serve audio bf16 prefill vs the plain version in fp32, relative error of the norm, "
-          f"kernel run / plain run (bound {SERVE_ANCHOR_RATIO}x): " + ", ".join(
-              f"{n} {k:.3e} / {r:.3e} = {k / r:.3f}x" for n, (k, r) in errs.items()), flush=True)
-    off = [n for n, (k, r) in errs.items() if n != "fault_logits" and k > SERVE_ANCHOR_RATIO * r]
-    if off:
-        raise AssertionError(f"serve audio bf16: the kernel run strays more than "
-                             f"{SERVE_ANCHOR_RATIO}x as far from fp32 as the plain run in {off}")
-    k, r = errs["fault_logits"]
-    if k <= SERVE_ANCHOR_RATIO * r:
-        raise AssertionError(f"serve audio bf16: the check passed a causal fault ({k / r:.3f}x)")
     return {"layer_max_abs_err": layer_err, "layer_fault_elements_off": fault_off,
-            "vs_fp32_rel_err": {n: {"kernel": k, "ref": r, "ratio": k / r}
-                                for n, (k, r) in errs.items()}}
+            "vs_fp32_rel_err": errs}
 
 
 def round_setup(dev, warm_up: bool = True, **comm):
@@ -1717,10 +1709,7 @@ def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> None:
     for label, kw, rounds, want in paths:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for kern in kernels.values():
-            kern.launches = 0
-            if hasattr(kern, "route_launches"):
-                kern.route_launches = dict.fromkeys(kern.route_launches, 0)
+        zero_counts(*kernels.values())
         t0 = time.perf_counter()
         res = run_main_path(dev, "device", rounds, **kw, **VMAPPED)
         torch.cuda.synchronize()
@@ -1909,10 +1898,7 @@ def main() -> int:
     # of each quantize kernel a leaf and direction
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    rr_indices_kernel.launches = 0
-    quantize_pack_kernel.launches = unpack_dequantize_kernel.launches = 0
-    for kern in (quantize_pack_kernel, unpack_dequantize_kernel):
-        kern.route_launches = dict.fromkeys(kern.route_launches, 0)
+    zero_counts(rr_indices_kernel, quantize_pack_kernel, unpack_dequantize_kernel)
     t0 = time.perf_counter()
     res = run_main_path(dev, "device", **COMM)
     torch.cuda.synchronize()

@@ -147,11 +147,7 @@ def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict 
     RoPE, nothing written.  Returns (out [B,1,D], cache)."""
     B = x.shape[0]
     if cross_kv is not None:
-        k, v = cross_kv
-        S = k.shape[1]
-        out = attend(_proj(p, cfg, x, "q", cfg.n_heads), k, v,
-                     torch.full((1,), pos, device=x.device), torch.arange(S, device=x.device),
-                     causal=False, kv_valid=torch.ones((B, S), dtype=torch.bool, device=x.device))
+        out = attend(_proj(p, cfg, x, "q", cfg.n_heads), *cross_kv, causal=False)
         return out.reshape(B, 1, -1) @ p["wo"], cache
     positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _qkv(p, cfg, x, positions)

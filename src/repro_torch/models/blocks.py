@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ArchConfig
-from .attention import gqa_decode, gqa_forward, gqa_init, gqa_prefill
+from .attention import _proj, gqa_decode, gqa_forward, gqa_init, gqa_prefill
 from .layers import dense_init, rmsnorm, swiglu
 from .mamba2 import mamba2_decode, mamba2_forward, mamba2_init
 
@@ -141,12 +141,8 @@ def dec_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefix:
 def cross_kv(params: dict, cfg: ArchConfig, enc_out: torch.Tensor, prefix: str):
     """The encoder memory's K/V [B, S, KV, hd] for one decoder layer's
     cross-attention (computed once a prefill, kept in the cache)."""
-    B, S, _ = enc_out.shape
     p = _attn(params, prefix, "cross")
-    k, v = enc_out @ p["wk"], enc_out @ p["wv"]
-    if cfg.qkv_bias:
-        k, v = k + p["bk"], v + p["bv"]
-    return (k.reshape(B, S, cfg.n_kv_heads, cfg.hd()), v.reshape(B, S, cfg.n_kv_heads, cfg.hd()))
+    return _proj(p, cfg, enc_out, "k", cfg.n_kv_heads), _proj(p, cfg, enc_out, "v", cfg.n_kv_heads)
 
 
 def dec_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
