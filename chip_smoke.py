@@ -690,6 +690,18 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # and round once to bf16 at the end, so they differ by at most one bf16 step
 # (2^-7 |want|), plus 1e-3 for the fp32 sums' order
 FLASH_MAIN_BF16_ATOL, FLASH_MAIN_BF16_RTOL = 1e-3, 2.0 ** -7
+# launches of the non-causal kernel at each path shape that must equal the
+# first bitwise: blocks share nothing, so any difference is a race in the
+# mbarrier ring
+REPEATS = 20
+NONCAUSAL_DESIGN = (
+    "flash_fwd_wgmma: FA3-style for sm_90a, a block of 2 consumer warpgroups x 64 query rows "
+    "and 1 producer warpgroup (setmaxnreg 24 / 240); Q once and 128-key K/V tiles by TMA "
+    "(4-D maps over the [B, T, heads, 64] views, 128-byte swizzle, zeros past Tk) into a "
+    "4-stage ring with full/empty mbarriers; S = Q K^T by wgmma m64n128k16 from shared "
+    "memory; online softmax in registers; O += P_hi V + P_lo V by wgmma m64n64k16 with P "
+    "from registers and V MN-major; tile t's Q K^T and tile t-1's P V in flight during "
+    "tile t's softmax; O staged in shared memory and stored by TMA")
 # SSD intra-chunk: the JAX test's atol 3e-5 / rtol 3e-4 (fp32 throughout)
 SSD_ATOL, SSD_RTOL = 3e-5, 3e-4
 # the serving main path: Hymba-1.5B at full width, batch 4, 2,048-token
@@ -806,7 +818,8 @@ def check_flash(dev) -> dict:
     band = (lambda d: (d >= 0) & (d < W))(torch.arange(T, device=dev)[:, None]
                                           - torch.arange(T, device=dev)[None, :])
     t = time_flash(q, k, v, lambda qt, kt, vt: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=band, enable_gqa=True), 4 * hd * band_pairs(T, W) * B * H, window=W)
+        qt, kt, vt, attn_mask=band, enable_gqa=True), 4 * hd * band_pairs(T, W) * B * H, "mma",
+        window=W)
     print(f"flash_attention at bf16 {[B, T, H, KV, hd]}, window {W}: flash_fwd_mma {t['ms']:.4f} "
           f"ms, flash_fwd {t['simt_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms", flush=True)
@@ -823,29 +836,33 @@ def check_flash(dev) -> dict:
             "noncausal": check_flash_noncausal(dev)}
 
 
-def time_flash(q, k, v, sdpa, flops: int, **kw) -> dict:
-    """``flash_fwd_mma`` (the route the path takes: a failure unless ``route``
-    picks it), ``flash_fwd``, the plain version and ``sdpa(qt, kt, vt)``, the
-    library yardstick on the [B, heads, T, hd] views, timed on the same bf16
-    q [B, Tq, H, hd] and k/v [B, Tk, KV, hd] (the model's layout), with
-    ``flash_attend``'s ``kw`` (causal, window); the bound from ``flops`` and
-    the bytes of q, k and v read and the output written once."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel, route
+def time_flash(q, k, v, sdpa, flops: int, want_route: str, **kw) -> dict:
+    """The kernel ``route`` picks (a failure unless it is ``want_route``,
+    the path's), each later route's kernel on the same inputs (``kernel=``),
+    the plain version and ``sdpa(qt, kt, vt)``, the library yardstick on
+    the [B, heads, T, hd] views, timed on the same bf16 q [B, Tq, H, hd] and
+    k/v [B, Tk, KV, hd] (the model's layout), with ``flash_attend``'s ``kw``
+    (causal, window); the bound from ``flops`` and the bytes of q, k and v
+    read and the output written once.  -> ``ms`` for the route's kernel and
+    ``<route>_ms`` for each later one."""
+    from repro_torch.kernels.flash_attention.kernel import ROUTES, flash_attention_kernel, route
     from repro_torch.kernels.flash_attention.ops import flash_attend
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     _allclose(sdpa(qt, kt, vt).transpose(1, 2), flash_attend(q, k, v, backend="ref", **kw),
               FLASH_TOL["bfloat16"], FLASH_TOL["bfloat16"], f"SDPA yardstick {kw}")
-    if route(qt, kt, vt) != "mma":
-        raise AssertionError(f"flash {kw}: the path's bf16 shape did not route to mma")
+    if route(qt, kt, vt, **kw) != want_route:
+        raise AssertionError(f"flash {kw}: the path's bf16 shape did not route to {want_route}")
     ms, call_ms = time_ms(lambda: flash_attention_kernel(qt, kt, vt, **kw), 20)
-    simt_ms, _ = time_ms(lambda: flash_attention_kernel(qt, kt, vt, kernel="simt", **kw), 20)
+    later = {f"{r}_ms": time_ms(lambda r=r: flash_attention_kernel(qt, kt, vt, kernel=r, **kw),
+                                20)[0]
+             for r in ROUTES[ROUTES.index(want_route) + 1:]}
     plain_ms, plain_call_ms = time_ms(lambda: flash_attend(q, k, v, backend="ref", **kw), 3,
                                       behind_sleep=False)
     lib_ms, _ = time_ms(lambda: sdpa(qt, kt, vt), 20)
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return {"ms": ms, "call_ms": call_ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
+    return {"ms": ms, "call_ms": call_ms, **later, "plain_ms": plain_ms,
             "plain_call_ms": plain_call_ms, "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes", "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6}
@@ -856,12 +873,16 @@ def check_flash_noncausal(dev) -> dict:
     encoder's self-attention and the decoder's cross-attention) on the card
     vs its plain torch version on the card: SeamlessM4T-medium's encoder
     shape (q, k, v [4, 1024, 16, 64]) and cross-attention shape (q [4, 256,
-    16, 64], k/v [4, 1024, 16, 64]) in bf16 on ``mma`` and f32 on ``simt``,
-    a ragged Tk below Tq, a window, hd 32 with both lengths ragged; q and
-    k/v strided slices of two packed tensors; every bf16 case within one
-    bf16 step, every f32 case at 2e-5.  Then ``flash_fwd_mma``,
-    ``flash_fwd``, the plain version and ``F.scaled_dot_product_attention``
-    (no mask) timed at both path shapes."""
+    16, 64], k/v [4, 1024, 16, 64]) in bf16 on ``wgmma`` and f32 on
+    ``simt``; ragged Tq and Tk off the 128-key tile (Tq 200 over Tk 1000,
+    Tq 1 over Tk 129, Tq 130, whose last block's second warpgroup holds no
+    row), Tq > Tk, GQA, q, k and v as strided slices of packed tensors, all
+    on ``wgmma``; a window and hd 32 on ``mma``; every bf16 case within one
+    bf16 step, every f32 case at 2e-5.  Then 20 launches at each path shape
+    bitwise equal (the race check on the mbarrier ring), and
+    ``flash_fwd_wgmma``, ``flash_fwd_mma``, ``flash_fwd``, the plain
+    version and ``F.scaled_dot_product_attention`` (no mask) timed at both
+    path shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -869,26 +890,37 @@ def check_flash_noncausal(dev) -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attend
 
     B, H, hd = SERVE_BATCH, 16, 64
-    # b, tq, tk, h, kv, hd, window, dtype, the route
-    cases = [(B, tq, AUDIO_FRAMES, H, H, hd, 0, dt, "mma" if dt == "bfloat16" else "simt")
+    # b, tq, tk, h, kv, hd, window, dtype, the route; q a slice of a packed
+    # [b, tq, 2 h, hd] tensor, k and v of one [b, tk, 2 kv, hd], or (tk
+    # None) q, k and v all three of one [b, tq, h + 2 kv, hd]
+    cases = [(B, tq, AUDIO_FRAMES, H, H, hd, 0, dt, "wgmma" if dt == "bfloat16" else "simt")
              for tq in (AUDIO_FRAMES, AUDIO_PROMPT) for dt in ("bfloat16", "float32")]
-    cases += [(1, 200, 77, 4, 2, 64, 0, dt, r) for dt, r in (("bfloat16", "mma"),
+    cases += [(1, 200, 77, 4, 2, 64, 0, dt, r) for dt, r in (("bfloat16", "wgmma"),
                                                             ("float32", "simt"))]
     cases += [(2, 300, 1000, 10, 2, 64, 100, dt, r) for dt, r in (("bfloat16", "mma"),
                                                                  ("float32", "simt"))]
-    cases += [(1, 130, 333, 6, 3, 32, 0, "bfloat16", "mma")]
+    cases += [(1, 130, 333, 6, 3, 32, 0, "bfloat16", "mma"),
+              (1, 200, 1000, 4, 2, 64, 0, "bfloat16", "wgmma"),
+              (1, 1, 129, 4, 4, 64, 0, "bfloat16", "wgmma"),
+              (2, 333, 130, 8, 2, 64, 0, "bfloat16", "wgmma"),
+              (1, 130, 256, 8, 8, 64, 0, "bfloat16", "wgmma"),
+              (2, 777, None, 10, 2, 64, 0, "bfloat16", "wgmma")]
     gen = torch.Generator(device=dev).manual_seed(1)
     err = {"float32": 0.0, "bfloat16": 0.0}
     for b, tq, tk, h, kv, d, w, dt, want_route in cases:
         tdt = getattr(torch, dt)
-        q = torch.randn((b, tq, 2 * h, d), generator=gen, device=dev).to(tdt)[:, :, :h]
-        k, v = torch.randn((b, tk, 2 * kv, d), generator=gen, device=dev).to(tdt).split(kv, 2)
+        if tk is None:
+            q, k, v = torch.randn((b, tq, h + 2 * kv, d), generator=gen, device=dev).to(
+                tdt).split([h, kv, kv], dim=2)
+        else:
+            q = torch.randn((b, tq, 2 * h, d), generator=gen, device=dev).to(tdt)[:, :, :h]
+            k, v = torch.randn((b, tk, 2 * kv, d), generator=gen, device=dev).to(tdt).split(kv, 2)
         before = (flash_attention_kernel.launches, flash_attention_kernel.route_launches[want_route],
                   flash_attention_kernel.mode_launches["noncausal"])
         got = flash_attend(q, k, v, causal=False, window=w)
         after = (flash_attention_kernel.launches, flash_attention_kernel.route_launches[want_route],
                  flash_attention_kernel.mode_launches["noncausal"])
-        where = f"flash non-causal q {[b, tq, h, d]} k/v {[b, tk, kv, d]} w={w} {dt}"
+        where = f"flash non-causal q {[b, tq, h, d]} k/v {[b, k.shape[1], kv, d]} w={w} {dt}"
         if [a - z for a, z in zip(after, before)] != [1, 1, 1]:
             raise AssertionError(f"{where}: not one non-causal {want_route} launch")
         want = flash_attend(q, k, v, causal=False, window=w, backend="ref")
@@ -904,18 +936,26 @@ def check_flash_noncausal(dev) -> dict:
           f"{err['bfloat16']:.3e}", flush=True)
 
     res = {"max_abs_err_f32": err["float32"], "max_abs_err_bf16": err["bfloat16"],
-           "cases": len(cases), "library": "F.scaled_dot_product_attention (no mask)"}
+           "cases": len(cases), "library": "F.scaled_dot_product_attention (no mask)",
+           "kernel_route": "wgmma", "design": NONCAUSAL_DESIGN}
     for label, tq in (("encoder", AUDIO_FRAMES), ("cross", AUDIO_PROMPT)):
         # the path's call: contiguous [B, T, 16, 64] tensors, the model's layout
         q = torch.randn((B, tq, H, hd), generator=gen, device=dev).to(torch.bfloat16)
         k, v = (torch.randn((B, AUDIO_FRAMES, H, hd), generator=gen, device=dev)
                 .to(torch.bfloat16) for _ in range(2))
+        first = flash_attend(q, k, v, causal=False)
+        same = sum(torch.equal(first, flash_attend(q, k, v, causal=False))
+                   for _ in range(REPEATS))
+        if same != REPEATS:
+            raise AssertionError(f"flash non-causal ({label}): {REPEATS - same} of {REPEATS} "
+                                 "repeated launches differ from the first")
         t = time_flash(q, k, v, F.scaled_dot_product_attention,
-                       4 * hd * B * H * tq * AUDIO_FRAMES, causal=False)   # every (query, key)
+                       4 * hd * B * H * tq * AUDIO_FRAMES, "wgmma", causal=False)
         res[label] = {"shape_q": [B, tq, H, hd], "shape_kv": [B, AUDIO_FRAMES, H, hd],
-                      "dtype": "bfloat16", **t}
+                      "dtype": "bfloat16", "repeats_bitwise_equal": same, **t}
         print(f"flash_attention non-causal ({label}) at bf16 q {[B, tq, H, hd]}, k/v "
-              f"{[B, AUDIO_FRAMES, H, hd]}: flash_fwd_mma {t['ms']:.4f} ms, flash_fwd "
+              f"{[B, AUDIO_FRAMES, H, hd]}: {REPEATS} repeated launches bitwise equal; "
+              f"flash_fwd_wgmma {t['ms']:.4f} ms, flash_fwd_mma {t['mma_ms']:.4f} ms, flash_fwd "
               f"{t['simt_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
               f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
     return res
@@ -1418,9 +1458,9 @@ def serve_audio_path(dev, flash_row: dict) -> dict:
     bf16, random weights from seed 0) serves batch 4 x 256-token decoder
     prompts (numpy seed 1) over 1,024 encoder frames (``generate``'s zero
     frame embeddings) for 32 greedy tokens through ``generate``
-    (:func:`timed_generate`): 12 non-causal encoder launches, 12 causal
-    self-attention and 12 non-causal cross-attention launches a prefill,
-    all on ``mma``, none in decode.  One prefill and one decode step are
+    (:func:`timed_generate`): 12 non-causal encoder launches and 12
+    non-causal cross-attention launches a prefill on ``wgmma``, 12 causal
+    self-attention launches on ``mma``, none in decode.  One prefill and one decode step are
     traced for their device time.  Then the precision check on
     ``Model.prefill`` with frames from numpy seed 2
     (:func:`check_audio_prefill`)."""
@@ -1455,7 +1495,7 @@ def serve_audio_path(dev, flash_row: dict) -> dict:
           f"end to end, peak device memory {st['peak_gib']:.3f} GiB; flash_attention launches "
           f"in the prefill: {prefill[0]} (by route {prefill[1]}, by mode {prefill[2]}); in "
           f"decode: {decode[0]} (by route {decode[1]}, by mode {decode[2]})", flush=True)
-    want = (3 * L, {"mma": 3 * L, "simt": 0}, {"causal": L, "noncausal": 2 * L})
+    want = (3 * L, {"wgmma": 2 * L, "mma": L, "simt": 0}, {"causal": L, "noncausal": 2 * L})
     if prefill != want or decode[0] != 0:
         raise AssertionError(f"serve audio launches: prefill {prefill}, decode {decode[0]}; "
                              f"want {want} and 0")

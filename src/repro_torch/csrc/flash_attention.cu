@@ -97,10 +97,14 @@
 // Head dims 1..128 and any Tq, Tk (the ragged last tiles are masked here).
 
 #include <cstdint>
+#include <type_traits>
+#include <cuda.h>            // CUtensorMap and its enums (no libcuda: see tensor_map_encoder)
+#include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -494,6 +498,496 @@ cudaError_t launch_mma(const Args& a, int B, int H, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- flash_fwd_wgmma: the non-causal mode at hd 64 on Hopper's wgmma ----
+
+constexpr int kWgHD = 64;                               // one 128-byte swizzle row of bf16
+constexpr int kWgRows = 64;                             // query rows a consumer warpgroup
+constexpr int kWgBN = 128;                              // keys a tile
+constexpr uint32_t kWgQBytes = kWgRows * kWgHD * 2;     // 8 KB
+constexpr uint32_t kWgKVBytes = kWgBN * kWgHD * 2;      // 16 KB
+constexpr uint32_t kWgOnesBytes = 2048;                 // 16 rows of bf16 ones (TCSUM)
+
+template <int NWG, bool PWG, int MINB>
+struct WgCfg {
+  static constexpr int kThreads = 128 * NWG + (PWG ? 128 : 32);
+  static constexpr int kConsumerRegs = NWG == 2 ? 240 : 232;
+  static constexpr int kStages = NWG == 2 ? 4 : (MINB == 3 ? 2 : 3);
+  static constexpr size_t kSmem =     // tiles, the ones, barriers (the base is 1024-aligned)
+      NWG * kWgQBytes + 2 * kStages * kWgKVBytes + kWgOnesBytes + 8 * (2 * kStages + 1);
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wg_qk(float (&s)[64], uint64_t dq, uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < kWgHD / 16; ++kk) wgmma_m64n128k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+}
+
+// O += P_hi V + P_lo V; with 36 accumulators also the row sums of P, from
+// 8 more columns of ones (the ones block, one leading byte offset past
+// each k-step's rows of V)
+template <int NO>
+__device__ __forceinline__ void wg_pv(float (&o)[NO], const uint32_t (&ph)[32],
+                                      const uint32_t (&pl)[32], uint32_t v, uint32_t ones) {
+#pragma unroll
+  for (int kc = 0; kc < kWgBN / 16; ++kc) {
+    const uint32_t vk = v + 2048 * kc;
+    if constexpr (NO == 36) {
+      const uint64_t d = wgmma_desc_sw128(vk, ones - vk, 1024);
+      wgmma_m64n72k16_rs_tb(o, ph + 4 * kc, d, 1);
+      wgmma_m64n72k16_rs_tb(o, pl + 4 * kc, d, 1);
+    } else {
+      const uint64_t d = wgmma_desc_sw128(vk, 1024, 1024);
+      wgmma_m64n64k16_rs_tb(o, ph + 4 * kc, d, 1);
+      wgmma_m64n64k16_rs_tb(o, pl + 4 * kc, d, 1);
+    }
+  }
+}
+
+template <bool MASK, bool LSUM>
+__device__ __forceinline__ void wg_softmax(float (&s)[64], float (&m)[2], float (&l)[2],
+                                           float (&corr)[2], int valid, float sl2) {
+  const int tq = threadIdx.x & 3;
+  if (MASK && valid < kWgBN) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * tq + (e & 1) >= valid) s[4 * j + e] = kNegInf;
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r] * sl2);
+    corr[r] = ex2(m[r] - mn);
+    m[r] = mn;
+    if (LSUM) l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = ex2(fmaf(s[i], sl2, -m[(i >> 1) & 1]));
+    if (LSUM) l[(i >> 1) & 1] += s[i];
+  }
+}
+
+template <int NO>
+__device__ __forceinline__ void wg_rescale_split(float (&o)[NO], const float (&corr)[2],
+                                                 const float (&s)[64], uint32_t (&ph)[32],
+                                                 uint32_t (&pl)[32]) {
+  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {   // a row's max moved
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+  }
+#pragma unroll
+  for (int n = 0; n < 32; ++n) split_bf16(s[2 * n], s[2 * n + 1], ph[n], pl[n]);
+}
+
+// ---- 64-key sub-tiles (OVL): two a 128-key stage ----
+
+__device__ __forceinline__ void wg_qk64(float (&s)[32], uint64_t dq, uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < kWgHD / 16; ++kk) wgmma_m64n64k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+}
+
+__device__ __forceinline__ void wg_pv64(float (&o)[32], const uint32_t (&ph)[16],
+                                        const uint32_t (&pl)[16], uint32_t v) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    const uint64_t d = wgmma_desc_sw128(v + 2048 * kc, 1024, 1024);
+    wgmma_m64n64k16_rs_tb(o, ph + 4 * kc, d, 1);
+    wgmma_m64n64k16_rs_tb(o, pl + 4 * kc, d, 1);
+  }
+}
+
+// wg_softmax on a 64-key sub-tile (s[4 j + e], j < 8)
+template <bool MASK>
+__device__ __forceinline__ void wg_softmax64(float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int valid, float sl2) {
+  const int tq = threadIdx.x & 3;
+  if (MASK && valid < 64) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * tq + (e & 1) >= valid) s[4 * j + e] = kNegInf;
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r] * sl2);
+    corr[r] = ex2(m[r] - mn);
+    m[r] = mn;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = ex2(fmaf(s[i], sl2, -m[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += s[i];
+  }
+}
+
+__device__ __forceinline__ void wg_rescale_split64(float (&o)[32], const float (&corr)[2],
+                                                   const float (&s)[32], uint32_t (&ph)[16],
+                                                   uint32_t (&pl)[16]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+  for (int n = 0; n < 16; ++n) split_bf16(s[2 * n], s[2 * n + 1], ph[n], pl[n]);
+}
+
+// The consumer with 64-key sub-tiles u (stage u / 2, half u % 2), FA3's
+// intra-warpgroup pipeline: sub-tile u's Q K^T and u-1's P V issued
+// together, u's softmax while P V is in flight.
+template <int NWG, int kS>
+__device__ __forceinline__ void wg_consumer_ovl(const CUtensorMap* tm_o, uint32_t sq,
+                                                uint32_t sk, uint32_t sv, uint32_t full,
+                                                uint32_t empty, uint32_t qbar,
+                                                unsigned char* smem, int c, int q0, int h,
+                                                int b, int Tq, int Tk, float sl2,
+                                                unsigned long long* prof) {
+  unsigned long long pc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  long long tk0 = clock64();
+  auto tick = [&](int i) {
+    if (prof) {
+      const long long now = clock64();
+      pc[i] += now - tk0;
+      tk0 = now;
+    }
+  };
+  const int n_sub = (Tk + 63) / 64;
+  const int tid = threadIdx.x & 127, lane = tid & 31;
+  const uint64_t dq = wgmma_desc_sw128(sq + c * kWgQBytes, 16, 1024);
+  auto kdesc = [&](int u) {
+    return wgmma_desc_sw128(sk + (u / 2) % kS * kWgKVBytes + (u & 1) * 8192, 16, 1024);
+  };
+  auto vaddr = [&](int u) { return sv + (u / 2) % kS * kWgKVBytes + (u & 1) * 8192; };
+  auto landed = [&](int u) { mbar_wait(full + 8 * ((u / 2) % kS), (u / 2 / kS) & 1); };
+  auto release = [&](int u) {
+    if (lane == 0) mbar_arrive(empty + 8 * ((u / 2) % kS));
+  };
+  float s[32], o[32], corr[2];
+  uint32_t ph[16], pl[16];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = o[i] = 0.f;
+  mbar_wait(qbar, 0);
+  tick(7);
+  auto softmax = [&](int u) {
+    const int valid = Tk - 64 * u;
+    if (valid < 64)
+      wg_softmax64<true>(s, m, l, corr, valid, sl2);
+    else
+      wg_softmax64<false>(s, m, l, corr, 64, sl2);
+  };
+  landed(0);
+  tick(0);
+  fence_regs(s);
+  wgmma_fence();
+  wg_qk64(s, dq, kdesc(0));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  tick(1);
+  softmax(0);
+  wg_rescale_split64(o, corr, s, ph, pl);
+  tick(2);
+  for (int u = 1; u < n_sub; ++u) {
+    if (!(u & 1)) landed(u);
+    tick(0);
+    fence_regs(s);
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    wgmma_fence();
+    wg_qk64(s, dq, kdesc(u));
+    wgmma_commit();
+    wg_pv64(o, ph, pl, vaddr(u - 1));
+    wgmma_commit();
+    wgmma_wait<1>();                                   // S landed; P V still in flight
+    fence_regs(s);
+    tick(1);
+    softmax(u);
+    tick(2);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    tick(3);
+    if (!(u & 1)) release(u - 1);                      // u - 1 ended its stage
+    wg_rescale_split64(o, corr, s, ph, pl);
+  }
+  fence_regs(o);
+  fence_regs(ph);
+  fence_regs(pl);
+  wgmma_fence();
+  wg_pv64(o, ph, pl, vaddr(n_sub - 1));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  tick(3);
+  release(n_sub - 1);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  const int g = lane >> 2, tq = lane & 3, row0 = (tid >> 5) * 16 + g;
+  unsigned char* so = smem + c * kWgQBytes;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<unsigned*>(so + (row0 + 8 * r) * 128 + ((j ^ g) << 4) + 4 * tq) =
+          pack_bf16(o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r]);
+  fence_proxy_async();
+  named_bar_sync(1 + c, 128);
+  if (tid == 0 && q0 + c * kWgRows < Tq) {
+    tma_store_4d(tm_o, sq + c * kWgQBytes, 0, q0 + c * kWgRows, h, b);
+    tma_store_wait();
+  }
+  tick(5);
+  if (prof && tid == 0) {
+    unsigned long long* out = prof + 8 * ((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x * NWG
+                                          + blockIdx.x * NWG + c);
+    for (int i = 0; i < 8; ++i) out[i] = i < 4 ? pc[i] / 2 : pc[i];   // per 128 keys
+  }
+}
+
+template <int NWG, int kS, int PEEL, bool TCSUM>
+__device__ __forceinline__ void wg_consumer(const CUtensorMap* tm_o, uint32_t sq, uint32_t sk,
+                                            uint32_t sv, uint32_t ones, uint32_t full,
+                                            uint32_t empty, uint32_t qbar, unsigned char* smem,
+                                            int c, int q0, int h, int b, int Tq, int Tk,
+                                            float sl2, unsigned long long* prof) {
+  constexpr int NO = TCSUM ? 36 : 32;
+  unsigned long long pc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  long long tk0 = clock64();
+  auto tick = [&](int i) {
+    if (prof) {
+      const long long now = clock64();
+      pc[i] += now - tk0;
+      tk0 = now;
+    }
+  };
+  const int n_tiles = (Tk + kWgBN - 1) / kWgBN;
+  const int tid = threadIdx.x & 127, lane = tid & 31;
+  const uint64_t dq = wgmma_desc_sw128(sq + c * kWgQBytes, 16, 1024);
+  float s[64], o[NO], corr[2];
+  uint32_t ph[32], pl[32];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  mbar_wait(qbar, 0);
+  tick(7);
+  auto tile = [&](int t, auto masked) {
+    const int st = t % kS;
+    mbar_wait(full + 8 * st, (t / kS) & 1);
+    tick(0);
+    fence_regs(s);
+    wgmma_fence();
+    wg_qk(s, dq, wgmma_desc_sw128(sk + st * kWgKVBytes, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    tick(1);
+    wg_softmax<decltype(masked)::value, !TCSUM>(s, m, l, corr, Tk - t * kWgBN, sl2);
+    wg_rescale_split(o, corr, s, ph, pl);
+    tick(2);
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    wgmma_fence();
+    wg_pv(o, ph, pl, sv + st * kWgKVBytes, ones);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    tick(3);
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  };
+  using Yes = std::integral_constant<bool, true>;
+  using No = std::integral_constant<bool, false>;
+  if (PEEL) {          // the ragged last tile alone carries the mask
+    const int n_body = Tk % kWgBN ? n_tiles - 1 : n_tiles;
+    for (int t = 0; t < n_body; ++t) tile(t, No());
+    if (n_body < n_tiles) tile(n_body, Yes());
+  } else {
+    for (int t = 0; t < n_tiles; ++t) tile(t, Yes());
+  }
+
+  // epilogue: O / max(l, 1e-30) in bf16 into this warpgroup's Q tile (its
+  // last Q K^T is complete), in the swizzle the output's TMA map reads;
+  // rows past Tq are not stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (TCSUM) {
+      l[r] = o[32 + 2 * r];
+    } else {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  const int g = lane >> 2, tq = lane & 3, row0 = (tid >> 5) * 16 + g;
+  unsigned char* so = smem + c * kWgQBytes;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)          // row0 + 8 r has row0's swizzle phase g
+      *reinterpret_cast<unsigned*>(so + (row0 + 8 * r) * 128 + ((j ^ g) << 4) + 4 * tq) =
+          pack_bf16(o[4 * j + 2 * r] * l[r], o[4 * j + 2 * r + 1] * l[r]);
+  fence_proxy_async();
+  named_bar_sync(1 + c, 128);
+  if (tid == 0 && q0 + c * kWgRows < Tq) {
+    tma_store_4d(tm_o, sq + c * kWgQBytes, 0, q0 + c * kWgRows, h, b);
+    tma_store_wait();
+  }
+  tick(5);
+  if (prof && tid == 0) {
+    unsigned long long* out = prof + 8 * ((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x * NWG
+                                          + blockIdx.x * NWG + c);
+    for (int i = 0; i < 8; ++i) out[i] = pc[i];
+  }
+}
+
+template <int NWG, bool PWG, int MINB, int PEEL, bool TCSUM>
+__global__ void __launch_bounds__(WgCfg<NWG, PWG, MINB>::kThreads, MINB)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_o, int Tq, int Tk, int group,
+                    float sl2, unsigned long long* prof) {
+  using Cfg = WgCfg<NWG, PWG, MINB>;
+  constexpr int kS = Cfg::kStages;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t sq = smem_addr(wg_smem);                // NWG Q tiles (later O)
+  const uint32_t sk = sq + NWG * kWgQBytes;              // kS K tiles
+  const uint32_t sv = sk + kS * kWgKVBytes;              // kS V tiles
+  const uint32_t ones = sv + kS * kWgKVBytes;            // 16 rows of bf16 ones
+  const uint32_t full = ones + kWgOnesBytes;             // kS barriers
+  const uint32_t empty = full + 8 * kS;                  // kS barriers
+  const uint32_t qbar = empty + 8 * kS;
+  const int q0 = blockIdx.x * kWgRows * NWG, h = blockIdx.y, b = blockIdx.z;
+  const int warp = __shfl_sync(0xffffffffu, int(threadIdx.x / 32), 0);
+  const bool producer = PWG ? warp < 4 : warp == 4 * NWG;
+  if (sq & 1023) __trap();                               // the swizzle wants 1024-byte tiles
+  if (threadIdx.x < kWgOnesBytes / 16) {
+    reinterpret_cast<uint4*>(wg_smem + (ones - sq))[threadIdx.x] =
+        make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u);
+    fence_proxy_async();
+  }
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kS; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 4 * NWG);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (producer) {
+    if (PWG) setmaxnreg_dec<24>();
+    if (threadIdx.x % 128 == 0) {
+      const int n_tiles = (Tk + kWgBN - 1) / kWgBN, kvh = h / group;
+      mbar_arrive_expect_tx(qbar, NWG * kWgQBytes);
+      for (int c = 0; c < NWG; ++c)
+        tma_load_4d(sq + c * kWgQBytes, &tm_q, qbar, 0, q0 + c * kWgRows, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kS;
+        mbar_wait(empty + 8 * st, ((t / kS) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + 8 * st, 2 * kWgKVBytes);
+        tma_load_4d(sk + st * kWgKVBytes, &tm_k, full + 8 * st, 0, t * kWgBN, kvh, b);
+        tma_load_4d(sv + st * kWgKVBytes, &tm_v, full + 8 * st, 0, t * kWgBN, kvh, b);
+      }
+    }
+  } else {
+    if (PWG) setmaxnreg_inc<Cfg::kConsumerRegs>();
+    if constexpr (PEEL == 2)
+      wg_consumer_ovl<NWG, kS>(&tm_o, sq, sk, sv, full, empty, qbar, wg_smem,
+                               warp / 4 - (PWG ? 1 : 0), q0, h, b, Tq, Tk, sl2, prof);
+    else
+      wg_consumer<NWG, kS, PEEL, TCSUM>(&tm_o, sq, sk, sv, ones, full, empty, qbar, wg_smem,
+                                        warp / 4 - (PWG ? 1 : 0), q0, h, b, Tq, Tk, sl2, prof);
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// a bf16 [B, heads, T, 64] view with element strides st3 = (batch, head,
+// time) and a contiguous head dim as a 4-D TMA map over (64, T, heads, B),
+// innermost first, in boxes of 64 x ``rows`` with the 128-byte swizzle;
+// rows past T read as zeros.  A dim of extent 1 gets a stride of one row
+// (its stride is never used, and TMA wants a nonzero multiple of 16 bytes).
+bool make_tensor_map(CUtensorMap* map, const void* ptr, const long long* st3, int B, int heads,
+                     int T, int rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const long long extent[3] = {T, heads, B}, elems[3] = {st3[2], st3[1], st3[0]};
+  cuuint64_t dims[4] = {kWgHD, cuuint64_t(T), cuuint64_t(heads), cuuint64_t(B)};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) strides[i] = 2 * cuuint64_t(extent[i] == 1 ? kWgHD : elems[i]);
+  cuuint32_t box[4] = {kWgHD, cuuint32_t(rows), 1, 1}, unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+unsigned long long* g_prof = nullptr;
+
+template <int NWG, bool PWG, int MINB, int PEEL, bool TCSUM>
+cudaError_t launch_wgmma(const CUtensorMap (&maps)[4], int B, int H, int Tq, int Tk, int group,
+                         float sl2, cudaStream_t stream) {
+  const auto kern = flash_fwd_wgmma<NWG, PWG, MINB, PEEL, TCSUM>;
+  constexpr size_t bytes = WgCfg<NWG, PWG, MINB>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + kWgRows * NWG - 1) / (kWgRows * NWG), H, B);
+  kern<<<grid, WgCfg<NWG, PWG, MINB>::kThreads, bytes, stream>>>(maps[0], maps[1], maps[2],
+      maps[3], Tq, Tk, group, sl2, g_prof);
+  return cudaGetLastError();
+}
+
+int g_wgmma_variant = 0;   // which instance launches (timing only)
+
 Args make_args(const void* q, const void* k, const void* v, void* o, const long long* strides,
                int H, int KV, int Tq, int Tk, int hd, int window, int causal, float scale) {
   Args a;
@@ -556,5 +1050,45 @@ int flash_attention_mma_launch(const void* q, const void* k, const void* v, void
     default: return int(cudaErrorInvalidValue);
   }
 }
+
+// flash_fwd_wgmma, the non-causal mode in bf16 at hd 64: the same
+// arguments; window 0, causal 0, hd 64, the four pointers and 12 strides
+// 16-byte aligned (8 elements), or it returns cudaErrorInvalidValue without
+// launching (also when a TMA map cannot be encoded).
+int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
+                                 const long long* strides, int B, int H, int KV, int Tq, int Tk,
+                                 int hd, int window, int causal, float scale, void* stream) {
+  const void* ptrs[4] = {q, k, v, o};
+  for (int i = 0; i < 4; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return int(cudaErrorInvalidValue);
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8) return int(cudaErrorInvalidValue);
+  if (hd != kWgHD || window != 0 || causal != 0 || KV <= 0 || H % KV)
+    return int(cudaErrorInvalidValue);
+  if (Tq == 0 || B == 0 || H == 0) return 0;
+  CUtensorMap maps[4];
+  if (!make_tensor_map(&maps[0], q, strides, B, H, Tq, kWgRows) ||
+      !make_tensor_map(&maps[1], k, strides + 3, B, KV, Tk, kWgBN) ||
+      !make_tensor_map(&maps[2], v, strides + 6, B, KV, Tk, kWgBN) ||
+      !make_tensor_map(&maps[3], o, strides + 9, B, H, Tq, kWgRows))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float sl2 = scale * 1.4426950408889634f;
+  switch (g_wgmma_variant) {
+    case 0: return int(launch_wgmma<1, false, 3, 0, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
+    case 1: return int(launch_wgmma<2, true, 1, 0, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
+    case 2: return int(launch_wgmma<2, false, 1, 0, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
+    case 3: return int(launch_wgmma<1, false, 2, 0, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
+    case 4: return int(launch_wgmma<1, false, 3, 1, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
+    case 5: return int(launch_wgmma<1, false, 3, 0, true>(maps, B, H, Tq, Tk, H / KV, sl2, s));
+    case 6: return int(launch_wgmma<1, false, 3, 2, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
+    case 7: return int(launch_wgmma<1, false, 2, 2, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+void flash_attention_wgmma_set_prof(void* p) { g_prof = static_cast<unsigned long long*>(p); }
+
+void flash_attention_wgmma_set_variant(int variant) { g_wgmma_variant = variant; }
 
 }  // extern "C"

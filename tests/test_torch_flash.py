@@ -19,13 +19,15 @@ the JAX package's.
   another length (the decoder's cross-attention), at 2e-5;
 * the dispatch: a CPU tensor takes the plain version under
   ``backend="kernel"``, an input that requires a gradient raises;
-* the routing between the two CUDA kernels (``kernel.route``, decided from
-  dtypes, strides and pointers, so it runs on CPU tensors): ``"mma"`` for
-  the bf16 prefill views of Hymba-1.5B and Qwen1.5-0.5B as ``_qkv`` builds
-  them, for SeamlessM4T-medium's encoder views and its cross-attention
-  views (``cross_kv``), and for the bf16 stress shapes, ``"simt"`` for f32,
-  hd 48 and views misaligned for 16-byte copies; the ``ctypes`` argtypes
-  against the C entry points' parameters in the CUDA source;
+* the routing between the three CUDA kernels (``kernel.route``, decided
+  from dtypes, strides, pointers and the mode, so it runs on CPU tensors):
+  ``"wgmma"`` for the non-causal calls of SeamlessM4T-medium's encoder
+  views and its cross-attention views (``cross_kv``), ``"mma"`` for the
+  causal bf16 prefill views of Hymba-1.5B, Qwen1.5-0.5B and SeamlessM4T-
+  medium as ``_qkv`` builds them, the bf16 stress shapes, a window and hd
+  32 / 128, ``"simt"`` for f32, hd 48 and views misaligned for 16-byte
+  copies; the ``ctypes`` argtypes against the C entry points' parameters
+  in the CUDA source;
 * ``flash_fwd_mma``'s arithmetic, emulated in torch here (tiles of 64
   keys, the online softmax in log2 units, p = p_hi + p_lo in bf16 through
   P·V, l from the fp32 p), vs the plain version and JAX's Pallas kernel in
@@ -33,6 +35,12 @@ the JAX package's.
   card holds the kernel to at the serving shape), over the windows and GQA
   groups of ``CUDA_CASES``, causal and not; and one bf16 rounding of p,
   which that bound must refuse;
+* ``flash_fwd_wgmma``'s arithmetic (the same with 128-key tiles, non-
+  causal) vs the plain version and the Pallas kernel within one bf16 step,
+  on the non-causal shapes it takes, Tq and Tk off its tile, and rows that
+  two keys carry with cancelling values; there one bf16 rounding of p
+  leaves the bound (it holds on the random cases), which decides the
+  kernel's two P·V products;
 * on a card (``cuda``-marked, skipped without one): the kernel vs the plain
   version at those tolerances, causal and not, ragged T and Tk and strided
   inputs included, with the route each case took.
@@ -232,9 +240,14 @@ def _prefill_views(arch: str, T: int = 8):
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen1.5-0.5b", "seamless-m4t-medium"])
 def test_route_takes_mma_for_the_prefill_views(arch):
+    """The causal prefill's views take ``mma``; SeamlessM4T-medium's, which
+    also serve its encoder's non-causal self-attention, take ``wgmma``
+    there."""
     q, k, v = _prefill_views(arch)
     assert q.dtype == torch.bfloat16 and q.shape[-1] == 64
-    assert route(q, k, v) == "mma"
+    assert route(q, k, v) == route(q, k, v, causal=True) == "mma"
+    if arch == "seamless-m4t-medium":
+        assert route(q, k, v, causal=False) == "wgmma"
 
 
 def test_route_takes_mma_for_the_seamless_cross_views():
@@ -249,7 +262,7 @@ def test_route_takes_mma_for_the_seamless_cross_views():
     q = t_qkv(cross, cfg, x, torch.arange(8))[0].transpose(1, 2)
     k, v = (t.transpose(1, 2) for t in cross_kv(p, cfg, enc_out, "blocks/0/"))
     assert q.shape == (1, 16, 8, 64) and k.shape == v.shape == (1, 16, 24, 64)
-    assert k.dtype == torch.bfloat16 and route(q, k, v) == "mma"
+    assert k.dtype == torch.bfloat16 and route(q, k, v, causal=False) == "wgmma"
 
 
 def test_argtypes_match_the_c_entry_points():
@@ -263,6 +276,7 @@ def test_argtypes_match_the_c_entry_points():
     import repro_torch
 
     src = (Path(repro_torch.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+    assert sorted(ARGTYPES) == sorted(re.findall(r"^int (\w+)\(", src, re.M))
     ctype = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
              "const long long*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
     for name, argtypes in ARGTYPES.items():
@@ -276,6 +290,17 @@ def test_route_takes_mma_for_bf16_stress_shapes(b, t, h, kv, d):
     assert route(*_packed_views(b, t, h, kv, d, torch.bfloat16)) == "mma"
 
 
+@pytest.mark.parametrize("case", ["causal", "window", "hd32", "hd128"])
+def test_route_keeps_mma_off_the_wgmma_inputs(case):
+    """``wgmma`` takes only the non-causal mode without a window at hd 64:
+    the causal mode, a window and the other head dims stay on ``mma``."""
+    d = {"hd32": 32, "hd128": 128}.get(case, 64)
+    q, k, v = _packed_views(1, 70, 8, 2, d, torch.bfloat16)
+    kw = {"causal": dict(causal=True), "window": dict(causal=False, window=16)}.get(
+        case, dict(causal=False))
+    assert route(q, k, v, **kw) == "mma"
+
+
 @pytest.mark.parametrize("case", ["float32", "hd48", "stride", "pointer"])
 def test_route_takes_simt_otherwise(case):
     kw = {"float32": dict(dtype=torch.float32),
@@ -285,7 +310,7 @@ def test_route_takes_simt_otherwise(case):
     args = dict(b=1, t=70, h=8, kv=2, d=64, dtype=torch.bfloat16) | kw
     q, k, v = _packed_views(args.pop("b"), args.pop("t"), args.pop("h"), args.pop("kv"),
                             args.pop("d"), args.pop("dtype"), **args)
-    assert route(q, k, v) == "simt"
+    assert route(q, k, v) == route(q, k, v, causal=False) == "simt"
 
 
 LOG2E = 1.4426950408889634
@@ -294,14 +319,16 @@ LOG2E = 1.4426950408889634
 STEP_ATOL, STEP_RTOL = 1e-3, 2.0 ** -7
 
 
-def _emulate_mma(q, k, v, *, causal=True, window=0, split=True):
+def _emulate_mma(q, k, v, *, causal=True, window=0, split=True, bk=64):
     """``flash_fwd_mma``'s arithmetic on [B,H,T,hd] bf16 tensors: each
-    64-row query tile visits the 64-key tiles from its window's first to
-    its causal last (to the last of Tk when not ``causal``); scores q.k in
-    fp32 times scale·log2(e), -1e30 where masked; the running max m, p =
+    64-row query tile visits the ``bk``-key tiles from its window's first
+    to its causal last (to the last of Tk when not ``causal``); scores q.k
+    in fp32 times scale·log2(e), -1e30 where masked; the running max m, p =
     2^(x - m) and l summed in fp32; O is rescaled and gains bf16(p)·V, and
     bf16(p - bf16(p))·V when ``split`` (the kernel's two products); O /
-    max(l, 1e-30) rounded to bf16."""
+    max(l, 1e-30) rounded to bf16.  With ``bk=128`` and ``causal=False``
+    it is ``flash_fwd_wgmma``'s (the query tiles play no part there: every
+    row visits every key tile)."""
     B, H, Tq, hd = q.shape
     KV, Tk = k.shape[1], k.shape[2]
     kf, vf = (x.float().repeat_interleave(H // KV, 1) for x in (k, v))
@@ -314,9 +341,9 @@ def _emulate_mma(q, k, v, *, causal=True, window=0, split=True):
         acc = torch.zeros((B, H, len(rows), hd))
         first = max(0, q0 - window + 1) if window else 0
         last = min(Tk - 1, q0 + 63) if causal else Tk - 1
-        for k0 in range(first // 64 * 64, last + 1, 64):
-            keys = torch.arange(k0, min(k0 + 64, Tk))[None, :]
-            x = q[:, :, q0:q0 + 64].float() @ kf[:, :, k0:k0 + 64].transpose(-1, -2) * sl2
+        for k0 in range(first // bk * bk, last + 1, bk):
+            keys = torch.arange(k0, min(k0 + bk, Tk))[None, :]
+            x = q[:, :, q0:q0 + 64].float() @ kf[:, :, k0:k0 + bk].transpose(-1, -2) * sl2
             ok = keys <= rows if causal else torch.ones_like(keys <= rows)
             if window:
                 ok = ok & (rows - keys < window)
@@ -327,9 +354,9 @@ def _emulate_mma(q, k, v, *, causal=True, window=0, split=True):
             p = torch.exp2(x - m)
             l = l * corr + p.sum(-1, keepdim=True)
             hi = p.bfloat16().float()
-            pv = hi @ vf[:, :, k0:k0 + 64]
+            pv = hi @ vf[:, :, k0:k0 + bk]
             if split:
-                pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + 64]
+                pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + bk]
             acc = acc * corr + pv
         out[:, :, q0:q0 + 64] = acc / l.clamp_min(1e-30)
     return out.to(torch.bfloat16)
@@ -385,6 +412,83 @@ def test_mma_noncausal_numerics_within_one_bf16_step(B, Tq, Tk, H, KV, hd, windo
     np.testing.assert_allclose(got, pal, atol=STEP_ATOL, rtol=STEP_RTOL)
 
 
+def _dominated_inputs(seed, B=1, Tq=256, Tk=1024, H=4, hd=64):
+    """bf16 [B,H,T,hd] inputs where two keys carry each row and their values
+    cancel: q row i is 8·e_c (c = i % hd), so its scores are column c of k;
+    in each head, column c holds 20 at key a_c and 19.5 at key b_c > a_c
+    (p = e^-0.5 ≈ 0.6065 against the max, not a bf16 number) and N(0, 1)
+    elsewhere (weights ~e^-20); v_b = bf16(-v_a / e^-0.5), so the output is
+    ~0 and one bf16 rounding of p_b (2^-9.2 relative) moves it by ~6.6e-4
+    |v_b|.  a_c and b_c lie in one 128-key tile or in two, a first."""
+    r = np.random.default_rng(seed)
+    q = np.zeros((B, H, Tq, hd), np.float32)
+    q[..., np.arange(Tq), np.arange(Tq) % hd] = 8.0
+    k = r.normal(size=(B, H, Tk, hd)).astype(np.float32)
+    v = r.normal(size=(B, H, Tk, hd)).astype(np.float32)
+    for b in range(B):
+        for h in range(H):
+            keys = r.permutation(Tk)[:2 * hd].reshape(hd, 2)
+            keys.sort(axis=1)
+            for c, (a, bb) in enumerate(keys):
+                k[b, h, a, c], k[b, h, bb, c] = 20.0, 19.5
+                v[b, h, a] = 2.0 * r.normal(size=hd)
+                v[b, h, bb] = -v[b, h, a] / np.exp(-0.5)
+    tb = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    jb = [jnp.asarray(x.transpose(0, 2, 1, 3)).astype(jnp.bfloat16) for x in (q, k, v)]
+    return tb, jb
+
+
+# the non-causal emulation cases of flash_fwd_wgmma: NONCAUSAL_EMU_CASES'
+# shapes it takes (no window, hd 64), Tq and Tk off its 128-key tile, and
+# the dominated rows
+WGMMA_EMU_CASES = [c[:6] for c in NONCAUSAL_EMU_CASES if c[5] == 64 and c[6] == 0] + [
+    (1, 200, 1000, 4, 2, 64),
+    (1, 1, 129, 4, 4, 64),
+    "dominated",
+]
+
+
+def _wgmma_case(case):
+    if case == "dominated":
+        return _dominated_inputs(12)
+    B, Tq, Tk, H, KV, hd = case
+    return _bf16_inputs(B, Tq, H, KV, hd, seed=13, Tk=Tk)
+
+
+@pytest.mark.parametrize("case", WGMMA_EMU_CASES, ids=str)
+def test_wgmma_numerics_within_one_bf16_step(case):
+    """``flash_fwd_wgmma``'s arithmetic (128-key tiles, p = p_hi + p_lo)
+    within one bf16 step of the plain version and of JAX's Pallas kernel in
+    interpret mode (which keeps p in fp32)."""
+    tb, jb = _wgmma_case(case)
+    got = _emulate_mma(*tb, causal=False, bk=128).float().transpose(1, 2).numpy()
+    ref = flash_attention_torch(*tb, causal=False).float().transpose(1, 2).numpy()
+    Tq, Tk = tb[0].shape[2], tb[1].shape[2]   # the Pallas grid wants whole tiles
+    pal = np.asarray(j_flash(*jb, causal=False, interpret=True, bq=64 if Tq % 64 == 0 else Tq,
+                             bk=128 if Tk % 128 == 0 else Tk), np.float32)
+    np.testing.assert_allclose(got, ref, atol=STEP_ATOL, rtol=STEP_RTOL)
+    np.testing.assert_allclose(got, pal, atol=STEP_ATOL, rtol=STEP_RTOL)
+
+
+def test_wgmma_keeps_p_in_two_bf16_parts():
+    """The decision for ``flash_fwd_wgmma``: one bf16 rounding of p holds
+    the one-step bound on the random non-causal cases but not where two
+    keys carry a row and their values cancel, so the kernel keeps P_hi +
+    P_lo (two register-A wgmma products), which holds it there too."""
+    for case in WGMMA_EMU_CASES[:-1]:
+        tb, _ = _wgmma_case(case)
+        ref = flash_attention_torch(*tb, causal=False).float()
+        once = (_emulate_mma(*tb, causal=False, bk=128, split=False).float() - ref).abs()
+        assert int((once > STEP_ATOL + STEP_RTOL * ref.abs()).sum()) == 0, case
+    tb, _ = _dominated_inputs(12)
+    ref = flash_attention_torch(*tb, causal=False).float()
+    bound = STEP_ATOL + STEP_RTOL * ref.abs()
+    once = (_emulate_mma(*tb, causal=False, bk=128, split=False).float() - ref).abs()
+    split = (_emulate_mma(*tb, causal=False, bk=128).float() - ref).abs()
+    assert int((once > bound).sum()) > 0
+    assert int((split > bound).sum()) == 0
+
+
 def test_one_bf16_rounding_of_p_leaves_the_one_step_bound():
     """Why the kernel splits p: rounded once to bf16, a p near 1 of a row's
     dominant key (the first rows of a causal prefill) moves its output by up
@@ -414,6 +518,8 @@ CUDA_CASES = [
     (1, 128, 4, 2, 32, 0, "bfloat16", 77, False),         # Tq > Tk, ragged Tk
     (1, 300, 6, 3, 64, 100, "float32", 1000, False),      # a window, not causal
     (1, 300, 6, 3, 64, 100, "bfloat16", 1000, False),
+    (1, 200, 4, 2, 64, 0, "bfloat16", 1000, False),      # the wgmma route: ragged Tq and Tk
+    (1, 1, 4, 4, 64, 0, "bfloat16", 129, False),         # one query over 1 + 128 keys
 ]
 
 
@@ -427,7 +533,8 @@ def test_cuda_kernel_matches_plain(B, T, H, KV, hd, window, dtype, Tk, causal):
     q, k, v = (torch.from_numpy(x).to(dev, tdt) for x in _qkv(B, T, H, KV, hd, seed=6, Tk=Tk))
     qkv = torch.cat([q, q], dim=2)   # strided q: a slice of it
     q_view = qkv[:, :, :H]
-    want_route = "mma" if dtype == "bfloat16" and hd in MMA_HDS else "simt"
+    want_route = ("simt" if dtype != "bfloat16" or hd not in MMA_HDS
+                  else "wgmma" if not causal and not window and hd == 64 else "mma")
     before = flash_attention_kernel.launches
     by_route = dict(flash_attention_kernel.route_launches)
     got = flash_attend(q_view, k, v, causal=causal, window=window)
