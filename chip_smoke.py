@@ -15,17 +15,20 @@
    attention and SSD cases each assert the route their wrappers choose
    (quantize: ``warp``, a warp per chunk, at the e2e wire leaves and at
    every chunk it takes (128 .. 1024), ``block`` for n % 4 != 0, other
-   chunks and misaligned rows; flash: ``flash_fwd_mma``, bf16 on the
-   tensor cores, or ``flash_fwd``; SSD: ``ssd_intra_chunk_mma``, bf16 on
+   chunks and misaligned rows; flash: ``flash_fwd_wgmma``, the non-causal
+   mode in bf16 at hd 64 on wgmma, ``flash_fwd_mma``, the rest of bf16 on
+   the tensor cores, or ``flash_fwd``; SSD: ``ssd_intra_chunk_mma``, bf16 on
    the tensor cores at Hymba's and mamba2-1.3b's tiles, or
    ``ssd_intra_chunk``); both quantize routes and both SSD routes are
    timed in turns at a main-path shape, and at the serving shape the
    flash tensor-core kernel is timed beside ``flash_fwd`` on the same
    inputs and ``F.scaled_dot_product_attention`` with the same band mask,
    a yardstick the port never calls; flash attention's non-causal mode
-   is held the same way (both routes, SeamlessM4T-medium's encoder and
-   cross-attention shapes, a ragged Tk, a window) and timed at those two
-   shapes beside unmasked SDPA;
+   is held the same way (its three routes, SeamlessM4T-medium's encoder
+   and cross-attention shapes, ragged Tq and Tk, a window, strided views),
+   20 repeated launches at each path shape bitwise equal, and timed at
+   those two shapes (``flash_fwd_wgmma``, ``flash_fwd_mma``, ``flash_fwd``)
+   beside unmasked SDPA;
 3. drives seven main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
@@ -49,9 +52,9 @@
    ``ssd_intra_chunk_mma``; none in decode); then serving full-width
    SeamlessM4T-medium (the audio encoder-decoder: 12 + 12 layers of 1024,
    bf16) the same way: batch 4, 256-token prompts over 1,024 encoder
-   frames, 32 greedy tokens (12 non-causal encoder, 12 causal
-   self-attention and 12 non-causal cross-attention flash launches a
-   prefill, all on ``flash_fwd_mma``; none in decode);
+   frames, 32 greedy tokens (12 non-causal encoder and 12 non-causal
+   cross-attention flash launches a prefill on ``flash_fwd_wgmma``, 12
+   causal self-attention ones on ``flash_fwd_mma``; none in decode);
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
@@ -695,13 +698,12 @@ FLASH_MAIN_BF16_ATOL, FLASH_MAIN_BF16_RTOL = 1e-3, 2.0 ** -7
 # mbarrier ring
 REPEATS = 20
 NONCAUSAL_DESIGN = (
-    "flash_fwd_wgmma: FA3-style for sm_90a, a block of 2 consumer warpgroups x 64 query rows "
-    "and 1 producer warpgroup (setmaxnreg 24 / 240); Q once and 128-key K/V tiles by TMA "
-    "(4-D maps over the [B, T, heads, 64] views, 128-byte swizzle, zeros past Tk) into a "
-    "4-stage ring with full/empty mbarriers; S = Q K^T by wgmma m64n128k16 from shared "
-    "memory; online softmax in registers; O += P_hi V + P_lo V by wgmma m64n64k16 with P "
-    "from registers and V MN-major; tile t's Q K^T and tile t-1's P V in flight during "
-    "tile t's softmax; O staged in shared memory and stored by TMA")
+    "flash_fwd_wgmma: sm_90a, a block of one consumer warpgroup (64 query rows) and one "
+    "producer warp; Q once and 128-key K/V tiles by TMA (4-D maps over the [B, T, heads, 64] "
+    "views, 128-byte swizzle, zeros past Tk) into a ring with full/empty mbarriers; S = Q K^T "
+    "by wgmma m64n128k16 from shared memory; online softmax in registers; O += P_hi V + P_lo "
+    "V by wgmma m64n64k16, P from registers, V MN-major; O staged in shared memory and "
+    "stored by TMA; 3 blocks a SM with 2 stages, or 2 with 3 when the grid fits in two a SM")
 # SSD intra-chunk: the JAX test's atol 3e-5 / rtol 3e-4 (fp32 throughout)
 SSD_ATOL, SSD_RTOL = 3e-5, 3e-4
 # the serving main path: Hymba-1.5B at full width, batch 4, 2,048-token

@@ -1,5 +1,6 @@
 // GQA flash attention (forward only), causal or not, with an optional sliding
-// window, on Hopper.
+// window, on Hopper: three kernels, flash_fwd_wgmma, flash_fwd_mma and
+// flash_fwd.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py:
 // flash_attention (body _flash_kernel), both of its modes.  For q
@@ -28,15 +29,54 @@
 // GFLOP, 0.0174 ms, bound by operations; its cross-attention (Tq 256, Tk
 // 1024): 4.29 GFLOP (0.0043 ms) but 21.0 MB (0.0063 ms), bound by bytes.
 //
-// Two kernels share the grid, one block per (query tile of 64 rows, query
+// Three kernels share the grid, one block per (query tile of 64 rows, query
 // head, batch), and the loop over the key tiles from the window's first to
 // the causal last one (the last of Tk when not causal), so wholly masked
-// tiles are never visited (as the TPU kernel's pl.when skips them).  Both
+// tiles are never visited (as the TPU kernel's pl.when skips them).  All
 // read q, k and v in the model's [B, T, H, hd] layout through the element
 // strides they are given (the head dim must be contiguous), so the caller
-// makes no transposed copy.  The
-// wrapper (kernels/flash_attention/kernel.py:route) picks one before the
-// launch:
+// makes no transposed copy.  The wrapper (kernels/flash_attention/kernel.py:
+// route) picks one before the launch:
+//
+// flash_fwd_wgmma: the non-causal mode without a window, bf16 at hd 64, the
+// pointers and strides 16-byte aligned (SeamlessM4T-medium's encoder and
+// cross-attention).  Bound by operations at the encoder shape (17.18 GFLOP
+// useful) and by bytes at the cross shape (21.0 MB); the design is
+// FA3's shape for Hopper, cut to what this card and compiler gave:
+//   - Copies by TMA: 4-D tensor maps over the [B, T, heads, 64] views
+//     (built at each launch with cuTensorMapEncodeTiled, taken through
+//     cudaGetDriverEntryPointByVersion, so no -lcuda), the 128-byte swizzle
+//     (a bf16 row at hd 64 is 128 bytes, what wgmma reads without bank
+//     conflicts), rows past T zero-filled by the hardware.  Q once, K and V
+//     tiles of 128 keys into a ring with a "full" mbarrier (TMA bytes) and
+//     an "empty" one (the 4 consumer warps) a stage.  One producer warp
+//     issues every copy; the consumers spend no registers or instructions
+//     on loads.
+//   - S = Q K^T by wgmma m64n128k16 with both operands in shared memory,
+//     K-major; O += P V by wgmma m64n64k16 with P from registers (the
+//     m64n128 accumulator's pairs are the A fragment) and V from shared
+//     memory, MN-major (the transpose bit), so V needs no transposed copy.
+//   - P in two bf16 parts, P_hi V + P_lo V, as in flash_fwd_mma: one
+//     rounding of p fails the one-step bound where two keys carry a row and
+//     their values cancel (tests/test_torch_flash.py:
+//     test_wgmma_keeps_p_in_two_bf16_parts), so 1.5x the useful products.
+//   - The online softmax in registers in log2 units, ex2.approx; the mask
+//     only on the ragged last tile (a uniform branch); O's rescale skipped
+//     when no row of a warp moved its max.
+//   - A block is one consumer warpgroup of 64 query rows and the producer
+//     warp (160 threads), 3 blocks a SM (2 stages) or, when the grid fits
+//     in two a SM, 2 (3 stages).  Each warpgroup runs Q K^T, softmax and
+//     P V in turn; the SM's other blocks fill the tensor cores meanwhile.
+//   What bounds it, from its own clock64 phase counters on the card: the
+//   softmax, about 520 instructions and 66 ex2 (8 cycles
+//   of the 16-wide SFU each) a warp a tile, half of a warpgroup's time;
+//   the SFU and the issue slots are both near full when three warpgroups
+//   share a sub-partition.  Two consumer warpgroups a block with a producer
+//   warpgroup and setmaxnreg, the FA3 intra-warpgroup overlap (on 64-key
+//   sub-tiles, to fit the registers) and row sums on the tensor cores were
+//   each slower: ptxas held every such kernel to 168 registers a thread
+//   (the launch bound rounded up to whole warpgroups) and spilled or
+//   serialised the wgmma pipeline.
 //
 // flash_fwd_mma: bf16 with hd 16, 32, 64 or 128, q, k, v pointers and batch,
 // head and time strides 16-byte aligned (every prefill of the port).  FA2-style
@@ -97,7 +137,6 @@
 // Head dims 1..128 and any Tq, Tk (the ragged last tiles are masked here).
 
 #include <cstdint>
-#include <type_traits>
 #include <cuda.h>            // CUtensorMap and its enums (no libcuda: see tensor_map_encoder)
 #include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
@@ -501,19 +540,20 @@ cudaError_t launch_mma(const Args& a, int B, int H, cudaStream_t stream) {
 // ---- flash_fwd_wgmma: the non-causal mode at hd 64 on Hopper's wgmma ----
 
 constexpr int kWgHD = 64;                               // one 128-byte swizzle row of bf16
-constexpr int kWgRows = 64;                             // query rows a consumer warpgroup
+constexpr int kWgRows = 64;                             // query rows a block (its warpgroup)
 constexpr int kWgBN = 128;                              // keys a tile
+constexpr int kWgThreads = 160;                         // the consumer warpgroup, the producer warp
 constexpr uint32_t kWgQBytes = kWgRows * kWgHD * 2;     // 8 KB
 constexpr uint32_t kWgKVBytes = kWgBN * kWgHD * 2;      // 16 KB
-constexpr uint32_t kWgOnesBytes = 2048;                 // 16 rows of bf16 ones (TCSUM)
 
-template <int NWG, bool PWG, int MINB>
+// BLOCKS a SM: 3 with a ring of 2 stages, or 2 with 3; the launch bounds
+// let each thread hold 128 or 168 registers, and shared memory (75.8 or
+// 107.6 KB) fits that many blocks
+template <int BLOCKS>
 struct WgCfg {
-  static constexpr int kThreads = 128 * NWG + (PWG ? 128 : 32);
-  static constexpr int kConsumerRegs = NWG == 2 ? 240 : 232;
-  static constexpr int kStages = NWG == 2 ? 4 : (MINB == 3 ? 2 : 3);
-  static constexpr size_t kSmem =     // tiles, the ones, barriers (the base is 1024-aligned)
-      NWG * kWgQBytes + 2 * kStages * kWgKVBytes + kWgOnesBytes + 8 * (2 * kStages + 1);
+  static constexpr int kStages = BLOCKS == 3 ? 2 : 3;
+  static constexpr size_t kSmem =     // Q, the ring, its barriers (the base is 1024-aligned)
+      kWgQBytes + 2 * kStages * kWgKVBytes + 8 * (2 * kStages + 1);
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -522,37 +562,37 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// S = Q K^T for one key tile: 4 k-steps of 16 along hd, both operands
+// K-major in shared memory (a k-step advances each descriptor by 32 bytes
+// inside the swizzled row)
 __device__ __forceinline__ void wg_qk(float (&s)[64], uint64_t dq, uint64_t dk) {
 #pragma unroll
   for (int kk = 0; kk < kWgHD / 16; ++kk) wgmma_m64n128k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
 }
 
-// O += P_hi V + P_lo V; with 36 accumulators also the row sums of P, from
-// 8 more columns of ones (the ones block, one leading byte offset past
-// each k-step's rows of V)
-template <int NO>
-__device__ __forceinline__ void wg_pv(float (&o)[NO], const uint32_t (&ph)[32],
-                                      const uint32_t (&pl)[32], uint32_t v, uint32_t ones) {
+// O += P_hi V + P_lo V: the tile's keys 16 kc .. + 15 are k-step kc (V's
+// rows, 2,048 bytes a step).  V is MN-major: 8-key groups 1,024 bytes
+// apart; hd 64 is one swizzle atom wide, so the atom stride is never used.
+__device__ __forceinline__ void wg_pv(float (&o)[32], const uint32_t (&ph)[32],
+                                      const uint32_t (&pl)[32], uint32_t v) {
 #pragma unroll
   for (int kc = 0; kc < kWgBN / 16; ++kc) {
-    const uint32_t vk = v + 2048 * kc;
-    if constexpr (NO == 36) {
-      const uint64_t d = wgmma_desc_sw128(vk, ones - vk, 1024);
-      wgmma_m64n72k16_rs_tb(o, ph + 4 * kc, d, 1);
-      wgmma_m64n72k16_rs_tb(o, pl + 4 * kc, d, 1);
-    } else {
-      const uint64_t d = wgmma_desc_sw128(vk, 1024, 1024);
-      wgmma_m64n64k16_rs_tb(o, ph + 4 * kc, d, 1);
-      wgmma_m64n64k16_rs_tb(o, pl + 4 * kc, d, 1);
-    }
+    const uint64_t d = wgmma_desc_sw128(v + 2048 * kc, 1024, 1024);
+    wgmma_m64n64k16_rs_tb(o, ph + 4 * kc, d, 1);
+    wgmma_m64n64k16_rs_tb(o, pl + 4 * kc, d, 1);
   }
 }
 
-template <bool MASK, bool LSUM>
+// One key tile's online softmax in wgmma's m64n128 accumulator layout:
+// s[4 j + e] is row g + 8 (e >> 1) of the warp's 16, key 8 j + 2 (lane % 4)
+// + (e & 1) of the tile.  Keys at or past ``valid`` are masked (the ragged
+// last tile only, behind a uniform branch); m (log2 units) and the
+// thread's part of l are updated, corr gets the factor of each row's old
+// sums, and s becomes p = 2^(s sl2 - m) in fp32.
 __device__ __forceinline__ void wg_softmax(float (&s)[64], float (&m)[2], float (&l)[2],
                                            float (&corr)[2], int valid, float sl2) {
   const int tq = threadIdx.x & 3;
-  if (MASK && valid < kWgBN) {
+  if (valid < kWgBN) {
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -572,350 +612,69 @@ __device__ __forceinline__ void wg_softmax(float (&s)[64], float (&m)[2], float 
     const float mn = fmaxf(m[r], mx[r] * sl2);
     corr[r] = ex2(m[r] - mn);
     m[r] = mn;
-    if (LSUM) l[r] *= corr[r];
-  }
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    s[i] = ex2(fmaf(s[i], sl2, -m[(i >> 1) & 1]));
-    if (LSUM) l[(i >> 1) & 1] += s[i];
-  }
-}
-
-template <int NO>
-__device__ __forceinline__ void wg_rescale_split(float (&o)[NO], const float (&corr)[2],
-                                                 const float (&s)[64], uint32_t (&ph)[32],
-                                                 uint32_t (&pl)[32]) {
-  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {   // a row's max moved
-#pragma unroll
-    for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
-  }
-#pragma unroll
-  for (int n = 0; n < 32; ++n) split_bf16(s[2 * n], s[2 * n + 1], ph[n], pl[n]);
-}
-
-// ---- 64-key sub-tiles (OVL): two a 128-key stage ----
-
-__device__ __forceinline__ void wg_qk64(float (&s)[32], uint64_t dq, uint64_t dk) {
-#pragma unroll
-  for (int kk = 0; kk < kWgHD / 16; ++kk) wgmma_m64n64k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
-}
-
-__device__ __forceinline__ void wg_pv64(float (&o)[32], const uint32_t (&ph)[16],
-                                        const uint32_t (&pl)[16], uint32_t v) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const uint64_t d = wgmma_desc_sw128(v + 2048 * kc, 1024, 1024);
-    wgmma_m64n64k16_rs_tb(o, ph + 4 * kc, d, 1);
-    wgmma_m64n64k16_rs_tb(o, pl + 4 * kc, d, 1);
-  }
-}
-
-// wg_softmax on a 64-key sub-tile (s[4 j + e], j < 8)
-template <bool MASK>
-__device__ __forceinline__ void wg_softmax64(float (&s)[32], float (&m)[2], float (&l)[2],
-                                             float (&corr)[2], int valid, float sl2) {
-  const int tq = threadIdx.x & 3;
-  if (MASK && valid < 64) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (8 * j + 2 * tq + (e & 1) >= valid) s[4 * j + e] = kNegInf;
-  }
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float mn = fmaxf(m[r], mx[r] * sl2);
-    corr[r] = ex2(m[r] - mn);
-    m[r] = mn;
     l[r] *= corr[r];
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < 64; ++i) {
     s[i] = ex2(fmaf(s[i], sl2, -m[(i >> 1) & 1]));
     l[(i >> 1) & 1] += s[i];
   }
 }
 
-__device__ __forceinline__ void wg_rescale_split64(float (&o)[32], const float (&corr)[2],
-                                                   const float (&s)[32], uint32_t (&ph)[16],
-                                                   uint32_t (&pl)[16]) {
+// O *= corr (rows by e >> 1, as in S; skipped when no row of the warp moved
+// its max); P = P_hi + P_lo packed in bf16 pairs as wgmma's register A takes
+// them (the m64n128 accumulator's pairs are the A fragment's): ph[4 kc + i]
+// holds s[8 kc + 2 i] and s[8 kc + 2 i + 1]
+__device__ __forceinline__ void wg_rescale_split(float (&o)[32], const float (&corr)[2],
+                                                 const float (&s)[64], uint32_t (&ph)[32],
+                                                 uint32_t (&pl)[32]) {
+  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+  }
 #pragma unroll
-  for (int n = 0; n < 16; ++n) split_bf16(s[2 * n], s[2 * n + 1], ph[n], pl[n]);
+  for (int n = 0; n < 32; ++n) split_bf16(s[2 * n], s[2 * n + 1], ph[n], pl[n]);
 }
 
-// The consumer with 64-key sub-tiles u (stage u / 2, half u % 2), FA3's
-// intra-warpgroup pipeline: sub-tile u's Q K^T and u-1's P V issued
-// together, u's softmax while P V is in flight.
-template <int NWG, int kS>
-__device__ __forceinline__ void wg_consumer_ovl(const CUtensorMap* tm_o, uint32_t sq,
-                                                uint32_t sk, uint32_t sv, uint32_t full,
-                                                uint32_t empty, uint32_t qbar,
-                                                unsigned char* smem, int c, int q0, int h,
-                                                int b, int Tq, int Tk, float sl2,
-                                                unsigned long long* prof) {
-  unsigned long long pc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  long long tk0 = clock64();
-  auto tick = [&](int i) {
-    if (prof) {
-      const long long now = clock64();
-      pc[i] += now - tk0;
-      tk0 = now;
-    }
-  };
-  const int n_sub = (Tk + 63) / 64;
-  const int tid = threadIdx.x & 127, lane = tid & 31;
-  const uint64_t dq = wgmma_desc_sw128(sq + c * kWgQBytes, 16, 1024);
-  auto kdesc = [&](int u) {
-    return wgmma_desc_sw128(sk + (u / 2) % kS * kWgKVBytes + (u & 1) * 8192, 16, 1024);
-  };
-  auto vaddr = [&](int u) { return sv + (u / 2) % kS * kWgKVBytes + (u & 1) * 8192; };
-  auto landed = [&](int u) { mbar_wait(full + 8 * ((u / 2) % kS), (u / 2 / kS) & 1); };
-  auto release = [&](int u) {
-    if (lane == 0) mbar_arrive(empty + 8 * ((u / 2) % kS));
-  };
-  float s[32], o[32], corr[2];
-  uint32_t ph[16], pl[16];
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = o[i] = 0.f;
-  mbar_wait(qbar, 0);
-  tick(7);
-  auto softmax = [&](int u) {
-    const int valid = Tk - 64 * u;
-    if (valid < 64)
-      wg_softmax64<true>(s, m, l, corr, valid, sl2);
-    else
-      wg_softmax64<false>(s, m, l, corr, 64, sl2);
-  };
-  landed(0);
-  tick(0);
-  fence_regs(s);
-  wgmma_fence();
-  wg_qk64(s, dq, kdesc(0));
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(s);
-  tick(1);
-  softmax(0);
-  wg_rescale_split64(o, corr, s, ph, pl);
-  tick(2);
-  for (int u = 1; u < n_sub; ++u) {
-    if (!(u & 1)) landed(u);
-    tick(0);
-    fence_regs(s);
-    fence_regs(o);
-    fence_regs(ph);
-    fence_regs(pl);
-    wgmma_fence();
-    wg_qk64(s, dq, kdesc(u));
-    wgmma_commit();
-    wg_pv64(o, ph, pl, vaddr(u - 1));
-    wgmma_commit();
-    wgmma_wait<1>();                                   // S landed; P V still in flight
-    fence_regs(s);
-    tick(1);
-    softmax(u);
-    tick(2);
-    wgmma_wait<0>();
-    fence_regs(o);
-    fence_regs(ph);
-    fence_regs(pl);
-    tick(3);
-    if (!(u & 1)) release(u - 1);                      // u - 1 ended its stage
-    wg_rescale_split64(o, corr, s, ph, pl);
-  }
-  fence_regs(o);
-  fence_regs(ph);
-  fence_regs(pl);
-  wgmma_fence();
-  wg_pv64(o, ph, pl, vaddr(n_sub - 1));
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(o);
-  tick(3);
-  release(n_sub - 1);
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
-  }
-  const int g = lane >> 2, tq = lane & 3, row0 = (tid >> 5) * 16 + g;
-  unsigned char* so = smem + c * kWgQBytes;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<unsigned*>(so + (row0 + 8 * r) * 128 + ((j ^ g) << 4) + 4 * tq) =
-          pack_bf16(o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r]);
-  fence_proxy_async();
-  named_bar_sync(1 + c, 128);
-  if (tid == 0 && q0 + c * kWgRows < Tq) {
-    tma_store_4d(tm_o, sq + c * kWgQBytes, 0, q0 + c * kWgRows, h, b);
-    tma_store_wait();
-  }
-  tick(5);
-  if (prof && tid == 0) {
-    unsigned long long* out = prof + 8 * ((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x * NWG
-                                          + blockIdx.x * NWG + c);
-    for (int i = 0; i < 8; ++i) out[i] = i < 4 ? pc[i] / 2 : pc[i];   // per 128 keys
-  }
-}
-
-template <int NWG, int kS, int PEEL, bool TCSUM>
-__device__ __forceinline__ void wg_consumer(const CUtensorMap* tm_o, uint32_t sq, uint32_t sk,
-                                            uint32_t sv, uint32_t ones, uint32_t full,
-                                            uint32_t empty, uint32_t qbar, unsigned char* smem,
-                                            int c, int q0, int h, int b, int Tq, int Tk,
-                                            float sl2, unsigned long long* prof) {
-  constexpr int NO = TCSUM ? 36 : 32;
-  unsigned long long pc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  long long tk0 = clock64();
-  auto tick = [&](int i) {
-    if (prof) {
-      const long long now = clock64();
-      pc[i] += now - tk0;
-      tk0 = now;
-    }
-  };
-  const int n_tiles = (Tk + kWgBN - 1) / kWgBN;
-  const int tid = threadIdx.x & 127, lane = tid & 31;
-  const uint64_t dq = wgmma_desc_sw128(sq + c * kWgQBytes, 16, 1024);
-  float s[64], o[NO], corr[2];
-  uint32_t ph[32], pl[32];
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NO; ++i) o[i] = 0.f;
-  mbar_wait(qbar, 0);
-  tick(7);
-  auto tile = [&](int t, auto masked) {
-    const int st = t % kS;
-    mbar_wait(full + 8 * st, (t / kS) & 1);
-    tick(0);
-    fence_regs(s);
-    wgmma_fence();
-    wg_qk(s, dq, wgmma_desc_sw128(sk + st * kWgKVBytes, 16, 1024));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    tick(1);
-    wg_softmax<decltype(masked)::value, !TCSUM>(s, m, l, corr, Tk - t * kWgBN, sl2);
-    wg_rescale_split(o, corr, s, ph, pl);
-    tick(2);
-    fence_regs(o);
-    fence_regs(ph);
-    fence_regs(pl);
-    wgmma_fence();
-    wg_pv(o, ph, pl, sv + st * kWgKVBytes, ones);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-    fence_regs(ph);
-    fence_regs(pl);
-    tick(3);
-    if (lane == 0) mbar_arrive(empty + 8 * st);
-  };
-  using Yes = std::integral_constant<bool, true>;
-  using No = std::integral_constant<bool, false>;
-  if (PEEL) {          // the ragged last tile alone carries the mask
-    const int n_body = Tk % kWgBN ? n_tiles - 1 : n_tiles;
-    for (int t = 0; t < n_body; ++t) tile(t, No());
-    if (n_body < n_tiles) tile(n_body, Yes());
-  } else {
-    for (int t = 0; t < n_tiles; ++t) tile(t, Yes());
-  }
-
-  // epilogue: O / max(l, 1e-30) in bf16 into this warpgroup's Q tile (its
-  // last Q K^T is complete), in the swizzle the output's TMA map reads;
-  // rows past Tq are not stored
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (TCSUM) {
-      l[r] = o[32 + 2 * r];
-    } else {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    }
-    l[r] = 1.f / fmaxf(l[r], 1e-30f);
-  }
-  const int g = lane >> 2, tq = lane & 3, row0 = (tid >> 5) * 16 + g;
-  unsigned char* so = smem + c * kWgQBytes;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)          // row0 + 8 r has row0's swizzle phase g
-      *reinterpret_cast<unsigned*>(so + (row0 + 8 * r) * 128 + ((j ^ g) << 4) + 4 * tq) =
-          pack_bf16(o[4 * j + 2 * r] * l[r], o[4 * j + 2 * r + 1] * l[r]);
-  fence_proxy_async();
-  named_bar_sync(1 + c, 128);
-  if (tid == 0 && q0 + c * kWgRows < Tq) {
-    tma_store_4d(tm_o, sq + c * kWgQBytes, 0, q0 + c * kWgRows, h, b);
-    tma_store_wait();
-  }
-  tick(5);
-  if (prof && tid == 0) {
-    unsigned long long* out = prof + 8 * ((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x * NWG
-                                          + blockIdx.x * NWG + c);
-    for (int i = 0; i < 8; ++i) out[i] = pc[i];
-  }
-}
-
-template <int NWG, bool PWG, int MINB, int PEEL, bool TCSUM>
-__global__ void __launch_bounds__(WgCfg<NWG, PWG, MINB>::kThreads, MINB)
+// One block per (64 query rows, head, batch).  Warp 4 is the producer: its
+// first thread loads Q once, then streams K and V tiles of 128 keys into a
+// ring of kStages by TMA (full[s]: the stage landed; empty[s]: the 4
+// consumer warps are done with it).  Warps 0-3, one warpgroup, consume:
+// per tile Q K^T, the softmax and P V, each waited for in turn; the other
+// blocks on the SM fill the tensor cores meanwhile.
+template <int BLOCKS>
+__global__ void __launch_bounds__(kWgThreads, BLOCKS)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_o, int Tq, int Tk, int group,
-                    float sl2, unsigned long long* prof) {
-  using Cfg = WgCfg<NWG, PWG, MINB>;
-  constexpr int kS = Cfg::kStages;
+                    float sl2) {
+  constexpr int kS = WgCfg<BLOCKS>::kStages;
   extern __shared__ __align__(1024) unsigned char wg_smem[];
-  const uint32_t sq = smem_addr(wg_smem);                // NWG Q tiles (later O)
-  const uint32_t sk = sq + NWG * kWgQBytes;              // kS K tiles
+  const uint32_t sq = smem_addr(wg_smem);                // Q, later O
+  const uint32_t sk = sq + kWgQBytes;                    // kS K tiles
   const uint32_t sv = sk + kS * kWgKVBytes;              // kS V tiles
-  const uint32_t ones = sv + kS * kWgKVBytes;            // 16 rows of bf16 ones
-  const uint32_t full = ones + kWgOnesBytes;             // kS barriers
+  const uint32_t full = sv + kS * kWgKVBytes;            // kS barriers
   const uint32_t empty = full + 8 * kS;                  // kS barriers
   const uint32_t qbar = empty + 8 * kS;
-  const int q0 = blockIdx.x * kWgRows * NWG, h = blockIdx.y, b = blockIdx.z;
-  const int warp = __shfl_sync(0xffffffffu, int(threadIdx.x / 32), 0);
-  const bool producer = PWG ? warp < 4 : warp == 4 * NWG;
+  const int q0 = blockIdx.x * kWgRows, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (Tk + kWgBN - 1) / kWgBN;
   if (sq & 1023) __trap();                               // the swizzle wants 1024-byte tiles
-  if (threadIdx.x < kWgOnesBytes / 16) {
-    reinterpret_cast<uint4*>(wg_smem + (ones - sq))[threadIdx.x] =
-        make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u);
-    fence_proxy_async();
-  }
   if (threadIdx.x == 0) {
     for (int st = 0; st < kS; ++st) {
       mbar_init(full + 8 * st, 1);
-      mbar_init(empty + 8 * st, 4 * NWG);
+      mbar_init(empty + 8 * st, 4);
     }
     mbar_init(qbar, 1);
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (producer) {
-    if (PWG) setmaxnreg_dec<24>();
-    if (threadIdx.x % 128 == 0) {
-      const int n_tiles = (Tk + kWgBN - 1) / kWgBN, kvh = h / group;
-      mbar_arrive_expect_tx(qbar, NWG * kWgQBytes);
-      for (int c = 0; c < NWG; ++c)
-        tma_load_4d(sq + c * kWgQBytes, &tm_q, qbar, 0, q0 + c * kWgRows, h, b);
+  if (threadIdx.x >= 128) {                              // the producer warp
+    if (threadIdx.x == 128) {
+      const int kvh = h / group;
+      mbar_arrive_expect_tx(qbar, kWgQBytes);
+      tma_load_4d(sq, &tm_q, qbar, 0, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kS;
         mbar_wait(empty + 8 * st, ((t / kS) & 1) ^ 1);
@@ -924,14 +683,64 @@ __global__ void __launch_bounds__(WgCfg<NWG, PWG, MINB>::kThreads, MINB)
         tma_load_4d(sv + st * kWgKVBytes, &tm_v, full + 8 * st, 0, t * kWgBN, kvh, b);
       }
     }
-  } else {
-    if (PWG) setmaxnreg_inc<Cfg::kConsumerRegs>();
-    if constexpr (PEEL == 2)
-      wg_consumer_ovl<NWG, kS>(&tm_o, sq, sk, sv, full, empty, qbar, wg_smem,
-                               warp / 4 - (PWG ? 1 : 0), q0, h, b, Tq, Tk, sl2, prof);
-    else
-      wg_consumer<NWG, kS, PEEL, TCSUM>(&tm_o, sq, sk, sv, ones, full, empty, qbar, wg_smem,
-                                        warp / 4 - (PWG ? 1 : 0), q0, h, b, Tq, Tk, sl2, prof);
+    return;
+  }
+
+  const int lane = threadIdx.x & 31;
+  const uint64_t dq = wgmma_desc_sw128(sq, 16, 1024);
+  float s[64], o[32], corr[2];
+  uint32_t ph[32], pl[32];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kS;
+    mbar_wait(full + 8 * st, (t / kS) & 1);
+    fence_regs(s);
+    wgmma_fence();
+    wg_qk(s, dq, wgmma_desc_sw128(sk + st * kWgKVBytes, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    wg_softmax(s, m, l, corr, Tk - t * kWgBN, sl2);
+    wg_rescale_split(o, corr, s, ph, pl);
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    wgmma_fence();
+    wg_pv(o, ph, pl, sv + st * kWgKVBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  }
+
+  // epilogue: O / max(l, 1e-30) in bf16 into Q's tile (the last Q K^T is
+  // complete), in the swizzle the output's TMA map reads; rows past Tq are
+  // not stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  const int g = lane >> 2, tq = lane & 3, row0 = (threadIdx.x >> 5) * 16 + g;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)          // row0 + 8 r has row0's swizzle phase g
+      *reinterpret_cast<unsigned*>(wg_smem + (row0 + 8 * r) * 128 + ((j ^ g) << 4) + 4 * tq) =
+          pack_bf16(o[4 * j + 2 * r] * l[r], o[4 * j + 2 * r + 1] * l[r]);
+  fence_proxy_async();
+  named_bar_sync(1, 128);
+  if (threadIdx.x == 0) {
+    tma_store_4d(&tm_o, sq, 0, q0, h, b);
+    tma_store_wait();
   }
 }
 
@@ -970,23 +779,18 @@ bool make_tensor_map(CUtensorMap* map, const void* ptr, const long long* st3, in
          CUDA_SUCCESS;
 }
 
-unsigned long long* g_prof = nullptr;
-
-template <int NWG, bool PWG, int MINB, int PEEL, bool TCSUM>
+template <int BLOCKS>
 cudaError_t launch_wgmma(const CUtensorMap (&maps)[4], int B, int H, int Tq, int Tk, int group,
                          float sl2, cudaStream_t stream) {
-  const auto kern = flash_fwd_wgmma<NWG, PWG, MINB, PEEL, TCSUM>;
-  constexpr size_t bytes = WgCfg<NWG, PWG, MINB>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(bytes));
+  constexpr size_t bytes = WgCfg<BLOCKS>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<BLOCKS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + kWgRows * NWG - 1) / (kWgRows * NWG), H, B);
-  kern<<<grid, WgCfg<NWG, PWG, MINB>::kThreads, bytes, stream>>>(maps[0], maps[1], maps[2],
-      maps[3], Tq, Tk, group, sl2, g_prof);
+  const dim3 grid((Tq + kWgRows - 1) / kWgRows, H, B);
+  flash_fwd_wgmma<BLOCKS><<<grid, kWgThreads, bytes, stream>>>(maps[0], maps[1], maps[2],
+                                                               maps[3], Tq, Tk, group, sl2);
   return cudaGetLastError();
 }
-
-int g_wgmma_variant = 0;   // which instance launches (timing only)
 
 Args make_args(const void* q, const void* k, const void* v, void* o, const long long* strides,
                int H, int KV, int Tq, int Tk, int hd, int window, int causal, float scale) {
@@ -1072,23 +876,19 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, vo
       !make_tensor_map(&maps[2], v, strides + 6, B, KV, Tk, kWgBN) ||
       !make_tensor_map(&maps[3], o, strides + 9, B, H, Tq, kWgRows))
     return int(cudaErrorInvalidValue);
+  // a grid that fits in two blocks a SM (SeamlessM4T's cross-attention, 256
+  // blocks) runs two a SM with three stages; a larger one (its encoder, 1,024
+  // blocks) three a SM with two, which was faster there and slower here
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return int(err);
+  const long long blocks = 1LL * ((Tq + kWgRows - 1) / kWgRows) * H * B;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * 1.4426950408889634f;
-  switch (g_wgmma_variant) {
-    case 0: return int(launch_wgmma<1, false, 3, 0, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
-    case 1: return int(launch_wgmma<2, true, 1, 0, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
-    case 2: return int(launch_wgmma<2, false, 1, 0, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
-    case 3: return int(launch_wgmma<1, false, 2, 0, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
-    case 4: return int(launch_wgmma<1, false, 3, 1, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
-    case 5: return int(launch_wgmma<1, false, 3, 0, true>(maps, B, H, Tq, Tk, H / KV, sl2, s));
-    case 6: return int(launch_wgmma<1, false, 3, 2, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
-    case 7: return int(launch_wgmma<1, false, 2, 2, false>(maps, B, H, Tq, Tk, H / KV, sl2, s));
-    default: return int(cudaErrorInvalidValue);
-  }
+  if (blocks <= 2LL * sms) return int(launch_wgmma<2>(maps, B, H, Tq, Tk, H / KV, sl2, s));
+  return int(launch_wgmma<3>(maps, B, H, Tq, Tk, H / KV, sl2, s));
 }
-
-void flash_attention_wgmma_set_prof(void* p) { g_prof = static_cast<unsigned long long*>(p); }
-
-void flash_attention_wgmma_set_variant(int variant) { g_wgmma_variant = variant; }
 
 }  // extern "C"

@@ -3,14 +3,13 @@ sliding window.
 
 Launches one of three kernels of ``repro_torch/csrc/flash_attention.cu``
 (built with ``nvcc`` for ``sm_90a`` at first use, loaded with ``ctypes``)
-on the current stream, as :func:`route` says: ``flash_fwd_wgmma``
-(``"wgmma"``: the non-causal mode without a window, bf16 at hd 64, on
-Hopper's ``wgmma`` with TMA loads and a producer warpgroup; one block per
-128 query rows, head and batch), ``flash_fwd_mma`` (``"mma"``: the rest of
-bf16 on the ``mma.sync`` tensor cores) or ``flash_fwd`` (``"simt"``: fp32
-sums on the CUDA cores, any head dim up to 128, f32 or bf16); the last two
-one block per 64-row query tile, head and batch.  The source's header note
-gives the bound and the three designs.  Replaces the Pallas kernel
+on the current stream, one block per (64-row query tile, head, batch), as
+:func:`route` says: ``flash_fwd_wgmma`` (``"wgmma"``: the non-causal mode
+without a window, bf16 at hd 64, on Hopper's ``wgmma`` with TMA loads by a
+producer warp), ``flash_fwd_mma`` (``"mma"``: the rest of bf16 on the
+``mma.sync`` tensor cores) or ``flash_fwd`` (``"simt"``: fp32 sums on the
+CUDA cores, any head dim up to 128, f32 or bf16).  The source's header
+note gives the bound and the three designs.  Replaces the Pallas kernel
 ``repro/kernels/flash_attention/kernel.py:flash_attention``.
 """
 from __future__ import annotations
