@@ -621,19 +621,21 @@ __device__ __forceinline__ void wg_softmax(float (&s)[64], float (&m)[2], float 
   }
 }
 
-// O *= corr (rows by e >> 1, as in S; skipped when no row of the warp moved
-// its max); P = P_hi + P_lo packed in bf16 pairs as wgmma's register A takes
-// them (the m64n128 accumulator's pairs are the A fragment's): ph[4 kc + i]
-// holds s[8 kc + 2 i] and s[8 kc + 2 i + 1]
-__device__ __forceinline__ void wg_rescale_split(float (&o)[32], const float (&corr)[2],
+// P = P_hi + P_lo packed in bf16 pairs as wgmma's register A takes them
+// (the m64n128 accumulator's pairs are the A fragment's): ph[4 kc + i] holds
+// s[8 kc + 2 i] and s[8 kc + 2 i + 1]; then O *= corr (rows by e >> 1, as
+// in S), skipped when no row of the warp moved its max.  The split comes
+// first: the rescale's branch then keeps the compiler from spreading the
+// split between the P V instructions, which stretched their issue.
+__device__ __forceinline__ void wg_split_rescale(float (&o)[32], const float (&corr)[2],
                                                  const float (&s)[64], uint32_t (&ph)[32],
                                                  uint32_t (&pl)[32]) {
+#pragma unroll
+  for (int n = 0; n < 32; ++n) split_bf16(s[2 * n], s[2 * n + 1], ph[n], pl[n]);
   if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
   }
-#pragma unroll
-  for (int n = 0; n < 32; ++n) split_bf16(s[2 * n], s[2 * n + 1], ph[n], pl[n]);
 }
 
 // One block per (64 query rows, head, batch).  Warp 4 is the producer: its
@@ -706,7 +708,7 @@ __global__ void __launch_bounds__(kWgThreads, BLOCKS)
     wgmma_wait<0>();
     fence_regs(s);
     wg_softmax(s, m, l, corr, Tk - t * kWgBN, sl2);
-    wg_rescale_split(o, corr, s, ph, pl);
+    wg_split_rescale(o, corr, s, ph, pl);
     fence_regs(o);
     fence_regs(ph);
     fence_regs(pl);
