@@ -1330,7 +1330,8 @@ def serve_main_path(dev, flash_row: dict, ssd_row: dict) -> dict:
     if prefill != (cfg.n_layers, cfg.n_layers) or decode != (0, 0):
         raise AssertionError(f"serve launches: prefill {prefill}, decode {decode}, want "
                              f"({cfg.n_layers}, {cfg.n_layers}) and (0, 0)")
-    if routes != {"mma": cfg.n_layers, "simt": 0} or ssd_routes != routes:
+    all_mma = {"mma": cfg.n_layers, "simt": 0}
+    if routes != {"wgmma": 0, **all_mma} or ssd_routes != all_mma:
         raise AssertionError(f"serve: the prefill's flash launches took {routes} and its SSD "
                              f"launches {ssd_routes}, want all {cfg.n_layers} of each on mma")
 
