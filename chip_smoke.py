@@ -877,8 +877,8 @@ def check_flash_noncausal(dev) -> dict:
     shape (q, k, v [4, 1024, 16, 64]) and cross-attention shape (q [4, 256,
     16, 64], k/v [4, 1024, 16, 64]) in bf16 on ``wgmma`` and f32 on
     ``simt``; ragged Tq and Tk off the 128-key tile (Tq 200 over Tk 1000,
-    Tq 1 over Tk 129, Tq 130, whose last block's second warpgroup holds no
-    row), Tq > Tk, GQA, q, k and v as strided slices of packed tensors, all
+    Tq 1 over Tk 129, Tq 130, whose last block holds 2 rows), Tq > Tk, GQA,
+    q, k and v as strided slices of packed tensors, all
     on ``wgmma``; a window and hd 32 on ``mma``; every bf16 case within one
     bf16 step, every f32 case at 2e-5.  Then 20 launches at each path shape
     bitwise equal (the race check on the mbarrier ring), and

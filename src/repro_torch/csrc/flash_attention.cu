@@ -547,8 +547,8 @@ constexpr uint32_t kWgQBytes = kWgRows * kWgHD * 2;     // 8 KB
 constexpr uint32_t kWgKVBytes = kWgBN * kWgHD * 2;      // 16 KB
 
 // BLOCKS a SM: 3 with a ring of 2 stages, or 2 with 3; the launch bounds
-// let each thread hold 128 or 168 registers, and shared memory (75.8 or
-// 107.6 KB) fits that many blocks
+// let each thread hold 128 or 168 registers, and shared memory (73,768 or
+// 106,552 bytes a block) fits that many blocks
 template <int BLOCKS>
 struct WgCfg {
   static constexpr int kStages = BLOCKS == 3 ? 2 : 3;
@@ -879,8 +879,8 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, vo
       !make_tensor_map(&maps[3], o, strides + 9, B, H, Tq, kWgRows))
     return int(cudaErrorInvalidValue);
   // a grid that fits in two blocks a SM (SeamlessM4T's cross-attention, 256
-  // blocks) runs two a SM with three stages; a larger one (its encoder, 1,024
-  // blocks) three a SM with two, which was faster there and slower here
+  // blocks) runs two a SM with three stages, a larger one (its encoder, 1,024
+  // blocks) three a SM with two: each was the faster at its shape
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
