@@ -29,7 +29,7 @@
    20 repeated launches at each path shape bitwise equal, and timed at
    those two shapes (``flash_fwd_wgmma``, ``flash_fwd_mma``, ``flash_fwd``)
    beside unmasked SDPA;
-3. drives seven main paths through the user entry point, each with every
+3. drives eight main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
@@ -44,8 +44,14 @@
    default: every client's local steps batched over the cohort), with the
    same launch counts, each path's round wall and peak memory printed
    beside the sequential path's, and the device kernels in a dense round
-   in both modes (``--profile`` traces the other paths' rounds);
-   then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
+   in both modes (``--profile`` traces the other paths' rounds); then the
+   bucketed execution layout (``exec_mode="bucketed"``, 4 buckets: each
+   step bucket's occupied rows for its K_b steps), dense sequential and
+   dense, qsgd both ways and MVR exact vmapped, with
+   ``rr_perm`` launched once a non-empty bucket (counted from the host
+   plans), each path's round wall, peak memory and client steps a round
+   printed beside its padded twin's, and a dense round traced in each
+   mode; then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
    seed 0) through ``launch/serve.py:generate``: batch 4, 2,048-token
    prompts, 32 greedy tokens (one flash attention launch a layer in the
    prefill, all on ``flash_fwd_mma``, and one SSD launch, all on
@@ -60,7 +66,10 @@
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
    bitwise-identical parameters, the comm metrics equal to the wire's
    arithmetic, the vmapped dense parameters within ``VMAPPED_SEQ_RTOL`` of
-   the sequential run's, CharLM-tiny runs on the card (dense, ``ef_qsgd`` /
+   the sequential run's, the bucketed sequential dense parameters bitwise
+   equal to the padded run's and each bucketed vmapped path's to its padded
+   twin's (or within the bound ``BUCKETED_FLIP_SHARE``'s comment states),
+   CharLM-tiny runs on the card (dense, ``ef_qsgd`` /
    ``qsgd``, mvr App. F and exact, each sequential and vmapped, and dense
    vmapped) agreeing with the port on the CPU;
    for serving, finite logits, each layer's flash and SSD launch against
@@ -125,6 +134,19 @@ VMAPPED = dict(cohort_mode="vmapped")
 # rounds) differs by 1.2e-7 of a leaf's largest magnitude, and the bound
 # leaves ~80x of that for cuBLAS picking other algorithms on the card.
 VMAPPED_SEQ_RTOL = 1e-5
+# the bucketed execution layout (FLConfig.exec_mode, buckets at the default
+# 4): each step bucket's occupied rows for its K_b steps
+BUCKETED = dict(exec_mode="bucketed", buckets=4)
+# the bucketed paths against their padded twins.  Sequential: bitwise (each
+# slot runs the same kernels on the same inputs; its last steps, masked in
+# the padded layout, are exact no-ops).  Vmapped: bitwise predicted, but a
+# [C_b] batch may take another cuBLAS GEMM or another split of a reduction
+# than the [C] batch, which sums in another order; then each leaf within
+# VMAPPED_SEQ_RTOL of its largest magnitude (dense, MVR), and with qsgd an
+# element further off than that may only be a stochastic level flip: within
+# one uplink level a round (server_lr * coefficient * scale / L), under
+# 0.1 % of the elements, as check_small_reference holds the card to the CPU.
+BUCKETED_FLIP_SHARE = 1e-3
 # server_update.cu: fp32 operations a value (negate, 4 multiplies, 2 adds;
 # 1 - a once a thread)
 SERVER_UPDATE_OPS = 7
@@ -184,6 +206,30 @@ def main_path_inputs(rounds: int):
     pipe = FederatedPipeline(None, Population.build(fl), fl)
     plans = [pipe.index_plan(r, with_idx=False) for r in range(rounds)]
     return fl, pipe.k_max, plans
+
+
+def bucketed_layout(rounds: int) -> list[tuple[int, int, int, int]]:
+    """The bucketed main path's host plans, rounds 0..rounds-1: (non-empty
+    buckets, client steps of their occupied rows, of the static layout
+    sum_b C_b * K_b, of the padded layout C * K_max) a round.  A round that
+    overflows its buckets runs padded: one launch, padded steps."""
+    from repro_torch.data.federated import BucketedPlan, FederatedPipeline, Population
+    from repro_torch.fed.bucketing import occupied
+    from repro_torch.launch.train import charlm_e2e_config
+
+    _, fl = charlm_e2e_config(**BUCKETED)
+    pipe = FederatedPipeline(None, Population.build(fl), fl)
+    padded = pipe.cohort_slots * pipe.k_max
+    out = []
+    for r in range(rounds):
+        plan = pipe.bucketed_plan(r, with_idx=False)
+        if not isinstance(plan, BucketedPlan):
+            out.append((1, padded, padded, padded))
+            continue
+        kept, _ = occupied(plan.buckets, plan.pos)
+        out.append((len(kept), sum(b.step_mask.size for b in kept),
+                    sum(b.step_mask.size for b in plan.buckets), padded))
+    return out
 
 
 def check_rr_perm(dev) -> dict:
@@ -1716,7 +1762,7 @@ def profile_round(dev, out_dir: Path, label: str, **comm) -> None:
     print(f"profile {label}: {summary} -> {path}", flush=True)
 
 
-def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> None:
+def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> tuple[dict, dict]:
     """Main path 6: the four training paths again in the vmapped cohort mode
     (every client's local steps batched over the cohort), each with its
     launch counts set to 0 just before and read just after, written into
@@ -1731,7 +1777,9 @@ def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> None:
     the dense path the device kernels and copies in one round (traced after
     the run; ``--profile`` traces the others) beside the sequential path's
     (``seq``: label -> (round wall ms, peak bytes, kernels and copies in a
-    round, their device ms; the last two for the dense path alone))."""
+    round, their device ms; the last two for the dense path alone)).
+    Returns each path's parameters (on the host) and the same stats of the
+    vmapped paths, which the bucketed paths are held and printed against."""
     import torch
 
     from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
@@ -1749,6 +1797,7 @@ def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> None:
              ("mvr", MVR, ROUNDS, {"rr_perm": ROUNDS, "server_update": ROUNDS}),
              ("mvr_exact", dict(mvr_exact=True, **MVR), MVR_EXACT_ROUNDS,
               {"rr_perm": MVR_EXACT_ROUNDS, "server_update": 0})]
+    twins, stats = {}, {}
     for label, kw, rounds, want in paths:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1777,7 +1826,7 @@ def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> None:
             check_comm_metrics(res.metrics.rows, charlm_e2e_config(**COMM)[1])
         del res
         if label == "dense":
-            worst = max(float((params[k] - v).abs().max() / v.abs().max())
+            worst = max(float((params[k].cpu() - v).abs().max() / v.abs().max())
                         for k, v in seq_params.items())
             if worst > VMAPPED_SEQ_RTOL:
                 raise AssertionError(f"vmapped vs sequential dense params: {worst:.3e} of a "
@@ -1797,18 +1846,211 @@ def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> None:
             print(f"vmapped {label} path with {twin[label]}: parameters bitwise equal",
                   flush=True)
             del ref
+        twins[label] = {k: v.cpu() for k, v in params.items()}
         del params
         s_wall, s_peak, *s_kernels = seq[label]
+        stats[label] = (wall, peak)
         traced = ""
         if label == "dense":
             t0 = time.perf_counter()
             n, busy_ms = round_kernels(dev, **kw, **VMAPPED)
+            stats[label] += (n, busy_ms)
             traced = (f"; device kernels and copies in a round {n} vs {s_kernels[0]}, their "
                       f"device time {busy_ms:.1f} vs {s_kernels[1]:.1f} ms (traced in "
                       f"{time.perf_counter() - t0:.1f} s)")
         print(f"vmapped vs sequential, {label}: round wall {wall:.1f} vs {s_wall:.1f} ms "
               f"({s_wall / wall:.2f}x); peak {peak / 2**30:.3f} vs {s_peak / 2**30:.3f} "
               f"GiB{traced}", flush=True)
+    torch.cuda.empty_cache()
+    return twins, stats
+
+
+def held_to_twin(label: str, got: dict, want: dict, level: float | None = None) -> str:
+    """A bucketed path's parameters against its padded twin's: "bitwise",
+    or else (the vmapped mode) each leaf within ``VMAPPED_SEQ_RTOL`` of its
+    largest magnitude, except, with a codec (``level`` given: one uplink
+    level over the path's rounds), elements within one level of their twin,
+    under ``BUCKETED_FLIP_SHARE`` of them.  Raises past the bound; returns
+    what held.  ``want`` is on the host."""
+    import torch
+
+    got = {k: v.cpu() for k, v in got.items()}
+    if all(torch.equal(got[k], want[k]) for k in want):
+        return "bitwise"
+    worst, flips, total = 0.0, 0, 0
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        top = float(w.abs().max().clamp_min(1e-12))
+        off = d > VMAPPED_SEQ_RTOL * top
+        if bool(off.any()) and (level is None or bool((d[off] > level * (1 + 1e-3)).any())):
+            raise AssertionError(f"bucketed {label} path vs its padded twin: {k} off by "
+                                 f"{float(d.max()) / top:.3e} of its max (bound "
+                                 f"{VMAPPED_SEQ_RTOL}, one level {level})")
+        flips += int(off.sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()) / top)
+    if flips > BUCKETED_FLIP_SHARE * total:
+        raise AssertionError(f"bucketed {label} path: {flips} of {total} elements flipped a level")
+    return (f"not bitwise: largest difference {worst:.3e} of a leaf's max; {flips} of {total} "
+            f"elements past {VMAPPED_SEQ_RTOL} of it, each within one level ({level})")
+
+
+def qsgd_level(rounds: int, scales: list) -> float:
+    """One uplink level of the qsgd main path over ``rounds`` rounds:
+    rounds * server_lr * the largest aggregation coefficient of its host
+    plans * the largest qsgd scale met (``scales``, device tensors) / L."""
+    import torch
+
+    from repro_torch.data.federated import FederatedPipeline, Population
+    from repro_torch.fed.rounds import as_device_meta
+    from repro_torch.fed.strategy import bind_strategy
+    from repro_torch.launch.train import charlm_e2e_config
+
+    _, fl = charlm_e2e_config(**COMM, **BUCKETED)
+    pipe = FederatedPipeline(None, Population.build(fl), fl)
+    strat = bind_strategy(None, fl, None, num_clients=fl.num_clients)
+    coeff = max(float(strat.agg_coeffs(as_device_meta(pipe.index_plan(r, with_idx=False).meta,
+                                                      "cpu")).abs().max())
+                for r in range(rounds))
+    scale = float(torch.stack(scales).max())
+    return rounds * fl.server_lr * coeff * scale / (2 ** (fl.uplink_bits - 1) - 1)
+
+
+def gemm_batch_twins(dev) -> list[str]:
+    """Whether a batched fp32 product over a bucket's C_b rows gives the bits
+    the same rows get in the padded [C] batch, at the main path's products
+    (x @ w of 4 x 128 tokens at width 768: the attention projection, the MLP
+    up and down, the logits; and the weight gradients x^T @ g): the cases
+    that differ, as "shape/C_b".  One way the vmapped bucketed round can
+    leave its padded twin's bits."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    C, T = 8, 4 * 128
+    differ = []
+    for d, f in ((768, 768), (768, 3072), (3072, 768), (768, 512)):
+        x = torch.randn((C, T, d), generator=gen, device=dev)
+        w = torch.randn((C, d, f), generator=gen, device=dev)
+        g = torch.randn((C, T, f), generator=gen, device=dev)
+        full = (x @ w, x.transpose(1, 2) @ g)
+        for cb in range(1, 5):
+            part = (x[:cb] @ w[:cb], x[:cb].transpose(1, 2) @ g[:cb])
+            for name, a, b in zip(("xw", "xTg"), part, full):
+                if not torch.equal(a, b[:cb]):
+                    differ.append(f"{name} {d}x{f}/{cb}")
+    return differ
+
+
+def bucketed_main_paths(dev, seq: dict, seq_params: dict, vm: dict, vm_params: dict,
+                        rows: dict) -> None:
+    """Main path 8: the bucketed layout (``exec_mode="bucketed"``, 4
+    buckets): dense sequential, then dense, qsgd both ways and MVR exact
+    vmapped, each with its launch counts set to 0 just before and
+    read just after (the kernels line's rows, key ``bucketed_launches``).
+    The predicted counts come from the host plans: rr_perm once a non-empty
+    bucket a round, quantize 2 x 12 a direction a round (all ``warp``),
+    no server_update (App. F is not driven bucketed: its one launch a round
+    does not depend on the layout).  The sequential dense parameters must
+    equal ``seq_params`` (on the host) bitwise; each vmapped path's is
+    held to its padded twin in ``vm_params`` by ``held_to_twin``.  Prints
+    each path's round wall and peak memory beside the padded path's (``seq``
+    and ``vm``: label -> (round wall ms, peak bytes[, kernels and copies in a
+    round, their device ms])), the client steps a round (occupied, static,
+    padded) and, for dense, the device kernels and time of one traced round
+    (round 0)."""
+    import torch
+
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+    from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
+    from repro_torch.kernels.server_update.kernel import server_update_kernel
+    from repro_torch.launch.train import charlm_e2e_config
+
+    kernels = {"rr_perm": rr_indices_kernel, "quantize_pack": quantize_pack_kernel,
+               "unpack_dequantize": unpack_dequantize_kernel,
+               "server_update": server_update_kernel}
+    layout = bucketed_layout(ROUNDS)
+    differ = gemm_batch_twins(dev)
+    print(f"batched fp32 products over C_b = 1..4 rows vs the same rows of a [8] batch: "
+          f"{len(differ)} of 32 cases differ {differ}", flush=True)
+    print(f"bucketed layout, rounds 0-{ROUNDS - 1}: non-empty buckets "
+          f"{[r[0] for r in layout]}, client steps a round {[r[1] for r in layout]} "
+          f"(static layout {layout[0][2]}, padded {layout[0][3]})", flush=True)
+    nq = 2 * len(e2e_wire_leaves()) * ROUNDS
+    seq_kw = dict(cohort_mode="sequential")
+    paths = [("dense", "sequential", seq_kw, ROUNDS),
+             ("dense", "vmapped", VMAPPED, ROUNDS),
+             ("qsgd", "vmapped", COMM | VMAPPED, ROUNDS),
+             ("mvr_exact", "vmapped", dict(mvr_exact=True, **MVR, **VMAPPED),
+              MVR_EXACT_ROUNDS)]
+    pack = qops.quantize_pack
+    for label, mode, kw, rounds in paths:
+        want = {"rr_perm": sum(r[0] for r in layout[:rounds]),
+                "quantize_pack": nq if label == "qsgd" else 0,
+                "unpack_dequantize": nq if label == "qsgd" else 0,
+                "server_update": 0}
+        scales = []
+
+        def recording(*a, **k):
+            out = pack(*a, **k)
+            scales.append(out[1].amax())
+            return out
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        qops.quantize_pack = recording
+        try:
+            zero_counts(*kernels.values())
+            t0 = time.perf_counter()
+            res = run_main_path(dev, "device", rounds, **kw, **BUCKETED)
+            torch.cuda.synchronize()
+            got = {name: kern.launches for name, kern in kernels.items()}
+            routes = {name: dict(kern.route_launches) for name, kern in kernels.items()
+                      if hasattr(kern, "route_launches")}
+        finally:
+            qops.quantize_pack = pack
+        peak = torch.cuda.max_memory_allocated()
+        tag = f"bucketed {label} path, {mode}"
+        wall = report_rounds(tag, res, time.perf_counter() - t0, peak, rounds)
+        for name, n in got.items():
+            rows[name].setdefault("bucketed_launches", {})[f"{label}_{mode}"] = n
+        if got != want:
+            raise AssertionError(f"{tag} launches (got, want): {got}, {want}")
+        if label == "qsgd" and routes != {k: {"warp": nq, "block": 0} for k in routes}:
+            raise AssertionError(f"{tag} routes: {routes} (want all {nq} warp)")
+        print(f"{tag} launches: {got}, as predicted from the host plans", flush=True)
+        if label.startswith("mvr") and not all(torch.isfinite(v).all()
+                                               for v in res.state.opt["m"].values()):
+            raise AssertionError(f"{tag}: non-finite gradient estimate")
+        if label == "qsgd":
+            check_comm_metrics(res.metrics.rows, charlm_e2e_config(**COMM)[1])
+        params = res.state.params
+        del res
+        if mode == "sequential":
+            differ = [k for k in seq_params if not torch.equal(params[k].cpu(), seq_params[k])]
+            if differ:
+                raise AssertionError(f"{tag} vs the padded sequential path: params differ "
+                                     f"in {differ}")
+            held = "bitwise"
+            twin_wall, twin_peak, *twin_kernels = seq[label]
+        else:
+            level = qsgd_level(rounds, scales) if label == "qsgd" else None
+            held = held_to_twin(f"{label} {mode}", params, vm_params[label], level)
+            twin_wall, twin_peak, *twin_kernels = vm[label]
+        del params
+        print(f"{tag} vs its padded twin: parameters {held}", flush=True)
+        traced = ""
+        if label == "dense":
+            t0 = time.perf_counter()
+            n, busy_ms = round_kernels(dev, **kw, **BUCKETED)
+            traced = (f"; round 0: device kernels and copies {n} vs {twin_kernels[0]}, their "
+                      f"device time {busy_ms:.1f} vs {twin_kernels[1]:.1f} ms (traced in "
+                      f"{time.perf_counter() - t0:.1f} s)")
+        steps = [r[1] for r in layout[:rounds]]
+        print(f"bucketed vs padded, {label} {mode}: round wall {wall:.1f} vs {twin_wall:.1f} ms "
+              f"({twin_wall / wall:.2f}x); peak {peak / 2**30:.3f} vs {twin_peak / 2**30:.3f} "
+              f"GiB; client steps a round {steps} (static {layout[0][2]}, padded "
+              f"{layout[0][3]}){traced}", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -1929,7 +2171,9 @@ def main() -> int:
         raise AssertionError(f"device vs device_ref params differ in {differ}")
     print("main path with the plain rr version (device_ref): parameters bitwise equal",
           flush=True)
-    seq_params = res.state.params     # held against the vmapped dense path below
+    # held against the vmapped and bucketed paths below, on the host: each
+    # path's peak device memory is its own
+    seq_params = {k: v.cpu() for k, v in res.state.params.items()}
     del res, ref
     t0 = time.perf_counter()
     seq["dense"] += round_kernels(dev)
@@ -2019,12 +2263,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # main path 6, the four training paths in the vmapped cohort mode
+    rows = {"rr_perm": rr, "quantize_pack": quant, "unpack_dequantize": dequant,
+            "server_update": upd}
     t0 = time.perf_counter()
-    vmapped_main_paths(dev, seq, seq_params,
-                       {"rr_perm": rr, "quantize_pack": quant, "unpack_dequantize": dequant,
-                        "server_update": upd})
-    del seq_params
+    vm_params, vm = vmapped_main_paths(dev, seq, seq_params, rows)
     print(f"vmapped main paths: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # main path 8, the bucketed layout, held to the padded runs above
+    t0 = time.perf_counter()
+    bucketed_main_paths(dev, seq, seq_params, vm, vm_params, rows)
+    del seq_params, vm_params
+    torch.cuda.empty_cache()
+    print(f"bucketed main paths: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # main path 5, serving Hymba-1.5B: one flash_attention and one
     # ssd_intra_chunk launch a layer in the prefill, none in decode

@@ -12,9 +12,9 @@ default: the CUDA kernel for a CUDA tensor, the plain torch version for a
 CPU tensor) or ``"ref"`` (the plain torch version on any device) where the
 JAX package takes ``"pallas"`` / ``"ref"``.  A default of ``"ref"`` would
 keep the kernel off the card's main path.  A value the port does not
-implement yet (``cohort_mode="vmapped"``, ``exec_mode="bucketed"``, the
-``adam`` / ``scaffold`` server opts, the ``scaffold`` / ``fedprox`` /
-``local_clip`` local updates, ``prefetch > 0`` on the cohort engine) raises
+implement yet (the ``adam`` / ``scaffold`` server opts, the ``scaffold`` /
+``fedprox`` / ``local_clip`` local updates, ``prefetch > 0`` on the cohort
+engine, a participation schedule other than ``iid``) raises
 ``NotImplementedError`` at bind time.
 """
 from __future__ import annotations
@@ -115,6 +115,11 @@ Sampling = Literal["full", "uniform", "independent"]
 ServerOpt = Literal["sgd", "momentum", "mvr", "adam", "scaffold"]
 CohortMode = Literal["vmapped", "sequential"]
 Engine = Literal["legacy", "cohort"]
+# Round-batch layout the round step executes:
+#   padded   — one [C, K_max] masked loop for the whole cohort (reference)
+#   bucketed — slots partitioned into static step buckets; one [C_b, K_b]
+#              loop per bucket, results reassembled in slot order so every
+#              aggregate is bitwise-identical to the padded layout
 ExecMode = Literal["padded", "bucketed"]
 # Where the RR index matrices [C, K_max, B] come from:
 #   host         — numpy PCG permutations per cohort client (bitwise-identical
@@ -154,7 +159,9 @@ class FLConfig:
     # cohort execution
     cohort_mode: CohortMode = "vmapped"
     accum_dtype: str = "float32"   # sequential-mode delta accumulator dtype
+    # execution layout (padding-free bucketed loops for imbalanced local work)
     exec_mode: ExecMode = "padded"
+    buckets: int = 4               # max step buckets when exec_mode="bucketed"
     # cohort engine (device-resident data plane; repro_torch.fed.cohort)
     engine: Engine = "legacy"      # "cohort" => device-resident data plane
     rr_backend: RRBackend = "host"

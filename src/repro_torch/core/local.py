@@ -55,6 +55,17 @@ def _step_batch(data: dict, k: int) -> dict:
     return {n: v[k] for n, v in data.items()}
 
 
+def _sum_steps(losses: list) -> torch.Tensor:
+    """The steps' masked losses added in step order.  A masked step adds an
+    exact zero, so a run over a K-step prefix of the mask (the bucketed
+    layout) sums to the same bits as the run over all K_max steps; a
+    reduction kernel over the stack could group the terms by its length."""
+    total = losses[0]
+    for loss in losses[1:]:
+        total = total + loss
+    return total
+
+
 def local_sgd(loss_fn: Callable, params: dict, data: dict, step_mask: torch.Tensor,
               lr: torch.Tensor):
     """RR-epoch local SGD (reference; the empty chain reproduces it).
@@ -71,7 +82,7 @@ def local_sgd(loss_fn: Callable, params: dict, data: dict, step_mask: torch.Tens
         y = {n: (a.float() - s * g[n].float()).to(a.dtype) for n, a in y.items()}
         losses.append(loss * m)
     denom = torch.clamp_min(step_mask.sum(), 1.0)
-    return tree_sub(y, params), torch.stack(losses).sum() / denom
+    return tree_sub(y, params), _sum_steps(losses) / denom
 
 
 def local_mvr(loss_fn: Callable, params: dict, momentum: dict, data: dict,
@@ -97,7 +108,7 @@ def local_mvr(loss_fn: Callable, params: dict, momentum: dict, data: dict,
         y = {n: (p.float() - (lr * m) * d[n]).to(p.dtype) for n, p in y.items()}
         losses.append(loss * m)
     denom = torch.clamp_min(step_mask.sum(), 1.0)
-    return tree_sub(y, params), torch.stack(losses).sum() / denom
+    return tree_sub(y, params), _sum_steps(losses) / denom
 
 
 class StepCtx(NamedTuple):
@@ -162,7 +173,7 @@ def build_local_step(transforms: tuple, loss_fn: Callable) -> Callable:
             y = {n: (p.float() - s * d[n]).to(p.dtype) for n, p in y.items()}
             losses.append(loss * m)
         denom = torch.clamp_min(step_mask.sum(), 1.0)
-        return tree_sub(y, params), torch.stack(losses).sum() / denom
+        return tree_sub(y, params), _sum_steps(losses) / denom
 
     return one_client
 
@@ -287,7 +298,7 @@ def build_cohort_step(transforms: tuple, loss_fn: Callable) -> Callable:
             y = {n: (p.float() - _per_slot(s, p) * d[n]).to(p.dtype) for n, p in y.items()}
             losses.append(loss * m)
         denom = torch.clamp_min(step_mask.sum(1), 1.0)
-        return tree_sub(y, x), torch.stack(losses, 1).sum(1) / denom
+        return tree_sub(y, x), _sum_steps(losses) / denom
 
     return cohort
 

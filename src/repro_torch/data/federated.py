@@ -1,7 +1,8 @@
 """Federated data pipeline: population metadata + per-round batch assembly.
 
-The port's numpy copy of ``repro.data.federated``, padded layout only.  It
-turns (task, FLConfig) into the static-shape host arrays a round consumes:
+The port's numpy copy of ``repro.data.federated``, both execution layouts,
+without the fleet plane's hooks.  It turns (task, FLConfig) into the
+static-shape host arrays a round consumes:
 
 * ``Population`` — client dataset sizes |D_i| (equal / log-normal / zipf
   imbalance), objective weights w_i = |D_i|/|D|.
@@ -10,6 +11,9 @@ turns (task, FLConfig) into the static-shape host arrays a round consumes:
   per-client scalars.
 * ``RoundBatch`` — the materialized plan: data [C, K_max, B, ...] gathered
   through ``task.batch``.
+* ``BucketedPlan`` / ``BucketedBatch`` — the bucketed layout
+  (``fl.exec_mode="bucketed"``): the cohort's slots partitioned into static
+  step buckets, one [C_b, K_b] slice each, plus the slot-order map ``pos``.
 
 ``FederatedPipeline`` is the **legacy / reference path**: it materializes
 every round batch on the host.  The cohort engine (``repro_torch.fed.cohort``)
@@ -19,6 +23,7 @@ is numpy; ``repro_torch.fed.rounds.as_device_batch`` moves them to a device.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
@@ -33,8 +38,11 @@ def _rng(*keys: int) -> np.random.Generator:
 
 
 def _chernoff_bound(mu: float) -> int:
-    """Upper bound on a ~mean-``mu`` occupancy count with 4-sigma-ish slack
-    (the independent-sampling cohort-slot padding)."""
+    """Upper bound on a ~mean-``mu`` occupancy count with 4-sigma-ish slack.
+
+    Shared by the independent-sampling cohort-slot padding and the bucketed
+    layout's per-bucket capacities: overflow past it is pathological, not
+    routine."""
     return int(np.ceil(mu + 4.0 * np.sqrt(mu) + 4.0))
 
 
@@ -69,6 +77,67 @@ class IndexPlan(NamedTuple):
     meta: ClientMeta
     sizes: Any               # [C] int32
     spe: Any                 # [C] int32 (steps per epoch)
+    rnd: int
+
+
+# ---------------------------------------------------------------------------
+# Bucketed execution layout.  The padded layout runs every slot for K_max
+# steps, masked; the bucketed one partitions the slots into step buckets
+# (edge K_b, capacity C_b), both derived ONCE from population statistics.
+# Per-slot index streams and masks are *prefixes* of the padded ones (the RR
+# streams are counter-based per position), and every cross-client aggregate
+# runs on slot-order-reassembled full arrays, which is what keeps the two
+# layouts bitwise-identical.
+# ---------------------------------------------------------------------------
+
+
+class BucketLayout(NamedTuple):
+    """Static bucket shapes: step edge K_b and slot capacity C_b per bucket."""
+
+    edges: tuple             # ascending step caps; last >= every possible K_i
+    caps: tuple              # slot capacity per bucket (same length as edges)
+
+
+class Bucket(NamedTuple):
+    """One bucket's slice of a round: up to C_b slots running K_b steps.
+
+    ``slots`` maps bucket position -> original cohort slot (padding positions
+    point at slot 0 — their masks are all-zero, and they are never read
+    back).  ``bucketize`` fills positions 0, 1, ... in slot order, so the
+    occupied positions are a prefix.  ``data`` is None until materialized;
+    ``idx`` is None when a device RR backend regenerates the streams.
+    """
+
+    data: Any                # dict [C_b, K_b, B, ...] | None (plan stage)
+    idx: Any                 # [C_b, K_b, B] int32 | None
+    step_mask: Any           # [C_b, K_b] float32
+    slots: Any               # [C_b] int32
+
+
+class BucketedBatch(NamedTuple):
+    """The bucketed counterpart of ``RoundBatch``: per-bucket data slices plus
+    the slot-order reassembly map.  ``meta`` stays in original [C] slot order
+    so every aggregation / normalization reduction is bitwise-identical to
+    the padded layout.  ``pos[c]`` is slot c's position in the bucket
+    concatenation; unassigned (invalid) slots point one past the end."""
+
+    buckets: tuple           # of Bucket (data materialized)
+    meta: ClientMeta         # [C] original slot order
+    pos: Any                 # [C] int32 into [sum_b C_b + 1]
+
+
+class BucketedPlan(NamedTuple):
+    """Index-level description of a bucketed round (cohort-engine transport).
+
+    Like ``IndexPlan`` but with the heavy [*, K, B] tensors bucketized;
+    ``sizes`` / ``spe`` / ``meta`` stay full-[C] (the plane takes per-bucket
+    views through ``Bucket.slots``)."""
+
+    buckets: tuple           # of Bucket (data=None)
+    meta: ClientMeta         # [C]
+    pos: Any                 # [C] int32
+    sizes: Any               # [C] int32
+    spe: Any                 # [C] int32
     rnd: int
 
 
@@ -110,16 +179,13 @@ class FederatedPipeline:
     fl: FLConfig
 
     def __post_init__(self):
-        if self.fl.exec_mode != "padded":
-            raise NotImplementedError(
-                f"exec_mode={self.fl.exec_mode!r} is not ported yet; the port "
-                f"runs the padded layout")
         e_max = max(self.fl.epochs, self.fl.epochs_max)
         spe_all = np.maximum(1, -(-self.population.sizes // self.fl.local_batch))
         self.k_max = self.fl.k_max or int((spe_all * e_max).max())
         self._weights = self.population.weights
         self._probs = self.inclusion_probs()
         self.cohort_slots = self._cohort_slots()
+        self._bucket_layout: BucketLayout | None = None
 
     def _cohort_slots(self) -> int:
         if self.fl.sampling == "full":
@@ -244,10 +310,133 @@ class FederatedPipeline:
         return IndexPlan(idx=idx_all, step_mask=step_mask, meta=meta,
                          sizes=sizes, spe=spe, rnd=int(rnd))
 
+    # -- bucketed layout (padding-free execution) ---------------------------
+
+    @property
+    def bucket_layout(self) -> BucketLayout:
+        """Static (edges, caps) for this population — computed once, so the
+        bucketed round's shapes never change across rounds."""
+        if self._bucket_layout is None:
+            self._bucket_layout = self._build_bucket_layout()
+        return self._bucket_layout
+
+    def _build_bucket_layout(self) -> BucketLayout:
+        from ..fed.strategy import equalized_mode  # deferred: avoids import cycle
+
+        C = self.cohort_slots
+        single = BucketLayout(edges=(self.k_max,), caps=(C,))
+        nb = max(1, int(self.fl.buckets))
+        # equalized-K strategies give the whole cohort one (round-dependent)
+        # step count — per-client bucketing has nothing to cut, so the layout
+        # degenerates to a single full-width bucket
+        if nb == 1 or equalized_mode(self.fl.algorithm) is not None:
+            return single
+        e_max = max(self.fl.epochs, self.fl.epochs_max)
+        spe_all = np.maximum(1, -(-self.population.sizes // self.fl.local_batch))
+        k_pop = (spe_all * e_max).astype(np.int64)
+        if self.fl.drop_last_steps:
+            # interrupts shorten every client's realized mask identically
+            k_pop = np.maximum(1, k_pop - self.fl.drop_last_steps)
+        qs = np.quantile(k_pop, [(b + 1) / nb for b in range(nb)], method="higher")
+        edges = sorted({int(q) for q in qs})
+        edges[-1] = max(edges[-1], int(k_pop.max()))
+        n = self.population.num_clients
+        caps, lo = [], 0
+        for e in edges:
+            mem = (k_pop > lo) & (k_pop <= e)
+            n_b = int(mem.sum())
+            lo = e
+            if n_b == 0:
+                caps.append(0)
+                continue
+            if self.fl.sampling == "full":
+                cap = n_b                       # every member shows up, exactly
+            else:
+                # Chernoff-style slack over the expected per-round occupancy,
+                # mirroring the independent-sampling slot bound: overflow past
+                # the cap spills into a wider bucket; past the last bucket the
+                # round falls back to the padded layout (bitwise-identical)
+                if self.fl.sampling == "independent":
+                    mu = float(self._probs[mem].sum())
+                else:
+                    mu = C * n_b / n
+                cap = _chernoff_bound(mu)
+            caps.append(min(C, n_b, cap))
+        keep = [i for i, c in enumerate(caps) if c > 0]
+        if not keep:
+            return single
+        return BucketLayout(edges=tuple(edges[i] for i in keep),
+                            caps=tuple(caps[i] for i in keep))
+
+    def bucketize(self, plan: IndexPlan) -> "BucketedPlan | IndexPlan":
+        """Partition a round's slots into the static bucket layout.
+
+        Greedy in slot order: each valid slot lands in the narrowest bucket
+        that fits its realized step count and still has capacity, spilling
+        into wider buckets when full (wider is always semantically fine — the
+        extra steps are masked no-ops).  If even the widest eligible buckets
+        are full, the round falls back to the padded ``IndexPlan`` unchanged
+        (same results) with a warning.
+        """
+        edges, caps = self.bucket_layout
+        nb, C = len(edges), self.cohort_slots
+        if nb == 1 and edges[0] >= self.k_max and caps[0] >= C:
+            # degenerate layout (equalized presets, fl.buckets=1, equal
+            # imbalance): one full-width bucket computes exactly the padded
+            # loop — skip the per-round repacking and run the plan as-is
+            return plan
+        occ: list[list[int]] = [[] for _ in range(nb)]
+        for c in range(C):
+            if plan.meta.valid[c] <= 0:
+                continue
+            k_req = int(round(float(plan.meta.num_steps[c])))
+            b = 0
+            while b < nb and (edges[b] < k_req or len(occ[b]) >= caps[b]):
+                b += 1
+            if b == nb:
+                warnings.warn(
+                    f"bucketed layout overflow in round {int(plan.rnd)}: slot "
+                    f"{c} (K_i={k_req}) fits no bucket with free capacity "
+                    f"(edges={edges}, caps={caps}); falling back to the "
+                    f"padded layout for this round. Results are unchanged; "
+                    f"raise fl.buckets or the cap slack if this recurs.",
+                    RuntimeWarning, stacklevel=2,
+                )
+                return plan
+            occ[b].append(c)
+        pos = np.full(C, sum(caps), dtype=np.int32)
+        buckets, offset = [], 0
+        for b in range(nb):
+            k_b, c_b = edges[b], caps[b]
+            slots = np.zeros(c_b, dtype=np.int32)
+            mask = np.zeros((c_b, k_b), dtype=np.float32)
+            idx = (None if plan.idx is None
+                   else np.zeros((c_b, k_b, self.fl.local_batch), dtype=np.int32))
+            for p, c in enumerate(occ[b]):
+                slots[p] = c
+                mask[p] = plan.step_mask[c, :k_b]
+                if idx is not None:
+                    idx[p] = plan.idx[c, :k_b]
+                pos[c] = offset + p
+            offset += c_b
+            buckets.append(Bucket(data=None, idx=idx, step_mask=mask, slots=slots))
+        return BucketedPlan(buckets=tuple(buckets), meta=plan.meta, pos=pos,
+                            sizes=plan.sizes, spe=plan.spe, rnd=plan.rnd)
+
+    def bucketed_plan(self, rnd: int, *, with_idx: bool = True) -> "BucketedPlan | IndexPlan":
+        return self.bucketize(self.index_plan(rnd, with_idx=with_idx))
+
     # -- batch materialization (the legacy / reference data path) ----------
 
-    def round_batch(self, rnd: int) -> RoundBatch:
+    def round_batch(self, rnd: int) -> "RoundBatch | BucketedBatch":
         plan = self.index_plan(rnd, with_idx=True)
+        if self.fl.exec_mode == "bucketed":
+            bplan = self.bucketize(plan)
+            if isinstance(bplan, BucketedPlan):
+                return self._materialize_bucketed(bplan)
+        return self._materialize_padded(plan)
+
+    def _materialize_padded(self, plan: IndexPlan) -> RoundBatch:
         C, K, B = self.cohort_slots, self.k_max, self.fl.local_batch
         data = {name: np.zeros((C, K, B) + tuple(shape), dtype=dt)
                 for name, (dt, shape) in self.task.spec().items()}
@@ -256,3 +445,22 @@ class FederatedPipeline:
             for name in data:
                 data[name][slot] = sample[name]
         return RoundBatch(data=data, step_mask=plan.step_mask, meta=plan.meta)
+
+    def _materialize_bucketed(self, plan: BucketedPlan) -> BucketedBatch:
+        B = self.fl.local_batch
+        spec = self.task.spec()
+        out, offset = [], 0
+        for b in plan.buckets:
+            c_b, k_b = b.step_mask.shape
+            data = {name: np.zeros((c_b, k_b, B) + tuple(shape), dtype=dt)
+                    for name, (dt, shape) in spec.items()}
+            for p in range(c_b):
+                c = int(b.slots[p])
+                if int(plan.pos[c]) != offset + p:
+                    continue                    # padding position (all masked)
+                sample = self.task.batch(int(plan.meta.client_id[c]), b.idx[p])
+                for name in data:
+                    data[name][p] = sample[name]
+            offset += c_b
+            out.append(Bucket(data=data, idx=None, step_mask=b.step_mask, slots=b.slots))
+        return BucketedBatch(buckets=tuple(out), meta=plan.meta, pos=plan.pos)

@@ -30,7 +30,7 @@ from typing import Any
 import numpy as np
 
 from ...configs.base import FLConfig
-from ...data.federated import FederatedPipeline, IndexPlan, Population
+from ...data.federated import BucketedPlan, FederatedPipeline, IndexPlan, Population
 from ...kernels.rr_perm.ref import rr_indices, stream_key
 from ...utils.device import resolve_device
 from .plan import as_device_plan
@@ -80,8 +80,16 @@ class CohortEngine:
     def k_max(self) -> int:
         return self.pipeline.k_max
 
-    def index_plan(self, rnd: int) -> IndexPlan:
-        """One round's host plan under the configured RR backend."""
+    def index_plan(self, rnd: int) -> "IndexPlan | BucketedPlan":
+        """One round's host plan under the configured RR backend (bucketized
+        when ``fl.exec_mode == "bucketed"``; a bucket-overflow round falls
+        back to the padded IndexPlan with a warning, results unchanged)."""
+        plan = self._padded_index_plan(rnd)
+        if self.fl.exec_mode == "bucketed":
+            return self.pipeline.bucketize(plan)
+        return plan
+
+    def _padded_index_plan(self, rnd: int) -> IndexPlan:
         if self.rr_backend == "host":
             return self.pipeline.index_plan(rnd, with_idx=True)
         plan = self.pipeline.index_plan(rnd, with_idx=False)
@@ -95,7 +103,7 @@ class CohortEngine:
             return plan._replace(idx=idx)
         return plan  # device backends: the round step regenerates the streams
 
-    def device_plan(self, rnd: int) -> IndexPlan:
+    def device_plan(self, rnd: int) -> "IndexPlan | BucketedPlan":
         return as_device_plan(self.index_plan(rnd), self.device)
 
     @contextmanager

@@ -19,7 +19,10 @@ Two bank layouts:
 Padding slots carry ``client_id = -1``.  Row indices wrap like Python (and
 ``jnp.take``) indexing, so -1 reads the last row, exactly as the JAX
 package's gather does; the slot's coefficient is 0, so its data only has to
-be finite.  The port's counterpart of ``repro.fed.cohort.plane``.
+be finite.  A ``BucketedPlan`` is gathered bucket by bucket, over each
+bucket's occupied rows and its K_b steps (the device RR backends generate
+one bucket's streams a launch).  The port's counterpart of
+``repro.fed.cohort.plane``.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from ...configs.base import FLConfig
-from ...data.federated import IndexPlan, Population, RoundBatch
+from ...data.federated import Bucket, BucketedBatch, BucketedPlan, IndexPlan, Population, RoundBatch
 from ...kernels.rr_perm import ops as rr_ops
 from ...kernels.rr_perm.ref import rr_indices_torch, stream_key_torch
 
@@ -71,8 +74,20 @@ class DevicePlane:
             return rr_ops.rr_indices(*args, **kw)
         return rr_indices_torch(*args, **kw)
 
-    def materialize(self, plan: IndexPlan) -> RoundBatch:
+    def materialize(self, plan: "IndexPlan | BucketedPlan") -> "RoundBatch | BucketedBatch":
         """Device index plan -> device round batch."""
+        if isinstance(plan, BucketedPlan):
+            buckets = []
+            for b in plan.buckets:
+                cids = plan.meta.client_id.index_select(0, b.slots)
+                idx = b.idx
+                if idx is None:
+                    idx = self._indices(cids, plan.sizes.index_select(0, b.slots),
+                                        plan.spe.index_select(0, b.slots), plan.rnd,
+                                        int(b.step_mask.shape[1]))
+                buckets.append(Bucket(data=self.gather(cids, idx), idx=None,
+                                      step_mask=b.step_mask, slots=b.slots))
+            return BucketedBatch(buckets=tuple(buckets), meta=plan.meta, pos=plan.pos)
         idx = plan.idx
         if idx is None:
             idx = self._indices(plan.meta.client_id, plan.sizes, plan.spe, plan.rnd,

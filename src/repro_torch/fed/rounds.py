@@ -32,6 +32,18 @@ gathering its resident bank (and, for the device RR backends, regenerating
 the reshuffling streams there).  Host (numpy) inputs are moved to the step's
 device first.
 
+Under ``fl.exec_mode="bucketed"`` the step takes a ``BucketedBatch`` (or,
+through the plane, a ``BucketedPlan``): the cohort's slots partitioned into
+step buckets, each run over its occupied rows for its K_b steps only
+(``fed.bucketing``).  The vmapped mode runs ``cohort_step`` once a bucket
+and reassembles the deltas and losses into the zero-filled slot-order [C]
+stack the padded layout computes; the sequential mode keeps its slot-order
+loop, slot c running its bucket's row, and a slot no bucket holds adds a
+zero delta and loss, as a fully masked slot computes.  Everything after the
+local steps (codecs, aggregation, bank commit, server step) sees the same
+[C] stacks in both layouts, so bucketed rounds equal padded ones bitwise
+wherever the per-slot local steps do.
+
 With a non-identity uplink codec (``fl.uplink``; ``repro_torch.fed.comm``)
 the codec runs once on the slot-order ``[C]`` stack of deltas (one launch of
 each quantize kernel per wire leaf): the sequential loop stages the stack
@@ -49,7 +61,7 @@ package, which returns a new bank, the commit updates the bank in place
 passed to a round step must not be used again.  ``identity`` in both
 directions keeps the plane-off op sequence: no staging, no bank, no new
 metric keys.  The port's counterpart of ``repro.fed.rounds`` with the
-fleet, robust, privacy and obs planes off and the padded execution mode.
+fleet, robust, privacy and obs planes off.
 
 The server optimizer's momentum tree (``state.opt["m"]``, zeros when the
 optimizer keeps none) rides down to every client's local steps, and the
@@ -65,9 +77,11 @@ import numpy as np
 import torch
 
 from ..configs.base import FLConfig
-from ..data.federated import ClientMeta, IndexPlan, RoundBatch
+from ..data.federated import (Bucket, BucketedBatch, BucketedPlan, ClientMeta, IndexPlan,
+                              RoundBatch)
 from ..utils.device import resolve_device
 from ..utils.pytree import tree_map, tree_sq_norm, tree_zeros_like
+from .bucketing import occupied, run_buckets, slot_inputs
 from .comm import (DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, dense_bits, downlink_apply,
                    downlink_round_keys, round_keys, uplink_apply, wire_bits_total)
 from .server import ServerState
@@ -93,8 +107,25 @@ def as_device_meta(meta: ClientMeta, device) -> ClientMeta:
         for name, a in zip(ClientMeta._fields, meta)])
 
 
-def as_device_batch(rb: RoundBatch, device) -> RoundBatch:
-    """Host RoundBatch (numpy) -> tensors on ``device``, float32 meta."""
+def as_device_buckets(buckets: tuple, pos, device) -> tuple[tuple, np.ndarray]:
+    """A host bucket layout's occupied rows (``bucketing.occupied``) as
+    tensors on ``device``: int32 indices, float32 masks, int64 slots.  The
+    re-based ``pos`` stays on the host."""
+    kept, pos = occupied(buckets, pos)
+    return tuple(
+        Bucket(data=None if b.data is None else {k: to_device(v, device) for k, v in b.data.items()},
+               idx=None if b.idx is None else to_device(b.idx, device, torch.int32),
+               step_mask=to_device(b.step_mask, device, torch.float32),
+               slots=to_device(b.slots, device, torch.int64))
+        for b in kept), pos
+
+
+def as_device_batch(rb: "RoundBatch | BucketedBatch", device) -> "RoundBatch | BucketedBatch":
+    """Host RoundBatch / BucketedBatch (numpy) -> tensors on ``device``,
+    float32 meta; a bucketed batch moves its buckets' occupied rows only."""
+    if isinstance(rb, BucketedBatch):
+        buckets, pos = as_device_buckets(rb.buckets, rb.pos, device)
+        return BucketedBatch(buckets=buckets, meta=as_device_meta(rb.meta, device), pos=pos)
     return RoundBatch(
         data={k: to_device(v, device) for k, v in rb.data.items()},
         step_mask=to_device(rb.step_mask, device, torch.float32),
@@ -155,10 +186,18 @@ def build_round_step(loss_fn: Callable,
             staged = {k: torch.empty((C, *v.shape), dtype=v.dtype, device=v.device)
                       for k, v in state.params.items()}
         losses = []
-        for c in range(C):
+        for c, inputs in enumerate(slot_inputs(batch)):
+            if inputs is None:
+                # a slot no bucket holds: the zero delta and loss of a fully
+                # masked slot (its coefficient is 0 and acc + 0 is acc)
+                if up_on:
+                    for v in staged.values():
+                        v[c].zero_()
+                losses.append(meta.valid.new_zeros(()))
+                continue
+            data, mask = inputs
             p_c = {k: v[c] for k, v in starts.items()} if dl_on else state.params
-            delta, loss = strat.local_step(p_c, {k: v[c] for k, v in batch.data.items()},
-                                           batch.step_mask[c], eta[c], momentum)
+            delta, loss = strat.local_step(p_c, data, mask, eta[c], momentum)
             if up_on:
                 for k, v in delta.items():
                     staged[k][c] = v
@@ -176,11 +215,21 @@ def build_round_step(loss_fn: Callable,
         return delta_agg, torch.stack(losses), new_cs
 
     def run_vmapped(state, batch, starts, eta, momentum, new_cs):
-        """The slots' local steps batched over the cohort, then the strategy's
-        aggregate of the (decoded) stack."""
+        """The slots' local steps batched over the cohort (a bucket at a time
+        in the bucketed layout), then the strategy's aggregate of the
+        (decoded) slot-order stack."""
         x = starts if dl_on else state.params
-        deltas, losses = strat.cohort_step(x, batch.data, batch.step_mask, eta, momentum,
-                                           stacked=dl_on)
+        if isinstance(batch, BucketedBatch):
+            # each bucket takes its rows of eta and, with the downlink, of
+            # the per-slot start points; else every slot starts from x
+            def bucket_step(data, mask, eta_b, x_b=x):
+                return strat.cohort_step(x_b, data, mask, eta_b, momentum, stacked=dl_on)
+
+            deltas, losses = run_buckets(bucket_step, batch, (state.params, batch.meta.valid[0]),
+                                         eta, *((x,) if dl_on else ()))
+        else:
+            deltas, losses = strat.cohort_step(x, batch.data, batch.step_mask, eta, momentum,
+                                               stacked=dl_on)
         if up_on:
             deltas, new_cs = uplink(deltas, new_cs, batch.meta, state.rnd)
         return strat.aggregate(deltas, batch.meta), losses, new_cs
@@ -189,7 +238,7 @@ def build_round_step(loss_fn: Callable,
 
     @torch.no_grad()
     def round_step(state: ServerState, batch, lr_mult=1.0):
-        if isinstance(batch, IndexPlan):
+        if isinstance(batch, (IndexPlan, BucketedPlan)):
             # cohort-engine path: materialize on the device through the
             # resident bank (device RR backends regenerate the indices here)
             if plane is None:

@@ -33,8 +33,10 @@ from ..core import algorithms as _alg
 from ..core.algorithms import GenSpec, PRESETS, agg_coeff, lr_scale
 from ..core.local import (ClientTransform, build_cohort_step, build_local_step, cohort_loss,
                           cohort_full_local_gradient, full_local_gradient, mvr_transform)
+from ..data.federated import BucketedBatch
 from ..kernels.server_update.ops import apply_fused_update
 from ..utils.pytree import tree_copy, tree_map, tree_zeros_like
+from .bucketing import run_buckets, slot_inputs
 from .comm import DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, build_codec
 from .server import ServerState
 
@@ -155,7 +157,8 @@ def _mvr_opt() -> ServerOpt:
     the JAX package's to an ulp of ``ghat``, not bitwise.  The exact eq. 14
     step is torch and uses no kernel: its full local gradients run client by
     client in the sequential cohort mode and batched over the cohort in the
-    vmapped one."""
+    vmapped one (a bucket at a time in the bucketed layout, reassembled to
+    the [C] slot-order stack before the weighted sum)."""
 
     def init(fl: FLConfig, params) -> dict:
         opt = {"m": tree_zeros_like(params)}    # gradient estimate (eq. 14)
@@ -174,16 +177,23 @@ def _mvr_opt() -> ServerOpt:
                 def grads_at(p):
                     # sum_i (valid w/p)_i * grad f_i(p), fp32
                     if cohort_mode == "vmapped":
-                        gs = cohort_full_local_gradient(loss_fn, p, batch.data,
-                                                        batch.step_mask)
+                        if isinstance(batch, BucketedBatch):
+                            # per bucket, reassembled to the [C] slot-order
+                            # stack (zeros where no bucket holds a slot)
+                            gs = run_buckets(
+                                lambda data, mask: cohort_full_local_gradient(loss_fn, p, data, mask),
+                                batch, {k: v.float() for k, v in p.items()})
+                        else:
+                            gs = cohort_full_local_gradient(loss_fn, p, batch.data,
+                                                            batch.step_mask)
                         return {k: torch.einsum("c,c...->...", wp.float(), g)
                                 for k, g in gs.items()}
-                    # sequential: slot order
+                    # sequential: slot order; a slot no bucket holds adds 0
                     acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in p.items()}
-                    for c in range(wp.shape[0]):
-                        g = full_local_gradient(loss_fn, p, {k: v[c] for k, v in batch.data.items()},
-                                                batch.step_mask[c])
-                        acc = {k: A + wp[c] * g[k] for k, A in acc.items()}
+                    for c, inputs in enumerate(slot_inputs(batch)):
+                        if inputs is not None:
+                            g = full_local_gradient(loss_fn, p, *inputs)
+                            acc = {k: A + wp[c] * g[k] for k, A in acc.items()}
                     return acc
 
                 g_x = grads_at(state.params)
@@ -343,10 +353,10 @@ def _check_config(fl: FLConfig) -> None:
     """Bind-time validation of the execution knobs the port implements."""
     if fl.engine not in ("legacy", "cohort"):
         raise ValueError(f"unknown engine {fl.engine!r}; have ('legacy', 'cohort')")
-    if fl.exec_mode != "padded":
-        if fl.exec_mode == "bucketed":
-            raise NotImplementedError("exec_mode='bucketed' is not ported yet")
+    if fl.exec_mode not in ("padded", "bucketed"):
         raise ValueError(f"unknown exec_mode {fl.exec_mode!r}; have ('padded', 'bucketed')")
+    if fl.exec_mode == "bucketed" and fl.buckets < 1:
+        raise ValueError(f"fl.buckets must be >= 1, got {fl.buckets}")
     if fl.cohort_mode not in ("vmapped", "sequential"):
         raise ValueError(f"unknown cohort_mode {fl.cohort_mode!r}; have ('vmapped', 'sequential')")
     if fl.engine == "cohort":

@@ -1,9 +1,11 @@
 """End-to-end federated training driver (the host loop around the round step).
 
 Handles pipeline iteration, LR schedules (constant / staircase), periodic
-eval and metric logging.  The port's counterpart of
-``repro.fed.train_loop``; checkpointing, the cosine / WSD schedules and the
-observability plane are not ported yet.
+eval and metric logging.  Rounds arrive in the layout ``fl.exec_mode`` asks
+for: padded ``RoundBatch`` / ``IndexPlan`` or bucketed ``BucketedBatch`` /
+``BucketedPlan`` (a round whose slots overflow the buckets comes padded).
+The port's counterpart of ``repro.fed.train_loop``; checkpointing, the
+cosine / WSD schedules and the observability plane are not ported yet.
 """
 from __future__ import annotations
 
@@ -58,8 +60,9 @@ def train(
     strat = bind_strategy(strategy, fl, loss_fn, num_clients=fl.num_clients)
     state = strat.init(init_params)
 
-    # cohort engine: rounds arrive as device IndexPlans gathered through the
-    # resident data plane; legacy: host-assembled RoundBatches
+    # cohort engine: rounds arrive as device IndexPlans (BucketedPlans)
+    # gathered through the resident data plane; legacy: host-assembled
+    # RoundBatches (BucketedBatches)
     engine = pipeline if isinstance(pipeline, CohortEngine) else None
     if engine is not None and engine.fl != fl:
         raise ValueError("fl differs from the config the CohortEngine was built over")

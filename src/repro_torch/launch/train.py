@@ -12,7 +12,10 @@ CUDA index kernel and a qsgd-compressed uplink (the CUDA quantize kernels)::
 FedShuffleMVR is ``--server-opt mvr`` (the App. F server step, the CUDA
 ``server_update`` kernel); the exact eq. 14 step, the downlink codec and the
 quantize backend go through ``run_charlm_e2e(..., mvr_exact=True)``,
-``downlink="qsgd"``, ``uplink_backend="ref"``.  Runs on
+``downlink="qsgd"``, ``uplink_backend="ref"``.  The bucketed execution
+layout (each step bucket's occupied rows for its K_b steps, instead of every
+slot for K_max masked steps) is ``--exec-mode bucketed [--buckets 4]`` or
+``run_charlm_e2e(..., exec_mode="bucketed", buckets=4)``.  Runs on
 ``cuda`` unless ``--device cpu`` is given.  The port's counterpart of
 ``repro.launch.train``; ``--arch`` / ``--smoke`` (the model zoo) and
 ``--checkpoint`` are not ported yet.
@@ -84,6 +87,9 @@ def main() -> None:
     ap.add_argument("--rr-backend", default=None,
                     choices=["host", "host_feistel", "device_ref", "device"])
     ap.add_argument("--prefetch", type=int, default=None)
+    ap.add_argument("--exec-mode", default=None, choices=["padded", "bucketed"])
+    ap.add_argument("--buckets", type=int, default=None,
+                    help="max step buckets with --exec-mode bucketed (FLConfig default 4)")
     ap.add_argument("--uplink", default="identity",
                     help="uplink codec (repro_torch.fed.comm.CODECS): identity | qsgd | "
                          "topk | randk | ef_qsgd | ef_randk | diana_qsgd | diana_randk | "
@@ -91,7 +97,8 @@ def main() -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args()
     overrides = {k: v for k, v in (("engine", args.engine), ("rr_backend", args.rr_backend),
-                                   ("prefetch", args.prefetch), ("uplink", args.uplink))
+                                   ("prefetch", args.prefetch), ("uplink", args.uplink),
+                                   ("exec_mode", args.exec_mode), ("buckets", args.buckets))
                  if v is not None}
     res = run_charlm_e2e(args.rounds, args.algorithm, args.server_opt,
                          device=args.device, **overrides)

@@ -251,7 +251,6 @@ def test_weighted_sum_matches_jax():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(exec_mode="bucketed"), "bucketed"),
     (dict(server_opt="adam"), "adam"),
     (dict(local_update="scaffold"), "scaffold"),
     (dict(engine="cohort", prefetch=2), "prefetch"),
