@@ -28,8 +28,10 @@
    and cross-attention shapes, ragged Tq and Tk, a window, strided views),
    20 repeated launches at each path shape bitwise equal, and timed at
    those two shapes (``flash_fwd_wgmma``, ``flash_fwd_mma``, ``flash_fwd``)
-   beside unmasked SDPA;
-3. drives eight main paths through the user entry point, each with every
+   beside unmasked SDPA; ``rr_perm``'s latency bound (the launch floor plus
+   the cipher's serial chain, counted from its SASS) beside its operations
+   bound;
+3. drives nine main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
@@ -60,7 +62,18 @@
    bf16) the same way: batch 4, 256-token prompts over 1,024 encoder
    frames, 32 greedy tokens (12 non-causal encoder and 12 non-causal
    cross-attention flash launches a prefill on ``flash_fwd_wgmma``, 12
-   causal self-attention ones on ``flash_fwd_mma``; none in decode);
+   causal self-attention ones on ``flash_fwd_mma``; none in decode); then
+   the host side of ``train()``: (a) vmapped dense, padded and bucketed, at
+   ``prefetch`` 2, 0, 0, 2 in turns (at 2 the producer thread and the
+   engine's copy stream), each run's round wall and the host plan's ms a
+   round; (b) vmapped MVR App. F at ``prefetch=2`` for 2 rounds,
+   ``save_server_state`` / ``load_server_state`` through a file, and 2 more
+   rounds from it (``rr_perm`` and ``server_update`` 4 launches each across
+   the halves; the file's size and save and load seconds); (c) the params
+   file that run wrote, loaded into CharLM-100M and served (batch 4, 16
+   greedy tokens: 12 causal fp32 flash launches in the prefill, on
+   ``flash_fwd``); (d) CharLM-tiny with the EF and downlink banks on the
+   card, 2 + 2 rounds through a file against 4;
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
@@ -81,7 +94,13 @@
    with the port on the CPU; for the audio path the same checks of the
    prefill over random frames (the planted fault: the encoder's and the
    cross-attention's flash launched causal), and SeamlessM4T-tiny served
-   on the card agreeing with the port on the CPU;
+   on the card agreeing with the port on the CPU; for the host side of
+   ``train()``, bitwise: each prefetched path equal to its ``prefetch=0``
+   twin, the resumed MVR run (params, ``m``, ``rnd``) to the unbroken
+   one, the served checkpoint's tokens and every step's logits to the same
+   call on the in-memory params (each flash launch within ``FLASH_TOL`` of
+   the plain version on its inputs), the tiny resume (params, both banks)
+   to the unbroken run with equal quantize launches;
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -312,6 +331,105 @@ def check_rr_perm(dev) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
             "call_ms": call_ms, "plain_call_ms": plain_call_ms, "shape": [C, k_max, B],
             "empty_kernel_ms": empty_ms, "empty_kernel_call_ms": empty_call_ms}
+
+
+# the least number of cycles between two dependent integer instructions on
+# Hopper (IMAD, IADD3, LOP3, SHF, ISETP, SEL: fixed-latency pipes)
+DEP_CYCLES = 4
+SASS_REG = r"\b(U?R\d+|U?P\d)\b"
+
+
+def sass_loops(sass: str, func: str) -> list[list[tuple[int, str]]]:
+    """The loops of ``func`` in ``cuobjdump -sass`` output: for each branch
+    back to an earlier address, the instructions (address, text) from its
+    target to it."""
+    import re
+
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = func in line
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if inside and m:
+            body.append((int(m.group(1), 16), m.group(2)))
+    loops = []
+    for addr, text in body:
+        m = re.search(r"\bBRA\s+0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            loops.append([x for x in body if int(m.group(1), 16) <= x[0] <= addr])
+    return loops
+
+
+def sass_chain(instrs: list[tuple[int, str]]) -> int:
+    """The longest chain of dependent instructions through one pass of a
+    loop body, through registers and predicates (a guarded instruction also
+    reads the register it may leave unchanged)."""
+    import re
+
+    depth: dict[str, int] = {}
+    for _, text in instrs:
+        toks = text.split(None, 1)
+        guard = []
+        if toks[0].startswith("@"):
+            guard = re.findall(SASS_REG, toks[0])
+            toks = toks[1].split(None, 1)
+        op = toks[0]
+        ops = [o.strip() for o in toks[1].split(",")] if len(toks) > 1 else []
+        if op.startswith(("BRA", "EXIT", "ST", "BAR", "RET")):
+            continue
+        # ISETP and a carry-out write a predicate as their second operand
+        ndest = 2 if len(ops) > 1 and re.fullmatch(r"!?U?P\d", ops[1]) else 1
+        dests = [r for o in ops[:ndest] for r in re.findall(SASS_REG, o)]
+        srcs = [r for o in ops[ndest:] for r in re.findall(SASS_REG, o)] + guard
+        d = 1 + max((depth.get(r, 0) for r in srcs + (dests if guard else [])), default=0)
+        depth.update(dict.fromkeys(dests, d))
+    return max(depth.values(), default=0)
+
+
+def rr_latency_bound(rr: dict, rounds: int) -> None:
+    """The rr kernel's latency bound, into ``rr``: the card's launch floor
+    (``empty_kernel_ms``) plus the cipher's serial chain, counted from the
+    kernel's SASS (``cuobjdump -sass``): the loop that runs the rounds
+    (unrolled by the count of ``VIMNMX``, the max each round takes) repeats
+    its longest dependent chain ``rounds / unroll`` times (the remainder
+    loop the rest), at ``DEP_CYCLES`` cycles an instruction and the card's
+    largest SM clock.  A warp starts its instructions in program order, so
+    each pass waits for the last one's chain and no overlap shortens it."""
+    import os
+
+    from repro_torch.kernels import build
+
+    lib = build.load("rr_perm")._name
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    passes = []
+    for loop in sass_loops(sass, "rr_indices_kernel"):
+        unroll = sum("VIMNMX" in t for _, t in loop)
+        passes.append((unroll, sass_chain(loop), len(loop)))
+    passes.sort(reverse=True)
+    if len(passes) != 2 or passes[1][0] != 1:
+        raise AssertionError(f"rr_perm SASS: loops (unroll, chain, instructions) {passes}, "
+                             f"want an unrolled round loop and a one-round remainder")
+    (unroll, main_chain, main_n), (_, rest_chain, rest_n) = passes
+    chain = rounds // unroll * main_chain + rounds % unroll * rest_chain
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, timeout=60).stdout.split()[0])
+    chain_ms = chain * DEP_CYCLES / (mhz * 1e6) * 1e3
+    rr.update({"latency_bound_ms": rr["empty_kernel_ms"] + chain_ms,
+               "latency_bound_by": "launch floor + serial chain", "chain_ms": chain_ms,
+               "chain_instructions": chain, "sass_loops": {"unroll": unroll,
+               "main": [main_n, main_chain], "remainder": [rest_n, rest_chain]},
+               "sm_clock_max_mhz": mhz})
+    print(f"rr_perm latency bound: launch floor {rr['empty_kernel_ms']:.5f} ms + serial chain "
+          f"{chain} dependent instructions ({rounds} rounds: a {main_n}-instruction loop of "
+          f"{unroll} rounds, chain {main_chain}; a {rest_n}-instruction remainder, chain "
+          f"{rest_chain}) x {DEP_CYCLES} cycles at {mhz:.0f} MHz = {chain_ms:.5f} ms; bound "
+          f"{rr['latency_bound_ms']:.5f} ms, the kernel {rr['ms']:.5f} ms "
+          f"({rr['latency_bound_ms'] / rr['ms']:.1%} of it; the operations bound "
+          f"{rr['bound_ms']:.2e} ms)", flush=True)
 
 
 def e2e_wire_leaves() -> list[int]:
@@ -605,11 +723,12 @@ def check_server_update(dev) -> dict:
             "values": n_values, "gbytes": nbytes / 1e9}
 
 
-def run_main_path(dev, rr_backend: str, rounds: int = ROUNDS, server_opt: str = "sgd", **kw):
+def run_main_path(dev, rr_backend: str, rounds: int = ROUNDS, server_opt: str = "sgd", *,
+                  prefetch: int = 0, **kw):
     from repro_torch.launch.train import run_charlm_e2e
 
     return run_charlm_e2e(rounds, "fedshuffle", server_opt, device=dev, engine="cohort",
-                          rr_backend=rr_backend, prefetch=0, **kw)
+                          rr_backend=rr_backend, prefetch=prefetch, **kw)
 
 
 def report_rounds(label: str, res, wall: float, peak: int, rounds: int = ROUNDS) -> float:
@@ -1778,8 +1897,10 @@ def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> tuple[di
     the run; ``--profile`` traces the others) beside the sequential path's
     (``seq``: label -> (round wall ms, peak bytes, kernels and copies in a
     round, their device ms; the last two for the dense path alone)).
-    Returns each path's parameters (on the host) and the same stats of the
-    vmapped paths, which the bucketed paths are held and printed against."""
+    Returns each path's parameters (on the host; MVR App. F's gradient
+    estimate too, as ``"mvr_m"``) and the same stats of the vmapped paths,
+    which the bucketed and the prefetched and resumed paths are held and
+    printed against."""
     import torch
 
     from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
@@ -1824,6 +1945,8 @@ def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> tuple[di
             raise AssertionError(f"vmapped {label} path: non-finite gradient estimate")
         if label == "qsgd":
             check_comm_metrics(res.metrics.rows, charlm_e2e_config(**COMM)[1])
+        if label == "mvr":       # the resumed run (train_loop_paths) is held to it
+            twins["mvr_m"] = {k: v.cpu() for k, v in res.state.opt["m"].items()}
         del res
         if label == "dense":
             worst = max(float((params[k].cpu() - v).abs().max() / v.abs().max())
@@ -1942,7 +2065,7 @@ def gemm_batch_twins(dev) -> list[str]:
 
 
 def bucketed_main_paths(dev, seq: dict, seq_params: dict, vm: dict, vm_params: dict,
-                        rows: dict) -> None:
+                        rows: dict) -> tuple[dict, dict]:
     """Main path 8: the bucketed layout (``exec_mode="bucketed"``, 4
     buckets): dense sequential, then dense, qsgd both ways and MVR exact
     vmapped, each with its launch counts set to 0 just before and
@@ -1957,7 +2080,8 @@ def bucketed_main_paths(dev, seq: dict, seq_params: dict, vm: dict, vm_params: d
     and ``vm``: label -> (round wall ms, peak bytes[, kernels and copies in a
     round, their device ms])), the client steps a round (occupied, static,
     padded) and, for dense, the device kernels and time of one traced round
-    (round 0)."""
+    (round 0).  Returns the dense vmapped path's parameters (on the host)
+    and each path's (round wall ms, peak bytes), keyed ``label_mode``."""
     import torch
 
     from repro_torch.kernels.quantize import ops as qops
@@ -1984,6 +2108,7 @@ def bucketed_main_paths(dev, seq: dict, seq_params: dict, vm: dict, vm_params: d
              ("mvr_exact", "vmapped", dict(mvr_exact=True, **MVR, **VMAPPED),
               MVR_EXACT_ROUNDS)]
     pack = qops.quantize_pack
+    kept, stats = {}, {}
     for label, mode, kw, rounds in paths:
         want = {"rr_perm": sum(r[0] for r in layout[:rounds]),
                 "quantize_pack": nq if label == "qsgd" else 0,
@@ -2037,6 +2162,9 @@ def bucketed_main_paths(dev, seq: dict, seq_params: dict, vm: dict, vm_params: d
             level = qsgd_level(rounds, scales) if label == "qsgd" else None
             held = held_to_twin(f"{label} {mode}", params, vm_params[label], level)
             twin_wall, twin_peak, *twin_kernels = vm[label]
+        if (label, mode) == ("dense", "vmapped"):
+            kept = {k: v.cpu() for k, v in params.items()}
+        stats[f"{label}_{mode}"] = (wall, peak)
         del params
         print(f"{tag} vs its padded twin: parameters {held}", flush=True)
         traced = ""
@@ -2052,6 +2180,348 @@ def bucketed_main_paths(dev, seq: dict, seq_params: dict, vm: dict, vm_params: d
               f"GiB; client steps a round {steps} (static {layout[0][2]}, padded "
               f"{layout[0][3]}){traced}", flush=True)
     torch.cuda.empty_cache()
+    return kept, stats
+
+
+# the resumed MVR run's LR schedule: the e2e run's staircase over its ROUNDS
+# rounds, whichever round a call stops at (train() keys a schedule by the
+# call's own round count, so a first half of 2 rounds would otherwise take
+# the staircase of a 2-round run)
+STAIRCASE_RUN = f"staircase_over_{ROUNDS}"
+# phase (a)'s prefetch depths, run in this order (ABBA: a drift of the host's
+# speed during the phase falls on both depths alike)
+PREFETCH_TURNS = (2, 0, 0, 2)
+# CharLM-100M served from the resumed run's params file: batch 4, prompts of
+# the training sequence length, 16 greedy tokens
+CKPT_SERVE_BATCH, CKPT_SERVE_PROMPT, CKPT_SERVE_STEPS = 4, 128, 16
+
+
+def host_plan_ms(dev, **kw) -> list[float]:
+    """The host plan alone (``CohortEngine.device_plan(r)``: cohort sampling,
+    index assembly, the copy to the card), ms for rounds 0 .. ROUNDS-1 of
+    the e2e configuration with ``kw``."""
+    import torch
+
+    from repro_torch.data.federated import Population
+    from repro_torch.data.tasks import CharLMTask
+    from repro_torch.fed.cohort.engine import CohortEngine
+    from repro_torch.launch.train import charlm_e2e_config
+
+    cfg, fl = charlm_e2e_config(engine="cohort", rr_backend="device", **kw)
+    task = CharLMTask(vocab=cfg.vocab, seq_len=128, num_clients=fl.num_clients)
+    eng = CohortEngine.build(task, Population.build(fl), fl, device=dev)
+    out = []
+    for r in range(ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.device_plan(r)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def prefetch_twins(dev, vm_params: dict, vm: dict, bk_params: dict, bk: dict,
+                   rows: dict) -> dict:
+    """Phase (a): vmapped dense, padded and bucketed (``buckets=4``), run at
+    the depths of ``PREFETCH_TURNS`` in turns (at 2 the producer thread
+    makes the plans and copies them on the engine's own stream), each run
+    with its launch counts set to 0 just before and read just after
+    (``prefetch_launches``: the first run at depth 2) and its parameters
+    bitwise equal to the earlier ``prefetch=0`` run of the same path
+    (``vm_params`` / ``bk_params``, on the host; its wall in ``vm`` /
+    ``bk``).  Prints each run's round wall and the host plan's ms a round.
+    -> {layout: {"walls": {depth: [ms]}, "earlier_prefetch0": ms,
+    "plan_ms": ms}}."""
+    import torch
+
+    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+    from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
+    from repro_torch.kernels.server_update.kernel import server_update_kernel
+
+    kernels = {"rr_perm": rr_indices_kernel, "quantize_pack": quantize_pack_kernel,
+               "unpack_dequantize": unpack_dequantize_kernel,
+               "server_update": server_update_kernel}
+    layout = bucketed_layout(ROUNDS)
+    out = {}
+    for label, kw, want, (wall0, *_), rr in (
+            ("padded", {}, vm_params["dense"], vm["dense"], ROUNDS),
+            ("bucketed", BUCKETED, bk_params, bk["dense_vmapped"], sum(r[0] for r in layout))):
+        plan = host_plan_ms(dev, **kw, **VMAPPED)
+        walls: dict[int, list] = {d: [] for d in sorted(set(PREFETCH_TURNS))}
+        for depth in PREFETCH_TURNS:
+            torch.cuda.empty_cache()
+            zero_counts(*kernels.values())
+            t0 = time.perf_counter()
+            res = run_main_path(dev, "device", prefetch=depth, **kw, **VMAPPED)
+            torch.cuda.synchronize()
+            got = {name: kern.launches for name, kern in kernels.items()}
+            tag = f"prefetch {depth}, vmapped dense {label}"
+            walls[depth].append(report_rounds(tag, res, time.perf_counter() - t0,
+                                              torch.cuda.max_memory_allocated()))
+            rows["rr_perm"].setdefault("prefetch_launches", {}).setdefault(label, got["rr_perm"])
+            if got != {"rr_perm": rr, "quantize_pack": 0, "unpack_dequantize": 0,
+                       "server_update": 0}:
+                raise AssertionError(f"{tag} launches: {got} (want rr_perm {rr}, no other)")
+            differ = [k for k in want if not torch.equal(res.state.params[k].cpu(), want[k])]
+            if differ:
+                raise AssertionError(f"{tag} vs the earlier prefetch-0 run: params differ in "
+                                     f"{differ}")
+            del res
+        out[label] = {"walls": walls, "earlier_prefetch0": wall0, "plan_ms": sum(plan) / len(plan)}
+        mean = {d: sum(w) / len(w) for d, w in walls.items()}
+        print(f"vmapped dense {label}, prefetch in turns {PREFETCH_TURNS}: rr_perm {rr} launches "
+              f"a run, parameters bitwise equal to the earlier prefetch-0 run; round wall at "
+              f"depth 2 {', '.join(f'{w:.1f}' for w in walls[2])} ms, at depth 0 "
+              f"{', '.join(f'{w:.1f}' for w in walls[0])} ms (means {mean[2]:.1f} vs "
+              f"{mean[0]:.1f}, {mean[0] / mean[2]:.3f}x; the earlier prefetch-0 run {wall0:.1f}); "
+              f"host plan {out[label]['plan_ms']:.3f} ms a round (rounds 0-{ROUNDS - 1}: "
+              f"{', '.join(f'{t:.3f}' for t in plan)})", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def e2e_template(dev, **kw):
+    """``strategy.init(params)`` of the e2e run with ``kw``: the structure,
+    dtypes and device a server-state checkpoint loads into."""
+    from repro_torch.fed.losses import make_loss
+    from repro_torch.fed.strategy import bind_strategy
+    from repro_torch.launch.train import charlm_e2e_config
+    from repro_torch.models.model import build_model
+
+    cfg, fl = charlm_e2e_config(engine="cohort", rr_backend="device", **kw)
+    model = build_model(cfg)
+    strat = bind_strategy(None, fl, make_loss(model), num_clients=fl.num_clients)
+    return strat.init(model.init(0, dev))
+
+
+def resume_path(dev, vm_params: dict, rows: dict, tmp: str) -> tuple[dict, dict]:
+    """Phase (b): vmapped MVR App. F at ``prefetch=2`` for 2 rounds,
+    ``save_server_state`` and ``load_server_state`` through a file in
+    ``tmp``, then ``train(state=, start_round=2)`` for 2 more, which also
+    writes its params file (``checkpoint=``); launch counts set to 0 before
+    the first half and read after the second (``resume_launches``).  The
+    params, ``m`` and ``rnd`` must equal the unbroken 4-round ``prefetch=0``
+    run's (``vm_params["mvr"]``, ``["mvr_m"]``) bitwise.  -> the final
+    params (on the card) and the file's numbers."""
+    import os
+
+    import torch
+
+    from repro_torch.fed.train_loop import SCHEDULES
+    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+    from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
+    from repro_torch.kernels.server_update.kernel import server_update_kernel
+    from repro_torch.utils.checkpoint import load_server_state, save_server_state
+
+    staircase = SCHEDULES["staircase"]
+    SCHEDULES[STAIRCASE_RUN] = lambda r, total: staircase(r, ROUNDS)
+    kernels = {"rr_perm": rr_indices_kernel, "quantize_pack": quantize_pack_kernel,
+               "unpack_dequantize": unpack_dequantize_kernel,
+               "server_update": server_update_kernel}
+    half, kw = ROUNDS // 2, dict(prefetch=2, schedule=STAIRCASE_RUN, **MVR, **VMAPPED)
+    state_path, params_path = os.path.join(tmp, "mvr_state.npz"), os.path.join(tmp, "params")
+    torch.cuda.empty_cache()
+    zero_counts(*kernels.values())
+    first = run_main_path(dev, "device", half, **kw).state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_server_state(state_path, first, {"round": half - 1})
+    save_s = time.perf_counter() - t0
+    del first
+    torch.cuda.empty_cache()
+    template = e2e_template(dev, **MVR, **VMAPPED)
+    t0 = time.perf_counter()
+    restored = load_server_state(state_path, template)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del template
+    res = run_main_path(dev, "device", ROUNDS, state=restored, start_round=half,
+                        checkpoint=params_path, **kw)
+    torch.cuda.synchronize()
+    got = {name: kern.launches for name, kern in kernels.items()}
+    rows["rr_perm"]["resume_launches"] = got["rr_perm"]
+    rows["server_update"]["resume_launches"] = got["server_update"]
+    if got != {"rr_perm": ROUNDS, "quantize_pack": 0, "unpack_dequantize": 0,
+               "server_update": ROUNDS}:
+        raise AssertionError(f"resumed mvr path launches: {got} (want rr_perm and "
+                             f"server_update {ROUNDS} each)")
+    state = res.state
+    if state.rnd != ROUNDS or [r["round"] for r in res.metrics.rows] != list(range(half, ROUNDS)):
+        raise AssertionError(f"resumed mvr path: rnd {state.rnd}, rounds "
+                             f"{[r['round'] for r in res.metrics.rows]}")
+    for name, tree, want in (("params", state.params, vm_params["mvr"]),
+                             ("m", state.opt["m"], vm_params["mvr_m"])):
+        differ = [k for k in want if not torch.equal(tree[k].cpu(), want[k])]
+        if differ:
+            raise AssertionError(f"resumed mvr path vs the unbroken run: {name} differ in "
+                                 f"{differ}")
+    info = {"state_bytes": os.path.getsize(state_path), "save_s": save_s, "load_s": load_s,
+            "params_path": params_path}
+    print(f"resumed mvr path ({half} + {ROUNDS - half} rounds at prefetch 2 through "
+          f"save_server_state / load_server_state): params, m and rnd {ROUNDS} bitwise equal to "
+          f"the unbroken {ROUNDS}-round prefetch-0 run; launches rr_perm {got['rr_perm']}, "
+          f"server_update {got['server_update']}; the state file {info['state_bytes']} bytes, "
+          f"saved in {save_s:.3f} s, loaded in {load_s:.3f} s", flush=True)
+    params = state.params
+    del res, state, restored
+    torch.cuda.empty_cache()
+    return params, info
+
+
+def serve_checkpoint(dev, params_path: str, params: dict, flash_row: dict) -> dict:
+    """Phase (c): CharLM-100M's params file from the resumed run loaded into
+    the model's init params (``load_checkpoint``), then ``generate``
+    ``CKPT_SERVE_STEPS`` greedy tokens at batch 4 over 128-token prompts
+    (numpy seed 1), the flash launch count set to 0 just before and read
+    just after (``charlm_ckpt_launches``), each launch held to the plain
+    version at ``FLASH_TOL`` on its own inputs; tokens and every step's
+    logits bitwise equal to the same call on the in-memory ``params``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.train import charlm_e2e_config
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.checkpoint import load_checkpoint
+
+    cfg, _ = charlm_e2e_config()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    loaded = load_checkpoint(params_path, model.init(0, dev))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (CKPT_SERVE_BATCH, CKPT_SERVE_PROMPT)), device=dev)
+    err = [0.0]
+
+    def checked(q, k, v, *, causal=True, window=0):
+        got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        want = flash_attention_torch(q, k, v, causal=causal, window=window)
+        err[0] = max(err[0], _allclose(got, want, FLASH_TOL["float32"], FLASH_TOL["float32"],
+                                       "CharLM-100M prefill flash on the path's inputs"))
+        return got
+
+    def serve(p):
+        seen = []
+        out = generate(model, p, prompts, steps=CKPT_SERVE_STEPS,
+                       cache_len=CKPT_SERVE_PROMPT + CKPT_SERVE_STEPS + 1,
+                       on_logits=lambda i, lg: seen.append(lg.clone()))
+        return out, seen
+
+    want, want_logits = serve(params)
+    torch.cuda.synchronize()
+    zero_counts(flash_attention_kernel)
+    with swapped({(fops, "flash_attention_kernel"): checked}):
+        got, got_logits = serve(loaded)
+    torch.cuda.synchronize()
+    launches, by_route, by_mode = read_counts(flash_attention_kernel)[0]
+    flash_row["charlm_ckpt_launches"] = {"launches": launches, "routes": by_route,
+                                         "modes": by_mode}
+    if launches != cfg.n_layers:
+        raise AssertionError(f"served checkpoint: {launches} flash launches (want one a layer, "
+                             f"{cfg.n_layers}, all in the prefill)")
+    if len(got_logits) != CKPT_SERVE_STEPS or not all(torch.isfinite(x).all()
+                                                      for x in got_logits):
+        raise AssertionError("served checkpoint: missing or non-finite logits")
+    if not torch.equal(got, want) or not all(torch.equal(a, b)
+                                             for a, b in zip(got_logits, want_logits)):
+        raise AssertionError("served checkpoint: tokens or logits differ from the in-memory "
+                             "params' run")
+    print(f"CharLM-100M served from the resumed run's params file (loaded in {load_s:.3f} s): "
+          f"{CKPT_SERVE_BATCH} x {CKPT_SERVE_STEPS} greedy tokens and every step's logits "
+          f"bitwise equal to the in-memory params; flash launches {launches} (routes {by_route}, "
+          f"modes {by_mode}), each within {FLASH_TOL['float32']} of the plain version (max abs "
+          f"diff {err[0]:.3e})", flush=True)
+    return {"load_s": load_s, "flash_launches": launches, "flash_routes": by_route,
+            "flash_max_abs_err": err[0]}
+
+
+def bank_resume(dev, tmp: str) -> dict:
+    """Phase (d): CharLM-tiny with both banks on the card (``ef_qsgd`` up,
+    ``qsgd`` down, the quantize kernels), 2 rounds at ``prefetch=2``,
+    ``save_server_state`` / ``load_server_state``, 2 more, against 4
+    unbroken rounds at ``prefetch=0``: params, the EF and downlink banks and
+    ``rnd`` bitwise equal, and the quantize launch counts of the two halves
+    equal to the unbroken run's."""
+    import os
+
+    import torch
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.paper_tasks import CHARLM_TINY
+    from repro_torch.data.federated import Population
+    from repro_torch.data.tasks import CharLMTask
+    from repro_torch.fed.cohort.engine import CohortEngine
+    from repro_torch.fed.losses import make_loss
+    from repro_torch.fed.strategy import bind_strategy
+    from repro_torch.fed.train_loop import train
+    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.checkpoint import load_server_state, save_server_state
+
+    kw = dict(num_clients=4, cohort_size=2, local_batch=2, algorithm="fedshuffle",
+              local_lr=0.05, mean_samples=3, seed=1, engine="cohort", rr_backend="device",
+              uplink="ef_qsgd", downlink="qsgd")
+    model = build_model(CHARLM_TINY)
+    loss_fn = make_loss(model)
+    params = model.init(0, dev)
+    quant = (quantize_pack_kernel, unpack_dequantize_kernel)
+
+    def run(prefetch, rounds, **more):
+        fl = FLConfig(**kw, prefetch=prefetch)
+        task = CharLMTask(vocab=CHARLM_TINY.vocab, seq_len=16, num_clients=fl.num_clients)
+        eng = CohortEngine.build(task, Population.build(fl), fl, device=dev)
+        strat = bind_strategy(None, fl, loss_fn, num_clients=fl.num_clients)
+        return train(loss_fn, params, eng, fl, rounds, strategy=strat, log_every=0,
+                     device=dev, **more).state, strat
+
+    zero_counts(*quant)
+    full, _ = run(0, ROUNDS)
+    torch.cuda.synchronize()
+    want = [k.launches for k in quant]
+    zero_counts(*quant)
+    half, strat = run(2, ROUNDS // 2)
+    path = os.path.join(tmp, "tiny_banks.npz")
+    save_server_state(path, half)
+    restored = load_server_state(path, strat.init(params))
+    resumed, _ = run(2, ROUNDS, state=restored, start_round=ROUNDS // 2)
+    torch.cuda.synchronize()
+    got = [k.launches for k in quant]
+    if got != want or not want[0]:
+        raise AssertionError(f"tiny bank resume: quantize launches {got}, unbroken run {want}")
+    if resumed.rnd != full.rnd or sorted(resumed.clients) != ["downlink", "uplink"]:
+        raise AssertionError(f"tiny bank resume: rnd {resumed.rnd}, bank {sorted(resumed.clients)}")
+    differ = [f"params/{k}" for k in full.params if not torch.equal(resumed.params[k],
+                                                                    full.params[k])]
+    for name, entry in full.clients.items():
+        for field, tree in entry.items():
+            differ += [f"{name}/{field}/{k}" for k in tree
+                       if not torch.equal(resumed.clients[name][field][k], tree[k])]
+    if differ:
+        raise AssertionError(f"tiny bank resume vs the unbroken run: differ in {differ}")
+    print(f"CharLM-tiny with both banks on the card ({ROUNDS // 2} + {ROUNDS - ROUNDS // 2} "
+          f"rounds at prefetch 2 vs {ROUNDS} at prefetch 0): params, EF and downlink banks "
+          f"bitwise equal; quantize launches {got} in both", flush=True)
+    return {"quantize_launches": got}
+
+
+def train_loop_paths(dev, vm_params: dict, vm: dict, bk_params: dict, bk: dict, rows: dict,
+                     flash_row: dict) -> dict:
+    """Main path 9: the host side of ``train()``, phases (a) to (d)
+    (:func:`prefetch_twins`, :func:`resume_path`, :func:`serve_checkpoint`,
+    :func:`bank_resume`), files in a temporary directory."""
+    import tempfile
+
+    out = {"prefetch": prefetch_twins(dev, vm_params, vm, bk_params, bk, rows)}
+    with tempfile.TemporaryDirectory() as tmp:
+        params, out["resume"] = resume_path(dev, vm_params, rows, tmp)
+        out["serve_ckpt"] = serve_checkpoint(dev, out["resume"].pop("params_path"), params,
+                                             flash_row)
+        del params
+        out["bank_resume"] = bank_resume(dev, tmp)
+    return out
 
 
 def profile_serve(dev, out_dir: Path) -> None:
@@ -2144,6 +2614,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rr = check_rr_perm(dev)
+    rr_latency_bound(rr, charlm_e2e_config()[1].rr_rounds)
     quant, dequant = check_quantize(dev)
     print(f"rr_perm at the main path's {rr['shape']}: {rr['ms']:.5f} ms a launch; an empty "
           f"kernel from the same library: {rr['empty_kernel_ms']:.5f} ms on the device, "
@@ -2271,10 +2742,19 @@ def main() -> int:
 
     # main path 8, the bucketed layout, held to the padded runs above
     t0 = time.perf_counter()
-    bucketed_main_paths(dev, seq, seq_params, vm, vm_params, rows)
-    del seq_params, vm_params
+    bk_params, bk = bucketed_main_paths(dev, seq, seq_params, vm, vm_params, rows)
+    del seq_params
     torch.cuda.empty_cache()
     print(f"bucketed main paths: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # main path 9, the host side of train(): prefetch, resume through a
+    # server-state file, the params file served, a resume with both banks
+    t0 = time.perf_counter()
+    loop = train_loop_paths(dev, vm_params, vm, bk_params, bk, rows, flash)
+    del vm_params, bk_params
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_loop": loop}), flush=True)
+    print(f"train loop paths: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # main path 5, serving Hymba-1.5B: one flash_attention and one
     # ssd_intra_chunk launch a layer in the prefill, none in decode

@@ -13,9 +13,9 @@ CPU tensor) or ``"ref"`` (the plain torch version on any device) where the
 JAX package takes ``"pallas"`` / ``"ref"``.  A default of ``"ref"`` would
 keep the kernel off the card's main path.  A value the port does not
 implement yet (the ``adam`` / ``scaffold`` server opts, the ``scaffold`` /
-``fedprox`` / ``local_clip`` local updates, ``prefetch > 0`` on the cohort
-engine, a participation schedule other than ``iid``) raises
-``NotImplementedError`` at bind time.
+``fedprox`` / ``local_clip`` local updates) raises ``NotImplementedError``
+at bind time.  The cohort engine's knobs bind at the JAX package's
+defaults (``prefetch=2``, ``participation="iid"``; all four schedules).
 """
 from __future__ import annotations
 

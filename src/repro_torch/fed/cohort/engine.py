@@ -7,7 +7,8 @@ Owns everything between "population" and "round step":
 * index-plan assembly (reusing the legacy pipeline's host logic, so the host
   RR backend is bitwise-identical to ``FederatedPipeline.round_batch``),
 * the RR backend choice (host PCG / host feistel / device plain torch /
-  device CUDA kernel).
+  device CUDA kernel),
+* async round prefetch (:class:`~repro_torch.fed.cohort.prefetch.RoundPrefetcher`).
 
 Per-round host work is O(cohort) scalars + the [C, K_max] mask (plus the
 [C, K_max, B] int32 indices for host backends).  Typical use::
@@ -18,8 +19,14 @@ Per-round host work is O(cohort) scalars + the [C, K_max] mask (plus the
         for r, plan in it:
             state, metrics = step(state, plan)
 
-The port's counterpart of ``repro.fed.cohort.engine``; the async prefetch
-thread is not ported yet (``prefetch`` must be 0).
+On a card a prefetched plan travels on a stream of its own: the producer
+thread copies it from pinned buffers there and records an event; the
+consumer's stream waits on that event, and each of the plan's tensors is
+marked as used on the consumer's stream (``record_stream``), so the caching
+allocator does not hand its memory out again before the round that reads
+it has run.  A copy on the consumer's stream would queue behind the round
+in flight and hide nothing.  The port's counterpart of
+``repro.fed.cohort.engine``.
 """
 from __future__ import annotations
 
@@ -28,13 +35,15 @@ from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
+import torch
 
 from ...configs.base import FLConfig
 from ...data.federated import BucketedPlan, FederatedPipeline, IndexPlan, Population
 from ...kernels.rr_perm.ref import rr_indices, stream_key
 from ...utils.device import resolve_device
-from .plan import as_device_plan
+from .plan import as_device_plan, map_tensors
 from .plane import DevicePlane, build_plane
+from .prefetch import RoundPrefetcher
 
 HOST_BACKENDS = ("host", "host_feistel")
 DEVICE_BACKENDS = ("device_ref", "device")
@@ -106,10 +115,42 @@ class CohortEngine:
     def device_plan(self, rnd: int) -> "IndexPlan | BucketedPlan":
         return as_device_plan(self.index_plan(rnd), self.device)
 
+    def _staged_plan(self, rnd: int, index: int, stream) -> tuple:
+        """Producer side of a prefetched round on card ``index``: the host
+        plan copied from pinned buffers on ``stream``, and the event
+        recorded after the copies."""
+        torch.cuda.set_device(index)           # the current device is per thread
+        host = as_device_plan(self.index_plan(rnd), "cpu")
+        with torch.cuda.stream(stream):
+            plan = map_tensors(lambda t: t.pin_memory().to(self.device, non_blocking=True),
+                               host)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return plan, done
+
     @contextmanager
     def round_plans(self, rounds: int, *, prefetch: int | None = None, start: int = 0):
-        """Iterate ``(rnd, device_plan)`` for rounds ``start .. start+rounds``."""
+        """Iterate ``(rnd, device_plan)`` for rounds ``start .. start+rounds``
+        with async prefetch (depth from ``fl.prefetch``; 0 runs no thread)."""
         depth = self.fl.prefetch if prefetch is None else prefetch
-        if depth > 0:
-            raise NotImplementedError("round prefetch is not ported yet; use prefetch=0")
-        yield ((r, self.device_plan(r)) for r in range(start, start + rounds))
+        if depth <= 0:
+            yield ((r, self.device_plan(r)) for r in range(start, start + rounds))
+            return
+        if self.device.type != "cuda":
+            with RoundPrefetcher(self.device_plan, rounds, depth=depth, start=start) as pf:
+                yield iter(pf)
+            return
+        index = torch.device(self.device).index
+        index = torch.cuda.current_device() if index is None else index
+        stream = torch.cuda.Stream(device=index)
+
+        def fenced(pf):
+            for r, (plan, done) in pf:
+                cur = torch.cuda.current_stream(index)
+                cur.wait_event(done)
+                map_tensors(lambda t: t.record_stream(cur), plan)
+                yield r, plan
+
+        with RoundPrefetcher(lambda r: self._staged_plan(r, index, stream), rounds,
+                             depth=depth, start=start) as pf:
+            yield fenced(pf)

@@ -1,12 +1,15 @@
-"""Server state.
+"""Server state + LR schedules.
 
 Server semantics (descent form of Algorithm 1/3/4):
     ``x <- x + eta_g * Delta``  with  ``Delta = sum_{i in S} (w~_i/q_i^S) Delta_i``
 (Delta_i = y_i - x points *against* the local gradient, so adding it descends.)
 The server optimizers are registered in ``repro_torch.fed.strategy``.
+``wsd_schedule`` and ``cosine_schedule`` are the JAX package's LR
+multipliers, keyed by the absolute round.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 
@@ -28,3 +31,25 @@ class ServerState(NamedTuple):
     opt: dict
     rnd: int
     clients: Any = None
+
+
+def wsd_schedule(rnd: int, total: int, warmup_frac: float = 0.05, decay_frac: float = 0.2) -> float:
+    """MiniCPM's Warmup-Stable-Decay LR schedule (arXiv:2404.06395)."""
+    warmup = max(1, int(total * warmup_frac))
+    decay_start = int(total * (1.0 - decay_frac))
+    if rnd < warmup:
+        return (rnd + 1) / warmup
+    if rnd < decay_start:
+        return 1.0
+    # exponential decay to 10% over the decay phase
+    frac = (rnd - decay_start) / max(1, total - decay_start)
+    return float(0.1**frac)
+
+
+def cosine_schedule(rnd: int, total: int, warmup_frac: float = 0.05) -> float:
+    """Linear warmup, then a half cosine from 1 to 0 over the rest."""
+    warmup = max(1, int(total * warmup_frac))
+    if rnd < warmup:
+        return (rnd + 1) / warmup
+    t = (rnd - warmup) / max(1, total - warmup)
+    return 0.5 * (1 + math.cos(math.pi * t))

@@ -366,14 +366,11 @@ def _check_config(fl: FLConfig) -> None:
         if fl.rr_backend not in BACKENDS:
             raise ValueError(f"unknown rr_backend {fl.rr_backend!r}; have {BACKENDS}")
         if fl.participation not in PARTICIPATION:
-            raise NotImplementedError(
-                f"participation schedule {fl.participation!r} is not ported yet; "
+            raise ValueError(
+                f"unknown participation schedule {fl.participation!r}; "
                 f"have {sorted(PARTICIPATION)}")
         if fl.prefetch < 0:
             raise ValueError(f"fl.prefetch must be >= 0, got {fl.prefetch}")
-        if fl.prefetch > 0:
-            raise NotImplementedError(
-                "round prefetch is not ported yet; use prefetch=0 with engine='cohort'")
 
 
 def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,

@@ -11,8 +11,10 @@ from numpy seed 1::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium --device cpu
 
-It runs on ``cuda`` unless ``--device cpu`` is given; ``--checkpoint`` is
-not ported yet.
+``--checkpoint PATH`` serves the params of a checkpoint saved by either
+package (``save_checkpoint``: the JAX package's layout), loaded into the
+model's init params in that layout and carried onto the device.  It runs
+on ``cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 
 from ..configs.registry import get_arch
 from ..models.model import Model, build_model
+from ..utils.checkpoint import load_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logging import log
 
@@ -74,13 +77,12 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.checkpoint:
-        raise NotImplementedError("--checkpoint is not ported yet (ROADMAP 'Modules to port', "
-                                  "item 4: checkpoint and resume)")
     device = resolve_device(args.device)
     cfg = get_arch(args.arch).reduced()
     model = build_model(cfg)
     params = model.init(0, device)
+    if args.checkpoint:
+        params = load_checkpoint(args.checkpoint, params)
     prompts = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (args.batch, args.prompt_len)), device=device)
     gen = torch.Generator(device=device).manual_seed(0)

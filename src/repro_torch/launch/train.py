@@ -15,10 +15,12 @@ quantize backend go through ``run_charlm_e2e(..., mvr_exact=True)``,
 ``downlink="qsgd"``, ``uplink_backend="ref"``.  The bucketed execution
 layout (each step bucket's occupied rows for its K_b steps, instead of every
 slot for K_max masked steps) is ``--exec-mode bucketed [--buckets 4]`` or
-``run_charlm_e2e(..., exec_mode="bucketed", buckets=4)``.  Runs on
-``cuda`` unless ``--device cpu`` is given.  The port's counterpart of
-``repro.launch.train``; ``--arch`` / ``--smoke`` (the model zoo) and
-``--checkpoint`` are not ported yet.
+``run_charlm_e2e(..., exec_mode="bucketed", buckets=4)``.
+``--checkpoint PATH`` saves the params in the JAX package's format every
+100 rounds and at the end (``serve --checkpoint`` and JAX's
+``load_checkpoint`` read it).  Runs on ``cuda`` unless ``--device cpu`` is
+given.  The port's counterpart of ``repro.launch.train``; ``--arch`` /
+``--smoke`` (the model zoo) are not ported yet.
 """
 from __future__ import annotations
 
@@ -53,10 +55,12 @@ def charlm_e2e_config(algorithm: str = "fedshuffle", server_opt: str = "sgd",
 
 
 def run_charlm_e2e(rounds: int, algorithm: str = "fedshuffle", server_opt: str = "sgd", *,
-                   device=None, **fl_overrides) -> TrainResult:
+                   device=None, checkpoint: str | None = None, schedule: str = "staircase",
+                   state=None, start_round: int = 0, **fl_overrides) -> TrainResult:
     """The e2e driver: ~100M-param char-LM, heterogeneous clients, random
     weights from seed 0.  ``fl_overrides`` replace fields of the run's
-    ``FLConfig``."""
+    ``FLConfig``; ``checkpoint`` saves the params every 100 rounds and at
+    the end; ``state`` and ``start_round`` resume a run (``train``'s)."""
     device = resolve_device(device)
     cfg, fl = charlm_e2e_config(algorithm, server_opt, **fl_overrides)
     task = CharLMTask(vocab=cfg.vocab, seq_len=128, num_clients=fl.num_clients)
@@ -74,7 +78,9 @@ def run_charlm_e2e(rounds: int, algorithm: str = "fedshuffle", server_opt: str =
         return {"loss": loss_fn(p, eval_batch)[0]}
 
     return train(loss_fn, params, pipe, fl, rounds, eval_fn=eval_fn, eval_every=20,
-                 schedule="staircase", name="charlm-e2e", log_every=10, device=device)
+                 schedule=schedule, checkpoint_path=checkpoint,
+                 checkpoint_every=100 if checkpoint else 0, name="charlm-e2e", log_every=10,
+                 state=state, start_round=start_round, device=device)
 
 
 def main() -> None:
@@ -94,6 +100,8 @@ def main() -> None:
                     help="uplink codec (repro_torch.fed.comm.CODECS): identity | qsgd | "
                          "topk | randk | ef_qsgd | ef_randk | diana_qsgd | diana_randk | "
                          "diana_topk")
+    ap.add_argument("--checkpoint", default=None,
+                    help="save the params here (JAX's .npz format) every 100 rounds and at the end")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args()
     overrides = {k: v for k, v in (("engine", args.engine), ("rr_backend", args.rr_backend),
@@ -101,7 +109,7 @@ def main() -> None:
                                    ("exec_mode", args.exec_mode), ("buckets", args.buckets))
                  if v is not None}
     res = run_charlm_e2e(args.rounds, args.algorithm, args.server_opt,
-                         device=args.device, **overrides)
+                         device=args.device, checkpoint=args.checkpoint, **overrides)
     print(res.metrics.csv())
 
 

@@ -58,6 +58,18 @@ def flatten(tree, prefix: str = "") -> dict:
     return out
 
 
+def unflatten(flat: dict) -> dict:
+    """The inverse of :func:`flatten`: '/'-joined keys -> nested dicts."""
+    out: dict = {}
+    for name, v in flat.items():
+        *parents, leaf = name.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
 def np_to_tensor(a) -> torch.Tensor:
     """A numpy array (a copy of it) as a CPU tensor of the same dtype."""
     a = np.array(a)
@@ -80,18 +92,22 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+STACKS = ("blocks", "enc_blocks")     # the JAX trees' layer-stacked subtrees
+
+
 def wire_layout(tree: Tree) -> list[tuple[str, list[str]]]:
     """The JAX package's leaves over the port's flat keys, in its order:
     ``[(path, keys)]``.  ``blocks/{i}/<name>`` for every layer ``i`` make one
-    leaf ``blocks/<name>`` (keys in layer order); every other key is a leaf
-    of its own.  Leaves are sorted by the tuple of their ``/`` parts, as
+    leaf ``blocks/<name>`` (keys in layer order), and likewise
+    ``enc_blocks``; every other key is a leaf of its own, whose one key is
+    its path.  Leaves are sorted by the tuple of their ``/`` parts, as
     ``jax.tree.flatten`` orders a nested dict.  For CharLM: 9 stacked block
     leaves, then ``embed``, ``final_norm/scale`` and ``lm_head``."""
     groups: dict[tuple, list] = {}
     for name in tree:
         parts = name.split("/")
-        if len(parts) > 2 and parts[0] == "blocks" and parts[1].isdigit():
-            path, layer = ("blocks", *parts[2:]), int(parts[1])
+        if len(parts) > 2 and parts[0] in STACKS and parts[1].isdigit():
+            path, layer = (parts[0], *parts[2:]), int(parts[1])
         else:
             path, layer = tuple(parts), 0
         groups.setdefault(path, []).append((layer, name))

@@ -14,29 +14,59 @@ transposed; every leaf keeps its dtype (a bf16 model's fp32 SSD leaves
 whose stacked leaves are ``[N+1, L, ...]``), so a run can continue in the
 port from a JAX state taken mid-run.  The input is numpy arrays
 (``np.asarray`` of each JAX leaf); this module imports no JAX.
+:func:`params_to_jax` and :func:`server_state_to_jax` are the exact
+inverses: the port's trees as the JAX package's, numpy leaves (the
+checkpoint module writes and reads the JAX package's files through them).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .configs.base import ArchConfig
 from .fed.server import ServerState
-from .utils.pytree import flatten, np_to_tensor, to_torch
+from .utils.pytree import STACKS, flatten, np_to_tensor, to_torch, unflatten, wire_layout
+
+
+def tensor_to_np(t) -> np.ndarray:
+    """A tensor (any device) as a numpy array of its dtype; bf16 as
+    ``ml_dtypes.bfloat16``, the type ``np.asarray`` of a JAX bf16 array
+    has (imported only for a bf16 tensor)."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_jax(params: dict, *, axis: int = 0) -> dict:
+    """The inverse of :func:`params_from_jax`: a port tree (a flat dict, or
+    nested dicts of them; tensors on any device) -> the JAX package's nested
+    tree of numpy arrays, ``blocks/{i}/...`` and ``enc_blocks/{i}/...``
+    restacked on layer axis ``axis`` (1 in a per-client bank)."""
+    flat = flatten(params)
+    return unflatten({path: tensor_to_np(flat[path]) if names == [path] else
+                      tensor_to_np(torch.stack([flat[n] for n in names], dim=axis))
+                      for path, names in wire_layout(flat)})
 
 
 def params_from_jax(np_tree: dict, cfg: ArchConfig | None, device, *, axis: int = 0) -> dict:
     """A JAX param tree (numpy leaves) -> the port's flat dict on ``device``.
     The layer axis of a ``blocks`` (``cfg.n_layers``) or ``enc_blocks``
     (``cfg.enc_layers``) leaf is ``axis`` (1 in a per-client bank, whose
-    leaves lead with the bank axis); ``cfg`` may be None for a tree without
-    them."""
+    leaves lead with the bank axis); with ``cfg`` None the leaves' own layer
+    axis gives the count."""
     flat = {}
     for name, leaf in flatten(np_tree).items():
         stack, _, rest = name.partition("/")
-        if stack in ("blocks", "enc_blocks"):
+        if stack in STACKS:
             leaf = np.asarray(leaf)
-            n = cfg and (cfg.n_layers if stack == "blocks" else cfg.enc_layers)
-            if cfg is None or leaf.shape[axis] != n:
+            n = leaf.shape[axis] if cfg is None else \
+                cfg.n_layers if stack == "blocks" else cfg.enc_layers
+            if leaf.shape[axis] != n:
                 raise ValueError(f"{name}: layer axis {leaf.shape[axis]} != {n} layers")
             flat.update({f"{stack}/{i}/{rest}": np.take(leaf, i, axis=axis) for i in range(n)})
         else:
@@ -60,6 +90,20 @@ def server_state_from_jax(np_state, cfg: ArchConfig | None, device) -> ServerSta
         params=params_from_jax(np_state.params, cfg, device),
         opt={k: params_from_jax(v, cfg, device) for k, v in np_state.opt.items()},
         rnd=int(np_state.rnd), clients=clients)
+
+
+def server_state_to_jax(state: ServerState) -> ServerState:
+    """The inverse of :func:`server_state_from_jax`: the port's
+    ``ServerState`` with the JAX package's leaves: params and each
+    optimizer-state tree restacked like :func:`params_to_jax`, the bank's
+    trees on layer axis 1, and the round counter a 0-d int32 array."""
+    clients = None
+    if state.clients is not None:
+        clients = {name: {field: params_to_jax(tree, axis=1) for field, tree in entry.items()}
+                   for name, entry in state.clients.items()}
+    return ServerState(params=params_to_jax(state.params),
+                       opt={k: params_to_jax(v) for k, v in state.opt.items()},
+                       rnd=np.asarray(int(state.rnd), np.int32), clients=clients)
 
 
 def cache_from_jax(np_cache: dict, device) -> dict:

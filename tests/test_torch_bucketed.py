@@ -413,7 +413,6 @@ def test_bucketed_batch_moves_occupied_rows_only():
 
 @pytest.mark.parametrize("kw,err,what", [
     (dict(buckets=0), ValueError, "buckets"),
-    (dict(engine="cohort", prefetch=2), NotImplementedError, "prefetch"),
     (dict(server_opt="adam"), NotImplementedError, "adam"),
 ])
 def test_bucketed_bind_errors(kw, err, what):

@@ -253,7 +253,6 @@ def test_weighted_sum_matches_jax():
 @pytest.mark.parametrize("kw,what", [
     (dict(server_opt="adam"), "adam"),
     (dict(local_update="scaffold"), "scaffold"),
-    (dict(engine="cohort", prefetch=2), "prefetch"),
 ])
 def test_unported_configs_raise(kw, what):
     fl = FLConfig(**_quad_kw("fedshuffle", "sgd") | kw)
@@ -268,7 +267,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(files) > 20 and chip_smoke.exists()
     for part in ("fed/comm/codecs.py", "kernels/quantize/ops.py", "kernels/quantize/ref.py",
                  "kernels/flash_attention/ops.py", "kernels/ssd/ops.py", "launch/serve.py",
-                 "models/mamba2.py", "configs/registry.py"):
+                 "models/mamba2.py", "configs/registry.py", "utils/checkpoint.py",
+                 "fed/cohort/prefetch.py"):
         assert PORT_SRC / part in files, part
     for f in files:
         assert not bad.search(f.read_text()), f
