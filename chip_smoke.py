@@ -64,8 +64,8 @@
    cross-attention flash launches a prefill on ``flash_fwd_wgmma``, 12
    causal self-attention ones on ``flash_fwd_mma``; none in decode); then
    the host side of ``train()``: (a) vmapped dense, padded and bucketed, at
-   ``prefetch`` 2, 0, 0, 2 in turns (at 2 the producer thread and the
-   engine's copy stream), each run's round wall and the host plan's ms a
+   ``prefetch`` 2, 0, 0, 2 in turns (at 2 the producer thread makes the
+   plans and copies them to the card), each run's round wall and the host plan's ms a
    round; (b) vmapped MVR App. F at ``prefetch=2`` for 2 rounds,
    ``save_server_state`` / ``load_server_state`` through a file, and 2 more
    rounds from it (``rr_perm`` and ``server_update`` 4 launches each across
@@ -2183,11 +2183,6 @@ def bucketed_main_paths(dev, seq: dict, seq_params: dict, vm: dict, vm_params: d
     return kept, stats
 
 
-# the resumed MVR run's LR schedule: the e2e run's staircase over its ROUNDS
-# rounds, whichever round a call stops at (train() keys a schedule by the
-# call's own round count, so a first half of 2 rounds would otherwise take
-# the staircase of a 2-round run)
-STAIRCASE_RUN = f"staircase_over_{ROUNDS}"
 # phase (a)'s prefetch depths, run in this order (ABBA: a drift of the host's
 # speed during the phase falls on both depths alike)
 PREFETCH_TURNS = (2, 0, 0, 2)
@@ -2224,7 +2219,7 @@ def prefetch_twins(dev, vm_params: dict, vm: dict, bk_params: dict, bk: dict,
                    rows: dict) -> dict:
     """Phase (a): vmapped dense, padded and bucketed (``buckets=4``), run at
     the depths of ``PREFETCH_TURNS`` in turns (at 2 the producer thread
-    makes the plans and copies them on the engine's own stream), each run
+    makes the plans and copies them to the card), each run
     with its launch counts set to 0 just before and read just after
     (``prefetch_launches``: the first run at depth 2) and its parameters
     bitwise equal to the earlier ``prefetch=0`` run of the same path
@@ -2250,6 +2245,7 @@ def prefetch_twins(dev, vm_params: dict, vm: dict, bk_params: dict, bk: dict,
         walls: dict[int, list] = {d: [] for d in sorted(set(PREFETCH_TURNS))}
         for depth in PREFETCH_TURNS:
             torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             zero_counts(*kernels.values())
             t0 = time.perf_counter()
             res = run_main_path(dev, "device", prefetch=depth, **kw, **VMAPPED)
@@ -2280,9 +2276,13 @@ def prefetch_twins(dev, vm_params: dict, vm: dict, bk_params: dict, bk: dict,
     return out
 
 
-def e2e_template(dev, **kw):
-    """``strategy.init(params)`` of the e2e run with ``kw``: the structure,
-    dtypes and device a server-state checkpoint loads into."""
+def e2e_parts(dev, **kw):
+    """The pieces ``launch.train.run_charlm_e2e`` trains with ``kw`` (cohort
+    engine, device RR): its loss, its params (seed 0, on the card), its
+    pipeline, ``FLConfig`` and bound strategy, whose ``init`` is the
+    template a server-state checkpoint loads into."""
+    from repro_torch.data.federated import FederatedPipeline, Population
+    from repro_torch.data.tasks import CharLMTask
     from repro_torch.fed.losses import make_loss
     from repro_torch.fed.strategy import bind_strategy
     from repro_torch.launch.train import charlm_e2e_config
@@ -2290,15 +2290,18 @@ def e2e_template(dev, **kw):
 
     cfg, fl = charlm_e2e_config(engine="cohort", rr_backend="device", **kw)
     model = build_model(cfg)
-    strat = bind_strategy(None, fl, make_loss(model), num_clients=fl.num_clients)
-    return strat.init(model.init(0, dev))
+    loss_fn = make_loss(model)
+    task = CharLMTask(vocab=cfg.vocab, seq_len=128, num_clients=fl.num_clients)
+    return (loss_fn, model.init(0, dev), FederatedPipeline(task, Population.build(fl), fl), fl,
+            bind_strategy(None, fl, loss_fn, num_clients=fl.num_clients))
 
 
 def resume_path(dev, vm_params: dict, rows: dict, tmp: str) -> tuple[dict, dict]:
     """Phase (b): vmapped MVR App. F at ``prefetch=2`` for 2 rounds,
     ``save_server_state`` and ``load_server_state`` through a file in
     ``tmp``, then ``train(state=, start_round=2)`` for 2 more, which also
-    writes its params file (``checkpoint=``); launch counts set to 0 before
+    writes its params file (``checkpoint_path=``), both halves through
+    ``train`` over the pieces of :func:`e2e_parts`; launch counts set to 0 before
     the first half and read after the second (``resume_launches``).  The
     params, ``m`` and ``rnd`` must equal the unbroken 4-round ``prefetch=0``
     run's (``vm_params["mvr"]``, ``["mvr_m"]``) bitwise.  -> the final
@@ -2307,36 +2310,44 @@ def resume_path(dev, vm_params: dict, rows: dict, tmp: str) -> tuple[dict, dict]
 
     import torch
 
-    from repro_torch.fed.train_loop import SCHEDULES
+    from repro_torch.fed.train_loop import SCHEDULES, train
     from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
     from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
     from repro_torch.kernels.server_update.kernel import server_update_kernel
     from repro_torch.utils.checkpoint import load_server_state, save_server_state
 
-    staircase = SCHEDULES["staircase"]
-    SCHEDULES[STAIRCASE_RUN] = lambda r, total: staircase(r, ROUNDS)
     kernels = {"rr_perm": rr_indices_kernel, "quantize_pack": quantize_pack_kernel,
                "unpack_dequantize": unpack_dequantize_kernel,
                "server_update": server_update_kernel}
-    half, kw = ROUNDS // 2, dict(prefetch=2, schedule=STAIRCASE_RUN, **MVR, **VMAPPED)
+    half = ROUNDS // 2
     state_path, params_path = os.path.join(tmp, "mvr_state.npz"), os.path.join(tmp, "params")
     torch.cuda.empty_cache()
+    loss_fn, params, pipe, fl, strat = e2e_parts(dev, prefetch=2, **MVR, **VMAPPED)
+    run = dict(strategy=strat, log_every=0, device=dev)
+    # the first half takes the staircase of the unbroken ROUNDS-round run
+    # (train() keys a schedule by its own round count), under a name
+    # registered for this one call
+    staircase, first_half = SCHEDULES["staircase"], f"staircase_over_{ROUNDS}"
+    SCHEDULES[first_half] = lambda r, total: staircase(r, ROUNDS)
     zero_counts(*kernels.values())
-    first = run_main_path(dev, "device", half, **kw).state
+    try:
+        first = train(loss_fn, params, pipe, fl, half, schedule=first_half, **run).state
+    finally:
+        del SCHEDULES[first_half]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     save_server_state(state_path, first, {"round": half - 1})
     save_s = time.perf_counter() - t0
     del first
     torch.cuda.empty_cache()
-    template = e2e_template(dev, **MVR, **VMAPPED)
+    template = strat.init(params)
     t0 = time.perf_counter()
     restored = load_server_state(state_path, template)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     del template
-    res = run_main_path(dev, "device", ROUNDS, state=restored, start_round=half,
-                        checkpoint=params_path, **kw)
+    res = train(loss_fn, params, pipe, fl, ROUNDS, schedule="staircase", state=restored,
+                start_round=half, checkpoint_path=params_path, **run)
     torch.cuda.synchronize()
     got = {name: kern.launches for name, kern in kernels.items()}
     rows["rr_perm"]["resume_launches"] = got["rr_perm"]

@@ -19,14 +19,12 @@ Per-round host work is O(cohort) scalars + the [C, K_max] mask (plus the
         for r, plan in it:
             state, metrics = step(state, plan)
 
-On a card a prefetched plan travels on a stream of its own: the producer
-thread copies it from pinned buffers there and records an event; the
-consumer's stream waits on that event, and each of the plan's tensors is
-marked as used on the consumer's stream (``record_stream``), so the caching
-allocator does not hand its memory out again before the round that reads
-it has run.  A copy on the consumer's stream would queue behind the round
-in flight and hide nothing.  The port's counterpart of
-``repro.fed.cohort.engine``.
+On a card the producer thread copies each plan to the card on the default
+stream, the stream the round step runs on, so the round that reads a plan
+is ordered after its copy.  The copy waits behind the round in flight;
+the host plan is a millisecond of a round of a second or more (PERF.md,
+the train-loop row), so there is nothing a stream of its own would hide.
+The port's counterpart of ``repro.fed.cohort.engine``.
 """
 from __future__ import annotations
 
@@ -41,7 +39,7 @@ from ...configs.base import FLConfig
 from ...data.federated import BucketedPlan, FederatedPipeline, IndexPlan, Population
 from ...kernels.rr_perm.ref import rr_indices, stream_key
 from ...utils.device import resolve_device
-from .plan import as_device_plan, map_tensors
+from .plan import as_device_plan
 from .plane import DevicePlane, build_plane
 from .prefetch import RoundPrefetcher
 
@@ -115,19 +113,6 @@ class CohortEngine:
     def device_plan(self, rnd: int) -> "IndexPlan | BucketedPlan":
         return as_device_plan(self.index_plan(rnd), self.device)
 
-    def _staged_plan(self, rnd: int, index: int, stream) -> tuple:
-        """Producer side of a prefetched round on card ``index``: the host
-        plan copied from pinned buffers on ``stream``, and the event
-        recorded after the copies."""
-        torch.cuda.set_device(index)           # the current device is per thread
-        host = as_device_plan(self.index_plan(rnd), "cpu")
-        with torch.cuda.stream(stream):
-            plan = map_tensors(lambda t: t.pin_memory().to(self.device, non_blocking=True),
-                               host)
-            done = torch.cuda.Event()
-            done.record(stream)
-        return plan, done
-
     @contextmanager
     def round_plans(self, rounds: int, *, prefetch: int | None = None, start: int = 0):
         """Iterate ``(rnd, device_plan)`` for rounds ``start .. start+rounds``
@@ -136,21 +121,10 @@ class CohortEngine:
         if depth <= 0:
             yield ((r, self.device_plan(r)) for r in range(start, start + rounds))
             return
-        if self.device.type != "cuda":
-            with RoundPrefetcher(self.device_plan, rounds, depth=depth, start=start) as pf:
-                yield iter(pf)
-            return
-        index = torch.device(self.device).index
-        index = torch.cuda.current_device() if index is None else index
-        stream = torch.cuda.Stream(device=index)
-
-        def fenced(pf):
-            for r, (plan, done) in pf:
-                cur = torch.cuda.current_stream(index)
-                cur.wait_event(done)
-                map_tensors(lambda t: t.record_stream(cur), plan)
-                yield r, plan
-
-        with RoundPrefetcher(lambda r: self._staged_plan(r, index, stream), rounds,
+        # the producer thread has a current device of its own: name the card
+        device = self.device
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        with RoundPrefetcher(lambda r: as_device_plan(self.index_plan(r), device), rounds,
                              depth=depth, start=start) as pf:
-            yield fenced(pf)
+            yield iter(pf)

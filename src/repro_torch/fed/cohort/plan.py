@@ -3,8 +3,7 @@
 Shares ``fed.rounds.as_device_meta`` (meta floats -> float32, ids -> int64)
 so a round step fed a materialized plan is bitwise-identical to one fed a
 host-assembled RoundBatch.  A ``BucketedPlan`` moves its buckets' occupied
-rows only (``fed.rounds.as_device_buckets``).  :func:`map_tensors` walks a
-plan's tensors (the round prefetcher stages and fences them).
+rows only (``fed.rounds.as_device_buckets``).
 """
 from __future__ import annotations
 
@@ -28,17 +27,3 @@ def as_device_plan(plan: "IndexPlan | BucketedPlan", device) -> "IndexPlan | Buc
         idx=None if plan.idx is None else to_device(plan.idx, device, torch.int32),
         step_mask=to_device(plan.step_mask, device, torch.float32),
         meta=meta, sizes=sizes, spe=spe, rnd=int(plan.rnd))
-
-
-def map_tensors(fn, x):
-    """``fn`` over every tensor of a plan (through its named tuples, tuples
-    and dicts); anything else (the round, a bucketed plan's host ``pos``,
-    absent fields) is kept as it is."""
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    if isinstance(x, tuple):
-        vals = [map_tensors(fn, v) for v in x]
-        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
-    if isinstance(x, dict):
-        return {k: map_tensors(fn, v) for k, v in x.items()}
-    return x

@@ -14,9 +14,8 @@ even if the consumer stops early.
 prefetched.  Per-client state (the ``ServerState.clients`` bank) is never
 part of a plan: the round step gathers the bank rows named by the plan's
 client ids when it runs, so state reads and writes stay round-ordered no
-matter how far ahead the producer runs.  How a plan reaches the card
-without waiting behind the round in flight is the engine's business
-(``CohortEngine.round_plans``).
+matter how far ahead the producer runs.  How a plan reaches the card is
+the engine's business (``CohortEngine.round_plans``).
 """
 from __future__ import annotations
 

@@ -55,12 +55,12 @@ def charlm_e2e_config(algorithm: str = "fedshuffle", server_opt: str = "sgd",
 
 
 def run_charlm_e2e(rounds: int, algorithm: str = "fedshuffle", server_opt: str = "sgd", *,
-                   device=None, checkpoint: str | None = None, schedule: str = "staircase",
-                   state=None, start_round: int = 0, **fl_overrides) -> TrainResult:
+                   device=None, checkpoint: str | None = None,
+                   **fl_overrides) -> TrainResult:
     """The e2e driver: ~100M-param char-LM, heterogeneous clients, random
     weights from seed 0.  ``fl_overrides`` replace fields of the run's
     ``FLConfig``; ``checkpoint`` saves the params every 100 rounds and at
-    the end; ``state`` and ``start_round`` resume a run (``train``'s)."""
+    the end."""
     device = resolve_device(device)
     cfg, fl = charlm_e2e_config(algorithm, server_opt, **fl_overrides)
     task = CharLMTask(vocab=cfg.vocab, seq_len=128, num_clients=fl.num_clients)
@@ -78,9 +78,9 @@ def run_charlm_e2e(rounds: int, algorithm: str = "fedshuffle", server_opt: str =
         return {"loss": loss_fn(p, eval_batch)[0]}
 
     return train(loss_fn, params, pipe, fl, rounds, eval_fn=eval_fn, eval_every=20,
-                 schedule=schedule, checkpoint_path=checkpoint,
+                 schedule="staircase", checkpoint_path=checkpoint,
                  checkpoint_every=100 if checkpoint else 0, name="charlm-e2e", log_every=10,
-                 state=state, start_round=start_round, device=device)
+                 device=device)
 
 
 def main() -> None:

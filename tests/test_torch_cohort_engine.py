@@ -364,11 +364,11 @@ def test_prefetch_depth_must_be_nonnegative():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("exec_mode", ["padded", "bucketed"])
-def test_cuda_staged_prefetch_equals_unprefetched(exec_mode):
-    """On a card the plans travel on the engine's copy stream, fenced by an
-    event: the rounds equal the unprefetched ones bitwise."""
+def test_cuda_prefetch_equals_unprefetched(exec_mode):
+    """On a card the producer thread copies the plans to the card: the
+    rounds equal the unprefetched ones bitwise."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the copy stream and its event have no CPU mode")
+        pytest.skip("needs a CUDA device: the producer's copies to the card have no CPU mode")
     runs = []
     for prefetch in (0, 2):
         fl = FLConfig(**_kw(exec_mode=exec_mode, prefetch=prefetch))
