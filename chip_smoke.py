@@ -31,7 +31,7 @@
    beside unmasked SDPA; ``rr_perm``'s latency bound (the launch floor plus
    the cipher's serial chain, counted from its SASS) beside its operations
    bound;
-3. drives nine main paths through the user entry point, each with every
+3. drives eleven main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
@@ -73,7 +73,18 @@
    file that run wrote, loaded into CharLM-100M and served (batch 4, 16
    greedy tokens: 12 causal fp32 flash launches in the prefill, on
    ``flash_fwd``); (d) CharLM-tiny with the EF and downlink banks on the
-   card, 2 + 2 rounds through a file against 4;
+   card, 2 + 2 rounds through a file against 4; then the paper's vision
+   task as ``benchmarks/bench_vision.py`` runs it (vision-tiny, 2 x 128
+   over 64 patches; 8 clients, 4 a round, 6 samples each, E_i ~ U{2..5}):
+   ``fedavg_min``, ``fedavg_mean``, ``fedavg``, ``fednova`` and
+   ``fedshuffle`` 30 rounds each through ``train()`` in the vmapped cohort
+   mode, the eval accuracy from the vlm prefill (2 fp32 flash launches an
+   eval, on ``flash_fwd``), then FedShuffle on the cohort engine (one
+   ``rr_perm`` launch a round); then serving full-width
+   LLaVA-NeXT-Mistral-7B (32 x 4096, 32 / 8 heads of 128, bf16) through
+   ``generate``: batch 4, 256-token prompts after 1,176 zero patch
+   embeddings, 32 greedy tokens (one causal flash launch a layer in the
+   prefill on ``flash_fwd_mma`` at hd 128; none in decode);
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
@@ -100,7 +111,16 @@
    one, the served checkpoint's tokens and every step's logits to the same
    call on the in-memory params (each flash launch within ``FLASH_TOL`` of
    the plain version on its inputs), the tiny resume (params, both banks)
-   to the unbroken run with equal quantize launches;
+   to the unbroken run with equal quantize launches; for the vision task,
+   ``bench_vision.py``'s claim (FedShuffle within 0.08 of the best final
+   eval accuracy, the best above 0.2), each method's last eval again with
+   every flash launch within ``FLASH_TOL`` of the plain version, and the
+   engine run bitwise equal to its ``rr_backend="device_ref"`` twin; for
+   LLaVA, each prefill launch within one bf16 step of the plain version on
+   the path's inputs, the prefill over random patches held to the plain
+   versions in fp32 as for the other serving paths (the planted fault:
+   flash launched non-causal), and LLaVA-tiny served on the card agreeing
+   with the port on the CPU;
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1400,6 +1420,23 @@ def flash_checked(err: dict, last: dict, kind):
     return checked
 
 
+def flash_held(err: list, tol: float, where: str):
+    """A stand-in for ``flash_attention.ops.flash_attention_kernel`` that
+    launches the kernel and holds each launch within ``tol`` + ``tol`` |ref|
+    of the plain version on the same inputs; ``err[0]`` keeps the largest
+    difference."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+
+    def checked(q, k, v, *, causal=True, window=0):
+        got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        want = flash_attention_torch(q, k, v, causal=causal, window=window)
+        err[0] = max(err[0], _allclose(got, want, tol, tol, where))
+        return got
+
+    return checked
+
+
 def anchor_check(label: str, model, params: dict, twin, checked: dict, fault_model,
                  fault_swaps: dict, fault_name: str, served: dict | None = None) -> dict:
     """The bf16 serving run held against the plain versions in fp32 on the
@@ -1596,9 +1633,10 @@ def check_serve_fp32(dev) -> dict:
 
 def check_serve_tiny(dev, arch: str = "hymba-1.5b") -> float:
     """The reduced config of ``arch`` (Hymba-tiny: 2 layers, window 64, SSD
-    chunk 32; SeamlessM4T-tiny: 2 + 2 layers over 32 frames; fp32) serves
-    the same prompts on the card (the kernels) and on the CPU (the plain
-    versions): equal greedy tokens, logits within 2e-4 + 2e-3 |cpu|."""
+    chunk 32; SeamlessM4T-tiny: 2 + 2 layers over 32 frames; LLaVA-tiny: 2
+    layers after 16 zero patches; fp32) serves the same prompts on the card
+    (the kernels) and on the CPU (the plain versions): equal greedy tokens,
+    logits within 2e-4 + 2e-3 |cpu|."""
     import torch
 
     from repro_torch.configs.registry import get_arch
@@ -1613,7 +1651,7 @@ def check_serve_tiny(dev, arch: str = "hymba-1.5b") -> float:
     for d in ("cpu", dev):
         seen = []
         out[str(d)] = generate(model, {k: v.to(d) for k, v in params.items()}, prompts.to(d),
-                               steps=8, cache_len=110,
+                               steps=8, cache_len=cfg.num_patches + 110,
                                on_logits=lambda i, lg, seen=seen: seen.append(lg.cpu()))
         logits[str(d)] = torch.stack(seen)
     if not torch.equal(out["cpu"], out[str(dev)].cpu()):
@@ -2391,7 +2429,6 @@ def serve_checkpoint(dev, params_path: str, params: dict, flash_row: dict) -> di
 
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
-    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
     from repro_torch.launch.serve import generate
     from repro_torch.launch.train import charlm_e2e_config
     from repro_torch.models.model import build_model
@@ -2406,13 +2443,8 @@ def serve_checkpoint(dev, params_path: str, params: dict, flash_row: dict) -> di
     prompts = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (CKPT_SERVE_BATCH, CKPT_SERVE_PROMPT)), device=dev)
     err = [0.0]
-
-    def checked(q, k, v, *, causal=True, window=0):
-        got = flash_attention_kernel(q, k, v, causal=causal, window=window)
-        want = flash_attention_torch(q, k, v, causal=causal, window=window)
-        err[0] = max(err[0], _allclose(got, want, FLASH_TOL["float32"], FLASH_TOL["float32"],
-                                       "CharLM-100M prefill flash on the path's inputs"))
-        return got
+    checked = flash_held(err, FLASH_TOL["float32"], "CharLM-100M prefill flash on the path's "
+                         "inputs")
 
     def serve(p):
         seen = []
@@ -2533,6 +2565,373 @@ def train_loop_paths(dev, vm_params: dict, vm: dict, bk_params: dict, bk: dict, 
         del params
         out["bank_resume"] = bank_resume(dev, tmp)
     return out
+
+
+# the paper's vision task as benchmarks/bench_vision.py:44-53 runs it: an
+# equal split of 6 samples over 8 clients, 4 a round, E_i ~ U{2..5} (what
+# exercises FedShuffleGen), seed 31; five methods, 30 rounds each, eval
+# every 5 rounds and at the last
+VISION_FL = dict(num_clients=8, cohort_size=4, sampling="uniform", epochs=2, epochs_max=5,
+                 local_batch=2, local_lr=0.1, server_opt="sgd", imbalance="equal",
+                 mean_samples=6, seed=31)
+VISION_METHODS = ("fedavg_min", "fedavg_mean", "fedavg", "fednova", "fedshuffle")
+VISION_ROUNDS, VISION_EVAL_EVERY = 30, 5
+# bench_vision.py's claim (the paper's Table 3): the methods are close on
+# the equal split, FedShuffle within this margin of the best final eval
+# accuracy, and the best above this floor (training learns)
+VISION_MARGIN, VISION_FLOOR = 0.08, 0.2
+# serving LLaVA-NeXT-Mistral-7B at full width: batch 4, 256-token prompts
+# after its 1,176 patch embeddings (zeros, as generate feeds them), 32
+# greedy tokens
+LLAVA_PROMPT = 256
+
+
+def paper_lr_convention(fl, pipe):
+    """A copy of ``benchmarks/common.py:paper_lr_convention``: FedShuffle's
+    (and FedShuffleGen's) eta_l is quoted for a reference client, so its
+    per-step rate matches the grid value; the reference is the
+    population-average step count."""
+    import dataclasses
+
+    from repro_torch.data.reshuffle import steps_for
+
+    if fl.algorithm in ("fedshuffle", "gen", "fedshuffle_so"):
+        ks = [steps_for(int(s), fl.epochs, fl.local_batch) for s in pipe.population.sizes]
+        return dataclasses.replace(fl, local_lr=fl.local_lr * float(np.mean(ks)))
+    return fl
+
+
+def vision_eval_fn(model, task, dev):
+    """``benchmarks/bench_vision.py:_eval_fn`` on the card: classification
+    accuracy on a held-out batch pooled across clients (ids 60,000..60,007
+    of each of the 8: B 64), the label predicted at the BOS position after
+    the 64 patches by ``Model.prefill`` (T 65: one flash launch a layer)."""
+    import torch
+
+    idx = np.arange(8).reshape(1, 8) + 60_000
+    batches = [task.batch(c, idx) for c in range(task.num_clients)]
+    patches = torch.as_tensor(np.concatenate([b["patches"][0] for b in batches]), device=dev)
+    toks = torch.as_tensor(np.concatenate([b["tokens"][0] for b in batches]), device=dev)
+
+    def acc(params):
+        with torch.inference_mode():
+            logits, _ = model.prefill(params, {"tokens": toks[:, :1], "patches": patches},
+                                      cache_len=patches.shape[1] + 2)
+            return {"acc": (logits[:, -1].argmax(-1) == toks[:, 1]).float().mean()}
+
+    return acc
+
+
+def vision_path(dev, rr_row: dict, flash_row: dict) -> dict:
+    """Main path 10, the paper's vision task (vision-tiny at full width, 2 x
+    128, 64 patches; random weights from seed 0) as
+    ``benchmarks/bench_vision.py`` runs it, through ``train()`` in the
+    vmapped cohort mode (FLConfig's default) with the paper's lr convention:
+    the five methods 30 rounds each, the eval accuracy from the vlm prefill
+    (2 fp32 flash launches an eval on ``simt``, 7 evals a run), the launch
+    counts set to 0 before the five runs and read after; then FedShuffle
+    once more through the cohort engine with ``rr_backend="device"`` (one
+    ``rr_perm`` launch a round), bitwise equal to its ``device_ref`` twin.
+    Checks: ``bench_vision.py``'s claim, and each method's last eval again
+    with every flash launch within ``FLASH_TOL`` of the plain version,
+    giving the same accuracy."""
+    import torch
+
+    import repro_torch.kernels.flash_attention.ops as fops
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.paper_tasks import VISION_TINY
+    from repro_torch.data.federated import FederatedPipeline, Population
+    from repro_torch.data.tasks import VisionTask
+    from repro_torch.fed.losses import make_loss
+    from repro_torch.fed.train_loop import train
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
+    from repro_torch.models.model import build_model
+
+    cfg = VISION_TINY
+    task = VisionTask(num_classes=cfg.vocab, num_patches=cfg.num_patches, d_model=cfg.d_model,
+                      num_clients=VISION_FL["num_clients"], alpha=0.5)
+    model = build_model(cfg)
+    loss_fn = make_loss(model)
+    acc_fn = vision_eval_fn(model, task, dev)
+    params0 = model.init(0, dev)
+    evals = sum(r % VISION_EVAL_EVERY == 0 or r == VISION_ROUNDS - 1
+                for r in range(VISION_ROUNDS))
+
+    def run(alg, **more):
+        fl = FLConfig(**VISION_FL, algorithm=alg, **more)
+        fl = paper_lr_convention(fl, FederatedPipeline(task, Population.build(fl), fl))
+        pipe = FederatedPipeline(task, Population.build(fl), fl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train(loss_fn, params0, pipe, fl, VISION_ROUNDS, eval_fn=acc_fn,
+                    eval_every=VISION_EVAL_EVERY, log_every=0, name=f"vision-{alg}", device=dev)
+        torch.cuda.synchronize()
+        rows = res.metrics.rows
+        plain = [rows[r]["elapsed_s"] - rows[r - 1]["elapsed_s"] for r in range(1, len(rows))
+                 if "eval_acc" not in rows[r]]
+        return res, {"local_lr": fl.local_lr, "wall_s": time.perf_counter() - t0,
+                     "round_ms": 1e3 * float(np.mean(plain)),
+                     "accs": [r["eval_acc"] for r in rows if "eval_acc" in r],
+                     "local_loss": (rows[0]["local_loss"], rows[-1]["local_loss"])}, pipe
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash_attention_kernel, rr_indices_kernel)
+    out, finals = {}, {}
+    for alg in VISION_METHODS:
+        res, out[alg], pipe = run(alg)
+        finals[alg] = res.state.params
+    torch.cuda.synchronize()
+    ((flash_n, flash_routes, flash_modes),), rr_n = (read_counts(flash_attention_kernel),
+                                                     rr_indices_kernel.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = len(VISION_METHODS) * evals * cfg.n_layers
+    for alg, r in out.items():
+        print(f"vision path {alg}: local_lr {r['local_lr']:.4f}, eval accuracy "
+              f"{', '.join(f'{a:.4f}' for a in r['accs'])}, local loss {r['local_loss'][0]:.4f} "
+              f"-> {r['local_loss'][1]:.4f}; {VISION_ROUNDS} rounds in {r['wall_s']:.2f} s, "
+              f"{r['round_ms']:.2f} ms a round without eval", flush=True)
+    print(f"vision path launches in the five runs: flash_attention {flash_n} (routes "
+          f"{flash_routes}, modes {flash_modes}; want {want}, {evals} evals x {cfg.n_layers} "
+          f"layers x {len(VISION_METHODS)} methods, all simt), rr_perm {rr_n} (want 0: host RR); "
+          f"peak device memory {peak / 2**30:.3f} GiB", flush=True)
+    if (flash_n, flash_routes["simt"], flash_modes["causal"], rr_n) != (want, want, want, 0):
+        raise AssertionError(f"vision path launches: flash {flash_n} {flash_routes} "
+                             f"{flash_modes}, rr_perm {rr_n}")
+    final = {alg: r["accs"][-1] for alg, r in out.items()}
+    best = max(final.values())
+    if final["fedshuffle"] < best - VISION_MARGIN or best <= VISION_FLOOR:
+        raise AssertionError(f"vision path: bench_vision.py's claim fails: {final}")
+    print(f"vision path claim (bench_vision.py): fedshuffle {final['fedshuffle']:.4f} >= best "
+          f"{best:.4f} - {VISION_MARGIN}, best > {VISION_FLOOR}: held", flush=True)
+
+    # the host's share: VisionTask.batch draws one numpy Generator a sample
+    t0 = time.perf_counter()
+    for r in range(VISION_ROUNDS):
+        pipe.round_batch(r)
+    host_ms = (time.perf_counter() - t0) * 1e3 / VISION_ROUNDS
+
+    # each method's last eval again, every flash launch held to the plain
+    # version on its inputs, the accuracy equal to the run's
+    err = [0.0]
+    with swapped({(fops, "flash_attention_kernel"): flash_held(
+            err, FLASH_TOL["float32"], "vision eval flash on the path's inputs")}):
+        for alg, p in finals.items():
+            again = float(acc_fn(p)["acc"])
+            if again != final[alg]:
+                raise AssertionError(f"vision path {alg}: eval accuracy {again} != {final[alg]}")
+    print(f"vision path: the host's round batch (VisionTask.batch, a numpy Generator a sample) "
+          f"{host_ms:.2f} ms a round; each method's last eval again: equal accuracy, every flash "
+          f"launch within {FLASH_TOL['float32']} of the plain version (max abs diff "
+          f"{err[0]:.3e})", flush=True)
+    del finals
+
+    # FedShuffle through the cohort engine: the device RR streams, one
+    # rr_perm launch a round; its device_ref twin bitwise
+    zero_counts(flash_attention_kernel, rr_indices_kernel)
+    eng, eng_stats, _ = run("fedshuffle", engine="cohort", rr_backend="device")
+    torch.cuda.synchronize()
+    eng_flash, eng_rr = flash_attention_kernel.launches, rr_indices_kernel.launches
+    twin, _, _ = run("fedshuffle", engine="cohort", rr_backend="device_ref")
+    differ = [k for k in twin.state.params
+              if not torch.equal(eng.state.params[k], twin.state.params[k])]
+    print(f"vision path, fedshuffle on the cohort engine (rr_backend='device'): eval accuracy "
+          f"{', '.join(f'{a:.4f}' for a in eng_stats['accs'])}, {eng_stats['round_ms']:.2f} ms "
+          f"a round; launches rr_perm {eng_rr} (want {VISION_ROUNDS}), flash_attention "
+          f"{eng_flash} (want {evals * cfg.n_layers}); params vs the device_ref twin: "
+          f"{'bitwise equal' if not differ else differ}", flush=True)
+    if (eng_rr, eng_flash) != (VISION_ROUNDS, evals * cfg.n_layers) or differ:
+        raise AssertionError(f"vision path on the cohort engine: rr_perm {eng_rr}, flash "
+                             f"{eng_flash}, params differ from the device_ref twin in {differ}")
+    rr_row["launches_by_path"] = {"charlm-100m": rr_row["launches"], cfg.name: eng_rr}
+    flash_row["launches_by_path"][cfg.name] = flash_n + eng_flash
+    flash_row["launches"] += flash_n + eng_flash
+    del eng, twin
+    torch.cuda.empty_cache()
+    return {"methods": out, "final_acc": final, "peak_gib": peak / 2**30,
+            "host_batch_ms_per_round": host_ms, "flash_launches": flash_n,
+            "flash_max_abs_err": err[0], "engine": eng_stats | {"rr_perm_launches": eng_rr,
+                                                                 "flash_launches": eng_flash}}
+
+
+def serve_llava_path(dev, flash_row: dict) -> dict:
+    """Main path 11: full-width LLaVA-NeXT-Mistral-7B (32 x 4096, 32 / 8
+    heads of 128, d_ff 14,336, vocab 32,000, bf16, random weights from seed
+    0; the vision tower a stub, as in JAX) serves batch 4 x 256-token
+    prompts (numpy seed 1) after 1,176 zero patch embeddings for 32 greedy
+    tokens through ``generate`` (:func:`timed_generate`; the cache holds
+    1,176 + 256 + 32 + 1 positions, the JAX serve CLI's formula): one
+    causal flash launch a layer in the prefill on ``mma`` at q [4, 1432,
+    32, 128], k/v [4, 1432, 8, 128], none in decode.  One prefill and one
+    decode step are traced for their device time and the kernels that take
+    the most of it.  Then the checks
+    (:func:`check_llava_prefill`), ``flash_fwd_mma`` timed at that shape
+    beside SDPA (causal, ``enable_gqa``) and its bound, and LLaVA-tiny
+    served on the card against the CPU."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("llava-next-mistral-7b")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(0, dev)
+    n_params = sum(v.numel() for v in params.values())
+    weight_bytes = sum(v.numel() * v.element_size() for v in params.values())
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SERVE_BATCH, LLAVA_PROMPT)), device=dev)
+    T = cfg.num_patches + LLAVA_PROMPT
+    cache_len = T + SERVE_STEPS + 1
+    run = timed_generate(model, params, prompts, cache_len, (flash_attention_kernel,))
+    (total,), (prefill,), (decode,) = run["total"], run["prefill"], run["decode"]
+    st, L = run["stats"], cfg.n_layers
+    res = {"arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
+           "dtype": cfg.dtype, "batch": SERVE_BATCH, "patches": cfg.num_patches,
+           "prompt": LLAVA_PROMPT, "steps": SERVE_STEPS, "cache_len": cache_len, **st,
+           "prefill_launches": {"flash_attention": prefill[0], "by_route": prefill[1],
+                                "by_mode": prefill[2]},
+           "decode_launches": {"flash_attention": decode[0]}}
+    print(f"serve llava path: {cfg.name} {n_params} params ({cfg.dtype}, {weight_bytes} bytes), "
+          f"batch {SERVE_BATCH} x {LLAVA_PROMPT}-token prompts after {cfg.num_patches} patches, "
+          f"{SERVE_STEPS} greedy tokens: prefill {st['prefill_ms']:.2f} ms, decode "
+          f"{st['decode_ms_per_step']:.2f} ms a step ({st['decode_tok_per_s']:.1f} tokens/s), "
+          f"{st['e2e_tok_per_s']:.1f} tokens/s end to end, peak device memory "
+          f"{st['peak_gib']:.3f} GiB; flash_attention launches in the prefill: {prefill[0]} (by "
+          f"route {prefill[1]}, by mode {prefill[2]}); in decode: {decode[0]}", flush=True)
+    want = (L, {"wgmma": 0, "mma": L, "simt": 0}, {"causal": L, "noncausal": 0})
+    if prefill != want or decode[0] != 0:
+        raise AssertionError(f"serve llava launches: prefill {prefill}, decode {decode[0]}; "
+                             f"want {want} and 0")
+    flash_row["launches_by_path"][cfg.name] = total[0]
+    flash_row["launches"] += total[0]
+    out = run["tokens"]
+    del run
+
+    # one prefill and one decode step traced (CUDA activity only)
+    batch = {"tokens": prompts, "patches": torch.zeros(
+        (SERVE_BATCH, cfg.num_patches, cfg.d_model), dtype=torch.float32, device=dev)}
+    cache_bytes = 2 * L * SERVE_BATCH * cache_len * cfg.n_kv_heads * cfg.hd() * 2
+    with torch.inference_mode():
+        lg, cache = model.prefill(params, batch, cache_len)
+        tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+        for label, fn in (("prefill", lambda: model.prefill(params, batch, cache_len)),
+                          ("decode", lambda: model.decode_step(params, tok, cache))):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            n, dev_ms = count_device(prof)
+            by_name = {}
+            for e in prof.profiler.kineto_results.events():
+                if e.device_type() != DeviceType.CPU:
+                    by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns() / 1e6
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            flash_ms = sum(ms for name, ms in by_name.items() if "flash_fwd" in name)
+            res[f"{label}_trace"] = {"kernels": n, "device_ms": dev_ms, "flash_ms": flash_ms,
+                                     "top_ms": {name[:80]: ms for name, ms in top}}
+            print(f"serve llava {label} traced: {n} device kernels and copies, {dev_ms:.2f} ms "
+                  f"of device time, flash_fwd {flash_ms:.2f} ms; the most time: " + "; ".join(
+                      f"{name[:80]} {ms:.2f} ms" for name, ms in top), flush=True)
+        if cache["pos"] != T + 1:
+            raise AssertionError(f"serve llava: cache at {cache['pos']}, want {T + 1}")
+    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    res["decode_bound_ms"] = {"weights": bound, "weights_and_cache": bound + cache_bytes
+                              / HBM_BYTES_PER_S * 1e3}
+    print(f"serve llava decode step: {res['decode_trace']['device_ms']:.2f} ms of device time in "
+          f"{res['decode_trace']['kernels']} kernels, {st['decode_ms_per_step']:.2f} ms of wall, "
+          f"against the weight-read bound {bound:.3f} ms ({weight_bytes} B at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s; {res['decode_bound_ms']['weights_and_cache']:.3f} ms "
+          f"with the whole {cache_bytes}-byte cache read)", flush=True)
+    del cache, lg, tok
+
+    res.update(check_llava_prefill(dev, model, params, prompts, cache_len, out))
+    del params
+    torch.cuda.empty_cache()
+
+    # flash_fwd_mma at the prefill's shape, beside SDPA and its bound
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, H, KV, hd = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+    q, k, v = (torch.randn((B, T, n, hd), generator=gen, device=dev).to(torch.bfloat16)
+               for n in (H, KV, KV))
+    t = time_flash(q, k, v, lambda qt, kt, vt: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 4 * hd * band_pairs(T, 0) * B * H, "mma")
+    flash_row["llava"] = {"shape": [B, T, H, KV, hd], "dtype": "bfloat16",
+                          "library": "F.scaled_dot_product_attention(is_causal=True, "
+                                     "enable_gqa=True)", **t}
+    print(f"flash_attention at bf16 {[B, T, H, KV, hd]}, causal (LLaVA's prefill): "
+          f"flash_fwd_mma {t['ms']:.4f} ms, flash_fwd {t['simt_ms']:.4f} ms, SDPA "
+          f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}, {t['gflop']:.2f} GFLOP)", flush=True)
+    del q, k, v
+    res["tiny_card_vs_cpu_err"] = check_serve_tiny(dev, "llava-next-mistral-7b")
+    print(f"LLaVA-tiny served on the card vs the port on the CPU: equal tokens, logits max abs "
+          f"diff {res['tiny_card_vs_cpu_err']:.3e}", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_llava_prefill(dev, model, params: dict, prompts, cache_len: int, out) -> dict:
+    """The serving path's checks: (1) ``Model.prefill`` on the path's own
+    inputs (the zero patches and the prompts) with each of the 32 flash
+    launches held within one bf16 step of the plain version on its inputs;
+    the last layer's inputs launched non-causal must leave that bound; (2)
+    the prefill over random patch embeddings (numpy seed 2), its logits and
+    caches held to :func:`anchor_check` (the plain versions in fp32 on the
+    same weights), with the flash launches made non-causal as the planted
+    fault that must fail it."""
+    import torch
+
+    import repro_torch.kernels.flash_attention.ops as fops
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+
+    cfg = model.cfg
+    layer_err, last = {}, {}
+    checked = flash_checked(layer_err, last, lambda q, k, causal: "flash_attention")
+    zeros = torch.zeros((SERVE_BATCH, cfg.num_patches, cfg.d_model), dtype=torch.float32,
+                        device=dev)
+    with torch.inference_mode(), swapped({(fops, "flash_attention_kernel"): checked}):
+        lg, _ = model.prefill(params, {"tokens": prompts, "patches": zeros}, cache_len)
+    if not torch.equal(lg[:, -1].argmax(-1), out[:, 0]):
+        raise AssertionError("serve llava: the checked prefill picks other first tokens")
+    q, k, v, _, want = last.pop("flash_attention")
+    with torch.inference_mode():
+        d = (flash_attention_kernel(q, k, v, causal=False).float() - want.float()).abs()
+    fault_off = int((d > FLASH_MAIN_BF16_ATOL + FLASH_MAIN_BF16_RTOL * want.float().abs()).sum())
+    print(f"serve llava prefill's flash inputs, {cfg.n_layers} layers: within "
+          f"{FLASH_MAIN_BF16_ATOL} + 2^-7 |ref| of the plain version (max abs diff "
+          f"{layer_err['flash_attention']:.3e}); the last layer launched non-causal: {fault_off} "
+          f"of {q.numel()} elements off", flush=True)
+    if fault_off == 0:
+        raise AssertionError("serve llava: the layer check passed a non-causal fault")
+    del q, k, v, want, d, lg
+
+    patches = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(SERVE_BATCH, cfg.num_patches, cfg.d_model)).astype(np.float32), device=dev)
+    batch = {"tokens": prompts, "patches": patches}
+
+    def twin(m, p, decode: bool = True) -> dict:
+        lg, c = m.prefill(p, batch, cache_len)
+        r = {"logits": lg[:, -1].float()}
+        r.update({name: x.float() for name, x in c["layers"].items()})
+        return r
+
+    def flash_faulty(q, k, v, *, causal=True, window=0):
+        return flash_attention_kernel(q, k, v, causal=False, window=window)
+
+    anchor_err = {}
+    layer_check = flash_checked(anchor_err, {}, lambda q, k, causal: "flash_attention")
+    errs = anchor_check("serve llava", model, params, twin,
+                        {(fops, "flash_attention_kernel"): layer_check}, model,
+                        {(fops, "flash_attention_kernel"): flash_faulty}, "a non-causal fault")
+    return {"layer_max_abs_err": layer_err["flash_attention"],
+            "layer_fault_elements_off": fault_off,
+            "random_patches_layer_max_abs_err": anchor_err["flash_attention"],
+            "vs_fp32_rel_err": errs}
 
 
 def profile_serve(dev, out_dir: Path) -> None:
@@ -2786,6 +3185,21 @@ def main() -> int:
           f"abs diff {audio['tiny_card_vs_cpu_err']:.3e}", flush=True)
     print(json.dumps({"serve_audio": audio}), flush=True)
     print(f"audio serve path: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # main path 10, the paper's vision task: five methods 30 rounds each
+    # (2 flash launches an eval, on simt), then FedShuffle on the cohort
+    # engine (one rr_perm launch a round)
+    t0 = time.perf_counter()
+    vision = vision_path(dev, rr, flash)
+    print(json.dumps({"vision": vision}), flush=True)
+    print(f"vision path: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # main path 11, serving LLaVA-NeXT-Mistral-7B: 32 causal flash launches
+    # a prefill on mma at hd 128, none in decode
+    t0 = time.perf_counter()
+    llava = serve_llava_path(dev, flash)
+    print(json.dumps({"serve_llava": llava}), flush=True)
+    print(f"llava serve path: {time.perf_counter() - t0:.1f} s", flush=True)
 
     for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd"), MVR,
                  dict(mvr_exact=True, **MVR), VMAPPED, VMAPPED | MVR,

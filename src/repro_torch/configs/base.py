@@ -1,9 +1,9 @@
 """Config system: model architecture and FL hyperparameters (the port's copy).
 
 The same frozen dataclasses as ``repro.configs.base``, cut to the fields
-this port implements: ``ArchConfig`` for the dense, hybrid (attention +
-Mamba2 SSD, ``SSMConfig``) and audio (encoder-decoder) families with
-``reduced()``, and
+this port implements: ``ArchConfig`` for the dense, vlm (a patch prefix on
+the dense family), hybrid (attention + Mamba2 SSD, ``SSMConfig``) and audio
+(encoder-decoder) families with ``reduced()``, and
 ``FLConfig`` with the comm plane's knobs but without those of the planes
 that are not ported yet (fleet, robust, privacy, obs).  Shared fields keep
 the JAX package's names and defaults, so one keyword dict builds both
@@ -64,9 +64,10 @@ class ArchConfig:
     ssm: SSMConfig | None = None
     hybrid: bool = False           # Hymba parallel attn+SSM heads
 
-    # encoder-decoder (audio) stub
+    # encoder-decoder (audio) / multimodal stubs
     enc_layers: int = 0            # >0 => encoder-decoder
     src_frames: int = 1024         # audio frontend stub: #frame embeddings
+    num_patches: int = 0           # vlm frontend stub: #patch embeddings
 
     # misc
     tie_embeddings: bool = False
@@ -79,7 +80,7 @@ class ArchConfig:
     def reduced(self, **overrides) -> "ArchConfig":
         """A tiny same-family variant for CPU smoke tests (<=2 layers etc.),
         with the JAX package's defaults: fp32, SSM chunk 32, 2 encoder
-        layers over 32 frames, window 64."""
+        layers over 32 frames, 16 patches, window 64."""
         small: dict = dict(
             n_layers=2,
             d_model=min(self.d_model, 128),
@@ -96,6 +97,8 @@ class ArchConfig:
         if self.enc_layers:
             small["enc_layers"] = 2
             small["src_frames"] = 32
+        if self.num_patches:
+            small["num_patches"] = 16
         if self.sliding_window:
             small["sliding_window"] = 64
         small["dtype"] = "float32"

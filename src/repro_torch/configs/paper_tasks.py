@@ -3,6 +3,9 @@
 
 * ``charlm-tiny`` — stand-in for the Shakespeare LSTM (2-layer transformer LM
   over a small char vocab; heterogeneous client sizes ~ log-normal).
+* ``vision-tiny`` — stand-in for CIFAR100/ResNet18 (patch-transformer over
+  synthetic image patches; equal split; E_i ~ U{2..5} per round -> exercises
+  FedShuffleGen).
 * ``charlm-100m`` — the e2e train driver's ~100M-param char-LM.
 """
 from __future__ import annotations
@@ -22,6 +25,20 @@ CHARLM_TINY = ArchConfig(
     dtype="float32",
 )
 
+VISION_TINY = ArchConfig(
+    name="vision-tiny",
+    family="vlm",          # patch-embedding frontend stub = image patches
+    citation="paper §6.2 (CIFAR100 stand-in)",
+    n_layers=2,
+    d_model=128,
+    n_heads=4,
+    n_kv_heads=4,
+    d_ff=512,
+    vocab=100,             # 100 classes as a 100-token vocab on a CLS position
+    num_patches=64,        # 8x8 patches of a 32x32 image
+    dtype="float32",
+)
+
 CHARLM_100M = ArchConfig(
     name="charlm-100m",
     family="dense",
@@ -35,4 +52,4 @@ CHARLM_100M = ArchConfig(
     dtype="float32",
 )
 
-PAPER_ARCHS = {c.name: c for c in (CHARLM_TINY, CHARLM_100M)}
+PAPER_ARCHS = {c.name: c for c in (CHARLM_TINY, VISION_TINY, CHARLM_100M)}

@@ -31,6 +31,7 @@ import numpy as np
 
 from ..configs.base import FLConfig
 from .reshuffle import local_step_indices, steps_for
+from .tasks import HELDOUT_BASE
 
 
 def _rng(*keys: int) -> np.random.Generator:
@@ -464,3 +465,19 @@ class FederatedPipeline:
             offset += c_b
             out.append(Bucket(data=data, idx=None, step_mask=b.step_mask, slots=b.slots))
         return BucketedBatch(buckets=tuple(out), meta=plan.meta, pos=plan.pos)
+
+    def eval_batch(self, rnd: int = 0, per_client: int = 2) -> dict:
+        """A small held-out batch pooled across clients (host eval): each
+        leaf [num_clients * per_client, ...], client-major.
+
+        Ids come from the task's explicit held-out split (``heldout_ids``);
+        tasks without one fall back to the ``HELDOUT_BASE`` offset
+        convention (train ids live strictly below it)."""
+        parts = []
+        for cid in range(self.population.num_clients):
+            if hasattr(self.task, "heldout_ids"):
+                ids = np.asarray(self.task.heldout_ids(cid, per_client))
+            else:
+                ids = HELDOUT_BASE + np.arange(per_client, dtype=np.int64)
+            parts.append(self.task.batch(cid, ids.reshape(1, per_client)))
+        return {name: np.concatenate([p[name] for p in parts], axis=1)[0] for name in parts[0]}

@@ -5,11 +5,20 @@ heterogeneity structure*:
 
 * ``QuadraticTask`` — the paper's eq. (36) exactly (this one is not synthetic).
 * ``DuplicatedQuadraticTask`` — its §4.1 duplicated-point variant.
+* ``PopulationQuadraticTask`` — eq. (36) scaled to a population of clients
+  over a shared basis (a closed-form sample map, no per-client metadata).
 * ``CharLMTask``    — Shakespeare stand-in: per-client Markov-chain language
   with client-specific transition skew and log-normal dataset sizes.
+* ``VisionTask``    — CIFAR100 stand-in: class-prototype patches + Dirichlet
+  (LDA-like) per-client label skew, equal split.
+* ``TokenTask``     — generic LM tokens for the assigned-architecture smoke
+  runs (client-biased unigram streams over the arch's vocab), with optional
+  Gaussian stubs such as ``patches`` or ``frames``.
 
 Every task exposes ``batch(client, idx_matrix) -> dict`` of numpy arrays and
 ``spec()`` describing one data point, so the pipeline is model-agnostic.
+Each draws from numpy exactly as the JAX package's task does, so both give
+the same batches bit for bit.
 
 Two optional protocol extensions:
 
@@ -23,7 +32,7 @@ Two optional protocol extensions:
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -128,6 +137,59 @@ class DuplicatedQuadraticTask(QuadraticTask):
         return float((sizes * per).sum() / sizes.sum())
 
 
+@dataclass
+class PopulationQuadraticTask:
+    """Population-scale quadratic: many clients over a shared basis.
+
+    The natural scale-up of eq. (36): a shared bank of ``dim`` basis points
+    e_0..e_{dim-1}; client ``i``'s local sample ``j`` is the point
+    ``(i * PHI + j) mod dim`` (a client-rotated walk over the basis; with
+    ``samples_per_client < dim`` clients own distinct heterogeneous slices,
+    with ``samples_per_client >= dim`` every client covers the full basis).
+    Both the host ``batch`` and the device ``bank_rows`` evaluate the same
+    closed form, so the data plane needs no per-client metadata.
+
+    All arithmetic is done mod-``dim`` termwise (dim**2 << 2**31), so int32
+    host and device implementations agree bit for bit.
+    """
+
+    dim: int = 16
+    num_clients: int = 1000
+    samples_per_client: int = 16
+    _PHI = 1000003
+
+    def __post_init__(self):
+        self.points = np.eye(self.dim, dtype=np.float32)
+
+    def sizes(self) -> np.ndarray:
+        return np.full(self.num_clients, self.samples_per_client, dtype=np.int64)
+
+    def _rows(self, client, idx):
+        d = self.dim
+        return ((client % d) * (self._PHI % d) + idx % d) % d
+
+    def batch(self, client: int, idx: np.ndarray) -> dict:
+        return {"e": self.points[self._rows(int(client), np.asarray(idx))]}
+
+    def spec(self) -> dict:
+        return {"e": (np.float32, (self.dim,))}
+
+    def heldout_ids(self, client: int, count: int) -> np.ndarray:
+        return HELDOUT_BASE + np.arange(count, dtype=np.int64)
+
+    def bank(self) -> dict:
+        return {"e": self.points}
+
+    def bank_rows(self, client_ids, idx):
+        return self._rows(client_ids[:, None, None], idx)
+
+    def optimum(self) -> np.ndarray:
+        return self.points.mean(axis=0)
+
+    def loss_np(self, x: np.ndarray) -> float:
+        return float(np.mean(np.sum((x[None, :] - self.points) ** 2, axis=-1)))
+
+
 # ---------------------------------------------------------------------------
 # Char-LM (Shakespeare stand-in)
 # ---------------------------------------------------------------------------
@@ -197,6 +259,104 @@ class CharLMTask:
 
     def spec(self) -> dict:
         return {"tokens": (np.int32, (self.seq_len + 1,))}
+
+    def heldout_ids(self, client: int, count: int) -> np.ndarray:
+        return HELDOUT_BASE + np.arange(count, dtype=np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Vision (CIFAR100 stand-in)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class VisionTask:
+    """Class prototypes in patch space + Dirichlet label skew per client."""
+
+    num_classes: int = 100
+    num_patches: int = 64
+    d_model: int = 128
+    num_clients: int = 16
+    alpha: float = 0.3            # Dirichlet concentration (low => skewed)
+    noise: float = 0.5
+    seed: int = 11
+
+    def __post_init__(self):
+        r = _rng(self.seed, 0xF00D)
+        self.protos = r.normal(size=(self.num_classes, self.num_patches, self.d_model)).astype(np.float32)
+        self.client_label_p = np.stack(
+            [_rng(self.seed, 0x1ABE1, i).dirichlet([self.alpha] * self.num_classes)
+             for i in range(self.num_clients)]
+        )
+
+    def _label(self, client: int, sample: int) -> int:
+        u = _rng(self.seed, 0x11, client, sample).random()
+        return int((np.cumsum(self.client_label_p[client]) < u).sum().clip(0, self.num_classes - 1))
+
+    def batch(self, client: int, idx: np.ndarray) -> dict:
+        flat = idx.reshape(-1)
+        labels = np.array([self._label(client, int(s)) for s in flat], dtype=np.int32)
+        noise = np.stack(
+            [_rng(self.seed, 0xBEEF, client, int(s)).normal(size=(self.num_patches, self.d_model))
+             for s in flat]
+        ).astype(np.float32)
+        patches = self.protos[labels] + self.noise * noise
+        # tokens [BOS=0, label]: the model predicts the label token from the
+        # patch prefix -> classification expressed as 1-step LM (unified loss).
+        toks = np.stack([np.zeros_like(labels), labels], axis=-1).astype(np.int32)
+        return {
+            "patches": patches.reshape(idx.shape + (self.num_patches, self.d_model)),
+            "tokens": toks.reshape(idx.shape + (2,)),
+        }
+
+    def spec(self) -> dict:
+        return {
+            "patches": (np.float32, (self.num_patches, self.d_model)),
+            "tokens": (np.int32, (2,)),
+        }
+
+    def heldout_ids(self, client: int, count: int) -> np.ndarray:
+        return HELDOUT_BASE + np.arange(count, dtype=np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Generic token task (assigned-arch smoke runs)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TokenTask:
+    """Client-biased unigram token streams over an arbitrary vocab."""
+
+    vocab: int = 512
+    seq_len: int = 64
+    num_clients: int = 8
+    seed: int = 3
+    extras: dict = field(default_factory=dict)  # e.g. {"frames": (T, d)} stubs
+
+    def batch(self, client: int, idx: np.ndarray) -> dict:
+        flat = idx.reshape(-1)
+        toks = np.stack(
+            [
+                _rng(self.seed, 0x70CE2, client, int(s)).integers(
+                    client % max(1, self.vocab // 8), self.vocab, size=self.seq_len + 1
+                )
+                for s in flat
+            ]
+        ).astype(np.int32)
+        out = {"tokens": toks.reshape(idx.shape + (self.seq_len + 1,))}
+        for name, shape in self.extras.items():
+            arrs = np.stack(
+                [_rng(self.seed, 0xE872A5, client, int(s)).normal(size=shape) for s in flat]
+            ).astype(np.float32)
+            out[name] = arrs.reshape(idx.shape + tuple(shape))
+        return out
+
+    def spec(self) -> dict:
+        s = {"tokens": (np.int32, (self.seq_len + 1,))}
+        for name, shape in self.extras.items():
+            s[name] = (np.float32, tuple(shape))
+        return s
 
     def heldout_ids(self, client: int, count: int) -> np.ndarray:
         return HELDOUT_BASE + np.arange(count, dtype=np.int64)

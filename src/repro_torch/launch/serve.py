@@ -4,12 +4,17 @@
 ``generate`` runs ``Model.prefill`` over the prompts (the flash attention
 and SSD kernels on a card), then ``Model.decode_step`` once a token, under
 ``torch.inference_mode()``.  An audio encoder-decoder encodes zero frame
-embeddings, as the JAX package's ``generate`` does.  The CLI serves the
+embeddings and a vlm model prefixes zero patch embeddings, as the JAX
+package's ``generate`` does.  The CLI serves the
 reduced demo config of an arch with random weights from seed 0 and prompts
 from numpy seed 1::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-mistral-7b --device cpu
+
+The cache holds a vlm model's ``num_patches`` patch positions before the
+prompt and the generated tokens.
 
 ``--checkpoint PATH`` serves the params of a checkpoint saved by either
 package (``save_checkpoint``: the JAX package's layout), loaded into the
@@ -47,6 +52,10 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, *, steps: int, c
     if temperature > 0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs an explicit torch.Generator")
     batch = {"tokens": prompts}
+    if model.cfg.family == "vlm":
+        batch["patches"] = torch.zeros((prompts.shape[0], model.cfg.num_patches,
+                                        model.cfg.d_model), dtype=torch.float32,
+                                       device=prompts.device)
     if model.cfg.family == "audio":
         batch["frames"] = torch.zeros((prompts.shape[0], model.cfg.src_frames, model.cfg.d_model),
                                       dtype=torch.float32, device=prompts.device)
@@ -88,8 +97,8 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
     gen = torch.Generator(device=device).manual_seed(0)
     t0 = time.perf_counter()
     out = generate(model, params, prompts, steps=args.tokens,
-                   cache_len=args.prompt_len + args.tokens + 1, temperature=args.temperature,
-                   generator=gen)
+                   cache_len=cfg.num_patches + args.prompt_len + args.tokens + 1,
+                   temperature=args.temperature, generator=gen)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

@@ -1,8 +1,10 @@
-"""Federated training launcher: the e2e ~100M-param char-LM.
+"""Federated training launcher: the e2e ~100M-param char-LM, and the smoke
+run of an architecture.
 
-Runs ``--config charlm_e2e``: CharLM-100M (12 x 768, d_ff 3072, vocab 512)
-over 32 log-normally imbalanced clients, 8 per round, ``local_batch=4``,
-``seq_len=128``, the sequential cohort mode, random weights from a seed.
+Runs ``--config charlm_e2e`` (the default): CharLM-100M (12 x 768, d_ff
+3072, vocab 512) over 32 log-normally imbalanced clients, 8 per round,
+``local_batch=4``, ``seq_len=128``, the sequential cohort mode, random
+weights from a seed.
 Any ``FLConfig`` field can be overridden, e.g. the cohort engine with the
 CUDA index kernel and a qsgd-compressed uplink (the CUDA quantize kernels)::
 
@@ -18,9 +20,19 @@ slot for K_max masked steps) is ``--exec-mode bucketed [--buckets 4]`` or
 ``run_charlm_e2e(..., exec_mode="bucketed", buckets=4)``.
 ``--checkpoint PATH`` saves the params in the JAX package's format every
 100 rounds and at the end (``serve --checkpoint`` and JAX's
-``load_checkpoint`` read it).  Runs on ``cuda`` unless ``--device cpu`` is
-given.  The port's counterpart of ``repro.launch.train``; ``--arch`` /
-``--smoke`` (the model zoo) are not ported yet.
+``load_checkpoint`` read it).
+
+``--smoke [--arch ID]`` runs the reduced config of an architecture (default
+``qwen1.5-0.5b``) over synthetic client-biased token data, 6 clients, 3 a
+round, as the JAX package's smoke run does; a vlm arch (``vision-tiny``,
+``llava-next-mistral-7b``) adds Gaussian patch embeddings to each sample::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch vision-tiny --smoke \\
+      --rounds 4 --device cpu
+
+Only the families whose train loss the port has (dense, vlm) take it.
+Runs on ``cuda`` unless ``--device cpu`` is given.  The port's counterpart
+of ``repro.launch.train``.
 """
 from __future__ import annotations
 
@@ -32,14 +44,48 @@ import torch
 
 from ..configs.base import ArchConfig, FLConfig
 from ..configs.paper_tasks import CHARLM_100M
+from ..configs.registry import get_arch
 from ..data.federated import FederatedPipeline, Population
-from ..data.tasks import CharLMTask
+from ..data.tasks import CharLMTask, TokenTask
 from ..fed.losses import make_loss
 from ..fed.train_loop import TrainResult, train
 from ..models.model import build_model
 from ..utils.device import resolve_device
 from ..utils.logging import log
 from ..utils.pytree import tree_count_params
+
+
+def smoke_task_for(cfg: ArchConfig, fl: FLConfig) -> TokenTask:
+    """The smoke run's task: client-biased tokens over ``cfg.vocab``, with
+    the vlm family's patch or the audio family's frame embeddings."""
+    extras = {}
+    if cfg.family == "vlm":
+        extras["patches"] = (cfg.num_patches, cfg.d_model)
+    if cfg.family == "audio":
+        extras["frames"] = (cfg.src_frames, cfg.d_model)
+    return TokenTask(vocab=cfg.vocab, seq_len=32, num_clients=fl.num_clients,
+                     seed=fl.seed, extras=extras)
+
+
+def run_smoke(arch: str, rounds: int, algorithm: str = "fedshuffle", server_opt: str = "sgd",
+              uplink: str = "identity", *, device=None, **fl_overrides) -> TrainResult:
+    """The smoke run of ``arch``'s reduced config: 6 clients, 3 a round,
+    ``local_batch=2``, random weights from seed 0; ``fl_overrides`` replace
+    fields of the run's ``FLConfig``.  A family whose train loss is not
+    ported (``Model.loss``) raises ``NotImplementedError``."""
+    cfg = get_arch(arch).reduced()
+    device = resolve_device(device)
+    fl = FLConfig(num_clients=6, cohort_size=3, sampling="uniform", epochs=1,
+                  local_batch=2, algorithm=algorithm, local_lr=0.05,
+                  server_opt=server_opt, mean_samples=4, seed=0, uplink=uplink)
+    fl = dataclasses.replace(fl, **fl_overrides)
+    pipe = FederatedPipeline(smoke_task_for(cfg, fl), Population.build(fl), fl)
+    model = build_model(cfg)
+    res = train(make_loss(model), model.init(0, device), pipe, fl, rounds,
+                name=f"smoke-{arch}", log_every=max(1, rounds // 5), device=device)
+    first, last = res.metrics.rows[0]["local_loss"], res.metrics.rows[-1]["local_loss"]
+    log(f"smoke {arch}: loss {first:.4f} -> {last:.4f}")
+    return res
 
 
 def charlm_e2e_config(algorithm: str = "fedshuffle", server_opt: str = "sgd",
@@ -86,6 +132,10 @@ def run_charlm_e2e(rounds: int, algorithm: str = "fedshuffle", server_opt: str =
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="charlm_e2e", choices=["charlm_e2e"])
+    ap.add_argument("--smoke", action="store_true",
+                    help="the smoke run of --arch's reduced config instead of --config")
+    ap.add_argument("--arch", default=None,
+                    help="the smoke run's architecture (default qwen1.5-0.5b)")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--algorithm", default="fedshuffle")
     ap.add_argument("--server-opt", default="sgd")
@@ -104,10 +154,18 @@ def main() -> None:
                     help="save the params here (JAX's .npz format) every 100 rounds and at the end")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args()
+    if args.arch is not None and not args.smoke:
+        ap.error("--arch names the architecture of a --smoke run")
+    if args.smoke and args.checkpoint:
+        ap.error("--checkpoint saves the charlm_e2e run, not a --smoke run")
     overrides = {k: v for k, v in (("engine", args.engine), ("rr_backend", args.rr_backend),
                                    ("prefetch", args.prefetch), ("uplink", args.uplink),
                                    ("exec_mode", args.exec_mode), ("buckets", args.buckets))
                  if v is not None}
+    if args.smoke:
+        run_smoke(args.arch or "qwen1.5-0.5b", args.rounds, args.algorithm, args.server_opt,
+                  device=args.device, **overrides)
+        return
     res = run_charlm_e2e(args.rounds, args.algorithm, args.server_opt,
                          device=args.device, checkpoint=args.checkpoint, **overrides)
     print(res.metrics.csv())

@@ -5,27 +5,33 @@ One ``Model`` per ArchConfig, the API the FL stack and the serving path use:
   * ``init(seed, device) -> params``  (flat dict of tensors, random weights
     drawn with a ``torch.Generator`` on ``device``; shapes only on ``meta``)
   * ``loss(params, batch) -> (scalar, metrics)``  (the train objective,
-    dense family; gradients come from autograd)
+    dense and vlm families; gradients come from autograd)
   * ``init_cache(batch_size, cache_len, device) -> cache``  (decode state,
     zeros)
   * ``prefill(params, batch, cache_len) -> (logits, cache)``
   * ``decode_step(params, token, cache) -> (logits, cache)``
 
-The port's counterpart of ``repro.models.model`` for the dense, hybrid and
-audio (encoder-decoder) families.  A cache is ``{"layers": {name: [L, B,
-...] tensor}, "pos": int}`` with the JAX package's entries and layouts;
-``decode_step`` writes it in place (the JAX step returns a new one) and
-returns it.  ``backend`` picks the prefill's kernels (flash attention, SSD
-intra-chunk): ``"kernel"`` (the default) launches them for CUDA tensors and
-takes their plain torch versions for CPU tensors; ``"ref"`` takes the plain
-versions on any device.  The decode step runs no kernel of the port.  The
-dense family's cache is linear, the hybrid family's a ring of the window's
-size; a dense config with a sliding window is not served (its windowed
-decode is not ported) and raises.  The audio family runs its encoder once
-a prefill over ``batch["frames"]`` [B, src_frames, d_model] (the frame
-embeddings the stubbed front end would give), with sinusoidal positions
-(``rope_kind="none"``) on both sides; its cache adds the encoder memory's
-K/V per decoder layer (``xk``, ``xv``).
+The port's counterpart of ``repro.models.model`` for the dense, vlm,
+hybrid and audio (encoder-decoder) families.  A cache is ``{"layers":
+{name: [L, B, ...] tensor}, "pos": int}`` with the JAX package's entries
+and layouts; ``decode_step`` writes it in place (the JAX step returns a
+new one) and returns it.  ``backend`` picks the prefill's kernels (flash
+attention, SSD intra-chunk): ``"kernel"`` (the default) launches them for
+CUDA tensors and takes their plain torch versions for CPU tensors;
+``"ref"`` takes the plain versions on any device.  The decode step runs no
+kernel of the port.  The dense family's cache is linear, the hybrid
+family's a ring of the window's size; a dense config with a sliding window
+is not served (its windowed decode is not ported) and raises.  The vlm
+family is the dense family with ``batch["patches"]`` [B, num_patches,
+d_model] (the patch embeddings the stubbed vision tower would give)
+projected by ``patch_proj`` and prefixed to the token embeddings:
+positions run over patches and tokens, the train loss reads the text
+positions only, and the prefill caches K/V over both (``pos`` =
+num_patches + T); its decode step is the dense one.  The audio family runs
+its encoder once a prefill over ``batch["frames"]`` [B, src_frames,
+d_model] (the frame embeddings the stubbed front end would give), with
+sinusoidal positions (``rope_kind="none"``) on both sides; its cache adds
+the encoder memory's K/V per decoder layer (``xk``, ``xv``).
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ from . import blocks as B
 from .layers import dense_init, embed_init, rmsnorm, softmax_xent
 from .mamba2 import dims as ssm_dims
 
-FAMILIES = ("dense", "hybrid", "audio")
+FAMILIES = ("dense", "vlm", "hybrid", "audio")
 BACKENDS = ("kernel", "ref")
 SEQ_KEYS = ("k", "v")            # sequence-indexed cache entries
 
@@ -63,8 +69,8 @@ class Model:
         cfg = self.cfg
         if cfg.family not in FAMILIES or (cfg.rope_kind == "none") != (cfg.family == "audio"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense and hybrid families with RoPE and the audio "
-                f"family with sinusoidal positions are ported yet")
+                f"{cfg.name}: only the dense, vlm and hybrid families with RoPE and the "
+                f"audio family with sinusoidal positions are ported yet")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; have {BACKENDS}")
 
@@ -86,7 +92,21 @@ class Model:
         p["final_norm/scale"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, dt, device)
+        if cfg.family == "vlm":
+            p["patch_proj"] = dense_init(gen, cfg.d_model, cfg.d_model, dt, device)
         return p
+
+    def _embed(self, params: dict, batch: dict, toks: torch.Tensor):
+        """The token embeddings [B, T, D] of ``toks``, for the vlm family with
+        ``batch["patches"] @ patch_proj`` [B, P, D] prefixed -> (h, P)."""
+        h = F.embedding(toks.long(), params["embed"])
+        if self.cfg.family != "vlm":
+            return h, 0
+        if "patches" not in batch:
+            raise ValueError(f"{self.cfg.name}: a vlm batch needs 'patches' "
+                             f"[B, num_patches, d_model]")
+        patches = batch["patches"].to(h.dtype) @ params["patch_proj"]
+        return torch.cat([patches, h], dim=1), patches.shape[1]
 
     def _logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         h = rmsnorm(params["final_norm/scale"], h, self.cfg.norm_eps)
@@ -98,16 +118,17 @@ class Model:
             raise NotImplementedError(f"{cfg.name}: the audio family's train loss (the JAX "
                                       f"package's _loss_encdec) is not ported yet (ROADMAP "
                                       f"'Modules to port', item 10)")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "vlm"):
             raise NotImplementedError(f"{cfg.name}: the {cfg.family} family's train loss is "
-                                      f"not ported yet (only its serving path)")
+                                      f"not ported yet, only its serving path (ROADMAP "
+                                      f"'Modules to port', item 10)")
         toks = batch["tokens"]
         inputs, labels = toks[..., :-1], toks[..., 1:]
-        h = F.embedding(inputs.long(), params["embed"])
+        h, offset = self._embed(params, batch, inputs)
         positions = torch.arange(h.shape[1], device=h.device)
         for i in range(cfg.n_layers):
             h = B.dense_block_forward(params, cfg, h, positions, f"blocks/{i}/")
-        ce = softmax_xent(self._logits(params, h), labels).mean()
+        ce = softmax_xent(self._logits(params, h[:, offset:]), labels).mean()
         return ce, {"ce": ce}
 
     # ---------------------------------------------------------------- serve
@@ -141,7 +162,7 @@ class Model:
 
     def _check_servable(self):
         cfg = self.cfg
-        if cfg.family == "dense" and cfg.sliding_window:
+        if cfg.family in ("dense", "vlm") and cfg.sliding_window:
             raise NotImplementedError(f"{cfg.name}: serving a dense config with a sliding "
                                       f"window is not ported yet")
 
@@ -157,15 +178,15 @@ class Model:
         return rmsnorm(params["enc_norm/scale"], h, cfg.norm_eps)
 
     def prefill(self, params: dict, batch: dict, cache_len: int):
-        """Forward over the prompts ``batch["tokens"]`` [B, T] (and, for the
-        audio family, the encoder over ``batch["frames"]``), collecting
-        decode-ready caches: -> (logits of the last position [B, 1, V],
-        cache at ``pos`` T)."""
+        """Forward over the prompts ``batch["tokens"]`` [B, T] (after the vlm
+        family's ``batch["patches"]``; for the audio family, the encoder over
+        ``batch["frames"]``), collecting decode-ready caches: -> (logits of
+        the last position [B, 1, V], cache at ``pos`` T, or num_patches +
+        T for the vlm family)."""
         self._check_servable()
         cfg = self.cfg
-        toks = batch["tokens"]
-        Bsz, T = toks.shape
-        h = F.embedding(toks.long(), params["embed"])
+        h, _ = self._embed(params, batch, batch["tokens"])
+        Bsz, T = h.shape[:2]
         positions = torch.arange(T, device=h.device)
         if cfg.family == "audio":
             h = h + sinusoid(positions, cfg.d_model)[None].to(h.dtype)

@@ -71,6 +71,17 @@ E2E = dict(num_clients=32, cohort_size=8, sampling="uniform", epochs=1, local_ba
            imbalance="lognormal", mean_samples=8, seed=1, exec_mode="bucketed")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kw(preset="fedshuffle", mode="vmapped", opt="sgd", **kw):
     return dict(num_clients=DIM, cohort_size=4, sampling="uniform", epochs=2, local_batch=2,
                 algorithm=preset, local_lr=0.05, server_lr=0.8, server_opt=opt, mvr_a=0.2,

@@ -76,6 +76,17 @@ MICRO = dict(name="charlm-micro", family="dense", n_layers=2, d_model=32, n_head
              n_kv_heads=2, d_ff=64, vocab=32, dtype="float32")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree_equal(a, b, what):
     if isinstance(a, dict):
         assert a.keys() == b.keys(), what

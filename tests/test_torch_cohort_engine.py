@@ -54,6 +54,17 @@ LOSS = make_quadratic_loss(DIM)
 X0 = np.array([0.3, -0.1, 0.2, 0.05, -0.3, 0.1, 0.0, 0.4], np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fl(n=10, b=3, **kw):
     return FLConfig(num_clients=n, cohort_size=b, **kw)
 

@@ -67,6 +67,17 @@ KNOBS = dict(uplink_bits=4, uplink_chunk=16, uplink_frac=0.25, downlink_bits=2,
 BACKENDS = {"kernel": "pallas", "ref": "ref"}        # port uplink_backend -> JAX's
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jfl(**kw):
     """The JAX config of a port keyword dict (backend names mapped)."""
     if "uplink_backend" in kw:

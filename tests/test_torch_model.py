@@ -29,6 +29,17 @@ SEQ, BATCH = 16, 2
 GQA = dict(n_kv_heads=2, qkv_bias=True)    # grouped heads + QKV bias path
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_cfg(**kw):
     fields = {f.name for f in dataclasses.fields(ArchConfig)}
     return ArchConfig(**{k: v for k, v in dataclasses.asdict(J_TINY).items() if k in fields} | kw)

@@ -66,6 +66,17 @@ X0 = np.array([0.3, -0.1, 0.2], np.float32)
 A = 0.2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _quad_kw(preset, exact, **kw):
     return dict(num_clients=3, cohort_size=2, sampling="uniform", epochs=2, local_batch=1,
                 algorithm=preset, local_lr=0.05, server_lr=0.8, server_opt="mvr", mvr_a=A,

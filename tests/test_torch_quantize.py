@@ -31,6 +31,17 @@ from repro_torch.kernels.rr_perm.ref import fmix32_torch, key_combine_torch  # n
 NC = 6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _values(chunk, seed=0):
     """[NC, chunk] f32: normal values of mixed magnitudes, one all-zero
     chunk, one of signed zeros, one chunk with a single nonzero value."""

@@ -60,6 +60,17 @@ X0 = np.array([0.3, -0.1, 0.2], np.float32)
 PORT_SRC = pathlib.Path(__file__).resolve().parent.parent / "src" / "repro_torch"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _quad_kw(preset, opt, **kw):
     return dict(num_clients=3, cohort_size=2, sampling="uniform", epochs=2, local_batch=1,
                 algorithm=preset, local_lr=0.05, server_lr=0.8, server_opt=opt,
@@ -268,7 +279,8 @@ def test_port_imports_neither_jax_nor_repro():
     for part in ("fed/comm/codecs.py", "kernels/quantize/ops.py", "kernels/quantize/ref.py",
                  "kernels/flash_attention/ops.py", "kernels/ssd/ops.py", "launch/serve.py",
                  "models/mamba2.py", "configs/registry.py", "utils/checkpoint.py",
-                 "fed/cohort/prefetch.py"):
+                 "fed/cohort/prefetch.py", "configs/llava_next_mistral_7b.py",
+                 "data/tasks.py", "launch/train.py"):
         assert PORT_SRC / part in files, part
     for f in files:
         assert not bad.search(f.read_text()), f
@@ -290,7 +302,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     for call in (lambda: build_round_step(LOSS, None, fl),
                  lambda: CohortEngine.build(TASK, pop, fl),
                  lambda: train(LOSS, {"x": torch.zeros(3)}, pipe, fl, 1),
-                 lambda: launch_train.run_charlm_e2e(1)):
+                 lambda: launch_train.run_charlm_e2e(1),
+                 lambda: launch_train.run_smoke("vision-tiny", 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asked for the CPU, the same calls run

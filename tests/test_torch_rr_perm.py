@@ -26,6 +26,17 @@ RND = 0xFFFFFFF0
 B, K = 5, 6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _slots(n):
     """A slot of size n for a client id near 2^32 - 1, one for client 7 and a
     padding slot (client -1, size 1, spe 1) — the pipeline's layout."""

@@ -17,7 +17,8 @@ T = 128 prompts (past the window).
   frameworks sum in their own order), tokens exactly;
 * the serve CLI on ``--device cpu``; sampling from an explicit generator;
 * ``backend="kernel"`` on CPU tensors takes the plain versions (no launch),
-  the registry refuses the archs the port does not run, and the prefill's
+  the registry refuses the archs the port does not run and serves the vlm
+  ones, and the prefill's
   kernels are never reached under autograd; a dense config with a sliding
   window is refused (its windowed decode is not ported), and so is the
   audio family's train loss.
@@ -45,6 +46,17 @@ from repro_torch.weights import cache_from_jax, params_from_jax  # noqa: E402
 TOL = dict(atol=2e-5, rtol=2e-4)
 ARCH_KW = {"hymba-1.5b": dict(n_kv_heads=2), "qwen1.5-0.5b": {}, "seamless-m4t-medium": {}}
 B, T, EXTRA = 2, 128, 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def port_cfg(jcfg) -> ArchConfig:
@@ -217,12 +229,19 @@ def test_kernel_backend_on_cpu_takes_plain_versions_and_needs_no_grad():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-72b", "mamba2-1.3b", "deepseek-v3-671b",
-                                  "llava-next-mistral-7b", "vision-tiny"])
+                                  "minicpm-2b", "chatglm3-6b"])
 def test_registry_refuses_unported_archs(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_arch(arch)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "vision-tiny"])
+def test_registry_serves_the_vlm_archs(arch):
+    cfg = get_arch(arch)
+    assert cfg.name == arch and cfg.family == "vlm" and cfg.num_patches > 0
+    assert cfg == port_cfg(J_ARCHS[arch])
 
 
 def test_windowed_dense_config_is_not_served():

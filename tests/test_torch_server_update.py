@@ -29,6 +29,17 @@ from repro_torch.kernels.server_update.ops import apply_fused_update  # noqa: E4
 from repro_torch.kernels.server_update.ref import server_update_ref, server_update_torch  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(n, seed=3, dtype=np.float32):
     r = np.random.default_rng(seed)
     x = r.normal(size=n).astype(dtype)

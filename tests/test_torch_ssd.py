@@ -61,6 +61,17 @@ SWEEP = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs a test process on each of several
+    cores at once, and torch's default (a thread a core in every process)
+    oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(B, T, H, P, N, seed=0, decay=None):
     r = np.random.default_rng(seed)
     xdt = (r.normal(size=(B, T, H, P)) * 0.5).astype(np.float32)
