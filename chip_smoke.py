@@ -247,13 +247,15 @@ def main_path_inputs(rounds: int):
     return fl, pipe.k_max, plans
 
 
-def bucketed_layout(rounds: int) -> list[tuple[int, int, int, int]]:
+def bucketed_layout(rounds: int) -> list[tuple[int, int, int, int, int]]:
     """The bucketed main path's host plans, rounds 0..rounds-1: (non-empty
-    buckets, client steps of their occupied rows, of the static layout
-    sum_b C_b * K_b, of the padded layout C * K_max) a round.  A round that
-    overflows its buckets runs padded: one launch, padded steps."""
+    buckets, client steps of their occupied rows, of the rows that run (a
+    lone occupied row beside its masked copy, ``bucketing.MIN_ROWS``), of
+    the static layout sum_b C_b * K_b, of the padded layout C * K_max) a
+    round.  A round that overflows its buckets runs padded: one launch,
+    padded steps."""
     from repro_torch.data.federated import BucketedPlan, FederatedPipeline, Population
-    from repro_torch.fed.bucketing import occupied
+    from repro_torch.fed.bucketing import occupied, occupied_rows
     from repro_torch.launch.train import charlm_e2e_config
 
     _, fl = charlm_e2e_config(**BUCKETED)
@@ -263,10 +265,12 @@ def bucketed_layout(rounds: int) -> list[tuple[int, int, int, int]]:
     for r in range(rounds):
         plan = pipe.bucketed_plan(r, with_idx=False)
         if not isinstance(plan, BucketedPlan):
-            out.append((1, padded, padded, padded))
+            out.append((1, padded, padded, padded, padded))
             continue
-        kept, _ = occupied(plan.buckets, plan.pos)
-        out.append((len(kept), sum(b.step_mask.size for b in kept),
+        kept, pos = occupied(plan.buckets, plan.pos)
+        occ = occupied_rows(plan._replace(buckets=kept, pos=pos))
+        out.append((len(kept), sum(n * b.step_mask.shape[1] for b, n in zip(kept, occ)),
+                    sum(b.step_mask.size for b in kept),
                     sum(b.step_mask.size for b in plan.buckets), padded))
     return out
 
@@ -807,7 +811,11 @@ def check_small_reference(dev, **comm) -> tuple[float, int]:
     With a codec an element may instead sit on the other side of a
     stochastic level boundary, because the inputs differ by an ulp: it may
     differ by at most one uplink level a round (server_lr * coefficient *
-    scale / L), and such flips must stay under 0.1 % of the elements."""
+    scale / L), and such flips must stay under 0.1 % of the elements.  With
+    adam an element whose aggregate is near zero may flip the sign of its
+    step, whose size is at most 1.0011 * server_lr in each of the first two
+    rounds (Cauchy-Schwarz over m_hat / sqrt(v_hat) at b1 0.9, b2 0.99): it
+    may differ by twice that a round, under the same share."""
     import torch
 
     from repro_torch.configs.base import FLConfig
@@ -837,6 +845,7 @@ def check_small_reference(dev, **comm) -> tuple[float, int]:
         return out
 
     coded = any(comm.get(k, "identity") != "identity" for k in ("uplink", "downlink"))
+    adam = comm.get("server_opt") == "adam"
     out, coeff = {}, 0.0
     qops.quantize_pack = recording
     try:
@@ -852,6 +861,8 @@ def check_small_reference(dev, **comm) -> tuple[float, int]:
     finally:
         qops.quantize_pack = pack
     level = rounds * fl.server_lr * coeff * max(scales) / (2 ** (fl.uplink_bits - 1) - 1)
+    if adam:
+        coded, level = True, rounds * 2 * 1.0011 * fl.server_lr
     worst, flips, total = 0.0, 0, 0
     for k, v in out["cpu"].items():
         g = out[str(dev)][k].cpu()
@@ -2077,28 +2088,90 @@ def qsgd_level(rounds: int, scales: list) -> float:
     return rounds * fl.server_lr * coeff * scale / (2 ** (fl.uplink_bits - 1) - 1)
 
 
-def gemm_batch_twins(dev) -> list[str]:
-    """Whether a batched fp32 product over a bucket's C_b rows gives the bits
-    the same rows get in the padded [C] batch, at the main path's products
-    (x @ w of 4 x 128 tokens at width 768: the attention projection, the MLP
-    up and down, the logits; and the weight gradients x^T @ g): the cases
-    that differ, as "shape/C_b".  One way the vmapped bucketed round can
-    leave its padded twin's bits."""
+# the cohort sizes a bucket's batch may take below the padded C = 8
+BUCKET_ROWS = tuple(range(1, 8))
+
+
+def gemm_batch_twins(dev) -> dict[int, list[str]]:
+    """Whether a batched fp32 product over a bucket's C_b rows (C_b in
+    ``BUCKET_ROWS``) gives the bits the same rows get in the padded [8]
+    batch, at the products the vmapped CharLM-100M step issues (4 x 127
+    tokens at width 768, 12 heads of 64): the dense layers x @ w (the
+    attention projections, the MLP up and down, the logits), their weight
+    gradients x^T @ g and input gradients g @ w^T; the attention scores q @
+    k^T and values p @ v over the [C_b x 4 x 12] head batch, and their
+    gradients (dp = g @ v^T, dv = p^T @ g, dq = ds @ k, dk = ds^T @ q).
+    Returns C_b -> the products that differ.  One way a vmapped bucketed
+    round can leave its padded twin's bits."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    C, T = 8, 4 * 128
-    differ = []
+    C, T, hb, t, hd = 8, 4 * 127, 4 * 12, 127, 64
+
+    def rnd(*shape):
+        return torch.randn((C, *shape), generator=gen, device=dev)
+
+    cases = []
     for d, f in ((768, 768), (768, 3072), (3072, 768), (768, 512)):
-        x = torch.randn((C, T, d), generator=gen, device=dev)
-        w = torch.randn((C, d, f), generator=gen, device=dev)
-        g = torch.randn((C, T, f), generator=gen, device=dev)
-        full = (x @ w, x.transpose(1, 2) @ g)
-        for cb in range(1, 5):
-            part = (x[:cb] @ w[:cb], x[:cb].transpose(1, 2) @ g[:cb])
-            for name, a, b in zip(("xw", "xTg"), part, full):
-                if not torch.equal(a, b[:cb]):
-                    differ.append(f"{name} {d}x{f}/{cb}")
+        x, w, g = rnd(T, d), rnd(d, f), rnd(T, f)
+        cases += [(f"xw {d}x{f}", lambda a, b: a @ b, x, w),
+                  (f"xTg {d}x{f}", lambda a, b: a.transpose(-1, -2) @ b, x, g),
+                  (f"gwT {d}x{f}", lambda a, b: a @ b.transpose(-1, -2), g, w)]
+    q, k, p, g = rnd(hb, t, hd), rnd(hb, t, hd), rnd(hb, t, t), rnd(hb, t, hd)
+
+    def heads(fn):
+        # the [C, 4 x 12] head batch flattened as the vmapped einsum issues it
+        return lambda a, b: fn(a.flatten(0, 1), b.flatten(0, 1)).unflatten(0, a.shape[:2])
+
+    tr = lambda a: a.transpose(-1, -2)       # noqa: E731
+    cases += [("scores q@kT", heads(lambda a, b: a @ tr(b)), q, k),
+              ("values p@v", heads(lambda a, b: a @ b), p, k),
+              ("dp g@vT", heads(lambda a, b: a @ tr(b)), g, k),
+              ("dv pT@g", heads(lambda a, b: tr(a) @ b), p, g),
+              ("dq ds@k", heads(lambda a, b: a @ b), p, k),
+              ("dk dsT@q", heads(lambda a, b: tr(a) @ b), p, q)]
+    differ = {cb: [] for cb in BUCKET_ROWS}
+    for name, fn, a, b in cases:
+        full = fn(a, b)
+        for cb in BUCKET_ROWS:
+            if not torch.equal(fn(a[:cb], b[:cb]), full[:cb]):
+                differ[cb].append(name)
+    return differ
+
+
+def step_batch_twins(dev) -> dict[int, list[str]]:
+    """The whole vmapped local step at full width: two steps of
+    ``build_cohort_step`` (the empty chain) on CharLM-100M over C_b rows
+    against the same rows of the [8] cohort, on the same random tokens.
+    Returns C_b -> the delta leaves (and "loss") that are not bitwise equal:
+    every product, reduction and elementwise kernel of the step at once."""
+    import torch
+
+    from repro_torch.core.local import build_cohort_step
+    from repro_torch.fed.losses import make_loss
+    from repro_torch.launch.train import charlm_e2e_config
+    from repro_torch.models.model import build_model
+
+    cfg, fl = charlm_e2e_config()
+    model = build_model(cfg)
+    params = model.init(0, dev)
+    step = build_cohort_step((), make_loss(model))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    C, K = 8, 2
+    data = {"tokens": torch.randint(0, cfg.vocab, (C, K, fl.local_batch, 128), generator=gen,
+                                    device=dev, dtype=torch.int32)}
+    mask = torch.ones((C, K), device=dev)
+    eta = torch.full((C,), fl.local_lr / K, device=dev)
+    mom = {k: torch.zeros_like(v) for k, v in params.items()}
+    full, full_loss, _ = step(params, mom, {}, data, mask, eta, {})
+    differ = {}
+    for cb in BUCKET_ROWS:
+        part, loss, _ = step(params, mom, {}, {k: v[:cb] for k, v in data.items()}, mask[:cb],
+                             eta[:cb], {})
+        differ[cb] = [k for k in part if not torch.equal(part[k], full[k][:cb])]
+        if not torch.equal(loss, full_loss[:cb]):
+            differ[cb].append("loss")
+        del part
     return differ
 
 
@@ -2133,11 +2206,17 @@ def bucketed_main_paths(dev, seq: dict, seq_params: dict, vm: dict, vm_params: d
                "server_update": server_update_kernel}
     layout = bucketed_layout(ROUNDS)
     differ = gemm_batch_twins(dev)
-    print(f"batched fp32 products over C_b = 1..4 rows vs the same rows of a [8] batch: "
-          f"{len(differ)} of 32 cases differ {differ}", flush=True)
+    print(f"batched fp32 products over C_b = 1..7 rows vs the same rows of a [8] batch, "
+          f"C_b: cases that differ: {differ}", flush=True)
+    differ = step_batch_twins(dev)
+    print(f"the vmapped CharLM-100M step (2 steps) over C_b = 1..7 rows vs the same rows of "
+          f"the [8] cohort, C_b: leaves that differ: "
+          f"{ {cb: len(v) for cb, v in differ.items()} } (C_b 1: {differ[1][:3]} ...)",
+          flush=True)
     print(f"bucketed layout, rounds 0-{ROUNDS - 1}: non-empty buckets "
-          f"{[r[0] for r in layout]}, client steps a round {[r[1] for r in layout]} "
-          f"(static layout {layout[0][2]}, padded {layout[0][3]})", flush=True)
+          f"{[r[0] for r in layout]}, client steps a round: occupied {[r[1] for r in layout]}, "
+          f"run {[r[2] for r in layout]} (static layout {layout[0][3]}, padded "
+          f"{layout[0][4]})", flush=True)
     nq = 2 * len(e2e_wire_leaves()) * ROUNDS
     seq_kw = dict(cohort_mode="sequential")
     paths = [("dense", "sequential", seq_kw, ROUNDS),
@@ -2212,13 +2291,268 @@ def bucketed_main_paths(dev, seq: dict, seq_params: dict, vm: dict, vm_params: d
             traced = (f"; round 0: device kernels and copies {n} vs {twin_kernels[0]}, their "
                       f"device time {busy_ms:.1f} vs {twin_kernels[1]:.1f} ms (traced in "
                       f"{time.perf_counter() - t0:.1f} s)")
-        steps = [r[1] for r in layout[:rounds]]
+        steps = [r[2 if mode == "vmapped" else 1] for r in layout[:rounds]]
         print(f"bucketed vs padded, {label} {mode}: round wall {wall:.1f} vs {twin_wall:.1f} ms "
               f"({twin_wall / wall:.2f}x); peak {peak / 2**30:.3f} vs {twin_peak / 2**30:.3f} "
-              f"GiB; client steps a round {steps} (static {layout[0][2]}, padded "
-              f"{layout[0][3]}){traced}", flush=True)
+              f"GiB; client steps a round {steps} (static {layout[0][3]}, padded "
+              f"{layout[0][4]}){traced}", flush=True)
     torch.cuda.empty_cache()
     return kept, stats
+
+
+# main path 12: FedShuffle + SCAFFOLD, its per-client bank of control
+# variates (one [N+1, ...] row set in fp32) and the server's c
+SCAFFOLD = dict(server_opt="scaffold")
+# the server's c after round 0 against the w/p-weighted sum of the rows the
+# round committed, recomputed in fp64 on the host: each element within this
+# share of sum_i |wp_i c_i| (an 8-term fp32 sum is within 8 * 2^-24 = 4.8e-7
+# of it, whatever order it adds in)
+SCAFFOLD_C_RTOL = 1e-6
+# the other rules driven at full width, 2 rounds each, vmapped padded; all
+# four on CharLM-tiny on the card against the port on the CPU, 2 vmapped
+# rounds each, every element within 1e-4 of its leaf's largest magnitude
+# (check_small_reference's dense bound)
+# FedAdam at a server step of 0.01 (Reddi et al.'s range): its first step
+# moves every weight by server_lr * sign(Delta), and at the e2e config's
+# server_lr 1.0 the model leaves its basin in one round (CharLM-tiny's eval
+# loss 4.16 -> 32.1 on the CPU)
+CHAIN_RULES = {"scaffold": SCAFFOLD, "fedprox": dict(local_update="fedprox"),
+               "local_clip": dict(local_update="local_clip"),
+               "adam": dict(server_opt="adam", server_lr=0.01)}
+# tests/test_client_transforms.py's claim on the duplicated quadratic with
+# partial participation: FedAvg + SCAFFOLD within this distance of x* after
+# this many rounds, and under this share of plain FedAvg's distance
+SCAFFOLD_CLAIM = dict(rounds=400, err=0.02, share=0.25)
+
+
+def sampled_clients(rounds: int, **kw) -> set[int]:
+    """The clients the e2e run's host plans sample (valid slots) in rounds
+    0..rounds-1; the layout does not change who is sampled."""
+    from repro_torch.data.federated import FederatedPipeline, Population
+    from repro_torch.launch.train import charlm_e2e_config
+
+    _, fl = charlm_e2e_config(**kw)
+    pipe = FederatedPipeline(None, Population.build(fl), fl)
+    out = set()
+    for r in range(rounds):
+        meta = pipe.index_plan(r, with_idx=False).meta
+        out |= {int(c) for c, v in zip(meta.client_id, meta.valid) if v > 0}
+    return out
+
+
+def check_scaffold_bank(label: str, state, sampled: set[int]) -> int:
+    """The bank is [N+1, ...] fp32 for every parameter; the scratch row (N)
+    and the rows of clients never sampled are exactly zero, each sampled
+    client's row is not.  Returns its bytes."""
+    import torch
+
+    bank = state.clients["scaffold"]["c"]
+    n = {v.shape[0] for v in bank.values()}
+    if n != {33} or any(v.dtype != torch.float32 for v in bank.values()) or \
+            bank.keys() != state.params.keys():
+        raise AssertionError(f"{label}: bank rows {n}, dtypes {({v.dtype for v in bank.values()})}")
+    for i in range(33):
+        used = any(bool(v[i].any()) for v in bank.values())
+        if used != (i in sampled):
+            raise AssertionError(f"{label}: bank row {i} {'written' if used else 'zero'}, "
+                                 f"sampled {i in sampled}")
+    return sum(v.numel() * v.element_size() for v in bank.values())
+
+
+def check_scaffold_c_round0(dev) -> dict:
+    """One vmapped round of FedShuffle + SCAFFOLD at full width: the server's
+    c against sum_i (w/p)_i * c_i+ over the rows the round committed (the
+    gathered rows were zero), recomputed in fp64 on the host, each element
+    within ``SCAFFOLD_C_RTOL`` of sum_i |(w/p)_i c_i+|."""
+    import torch
+
+    from repro_torch.fed.rounds import as_device_meta
+
+    step, state, eng, strat, task, fl = round_setup(dev, warm_up=False, **SCAFFOLD, **VMAPPED)
+    state, _ = step(state, eng.device_plan(0))
+    meta = as_device_meta(eng.index_plan(0).meta, "cpu")
+    keep = meta.valid > 0
+    wp = (meta.valid * meta.weight / meta.prob)[keep].double()
+    ids = meta.client_id[keep].to(dev)
+    worst = 0.0
+    for k, c in state.opt["c"].items():
+        rows = state.clients["scaffold"]["c"][k].index_select(0, ids).cpu().double()
+        want = torch.einsum("c,c...->...", wp, rows)
+        bound = SCAFFOLD_C_RTOL * torch.einsum("c,c...->...", wp.abs(), rows.abs())
+        err = (c.cpu().double() - want).abs()
+        if bool((err > bound).any()):
+            raise AssertionError(f"scaffold round 0: server c[{k}] off the fp64 w/p sum by "
+                                 f"{float(err.max()):.3e} (bound {SCAFFOLD_C_RTOL} of the "
+                                 f"|terms| sum)")
+        worst = max(worst, float((err / bound.clamp_min(1e-30)).max()))
+    del state, step, eng
+    torch.cuda.empty_cache()
+    print(f"scaffold round 0: the server's c equals the fp64 w/p-weighted sum of the "
+          f"{int(keep.sum())} committed rows within {worst:.3f} of the stated bound "
+          f"({SCAFFOLD_C_RTOL} of sum |wp_i c_i|)", flush=True)
+    return {"c_err_share_of_bound": worst}
+
+
+def scaffold_main_paths(dev, rows: dict) -> dict:
+    """Main path 12: FedShuffle + SCAFFOLD on full-width CharLM-100M through
+    ``run_charlm_e2e`` (cohort engine, ``rr_backend="device"``), 4 rounds in
+    three forms, each with its rr_perm count set to 0 just before and read
+    just after (written into ``rows["rr_perm"]["scaffold_launches"]``):
+    vmapped padded (4 launches), vmapped bucketed (one a non-empty bucket,
+    from the host plans), held to the padded run by ``held_to_twin`` over
+    params, the server's c and the bank, and sequential padded (4), its
+    params held to the vmapped run's within ``VMAPPED_SEQ_RTOL`` of each
+    leaf's largest magnitude.  Each form's bank is [33, ...] fp32 with the
+    scratch row and never-sampled clients' rows exactly zero; before the
+    runs, one round checks the server's c against the fp64 sum
+    (:func:`check_scaffold_c_round0`).  Then fedprox, local_clip and adam 2
+    rounds each at full width (vmapped padded; finite losses, parameters and
+    adam's moments); the four rules on CharLM-tiny on the card against the
+    CPU; and the quadratic claim (:func:`scaffold_claim`).  Prints each
+    form's round wall and peak memory."""
+    import torch
+
+    from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
+
+    out = check_scaffold_c_round0(dev)
+    layout = bucketed_layout(ROUNDS)
+    sampled = sampled_clients(ROUNDS)
+    forms = [("vmapped", VMAPPED, ROUNDS),
+             ("bucketed", VMAPPED | BUCKETED, sum(r[0] for r in layout)),
+             ("sequential", dict(cohort_mode="sequential"), ROUNDS)]
+    kept, launches, twin_bytes = {}, {}, 0
+    for label, kw, want in forms:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(rr_indices_kernel)
+        t0 = time.perf_counter()
+        res = run_main_path(dev, "device", ROUNDS, **SCAFFOLD, **kw)
+        torch.cuda.synchronize()
+        launches[label] = rr_indices_kernel.launches
+        # the padded twin, held on the card for the later forms, left out
+        peak = torch.cuda.max_memory_allocated() - twin_bytes
+        wall = report_rounds(f"scaffold path, {label}", res, time.perf_counter() - t0, peak)
+        if launches[label] != want:
+            raise AssertionError(f"scaffold path, {label}: rr_perm launched {launches[label]} "
+                                 f"times, want {want}")
+        nbytes = check_scaffold_bank(f"scaffold path, {label}", res.state, sampled)
+        if not all(torch.isfinite(v).all() for v in res.state.opt["c"].values()):
+            raise AssertionError(f"scaffold path, {label}: non-finite server c")
+        state = res.state
+        del res
+        got = {**{f"params/{k}": v for k, v in state.params.items()},
+               **{f"c/{k}": v for k, v in state.opt["c"].items()},
+               **{f"bank/{k}": v for k, v in state.clients["scaffold"]["c"].items()}}
+        if label == "vmapped":
+            # the twin stays on the card (a host copy of the bank costs
+            # seconds); the later forms' peaks leave its bytes out
+            held, kept = "twin", got
+            twin_bytes = sum(v.numel() * v.element_size() for v in kept.values())
+        elif label == "bucketed":
+            held = "bitwise" if all(torch.equal(got[k], v) for k, v in kept.items()) else \
+                held_to_twin("scaffold vmapped", got, {k: v.cpu() for k, v in kept.items()})
+        else:
+            worst = {part: max(float((got[k] - v).abs().max() / v.abs().max().clamp_min(1e-12))
+                               for k, v in kept.items() if k.startswith(part))
+                     for part in ("params", "c", "bank")}
+            if worst["params"] > VMAPPED_SEQ_RTOL:
+                raise AssertionError(f"scaffold sequential vs vmapped params: "
+                                     f"{worst['params']:.3e} of a leaf's max (bound "
+                                     f"{VMAPPED_SEQ_RTOL})")
+            held = (f"params within {worst['params']:.3e} of a leaf's max (bound "
+                    f"{VMAPPED_SEQ_RTOL}); c {worst['c']:.3e}, bank {worst['bank']:.3e} of "
+                    f"theirs (not bounded: 1/(K eta) scales the rounding of y - x)")
+        del state, got
+        out[label] = {"round_ms": wall, "peak_bytes": peak, "bank_bytes": nbytes,
+                      "rr_perm": launches[label], "held": held}
+        print(f"scaffold path, {label}: rr_perm {launches[label]} launches, as predicted; "
+              f"bank {nbytes} bytes ([33, ...] fp32, scratch and never-sampled rows zero); "
+              f"round wall {wall:.1f} ms, peak {peak / 2**30:.3f} GiB (the padded twin held "
+              f"aside excluded); vs the vmapped padded run: {held}", flush=True)
+    del kept
+    rows["rr_perm"]["scaffold_launches"] = launches
+    torch.cuda.empty_cache()
+    out["rules"] = chain_rule_paths(dev, rows)
+    out["claim"] = scaffold_claim(dev)
+    return out
+
+
+def chain_rule_paths(dev, rows: dict) -> dict:
+    """fedprox, local_clip and adam at full width, 2 rounds each, vmapped
+    padded (rr_perm once a round), then all four rules on CharLM-tiny on
+    the card against the port on the CPU (:func:`check_small_reference`)."""
+    import torch
+
+    from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
+
+    out = {}
+    rounds = 2
+    for name in ("fedprox", "local_clip", "adam"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(rr_indices_kernel)
+        t0 = time.perf_counter()
+        res = run_main_path(dev, "device", rounds, **CHAIN_RULES[name], **VMAPPED)
+        torch.cuda.synchronize()
+        n = rr_indices_kernel.launches
+        peak = torch.cuda.max_memory_allocated()
+        wall = report_rounds(f"{name} path", res, time.perf_counter() - t0, peak, rounds)
+        if n != rounds:
+            raise AssertionError(f"{name} path: rr_perm launched {n} times in {rounds} rounds")
+        if not all(torch.isfinite(v).all() for tree in res.state.opt.values()
+                   for v in tree.values()):
+            raise AssertionError(f"{name} path: non-finite optimizer state")
+        del res
+        rows["rr_perm"].setdefault("scaffold_launches", {})[name] = n
+        out[name] = {"round_ms": wall, "peak_bytes": peak}
+        print(f"{name} path (vmapped, {rounds} rounds): rr_perm {n}; round wall {wall:.1f} ms, "
+              f"peak {peak / 2**30:.3f} GiB", flush=True)
+    torch.cuda.empty_cache()
+    for name, kw in CHAIN_RULES.items():
+        t0 = time.perf_counter()
+        worst, flips = check_small_reference(dev, **kw, **VMAPPED)
+        out[f"tiny_{name}_err"] = worst
+        print(f"CharLM-tiny {name} on the card vs the port on the CPU: max relative diff "
+              f"{worst:.3e} (bound 1e-4), {flips} sign flips of a step "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
+def scaffold_claim(dev) -> dict:
+    """``tests/test_client_transforms.py``'s claim on the card: the
+    duplicated quadratic (copies 1, 2, 3) with partial participation (2 of
+    3 clients), FedAvg and FedAvg + SCAFFOLD ``SCAFFOLD_CLAIM["rounds"]``
+    rounds each (vmapped); SCAFFOLD must land within ``err`` of x* and under
+    ``share`` of FedAvg's distance."""
+    import torch
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.federated import FederatedPipeline, Population
+    from repro_torch.data.tasks import DuplicatedQuadraticTask
+    from repro_torch.fed.losses import make_quadratic_loss
+    from repro_torch.fed.rounds import build_round_step
+    from repro_torch.fed.strategy import bind_strategy
+
+    task, loss = DuplicatedQuadraticTask(copies=(1, 2, 3)), make_quadratic_loss(3)
+    errs, t0 = {}, time.perf_counter()
+    for opt in ("sgd", "scaffold"):
+        fl = FLConfig(num_clients=3, cohort_size=2, sampling="uniform", epochs=2, local_batch=1,
+                      algorithm="fedavg", local_lr=0.05, server_lr=1.0, seed=3, server_opt=opt)
+        pipe = FederatedPipeline(task, Population.build(fl, sizes=task.sizes()), fl)
+        strat = bind_strategy(None, fl, loss, num_clients=3)
+        step = build_round_step(loss, strat, fl, device=dev)
+        state = strat.init({"x": torch.zeros(3, device=dev)})
+        for r in range(SCAFFOLD_CLAIM["rounds"]):
+            state, _ = step(state, pipe.round_batch(r))
+        errs[opt] = float(np.linalg.norm(state.params["x"].cpu().numpy() - task.optimum()))
+    print(f"scaffold claim ({SCAFFOLD_CLAIM['rounds']} rounds on the duplicated quadratic, "
+          f"partial participation): |x - x*| fedavg {errs['sgd']:.6f}, fedavg+scaffold "
+          f"{errs['scaffold']:.6f} (bound {SCAFFOLD_CLAIM['err']} and {SCAFFOLD_CLAIM['share']}x "
+          f"fedavg's; {time.perf_counter() - t0:.1f} s)", flush=True)
+    if not (errs["scaffold"] < SCAFFOLD_CLAIM["err"]
+            and errs["scaffold"] < SCAFFOLD_CLAIM["share"] * errs["sgd"]):
+        raise AssertionError(f"scaffold claim failed: {errs}")
+    return errs
 
 
 # phase (a)'s prefetch depths, run in this order (ABBA: a drift of the host's
@@ -3156,6 +3490,13 @@ def main() -> int:
     del seq_params
     torch.cuda.empty_cache()
     print(f"bucketed main paths: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # main path 12, FedShuffle + SCAFFOLD at full width in three forms, the
+    # other client chains and adam, and SCAFFOLD's claim on the quadratic
+    t0 = time.perf_counter()
+    scaffold = scaffold_main_paths(dev, rows)
+    print(json.dumps({"scaffold": scaffold}), flush=True)
+    print(f"scaffold and chain paths: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # main path 9, the host side of train(): prefetch, resume through a
     # server-state file, the params file served, a resume with both banks

@@ -11,10 +11,10 @@ configs, with one exception: ``uplink_backend`` takes ``"kernel"`` (the
 default: the CUDA kernel for a CUDA tensor, the plain torch version for a
 CPU tensor) or ``"ref"`` (the plain torch version on any device) where the
 JAX package takes ``"pallas"`` / ``"ref"``.  A default of ``"ref"`` would
-keep the kernel off the card's main path.  A value the port does not
-implement yet (the ``adam`` / ``scaffold`` server opts, the ``scaffold`` /
-``fedprox`` / ``local_clip`` local updates) raises ``NotImplementedError``
-at bind time.  The cohort engine's knobs bind at the JAX package's
+keep the kernel off the card's main path.  Every server opt (``sgd``,
+``momentum``, ``mvr``, ``adam``, ``scaffold``) and local update (``sgd``,
+``mvr``, ``scaffold``, ``fedprox`` with ``prox_mu``, ``local_clip`` with
+``clip_norm``) binds.  The cohort engine's knobs bind at the JAX package's
 defaults (``prefetch=2``, ``participation="iid"``; all four schedules).
 """
 from __future__ import annotations
@@ -158,7 +158,9 @@ class FLConfig:
     momentum: float = 0.9          # used by "momentum"
     mvr_a: float = 0.1             # MVR a parameter
     mvr_exact: bool = False        # exact eq.(13-14) vs practical approx (App. F)
-    local_update: str = ""         # "" => server opt's paired default ("sgd")
+    local_update: str = ""         # "" => server opt's paired default
+    prox_mu: float = 0.1           # fedprox proximal coefficient
+    clip_norm: float = 1.0         # local_clip per-step direction-norm bound
     # cohort execution
     cohort_mode: CohortMode = "vmapped"
     accum_dtype: str = "float32"   # sequential-mode delta accumulator dtype

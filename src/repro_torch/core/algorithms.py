@@ -22,8 +22,9 @@ Special cases (App. E.2):
 
 Each of the three choices is a registered primitive (``C_KINDS`` /
 ``W_KINDS`` / ``Q_KINDS``) over the [C] float32 tensors of a device
-``ClientMeta``; a ``GenSpec`` names one primitive per slot.  The port's
-counterpart of ``repro.core.algorithms``.
+``ClientMeta``; a ``GenSpec`` names one primitive per slot, and
+``register_c_kind`` / ``register_w_kind`` / ``register_q_kind`` add more.
+The port's counterpart of ``repro.core.algorithms``.
 """
 from __future__ import annotations
 
@@ -72,6 +73,29 @@ Q_KINDS: dict[str, Callable] = {
     "p": lambda meta, num_clients, cohort_size: meta.prob,
     "sum_one": _q_sum_one,
 }
+
+def _register(registry: dict, slot: str, name: str, fn: Callable,
+              overwrite: bool = False) -> None:
+    if not overwrite and name in registry:
+        raise ValueError(
+            f"{slot}-kind {name!r} already registered (pass overwrite=True to replace)")
+    registry[name] = fn
+
+
+def register_c_kind(name: str, fn: Callable, *, overwrite: bool = False) -> None:
+    """fn(steps, planned) -> 1/c_i ([C])."""
+    _register(C_KINDS, "c", name, fn, overwrite)
+
+
+def register_w_kind(name: str, fn: Callable, *, overwrite: bool = False) -> None:
+    """fn(meta, steps, planned) -> w~_i ([C])."""
+    _register(W_KINDS, "w", name, fn, overwrite)
+
+
+def register_q_kind(name: str, fn: Callable, *, overwrite: bool = False) -> None:
+    """fn(meta, num_clients, cohort_size) -> q_i^S ([C] or 0-d)."""
+    _register(Q_KINDS, "q", name, fn, overwrite)
+
 
 PRESETS: dict[str, GenSpec] = {
     "fedshuffle": GenSpec(c="steps", w="w", q="p"),

@@ -18,10 +18,19 @@ port runs eagerly, so a round's row count costs it nothing: when a round
 moves to the device, :func:`occupied` cuts each bucket to its occupied
 prefix (``bucketize`` fills positions 0, 1, ... in slot order), drops the
 empty buckets and re-bases ``pos`` onto the concatenation of the rows that
-remain.  The device-side ``BucketedPlan`` / ``BucketedBatch`` hold only
-those rows; their ``pos`` stays a host array (it only steers the sequential
-mode's slot loop, :func:`slot_inputs`).  :func:`run_buckets` is the vmapped
-mode's per-bucket driver.  The port's counterpart of ``repro.fed.bucketing``.
+remain.  A bucket keeps at least ``MIN_ROWS`` rows: one occupied row runs
+beside a copy of itself whose step mask is all zeros, because a batch of
+one takes other GEMMs than a batch of two or more, which sum in another
+order, on the card and on the CPU (a batch of 2..7 rows gives the bits the
+same rows get in the padded batch of 8).  The copy holds finite data (a
+masked step still takes its gradient), and its slot is the occupied row's
+own, so every per-slot view a bucket takes is finite too; :func:`unbucket`
+never copies it into the [C] stack.  The device-side ``BucketedPlan`` /
+``BucketedBatch`` hold only those rows; their ``pos`` stays a host array (it
+steers the sequential mode's slot loop, :func:`slot_inputs`, which never
+visits the copy, and tells :func:`run_buckets` each bucket's occupied
+rows).  :func:`run_buckets` runs the vmapped mode a bucket at a time.  The
+port's counterpart of ``repro.fed.bucketing``.
 """
 from __future__ import annotations
 
@@ -42,13 +51,18 @@ def _map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+# the fewest rows a bucket's batch runs (see the module docstring)
+MIN_ROWS = 2
+
+
 def occupied(buckets: tuple, pos) -> tuple[tuple, np.ndarray]:
-    """A host layout's buckets cut to their occupied rows, empty buckets
-    dropped, and ``pos`` re-based onto the concatenation of the kept rows
-    (invalid slots point one past its end).  ``buckets`` and ``pos`` are
-    the host (numpy) fields of a ``BucketedPlan`` or ``BucketedBatch``; a
-    layout whose slots are tensors was cut already (a device plan or batch)
-    and is returned as it is."""
+    """A host layout's buckets cut to their occupied rows (a lone occupied
+    row run beside its masked copy, ``MIN_ROWS``), empty buckets dropped,
+    and ``pos`` re-based onto the concatenation of the kept rows (invalid
+    slots point one past its end).  ``buckets`` and ``pos`` are the host
+    (numpy) fields of a ``BucketedPlan`` or ``BucketedBatch``; a layout
+    whose slots are tensors was cut already (a device plan or batch) and is
+    returned as it is."""
     if any(isinstance(b.slots, torch.Tensor) for b in buckets):
         return buckets, pos
     pos = np.asarray(pos)
@@ -67,13 +81,26 @@ def occupied(buckets: tuple, pos) -> tuple[tuple, np.ndarray]:
             continue
         new_pos[slots[:occ]] = new_offset + np.arange(occ)
         held[slots[:occ]] = True
-        new_offset += occ
+        # the occupied rows, then copies of row 0 up to MIN_ROWS, masked off
+        run = np.arange(max(occ, MIN_ROWS))
+        rows = np.where(run < occ, run, 0)
+        mask = b.step_mask[rows] * (run < occ)[:, None].astype(b.step_mask.dtype)
+        new_offset += rows.size
         kept.append(Bucket(
-            data=None if b.data is None else {k: v[:occ] for k, v in b.data.items()},
-            idx=None if b.idx is None else b.idx[:occ],
-            step_mask=b.step_mask[:occ], slots=slots[:occ]))
+            data=None if b.data is None else {k: v[rows] for k, v in b.data.items()},
+            idx=None if b.idx is None else b.idx[rows],
+            step_mask=mask, slots=slots[rows]))
     new_pos[~held] = new_offset
     return tuple(kept), new_pos
+
+
+def occupied_rows(batch) -> list[int]:
+    """Each bucket's occupied rows in a device ``BucketedBatch`` (or plan):
+    the slots whose ``pos`` falls in its rows; a bucket may run more
+    (``MIN_ROWS``)."""
+    starts = np.cumsum([0] + [b.step_mask.shape[0] for b in batch.buckets])
+    pos = np.asarray(batch.pos)
+    return [int(((pos >= lo) & (pos < hi)).sum()) for lo, hi in zip(starts[:-1], starts[1:])]
 
 
 def slot_inputs(batch) -> list:
@@ -102,10 +129,11 @@ def take_slots(tree, slots: torch.Tensor):
 
 
 def unbucket(parts: Iterable, slots: Iterable, C: int, like):
-    """Per-bucket outputs over their occupied rows (tensors, or dicts and
-    tuples of them, with [occ_b, ...] leaves) -> a zero-filled [C, ...]
-    slot-order stack, each bucket's rows copied to its ``slots`` (int64
-    tensors).  Slots no bucket holds read exact zeros, as the padded
+    """Per-bucket outputs over their rows (tensors, or dicts and tuples of
+    them, with [rows_b, ...] leaves) -> a zero-filled [C, ...] slot-order
+    stack, each bucket's first len(s) rows copied to its occupied slots
+    ``s`` (int64 tensors); rows past them (a lone row's masked copy) are
+    never read.  Slots no bucket holds read exact zeros, as the padded
     layout's fully masked slots compute.  ``parts`` may be a generator: each
     part is released once copied.  ``like``, one slot's output of the same
     structure, gives the shapes when there is no part (an empty cohort)."""
@@ -113,17 +141,19 @@ def unbucket(parts: Iterable, slots: Iterable, C: int, like):
     for part, s in zip(parts, slots):
         if out is None:
             out = _map(lambda t: t.new_zeros((C, *t.shape[1:])), part)
-        _map(lambda o, t: o.index_copy_(0, s, t), out, part)
+        _map(lambda o, t: o.index_copy_(0, s, t[:s.shape[0]]), out, part)
     if out is None:
         out = _map(lambda t: t.new_zeros((C, *t.shape)), like)
     return out
 
 
 def run_buckets(fn, batch: BucketedBatch, like, *per_slot):
-    """``fn(data_b, mask_b, *views_b)`` on each bucket's occupied rows,
-    reassembled by :func:`unbucket` into the zero-filled [C] slot-order
-    stack.  ``per_slot`` are full-[C] trees or tensors; each bucket sees its
-    rows of them (:func:`take_slots`).  ``like``: one slot's output."""
+    """``fn(data_b, mask_b, *views_b)`` on each bucket's rows, reassembled
+    by :func:`unbucket` into the zero-filled [C] slot-order stack from its
+    occupied rows.  ``per_slot`` are full-[C] trees or tensors; each bucket
+    sees its rows of them (:func:`take_slots`).  ``like``: one slot's
+    output."""
     bs = batch.buckets
     parts = (fn(b.data, b.step_mask, *(take_slots(a, b.slots) for a in per_slot)) for b in bs)
-    return unbucket(parts, (b.slots for b in bs), batch.meta.valid.shape[0], like)
+    held = (b.slots[:n] for b, n in zip(bs, occupied_rows(batch)))
+    return unbucket(parts, held, batch.meta.valid.shape[0], like)

@@ -52,10 +52,14 @@ vmapped mode's stack is its batched output.  With a non-identity downlink
 codec (``fl.downlink``) each slot's round-start params are reconstructed
 from its banked reference before the cohort runs, ``ref_i +
 decode(encode(x - ref_i))``, and each client trains from, and measures its
-update against, its own reconstruction.  EF residuals, DIANA shifts and the
-downlink references live in the per-client bank (``ServerState.clients``):
-the cohort's rows are gathered at ``ids = where(valid, client_id, N)`` and
-committed back masked (padding slots write what they read).  Unlike the JAX
+update against, its own reconstruction.  The local chain's persistent
+per-client state (SCAFFOLD's control variates, under the transform's name),
+EF residuals, DIANA shifts and the downlink references live in the
+per-client bank (``ServerState.clients``): the cohort's rows are gathered at
+``ids = where(valid, client_id, N)``, the chain's rows ride through the
+local steps (each bucket takes its slots' rows), and everything is
+committed back masked (padding slots, and slots no bucket holds, write what
+they read).  Unlike the JAX
 package, which returns a new bank, the commit updates the bank in place
 (15.1 GB at CharLM-100M's 32 clients; a copy would double it), so a state
 passed to a round step must not be used again.  ``identity`` in both
@@ -64,10 +68,12 @@ metric keys.  The port's counterpart of ``repro.fed.rounds`` with the
 fleet, robust, privacy and obs planes off.
 
 The server optimizer's momentum tree (``state.opt["m"]``, zeros when the
-optimizer keeps none) rides down to every client's local steps, and the
-server update gets a ``RoundCtx`` (batch, ``lr_mult``, momentum):
-FedShuffleMVR's corrected steps and its server step read them.  With a
-codec, MVR consumes the decoded aggregate.
+optimizer keeps none) and its whole opt-state dict ride down to every
+client's local steps, and the server update gets a ``RoundCtx`` (batch,
+``lr_mult``, momentum, and with a bank the cohort's ``CohortState``: the
+rows gathered and the rows committed): FedShuffleMVR's corrected steps and
+its server step, SCAFFOLD's steps and its control-variate fold read them.
+With a codec, MVR consumes the decoded aggregate.
 """
 from __future__ import annotations
 
@@ -85,7 +91,7 @@ from .bucketing import occupied, run_buckets, slot_inputs
 from .comm import (DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, dense_bits, downlink_apply,
                    downlink_round_keys, round_keys, uplink_apply, wire_bits_total)
 from .server import ServerState
-from .strategy import BoundStrategy, FedStrategy, RoundCtx, bind_strategy
+from .strategy import BoundStrategy, CohortState, FedStrategy, RoundCtx, bind_strategy
 
 
 def to_device(x, device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -152,6 +158,7 @@ def build_round_step(loss_fn: Callable,
     acc_dt = getattr(torch, fl.accum_dtype)
     num_clients = strat.num_clients
     banked = strat.client_state is not None
+    chain_keys = strat.chain_state      # the bank keys the local chain reads and writes
     codec, down = strat.codec, strat.down_codec
     up_on = codec is not None and codec.name != "identity"
     dl_on = down is not None and down.name != "identity"
@@ -185,6 +192,10 @@ def build_round_step(loss_fn: Callable,
         if up_on:
             staged = {k: torch.empty((C, *v.shape), dtype=v.dtype, device=v.device)
                       for k, v in state.params.items()}
+        # the chain's state rows: a slot's finalized row, or (a slot no
+        # bucket holds) the row it read, which the masked commit keeps
+        cs_in = {k: new_cs[k] for k in chain_keys}
+        cs_out = tree_map(torch.clone, cs_in)
         losses = []
         for c, inputs in enumerate(slot_inputs(batch)):
             if inputs is None:
@@ -197,13 +208,16 @@ def build_round_step(loss_fn: Callable,
                 continue
             data, mask = inputs
             p_c = {k: v[c] for k, v in starts.items()} if dl_on else state.params
-            delta, loss = strat.local_step(p_c, data, mask, eta[c], momentum)
+            delta, loss, cs_c = strat.local_step(p_c, momentum, state.opt, data, mask, eta[c],
+                                                 tree_map(lambda t: t[c], cs_in))
+            tree_map(lambda o, t: o[c].copy_(t), cs_out, {k: cs_c[k] for k in chain_keys})
             if up_on:
                 for k, v in delta.items():
                     staged[k][c] = v
             else:
                 acc = add_weighted(acc, delta, coeff[c])
             losses.append(loss)
+        new_cs = {**new_cs, **cs_out}
         if up_on:
             # the decoded deltas accumulated in slot order by the same rule
             dhat, new_cs = uplink(staged, new_cs, meta, state.rnd)
@@ -219,17 +233,23 @@ def build_round_step(loss_fn: Callable,
         in the bucketed layout), then the strategy's aggregate of the
         (decoded) slot-order stack."""
         x = starts if dl_on else state.params
+        cs_in = {k: new_cs[k] for k in chain_keys}
         if isinstance(batch, BucketedBatch):
-            # each bucket takes its rows of eta and, with the downlink, of
-            # the per-slot start points; else every slot starts from x
-            def bucket_step(data, mask, eta_b, x_b=x):
-                return strat.cohort_step(x_b, data, mask, eta_b, momentum, stacked=dl_on)
+            # each bucket takes its rows of eta, of the chain's state and,
+            # with the downlink, of the per-slot start points; else every
+            # slot starts from x
+            def bucket_step(data, mask, eta_b, cs_b, x_b=x):
+                return strat.cohort_step(x_b, momentum, state.opt, data, mask, eta_b, cs_b,
+                                         stacked=dl_on)
 
-            deltas, losses = run_buckets(bucket_step, batch, (state.params, batch.meta.valid[0]),
-                                         eta, *((x,) if dl_on else ()))
+            like = (state.params, batch.meta.valid[0], tree_map(lambda t: t[0], cs_in))
+            deltas, losses, cs_out = run_buckets(bucket_step, batch, like, eta, cs_in,
+                                                 *((x,) if dl_on else ()))
         else:
-            deltas, losses = strat.cohort_step(x, batch.data, batch.step_mask, eta, momentum,
-                                               stacked=dl_on)
+            deltas, losses, cs_out = strat.cohort_step(x, momentum, state.opt, batch.data,
+                                                       batch.step_mask, eta, cs_in,
+                                                       stacked=dl_on)
+        new_cs = {**new_cs, **{k: cs_out[k] for k in chain_keys}}
         if up_on:
             deltas, new_cs = uplink(deltas, new_cs, batch.meta, state.rnd)
         return strat.aggregate(deltas, batch.meta), losses, new_cs
@@ -277,18 +297,20 @@ def build_round_step(loss_fn: Callable,
                                 slot_keys(down, downlink_round_keys, meta, state.rnd))
             new_cs = {**cstate0, DOWNLINK_STATE_KEY: {"ref": starts}}
         delta_agg, losses, new_cs = run_cohort(state, batch, starts, eta, momentum, new_cs)
+        cstate = None
         if banked:
             # masked commit: valid slots write their new rows, padding slots
-            # what they read; then every slot scatters to its own row
+            # (and slots no bucket holds, whose rows read zeros) what they
+            # read; then every slot scatters to its own row, in place
             valid = meta.valid > 0
-
-            def commit(bank, new, old):
-                upd = torch.where(valid.view((-1,) + (1,) * (new.dim() - 1)), new, old)
-                bank.index_copy_(0, ids, upd.to(bank.dtype))
-
-            tree_map(commit, state.clients, new_cs, cstate0)
+            upd = tree_map(lambda new, old: torch.where(
+                valid.view((-1,) + (1,) * (new.dim() - 1)), new, old), new_cs, cstate0)
+            del new_cs
+            tree_map(lambda bank, u: bank.index_copy_(0, ids, u.to(bank.dtype)),
+                     state.clients, upd)
+            cstate = CohortState(old=cstate0, new=upd)
         params, bank = state.params, state.clients
-        ctx = RoundCtx(batch=batch, lr_mult=lr_mult, momentum=momentum)
+        ctx = RoundCtx(batch=batch, lr_mult=lr_mult, momentum=momentum, cstate=cstate)
         state = strat.server_update(state, delta_agg, fl.server_lr, ctx)
         if banked:
             state = state._replace(clients=bank)

@@ -4,11 +4,17 @@ A :class:`FedStrategy` declares the round recipe as a composition of
 
 * a **(c, w~, q) parametrization** (:class:`~repro_torch.core.algorithms.GenSpec`):
   local step-size normalization, aggregation weighting and normalization;
-* a **server optimizer** from :data:`SERVER_OPTS` (``sgd`` / ``momentum``,
-  declared as a :func:`chain` of pseudo-update transforms, and ``mvr``,
-  FedShuffleMVR's bespoke update);
-* a **local update rule** from :data:`LOCAL_UPDATES` (plain RR-SGD, the empty
-  transform chain, or the ``mvr``-corrected steps);
+* a **server optimizer** from :data:`SERVER_OPTS` (``sgd`` / ``momentum``
+  / ``scaffold``, declared as a :func:`chain` of pseudo-update transforms,
+  and the bespoke ``mvr`` (FedShuffleMVR) and ``adam`` updates);
+* a **local update rule** from :data:`LOCAL_UPDATES`: a
+  :class:`~repro_torch.core.local.ClientChain` of per-step client
+  transforms (plain RR-SGD is the empty chain; the MVR-corrected steps,
+  SCAFFOLD's control variates, FedProx and per-step clipping are links).
+  Transforms may keep persistent per-client state, banked ``[N+1, ...]`` on
+  ``ServerState.clients`` beside the comm plane's; binding validates that
+  every opt-state key a chain ``needs`` is ``provide``-d by the server opt,
+  and that a server opt's ``consumes`` are kept by the chain;
 * optionally an **equalized-step pipeline mode** (``fedavg_min`` /
   ``fedavg_mean``), which the data pipeline applies.
 
@@ -17,9 +23,7 @@ A :class:`FedStrategy` declares the round recipe as a composition of
 calls, the comm plane's two codecs (``fl.uplink`` / ``fl.downlink``,
 ``repro_torch.fed.comm``) and the per-client state they keep included.  The
 port's counterpart of ``repro.fed.strategy`` with the fleet, robust and
-privacy planes off; the ``adam`` / ``scaffold`` server opts and the
-``scaffold`` / ``fedprox`` / ``local_clip`` local chains raise
-``NotImplementedError`` until they are ported.
+privacy planes off.
 """
 from __future__ import annotations
 
@@ -31,8 +35,9 @@ import torch
 from ..configs.base import FLConfig
 from ..core import algorithms as _alg
 from ..core.algorithms import GenSpec, PRESETS, agg_coeff, lr_scale
-from ..core.local import (ClientTransform, build_cohort_step, build_local_step, cohort_loss,
-                          cohort_full_local_gradient, full_local_gradient, mvr_transform)
+from ..core.local import (ClientChain, build_cohort_step, build_local_step,
+                          chain_client_template, cohort_full_local_gradient, cohort_loss,
+                          full_local_gradient, resolve_chain)
 from ..data.federated import BucketedBatch
 from ..kernels.server_update.ops import apply_fused_update
 from ..utils.pytree import tree_copy, tree_map, tree_zeros_like
@@ -41,13 +46,26 @@ from .comm import DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, build_codec
 from .server import ServerState
 
 
+class CohortState(NamedTuple):
+    """The cohort's rows of the per-client state bank, in [C] slot order:
+    ``old`` as gathered at round start, ``new`` as committed (a padding slot
+    carries ``old``, so ``new - old`` is exactly zero there), keyed like
+    ``ServerState.clients`` ({name: {field: tree with [C, ...] leaves}}).
+    Server transforms fold it into server state (SCAFFOLD's c)."""
+
+    old: Any
+    new: Any
+
+
 class RoundCtx(NamedTuple):
     """Round inputs a server update may need beyond the delta: ``batch`` is
     the device RoundBatch (data / step_mask / meta), ``lr_mult`` the
     schedule multiplier (a 0-dim tensor on the device), and ``momentum`` the
     momentum tree the clients used this round (zeros when the optimizer
-    keeps none).  ``cstate`` is the cohort's per-client state of stateful
-    client transforms, which the port does not keep yet (always None)."""
+    keeps none).  ``cstate`` is the cohort's :class:`CohortState` when a
+    plane keeps per-client state (None otherwise).  A None ctx (the legacy
+    :func:`repro_torch.fed.server.apply_server` path) applies only the
+    parameter step of the optimizer."""
 
     batch: Any
     lr_mult: Any
@@ -55,10 +73,74 @@ class RoundCtx(NamedTuple):
     cstate: Any = None
 
 
-# local update name -> its chain: ClientTransforms (core.local) or factories
-# make(loss_fn, fl) -> ClientTransform, resolved at bind time
-LOCAL_UPDATES: dict[str, tuple] = {"sgd": (), "mvr": (mvr_transform,)}
-_UNPORTED_LOCAL_UPDATES = ("scaffold", "fedprox", "local_clip")
+# ---------------------------------------------------------------------------
+# Local update registry: name -> ClientChain (a declared composition of
+# client transforms; see core.local) or, legacy, a raw factory
+# make(loss_fn, fl) -> one_client(params, momentum, data, mask, eta).
+# ---------------------------------------------------------------------------
+
+LOCAL_UPDATES: dict[str, "ClientChain | Callable"] = {
+    "sgd": ClientChain("sgd", ()),
+    "mvr": ClientChain("mvr", ("mvr",)),
+    "scaffold": ClientChain("scaffold", ("scaffold",)),
+    "fedprox": ClientChain("fedprox", ("prox",)),
+    "local_clip": ClientChain("local_clip", ("clip",)),
+}
+
+
+def register_local_update(name: str, make: "ClientChain | Callable", *,
+                          overwrite: bool = False) -> None:
+    """Register a local-update rule: a :class:`~repro_torch.core.local.ClientChain`
+    (composable, may keep per-client state) or the legacy raw factory
+    ``make(loss_fn, fl) -> one_client(params, momentum, data, mask, eta) ->
+    (delta, loss)``."""
+    if not overwrite and name in LOCAL_UPDATES:
+        raise ValueError(
+            f"local update {name!r} already registered (pass overwrite=True to replace)")
+    LOCAL_UPDATES[name] = make
+
+
+class CompiledLocal(NamedTuple):
+    """A LOCAL_UPDATES entry closed over (loss_fn, fl): the per-client and
+    the cohort step (``core.local``'s signatures), one client's state
+    template (None for a stateless rule), the opt-state keys it needs and
+    its stateful transforms' names."""
+
+    local_step: Callable
+    cohort_step: Callable
+    client_template: Callable | None
+    needs: tuple
+    state_names: tuple
+
+
+def _compile_local(entry: "ClientChain | Callable", loss_fn: Callable,
+                   fl: FLConfig) -> CompiledLocal:
+    if isinstance(entry, ClientChain):
+        transforms = resolve_chain(entry, loss_fn, fl)
+        # the batched cohort step's links see stacked [C] points: their loss
+        # is the cohort's (per-slot gradients through one autograd pass)
+        cohort_transforms = resolve_chain(entry, cohort_loss(loss_fn), fl)
+        return CompiledLocal(
+            build_local_step(transforms, loss_fn),
+            build_cohort_step(cohort_transforms, loss_fn),
+            chain_client_template(transforms),
+            tuple(dict.fromkeys(k for t in transforms for k in t.needs)),
+            tuple(t.name for t in transforms if t.client_init is not None))
+    inner = entry(loss_fn, fl)        # legacy raw rule: stateless, opt-blind
+
+    def one_client(params, momentum, opt, data, mask, eta, cstate):
+        delta, loss = inner(params, momentum, data, mask, eta)
+        return delta, loss, cstate
+
+    def cohort(params, momentum, opt, data, mask, eta, cstate, *, stacked=False):
+        # a raw rule has no batched form: slot by slot, stacked
+        outs = [inner({k: v[c] for k, v in params.items()} if stacked else params, momentum,
+                      {k: v[c] for k, v in data.items()}, mask[c], eta[c])
+                for c in range(mask.shape[0])]
+        return ({k: torch.stack([d[k] for d, _ in outs]) for k in outs[0][0]},
+                torch.stack([loss for _, loss in outs]), cstate)
+
+    return CompiledLocal(one_client, cohort, None, (), ())
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +151,8 @@ _UNPORTED_LOCAL_UPDATES = ("scaffold", "fedprox", "local_clip")
 
 class ServerTransform(NamedTuple):
     """One link of a server chain: ``init(fl, params) -> opt-state slice``
-    and ``update(fl, delta, opt) -> (delta', opt-state updates)``.
+    and ``update(fl, delta, opt, state, ctx) -> (delta', opt-state
+    updates)`` (``ctx`` a :class:`RoundCtx`, or None on the legacy path).
     ``provides`` names the opt-state keys ``init`` creates plus any semantic
     capability tags; client transforms declare what they ``need`` against
     these, and binding validates the pairing.  ``consumes`` names the
@@ -87,11 +170,33 @@ def heavy_ball() -> ServerTransform:
     def init(fl: FLConfig, params):
         return {"m": tree_zeros_like(params)}
 
-    def update(fl: FLConfig, delta, opt):
+    def update(fl: FLConfig, delta, opt, state, ctx):
         m = {k: fl.momentum * opt["m"][k] + d for k, d in delta.items()}
         return m, {"m": m}
 
     return ServerTransform(init, update, provides=("m",))
+
+
+def scaffold_ctl() -> ServerTransform:
+    """SCAFFOLD's server control variate: ``c <- c + sum_{i in S} (w_i/p_i)
+    * (c_i+ - c_i)``, the w/p-debiased estimate of the population drift of
+    the per-client variates the cohort just committed (the paired
+    ``scaffold`` client transform).  The pseudo-update passes through."""
+
+    def init(fl: FLConfig, params):
+        return {"c": tree_zeros_like(params)}
+
+    def update(fl: FLConfig, delta, opt, state, ctx):
+        if ctx is None or ctx.cstate is None:
+            return delta, {}
+        meta = ctx.batch.meta
+        wp = (meta.valid * meta.weight / meta.prob).float()              # [C]
+        old, new = ctx.cstate.old["scaffold"]["c"], ctx.cstate.new["scaffold"]["c"]
+        c = {k: (c0.float() + torch.einsum("c,c...->...", wp, new[k].float() - old[k].float())
+                 ).to(c0.dtype) for k, c0 in opt["c"].items()}
+        return delta, {"c": c}
+
+    return ServerTransform(init, update, provides=("c",), consumes=("scaffold",))
 
 
 class ServerOpt(NamedTuple):
@@ -133,7 +238,7 @@ def chain(name: str, *transforms: ServerTransform, local_update: str = "sgd") ->
             opt = dict(state.opt)
             d = delta_agg
             for t in transforms:
-                d, new = t.update(fl, d, opt)
+                d, new = t.update(fl, d, opt, state, ctx)
                 opt.update(new)
             p = {k: a + (lr * d[k]).to(a.dtype) for k, a in state.params.items()}
             return ServerState(params=p, opt=opt, rnd=state.rnd + 1)
@@ -170,6 +275,10 @@ def _mvr_opt() -> ServerOpt:
     def make_update(fl: FLConfig, gen: GenSpec, loss_fn, cohort_mode):
         def update(state: ServerState, delta_agg, lr, ctx) -> ServerState:
             opt = dict(state.opt)
+            if ctx is None:
+                # the legacy path: the parameter step alone
+                p = {k: x + (lr * delta_agg[k]).to(x.dtype) for k, x in state.params.items()}
+                return ServerState(params=p, opt=opt, rnd=state.rnd + 1)
             batch, meta, momentum = ctx.batch, ctx.batch.meta, ctx.momentum
             if fl.mvr_exact:
                 wp = meta.valid * meta.weight / meta.prob              # [C]
@@ -227,12 +336,56 @@ def _mvr_opt() -> ServerOpt:
                      provides=("m", "grad_estimate"))
 
 
+def _adam_opt() -> ServerOpt:
+    """FedAdam (Reddi et al. 2020) on g = -Delta.  The bias corrections
+    ``1 - b**t`` at ``t = rnd + 1`` are fp32 tensors, as the JAX package
+    forms them from its int32 round counter."""
+
+    def init(fl: FLConfig, params) -> dict:
+        return {"mu": tree_zeros_like(params), "nu": tree_zeros_like(params)}
+
+    def make_update(fl: FLConfig, gen, loss_fn, cohort_mode):
+        def update(state: ServerState, delta_agg, lr, ctx) -> ServerState:
+            opt = dict(state.opt)
+            b1, b2, eps = 0.9, 0.99, 1e-8
+            g = {k: -d for k, d in delta_agg.items()}
+            mu = {k: b1 * m0 + (1 - b1) * g[k] for k, m0 in opt["mu"].items()}
+            nu = {k: b2 * n0 + (1 - b2) * g[k] * g[k] for k, n0 in opt["nu"].items()}
+            like = next(iter(state.params.values()))
+            t = torch.full((), state.rnd + 1.0, dtype=torch.float32, device=like.device)
+            c1, c2 = 1 - torch.pow(b1, t), 1 - torch.pow(b2, t)
+            p = {k: a - (lr * (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps)).to(a.dtype)
+                 for k, a in state.params.items()}
+            opt["mu"], opt["nu"] = mu, nu
+            return ServerState(params=p, opt=opt, rnd=state.rnd + 1)
+
+        return update
+
+    return ServerOpt("adam", init, make_update, provides=("mu", "nu"))
+
+
 SERVER_OPTS: dict[str, ServerOpt] = {
     "sgd": chain("sgd"),
     "momentum": chain("momentum", heavy_ball()),
     "mvr": _mvr_opt(),
+    "adam": _adam_opt(),
+    # SCAFFOLD: sgd-style descent + the server control variate, paired with
+    # the stateful "scaffold" client chain (per-client variates in the bank)
+    "scaffold": chain("scaffold", scaffold_ctl(), local_update="scaffold"),
 }
-_UNPORTED_SERVER_OPTS = ("adam", "scaffold")
+
+
+def register_server_opt(opt: ServerOpt, *, overwrite: bool = False) -> None:
+    if not overwrite and opt.name in SERVER_OPTS:
+        raise ValueError(
+            f"server opt {opt.name!r} already registered (pass overwrite=True to replace)")
+    SERVER_OPTS[opt.name] = opt
+
+
+def server_opt_init(fl: FLConfig, params) -> dict:
+    if fl.server_opt not in SERVER_OPTS:
+        raise ValueError(fl.server_opt)
+    return SERVER_OPTS[fl.server_opt].init(fl, params)
 
 
 # ---------------------------------------------------------------------------
@@ -328,11 +481,13 @@ class BoundStrategy(NamedTuple):
     agg_coeffs: Callable               # (meta) -> [C]
     aggregate: Callable                # (stacked deltas, meta) -> delta_agg
     server_update: Callable            # (state, delta_agg, lr, ctx) -> ServerState
-    local_step: Callable               # (params, data, mask, eta, momentum) -> (delta, loss)
+    local_step: Callable               # (params, momentum, opt, data, mask, eta,
+    #                                      cstate) -> (delta, loss, cstate')
     cohort_step: Callable              # the same chain batched over the cohort:
-    #                                      (params, data [C, ...], mask [C, K],
-    #                                      eta [C], momentum, *, stacked) ->
-    #                                      (deltas [C, ...], losses [C])
+    #                                      (params, momentum, opt, data [C, ...],
+    #                                      mask [C, K], eta [C], cstate [C, ...],
+    #                                      *, stacked) -> (deltas [C, ...],
+    #                                      losses [C], cstate')
     client_state: Callable | None = None  # (params) -> one client's bank row
     #                                      template ({name: {field: tree}}), or
     #                                      None when no plane keeps client state
@@ -340,6 +495,8 @@ class BoundStrategy(NamedTuple):
     down_codec: object = None          # bound fed.comm.Codec of the downlink
     #                                      (None for hand-built strategies: the
     #                                      round driver then runs dense)
+    chain_state: tuple = ()            # the local chain's stateful transforms:
+    #                                      the bank keys its steps read and write
 
 
 def weighted_sum(deltas: dict, coeff: torch.Tensor) -> dict:
@@ -404,10 +561,10 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
     _check_config(fl)
     server_opt = strategy.server_opt or fl.server_opt
     if server_opt not in SERVER_OPTS:
-        if server_opt in _UNPORTED_SERVER_OPTS:
-            raise NotImplementedError(f"server opt {server_opt!r} is not ported yet")
         raise ValueError(f"unknown server opt {server_opt!r}; have {sorted(SERVER_OPTS)}")
     sdef = SERVER_OPTS[server_opt]
+    # local chain resolution: strategy pin > FLConfig.local_update > the
+    # server opt's paired default, a pin / config disagreement an error
     if (strategy.local_update is not None and fl.local_update
             and strategy.local_update != fl.local_update):
         raise ValueError(
@@ -416,20 +573,10 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
             f"{fl.local_update!r}; make them agree.")
     local_update = strategy.local_update or fl.local_update or sdef.local_update
     if local_update not in LOCAL_UPDATES:
-        if local_update in _UNPORTED_LOCAL_UPDATES:
-            raise NotImplementedError(f"local update {local_update!r} is not ported yet")
         raise ValueError(
             f"unknown local update {local_update!r}; have {sorted(LOCAL_UPDATES)}")
-
-    def resolve(loss):
-        return tuple(t if isinstance(t, ClientTransform) else t(loss, fl)
-                     for t in LOCAL_UPDATES[local_update])
-
-    transforms = resolve(loss_fn)
-    # the batched cohort step's links see stacked [C] points: their loss is
-    # the cohort's (per-slot gradients through one autograd pass)
-    cohort_transforms = resolve(cohort_loss(loss_fn))
-    state_names = [t.name for t in transforms if t.client_init is not None]
+    local = _compile_local(LOCAL_UPDATES[local_update], loss_fn, fl)
+    state_names = local.state_names
     missing_state = [k for k in sdef.consumes if k not in state_names]
     if missing_state:
         raise ValueError(
@@ -439,8 +586,7 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
             f"without its input.  Pair it with a local update carrying "
             f"{missing_state} (e.g. local_update={missing_state[0]!r}) or "
             f"pick another server opt.")
-    needs = tuple(dict.fromkeys(k for t in transforms for k in t.needs))
-    missing = [k for k in needs if k not in sdef.provides]
+    missing = [k for k in local.needs if k not in sdef.provides]
     if missing:
         # the round driver zero-fills a missing opt["m"], so e.g. mvr local
         # steps under server_opt="sgd" would quietly degenerate to a
@@ -463,14 +609,16 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
             raise ValueError(
                 f"local update {local_update!r} has a stateful client transform named "
                 f"{key!r} — that bank key is reserved for {owner}; rename the transform.")
-    if state_names:
-        raise NotImplementedError(
-            f"stateful client transforms {state_names} are not ported yet")
-    client_state = None
+    client_state = local.client_template
     if codec.client_init is not None:
+        chain_state = client_state
+
         def client_state(params):
-            # the codec's EF residual / DIANA shift, under the reserved key
-            return {UPLINK_STATE_KEY: codec.client_init(params)}
+            # the codec's EF residual / DIANA shift shares the [N+1, ...]
+            # bank with the chain's stateful transforms, under the reserved key
+            d = dict(chain_state(params)) if chain_state is not None else {}
+            d[UPLINK_STATE_KEY] = codec.client_init(params)
+            return d
 
     if down_codec.name != "identity":
         pre_down_state = client_state
@@ -518,9 +666,19 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
         agg_coeffs=agg_coeffs,
         aggregate=aggregate,
         server_update=sdef.make_update(fl, gen, loss_fn, fl.cohort_mode),
-        local_step=build_local_step(transforms, loss_fn),
-        cohort_step=build_cohort_step(cohort_transforms, loss_fn),
+        local_step=local.local_step,
+        cohort_step=local.cohort_step,
         client_state=client_state,
+        chain_state=state_names,
         codec=codec,
         down_codec=down_codec,
     )
+
+
+def apply_server_opt(fl: FLConfig, state: ServerState, delta, lr) -> ServerState:
+    """Legacy one-shot server application (no round context): runs the
+    configured optimizer's parameter step on an aggregated pseudo-update."""
+    if fl.server_opt not in SERVER_OPTS:
+        raise ValueError(fl.server_opt)
+    sdef = SERVER_OPTS[fl.server_opt]
+    return sdef.make_update(fl, None, None, fl.cohort_mode)(state, delta, lr, None)

@@ -12,7 +12,11 @@ CUDA index kernel and a qsgd-compressed uplink (the CUDA quantize kernels)::
       --rounds 4 --engine cohort --rr-backend device --prefetch 0 --uplink qsgd
 
 FedShuffleMVR is ``--server-opt mvr`` (the App. F server step, the CUDA
-``server_update`` kernel); the exact eq. 14 step, the downlink codec and the
+``server_update`` kernel); SCAFFOLD is ``--server-opt scaffold`` (its
+per-client control variates in the client bank), FedAdam ``--server-opt
+adam``, and ``run_charlm_e2e(..., local_update="fedprox")`` /
+``"local_clip"`` picks the FedProx or the per-step clipping chain (with
+``prox_mu`` / ``clip_norm``); the exact eq. 14 step, the downlink codec and the
 quantize backend go through ``run_charlm_e2e(..., mvr_exact=True)``,
 ``downlink="qsgd"``, ``uplink_backend="ref"``.  The bucketed execution
 layout (each step bucket's occupied rows for its K_b steps, instead of every
@@ -138,7 +142,8 @@ def main() -> None:
                     help="the smoke run's architecture (default qwen1.5-0.5b)")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--algorithm", default="fedshuffle")
-    ap.add_argument("--server-opt", default="sgd")
+    ap.add_argument("--server-opt", default="sgd",
+                    help="sgd | momentum | mvr | adam | scaffold")
     ap.add_argument("--engine", default=None, choices=["legacy", "cohort"])
     ap.add_argument("--rr-backend", default=None,
                     choices=["host", "host_feistel", "device_ref", "device"])

@@ -60,6 +60,20 @@ def sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[..., :dim]
 
 
+def onehot_lookup(table: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` at ``toks`` as ``one_hot(toks) @ table``: the
+    values a gather gives (one exact product a row, the rest exact zeros),
+    for the train loss, where the backward matters.  It is a matrix
+    product, whose sum over a row's positions gives the same bits at any
+    batch of two or more sequences (the bucketed layout runs a cohort in
+    smaller batches than the padded one, and both must give each client the
+    same bits) and needs no host synchronisation.  aten's embedding
+    backward on a CUDA tensor takes another algorithm at 3,072 indices or
+    fewer, and indexing's backward synchronises with the host every step.
+    The cost is the output head's again: tokens x vocab x d_model a pass."""
+    return F.one_hot(toks, table.shape[0]).to(table.dtype) @ table
+
+
 @dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
@@ -96,10 +110,13 @@ class Model:
             p["patch_proj"] = dense_init(gen, cfg.d_model, cfg.d_model, dt, device)
         return p
 
-    def _embed(self, params: dict, batch: dict, toks: torch.Tensor):
-        """The token embeddings [B, T, D] of ``toks``, for the vlm family with
-        ``batch["patches"] @ patch_proj`` [B, P, D] prefixed -> (h, P)."""
-        h = F.embedding(toks.long(), params["embed"])
+    def _embed(self, params: dict, batch: dict, toks: torch.Tensor, *, train: bool = False):
+        """The token embeddings [B, T, D] of ``toks`` (``onehot_lookup`` in
+        the train loss, a gather elsewhere: the same values), for the vlm
+        family with ``batch["patches"] @ patch_proj`` [B, P, D] prefixed ->
+        (h, P)."""
+        toks = toks.long()
+        h = onehot_lookup(params["embed"], toks) if train else F.embedding(toks, params["embed"])
         if self.cfg.family != "vlm":
             return h, 0
         if "patches" not in batch:
@@ -124,7 +141,7 @@ class Model:
                                       f"'Modules to port', item 10)")
         toks = batch["tokens"]
         inputs, labels = toks[..., :-1], toks[..., 1:]
-        h, offset = self._embed(params, batch, inputs)
+        h, offset = self._embed(params, batch, inputs, train=True)
         positions = torch.arange(h.shape[1], device=h.device)
         for i in range(cfg.n_layers):
             h = B.dense_block_forward(params, cfg, h, positions, f"blocks/{i}/")

@@ -78,9 +78,11 @@ def server_state_from_jax(np_state, cfg: ArchConfig | None, device) -> ServerSta
     """A JAX ``ServerState`` (numpy leaves, e.g. ``jax.tree.map(np.asarray,
     state)``) -> the port's ``ServerState`` on ``device``: params and each
     optimizer-state tree unstacked like :func:`params_from_jax` (heavy-ball's
-    or MVR's ``m``, and exact MVR's ``x_prev``), the round counter as an int, and the client bank ``{name: {field: params-like}}``
-    (the comm plane's ``"uplink"`` / ``"downlink"`` entries) unstacked along
-    the layer axis after the bank axis."""
+    or MVR's ``m``, exact MVR's ``x_prev``, SCAFFOLD's ``c``, adam's ``mu``
+    and ``nu``), the round counter as an int, and the client bank ``{name:
+    {field: params-like}}`` (SCAFFOLD's ``"scaffold"`` / ``"c"``, the comm
+    plane's ``"uplink"`` / ``"downlink"`` entries) unstacked along the layer
+    axis after the bank axis."""
     clients = None
     if np_state.clients is not None:
         clients = {name: {field: params_from_jax(tree, cfg, device, axis=1)

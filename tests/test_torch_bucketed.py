@@ -16,8 +16,11 @@ against the JAX package's, and its contracts within the port.
   vmapped through the engine at rtol 1e-4 of each leaf's largest magnitude;
 * ``unbucket`` / ``occupied``, and that only the occupied rows of each
   non-empty bucket run: a counting wrapper on the local step sees sum_b
-  occ_b rows and sum_b occ_b * K_b client steps, one RR generation a
-  non-empty bucket.
+  max(occ_b, 2) rows in the vmapped mode (a lone occupied row beside its
+  masked copy, ``MIN_ROWS``) and sum_b occ_b in the sequential one, for
+  their K_b steps, one RR generation a non-empty bucket; a one-row bucket's
+  copy is finite, masked off and never read back (SCAFFOLD's bank equal to
+  the padded run's).
 """
 import dataclasses
 import warnings
@@ -210,7 +213,9 @@ def test_bucket_plans_match_jax_bitwise(case):
 def test_e2e_layout_arithmetic():
     """The main path's layout: static caps cost 145 client steps a round
     against the padded 96; the occupied rows of rounds 0-3 cost 33, 42, 44
-    and 32 (151 of 384), over 4, 4, 3 and 4 non-empty buckets."""
+    and 32 (151 of 384), over 4, 4, 3 and 4 non-empty buckets; the rows
+    that run, a lone occupied row with its masked copy (``MIN_ROWS``), 51,
+    48, 44 and 50 (193 of 384)."""
     _, fl = charlm_e2e_config(exec_mode="bucketed")
     assert all(getattr(fl, k) == v for k, v in E2E.items())
     pipe = FederatedPipeline(None, Population.build(fl), fl)
@@ -221,10 +226,13 @@ def test_e2e_layout_arithmetic():
     got = []
     for r in range(4):
         plan = pipe.bucketed_plan(r, with_idx=False)
-        kept, _ = bucketing.occupied(plan.buckets, plan.pos)
-        got.append((len(kept), sum(b.step_mask.size for b in kept),
+        kept, pos = bucketing.occupied(plan.buckets, plan.pos)
+        occ = bucketing.occupied_rows(plan._replace(buckets=kept, pos=pos))
+        got.append((len(kept), sum(n * b.step_mask.shape[1] for b, n in zip(kept, occ)),
+                    sum(b.step_mask.size for b in kept),
                     sum(b.step_mask.shape[1] for b in kept), int(plan.meta.num_steps.sum())))
-    assert got == [(4, 33, 23, 25), (4, 42, 23, 33), (3, 44, 20, 31), (4, 32, 23, 26)]
+    assert got == [(4, 33, 51, 23, 25), (4, 42, 48, 23, 33), (3, 44, 44, 20, 31),
+                   (4, 32, 50, 23, 26)]
 
 
 # ---------------------------------------------------------------------------
@@ -344,10 +352,12 @@ def test_occupied_cuts_each_bucket_to_its_prefix():
                Bucket(None, None, mask(2, 4), np.array([0, 0], np.int32)))
     pos = np.array([5, 1, 7, 7, 7, 0], np.int32)
     kept, new_pos = bucketing.occupied(buckets, pos)
-    assert [b.step_mask.shape for b in kept] == [(2, 2), (1, 4)]
-    assert [b.slots.tolist() for b in kept] == [[5, 1], [0]]
+    # slot 0 alone in bucket 2 runs beside its copy, masked off (MIN_ROWS)
+    assert [b.step_mask.shape for b in kept] == [(2, 2), (2, 4)]
+    assert [b.slots.tolist() for b in kept] == [[5, 1], [0, 0]]
     np.testing.assert_array_equal(kept[0].step_mask, mask(3, 2)[:2])
-    assert new_pos.tolist() == [2, 1, 3, 3, 3, 0]
+    np.testing.assert_array_equal(kept[1].step_mask, [mask(2, 4)[0], np.zeros(4)])
+    assert new_pos.tolist() == [2, 1, 4, 4, 4, 0]
     batch = BucketedBatch(tuple(b._replace(data={"e": b.step_mask * 10}) for b in kept),
                           None, new_pos)
     got = [None if i is None else (i[0]["e"].tolist(), i[1].tolist())
@@ -366,19 +376,21 @@ def test_occupied_cuts_each_bucket_to_its_prefix():
 @pytest.mark.parametrize("mode", ["vmapped", "sequential"])
 def test_only_occupied_rows_run(mode, monkeypatch):
     """A counting wrapper on the local step sees each non-empty bucket's
-    occupied rows for its K_b steps, no more; the RR streams are generated
-    once a non-empty bucket."""
+    rows for its K_b steps, no more: in the vmapped mode the occupied rows,
+    a lone one with its masked copy (``MIN_ROWS``); in the sequential mode
+    the occupied rows alone.  The RR streams are generated once a non-empty
+    bucket, over the rows it runs."""
     kw = _kw(mode=mode, exec_mode="bucketed", sampling="independent")
     seen, gens = [], []
 
     def wrap(strat):
-        def cohort_step(x, data, mask, *a, **k):
+        def cohort_step(x, mom, opt, data, mask, *a, **k):
             seen.append(tuple(mask.shape))
-            return strat.cohort_step(x, data, mask, *a, **k)
+            return strat.cohort_step(x, mom, opt, data, mask, *a, **k)
 
-        def local_step(p, data, mask, *a, **k):
+        def local_step(p, mom, opt, data, mask, *a, **k):
             seen.append((1, mask.shape[0]))
-            return strat.local_step(p, data, mask, *a, **k)
+            return strat.local_step(p, mom, opt, data, mask, *a, **k)
 
         return dict(cohort_step=cohort_step, local_step=local_step)
 
@@ -392,18 +404,49 @@ def test_only_occupied_rows_run(mode, monkeypatch):
     _run(kw, rr_backend="device_ref", wrap=wrap)
     fl = FLConfig(**kw)
     pipe = FederatedPipeline(TASK, Population.build(fl, sizes=TASK.sizes()), fl)
-    want_rows = want_steps = static = n_buckets = 0
+    occ_rows = occ_steps = run_rows = run_steps = static = n_buckets = 0
     for r in range(N_ROUNDS):
         plan = pipe.bucketed_plan(r, with_idx=False)
         assert isinstance(plan, BucketedPlan)
-        kept, _ = bucketing.occupied(plan.buckets, plan.pos)
+        kept, pos = bucketing.occupied(plan.buckets, plan.pos)
+        occ = bucketing.occupied_rows(plan._replace(buckets=kept, pos=pos))
         n_buckets += len(kept)
-        want_rows += sum(b.step_mask.shape[0] for b in kept)
-        want_steps += sum(b.step_mask.size for b in kept)
+        occ_rows += sum(occ)
+        occ_steps += sum(n * b.step_mask.shape[1] for b, n in zip(kept, occ))
+        run_rows += sum(b.step_mask.shape[0] for b in kept)
+        run_steps += sum(b.step_mask.size for b in kept)
         static += sum(b.step_mask.size for b in plan.buckets)
-    assert sum(r for r, _ in seen) == want_rows == sum(gens)
-    assert sum(r * k for r, k in seen) == want_steps < static
+    assert occ_rows < run_rows            # these rounds hold a one-row bucket
+    rows, steps = (run_rows, run_steps) if mode == "vmapped" else (occ_rows, occ_steps)
+    assert sum(r for r, _ in seen) == rows and sum(gens) == run_rows
+    assert sum(r * k for r, k in seen) == steps < static
     assert len(gens) == n_buckets and (mode == "sequential" or len(seen) == n_buckets)
+
+
+@pytest.mark.parametrize("mode", ["vmapped", "sequential"])
+def test_one_row_bucket_runs_beside_its_masked_copy(mode):
+    """A bucket holding one client runs as two rows, the second a copy of
+    the first with an all-zero step mask: finite data, the occupied slot's
+    own eta and state rows, and nothing of it reaches the [C] stack or the
+    bank.  SCAFFOLD's bank (a stateful chain) under such a layout equals
+    the padded run bitwise, scratch row included."""
+    kw = _kw("fedavg", mode, opt="scaffold", exec_mode="bucketed")
+    fl = FLConfig(**kw)
+    pipe = FederatedPipeline(TASK, Population.build(fl, sizes=TASK.sizes()), fl)
+    lone = 0
+    for r in range(N_ROUNDS):
+        plan = pipe.bucketed_plan(r, with_idx=True)
+        kept, pos = bucketing.occupied(plan.buckets, plan.pos)
+        for b, n in zip(kept, bucketing.occupied_rows(plan._replace(buckets=kept, pos=pos))):
+            assert b.step_mask.shape[0] == max(n, bucketing.MIN_ROWS)
+            if n == 1:
+                lone += 1
+                assert b.slots[0] == b.slots[1] and not b.step_mask[1].any()
+                np.testing.assert_array_equal(b.idx[0], b.idx[1])
+    assert lone > 0
+    pad, buck = _pad_and_bucket(kw, path="engine")
+    _assert_same_run(pad, buck, f"one-row buckets, {mode}")
+    assert not buck[0].clients["scaffold"]["c"]["x"][-1].any()
 
 
 def test_bucketed_batch_moves_occupied_rows_only():
@@ -424,12 +467,23 @@ def test_bucketed_batch_moves_occupied_rows_only():
 
 @pytest.mark.parametrize("kw,err,what", [
     (dict(buckets=0), ValueError, "buckets"),
-    (dict(server_opt="adam"), NotImplementedError, "adam"),
+    (dict(server_opt="adam"), None, "adam"),
 ])
 def test_bucketed_bind_errors(kw, err, what):
-    fl = FLConfig(**_kw(exec_mode="bucketed") | kw)
-    with pytest.raises(err, match=what):
-        build_round_step(LOSS, None, fl, device="cpu")
+    """A bad layout knob raises at bind time; adam, once refused as
+    unported, binds under buckets: its rounds equal the padded ones bitwise
+    and the JAX package's bucketed rounds within atol 1e-6."""
+    kw = _kw(exec_mode="bucketed") | kw
+    if err is not None:
+        with pytest.raises(err, match=what):
+            build_round_step(LOSS, None, FLConfig(**kw), device="cpu")
+        return
+    buck = _run(kw, path="legacy")
+    _assert_same_run(_run(kw | {"exec_mode": "padded"}, path="legacy"), buck, what)
+    jstate, _ = _jax_quad(kw)
+    _close_tree(buck[0].params["x"], jstate.params["x"], "params")
+    for k in ("mu", "nu"):
+        _close_tree(buck[0].opt[k]["x"], jstate.opt[k]["x"], k)
 
 
 # ---------------------------------------------------------------------------

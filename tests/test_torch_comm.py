@@ -46,7 +46,7 @@ from repro.fed.strategy import bind_strategy as j_bind  # noqa: E402
 from repro.fed.strategy import strategy_for as j_strategy_for  # noqa: E402
 from repro.models.model import build_model as j_build_model  # noqa: E402
 from repro_torch.configs.base import ArchConfig, FLConfig  # noqa: E402
-from repro_torch.core.local import ClientTransform  # noqa: E402
+from repro_torch.core.local import ClientChain, ClientTransform  # noqa: E402
 from repro_torch.data.federated import FederatedPipeline, Population  # noqa: E402
 from repro_torch.data.tasks import CharLMTask, DuplicatedQuadraticTask  # noqa: E402
 from repro_torch.fed import comm  # noqa: E402
@@ -473,9 +473,9 @@ def test_bad_knobs_rejected_at_bind(bad):
 def test_comm_state_keys_reserved(key):
     """A stateful client transform named like a comm bank would collide with
     it — binding must refuse it."""
-    t = ClientTransform(name=key, init=lambda p: {}, update=lambda s, d, c: (d, c),
-                        client_init=lambda p: {"z": p})
-    LOCAL_UPDATES["_collide"] = (t,)
+    t = ClientTransform(name=key, init=lambda p: {}, update=lambda s, d, c, cs: (d, c),
+                        client_init=lambda p: {"z": p}, finalize=lambda end, c, cs: cs)
+    LOCAL_UPDATES["_collide"] = ClientChain("_collide", (lambda loss_fn, fl: t,))
     try:
         with pytest.raises(ValueError, match="reserved"):
             _bind(local_update="_collide")

@@ -46,7 +46,8 @@ from repro.fed.strategy import bind_strategy as j_bind  # noqa: E402
 from repro.fed.strategy import strategy_for as j_strategy_for  # noqa: E402
 from repro.models.model import build_model as j_build_model  # noqa: E402
 from repro_torch.configs.base import ArchConfig, FLConfig  # noqa: E402
-from repro_torch.core.local import build_local_step, full_local_gradient, local_mvr  # noqa: E402
+from repro_torch.core.local import (build_local_step, full_local_gradient,  # noqa: E402
+                                   local_mvr, resolve_chain)
 from repro_torch.data.federated import FederatedPipeline, Population  # noqa: E402
 from repro_torch.data.tasks import CharLMTask, DuplicatedQuadraticTask  # noqa: E402
 from repro_torch.fed.cohort.engine import CohortEngine  # noqa: E402
@@ -159,8 +160,8 @@ def test_local_mvr_and_chain_match_jax_quadratic():
     mom = {"x": torch.tensor([0.05, -0.2, 0.15])}
     eta = torch.tensor(0.0125)
     d0, l0 = local_mvr(LOSS, params, mom, data, mask, eta, A)
-    one = build_local_step(tuple(t(LOSS, FLConfig(mvr_a=A)) for t in LOCAL_UPDATES["mvr"]), LOSS)
-    d1, l1 = one(params, data, mask, eta, mom)
+    one = build_local_step(resolve_chain(LOCAL_UPDATES["mvr"], LOSS, FLConfig(mvr_a=A)), LOSS)
+    d1, l1, _ = one(params, mom, {}, data, mask, eta, {})
     assert torch.equal(d0["x"], d1["x"]) and torch.equal(l0, l1)
     jd, jl = j_local_mvr(j_quad(3), {"x": jnp.asarray(X0)}, {"x": jnp.asarray(mom["x"].numpy())},
                          {k: jnp.asarray(v.numpy()) for k, v in data.items()},
@@ -209,8 +210,8 @@ def test_local_mvr_chain_and_full_gradient_match_jax_charlm_tiny():
     data = {"tokens": torch.from_numpy(toks)}
     eta = torch.tensor(0.05)
     d0, l0 = local_mvr(loss, params, mom, data, mask_t := torch.from_numpy(mask), eta, A)
-    one = build_local_step(tuple(t(loss, FLConfig(mvr_a=A)) for t in LOCAL_UPDATES["mvr"]), loss)
-    d1, l1 = one(params, data, mask_t, eta, mom)
+    one = build_local_step(resolve_chain(LOCAL_UPDATES["mvr"], loss, FLConfig(mvr_a=A)), loss)
+    d1, l1, _ = one(params, mom, {}, data, mask_t, eta, {})
     assert all(torch.equal(d0[k], d1[k]) for k in d0) and torch.equal(l0, l1)
     jd, jl = j_local_mvr(jloss, jparams, jmom, {"tokens": jnp.asarray(toks)}, jnp.asarray(mask),
                          jnp.float32(0.05), A)
@@ -325,13 +326,19 @@ def test_server_opt_consuming_absent_client_state_raises():
 @pytest.mark.parametrize("kw,what", [
     (dict(server_opt="adam"), "adam"),
     (dict(server_opt="scaffold"), "scaffold"),
-    (dict(local_update="fedprox"), "fedprox"),
-    (dict(local_update="local_clip"), "local_clip"),
+    (dict(server_opt="sgd", local_update="fedprox"), "fedprox"),
+    (dict(server_opt="sgd", local_update="local_clip"), "local_clip"),
 ])
 def test_unported_mvr_neighbours_raise(kw, what):
-    fl = FLConfig(**_quad_kw("fedshuffle", False) | kw)
-    with pytest.raises(NotImplementedError, match=what):
-        bind_strategy(None, fl, LOSS, num_clients=3)
+    """The neighbours of mvr once refused as unported now bind (the local
+    rule each resolves to) and run 2 rounds as the JAX package does (atol
+    1e-6, the sgd presets' tolerance)."""
+    kw = _quad_kw("fedshuffle", False) | kw
+    strat = bind_strategy(None, FLConfig(**kw), LOSS, num_clients=3)
+    assert strat.local_update == {"adam": "sgd"}.get(what, what)
+    state, mets = _port_quad(kw, 2)
+    jstate, jm, _ = _jax_quad(kw, 2)
+    _check_state(state, mets, jstate, jm, rtol=0, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

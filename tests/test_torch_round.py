@@ -224,15 +224,15 @@ def test_empty_chain_equals_local_sgd_bitwise():
     mask = torch.tensor([1, 1, 1, 0, 0], dtype=torch.float32)
     eta = torch.tensor(0.07)
     d0, l0 = local_sgd(LOSS, params, data, mask, eta)
-    d1, l1 = build_local_step((), LOSS)(params, data, mask, eta)
-    assert torch.equal(d0["x"], d1["x"]) and torch.equal(l0, l1)
+    d1, l1, cs = build_local_step((), LOSS)(params, {"x": torch.zeros(3)}, {}, data, mask, eta, {})
+    assert torch.equal(d0["x"], d1["x"]) and torch.equal(l0, l1) and cs == {}
 
 
 def test_chain_transform_carry_skips_masked_steps():
     """A transform's carry advances on real steps only; its direction change
     reaches the update (here: a running sum of gradients as the direction)."""
 
-    def update(step, d, carry):
+    def update(step, d, carry, cstate):
         acc = {n: carry[n] + d[n] for n in d}
         return acc, acc
 
@@ -242,7 +242,7 @@ def test_chain_transform_carry_skips_masked_steps():
     data = {"e": torch.zeros(4, 1, 3)}
     mask = torch.tensor([1.0, 1.0, 0.0, 0.0])
     eta = torch.tensor(0.1)
-    delta, _ = build_local_step((t,), LOSS)(x, data, mask, eta)
+    delta, _, _ = build_local_step((t,), LOSS)(x, {"x": torch.zeros(3)}, {}, data, mask, eta, {})
     # by hand: g = 2 y; step 1 d = g0, step 2 d = g0 + g1; masked steps move nothing
     y0 = x["x"]
     y1 = y0 - 0.1 * (2 * y0)
@@ -263,12 +263,30 @@ def test_weighted_sum_matches_jax():
 
 @pytest.mark.parametrize("kw,what", [
     (dict(server_opt="adam"), "adam"),
-    (dict(local_update="scaffold"), "scaffold"),
+    (dict(server_opt="scaffold", local_update="scaffold"), "scaffold"),
 ])
 def test_unported_configs_raise(kw, what):
-    fl = FLConfig(**_quad_kw("fedshuffle", "sgd") | kw)
-    with pytest.raises(NotImplementedError, match=what):
-        build_round_step(LOSS, None, fl, device="cpu")
+    """Once refused as unported, these configurations now bind, run a
+    round and land where the JAX package's round does (atol 1e-6)."""
+    kw = _quad_kw("fedshuffle", "sgd") | kw
+    fl = FLConfig(**kw)
+    strat = bind_strategy(None, fl, LOSS, num_clients=3)
+    assert strat.local_update == ("scaffold" if what == "scaffold" else "sgd")
+    state = strat.init({"x": torch.from_numpy(X0.copy())})
+    rb = FederatedPipeline(TASK, Population.build(fl, sizes=TASK.sizes()), fl).round_batch(0)
+    state, mets = build_round_step(LOSS, strat, fl, device="cpu")(state, rb)
+    jfl = JFL(**kw)
+    jpipe = JPipe(JDup(copies=(1, 2, 3)), JPop.build(jfl, sizes=TASK.sizes()), jfl)
+    jl = j_quad(3)
+    jstrat = j_bind(j_strategy_for(jfl), jfl, jl, num_clients=3)
+    jstate, jm = j_build_step(jl, jstrat, jfl, num_clients=3)(
+        jstrat.init({"x": jnp.asarray(X0)}), j_as_device(jpipe.round_batch(0)))
+    np.testing.assert_allclose(state.params["x"].numpy(), np.asarray(jstate.params["x"]),
+                               rtol=0, atol=1e-6)
+    for k, tree in jstate.opt.items():
+        np.testing.assert_allclose(state.opt[k]["x"].numpy(), np.asarray(tree["x"]), rtol=0,
+                                   atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(float(mets["local_loss"]), float(jm["local_loss"]), rtol=1e-6)
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -157,19 +157,21 @@ def test_cohort_step_equals_per_client_step_bitwise_quadratic(opt):
     params = {"x": torch.from_numpy(X0.copy())}
     mom = {"x": torch.tensor([0.05, -0.2, 0.15])}
     eta = torch.tensor([0.05, 0.02, 0.0125])
-    deltas, losses = strat.cohort_step(params, rb.data, rb.step_mask, eta, mom)
+    deltas, losses, _ = strat.cohort_step(params, mom, {}, rb.data, rb.step_mask, eta, {})
     assert deltas["x"].shape == (3, 3) and losses.shape == (3,)
     assert (rb.step_mask.sum(1) != rb.step_mask.shape[1]).any()   # masked steps included
     for c in range(3):
-        d, loss = strat.local_step(params, {k: v[c] for k, v in rb.data.items()},
-                                   rb.step_mask[c], eta[c], mom)
+        d, loss, _ = strat.local_step(params, mom, {}, {k: v[c] for k, v in rb.data.items()},
+                                      rb.step_mask[c], eta[c], {})
         assert torch.equal(deltas["x"][c], d["x"]) and torch.equal(losses[c], loss), c
     # per-slot start points (the compressed downlink's): the same, slot by slot
     starts = {"x": torch.from_numpy(np.stack([X0, -X0, 2 * X0]))}
-    deltas, _ = strat.cohort_step(starts, rb.data, rb.step_mask, eta, mom, stacked=True)
+    deltas, _, _ = strat.cohort_step(starts, mom, {}, rb.data, rb.step_mask, eta, {},
+                                     stacked=True)
     for c in range(3):
-        d, _ = strat.local_step({"x": starts["x"][c]}, {k: v[c] for k, v in rb.data.items()},
-                                rb.step_mask[c], eta[c], mom)
+        d, _, _ = strat.local_step({"x": starts["x"][c]}, mom, {},
+                                   {k: v[c] for k, v in rb.data.items()}, rb.step_mask[c],
+                                   eta[c], {})
         assert torch.equal(deltas["x"][c], d["x"]), c
 
 
@@ -201,9 +203,10 @@ def test_cohort_step_equals_per_client_step_charlm_tiny(opt):
     params = model.init(0, "cpu")
     mom = {k: torch.from_numpy(r.normal(size=v.shape).astype(np.float32) * 0.01)
            for k, v in params.items()}
-    deltas, losses = strat.cohort_step(params, data, mask, eta, mom)
+    deltas, losses, _ = strat.cohort_step(params, mom, {}, data, mask, eta, {})
     for c in range(C):
-        d, l_c = strat.local_step(params, {"tokens": data["tokens"][c]}, mask[c], eta[c], mom)
+        d, l_c, _ = strat.local_step(params, mom, {}, {"tokens": data["tokens"][c]}, mask[c],
+                                     eta[c], {})
         _leafwise_close({k: v[c] for k, v in deltas.items()}, d, f"slot {c}", rtol=1e-5)
         np.testing.assert_allclose(float(losses[c]), float(l_c), rtol=1e-6)
     gs = cohort_full_local_gradient(loss, params, data, mask)
