@@ -31,7 +31,7 @@
    beside unmasked SDPA; ``rr_perm``'s latency bound (the launch floor plus
    the cipher's serial chain, counted from its SASS) beside its operations
    bound;
-3. drives eleven main paths through the user entry point, each with every
+3. drives thirteen main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
@@ -53,7 +53,16 @@
    ``rr_perm`` launched once a non-empty bucket (counted from the host
    plans), each path's round wall, peak memory and client steps a round
    printed beside its padded twin's, and a dense round traced in each
-   mode; then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
+   mode; then FedShuffle + SCAFFOLD (main path 12: its [33, ...] bank,
+   vmapped, bucketed and sequential) and fedprox, local_clip and adam;
+   then the fleet and robust planes (main path 13, ``fleet_robust_paths``:
+   a tiered fleet with dropout, stragglers and a deadline, and the
+   buffered FedBuff server, each 4 rounds padded and bucketed; a sign flip
+   under each robust aggregator, 2 rounds each; a rejected round; the
+   buffered server with the attack, quarantine, the trimmed mean and qsgd
+   both ways, 2 ticks padded and bucketed; the trimmed mean sequential),
+   ``rr_perm`` once a padded round or a bucket, the quantize kernels 24
+   launches each a tick; then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
    seed 0) through ``launch/serve.py:generate``: batch 4, 2,048-token
    prompts, 32 greedy tokens (one flash attention launch a layer in the
    prefill, all on ``flash_fwd_mma``, and one SSD launch, all on
@@ -96,6 +105,14 @@
    CharLM-tiny runs on the card (dense, ``ef_qsgd`` /
    ``qsgd``, mvr App. F and exact, each sequential and vmapped, and dense
    vmapped) agreeing with the port on the CPU;
+   for main path 13, each round's fleet metrics equal to its host plan's,
+   the buffered fleet bank equal to the schedule's counts, the coordinate
+   median bitwise against the plain aggregator on the CPU, krum's and
+   multi-krum's selections equal to an fp64 recomputation of the same
+   stack, trimmed mean and the clips within ``ROBUST_FP64_RTOL`` of fp64,
+   ``scaled_noise`` bitwise card vs CPU, the rejected round's params, c and
+   bank bitwise its input's, and the sequential trimmed mean within
+   ``VMAPPED_SEQ_RTOL`` of the vmapped run;
    for serving, finite logits, each layer's flash and SSD launch against
    its plain version on the path's own inputs (flash within one bf16 step),
    the bf16 run no further from the plain versions in fp32 than 1.5x the
@@ -2555,6 +2572,533 @@ def scaffold_claim(dev) -> dict:
     return errs
 
 
+# main path 13: the fleet plane (sync faults, the buffered FedBuff server)
+# and the Byzantine-robustness plane, on full-width CharLM-100M through
+# run_charlm_e2e (cohort engine, rr_backend="device"), vmapped.
+# (a) a tiered fleet with every fault; the deadline 20 caps the slowest
+# tier (speed 1/4, latency 4) at 4 steps, under its clients' K of 9 and 12,
+# and folds the caps into the bucket edges
+FLEET_SYNC = dict(fleet="tiered", fleet_tiers=3, tier_spread=4.0, faults="dropout,straggler,abort",
+                  drop_prob=0.125, straggler_prob=0.25, straggler_factor=3.0, round_deadline=20.0)
+# (b) FedBuff: 8 clients in flight, a tick aggregates the first 4 arrivals
+FLEET_BUFFERED = dict(server_mode="buffered", buffer_size=4, fleet="zipf_latency",
+                      staleness="poly", staleness_power=0.5, faults="dropout", drop_prob=0.1)
+# (c) a sign flip by a quarter of the clients, both guards, each aggregator
+ROBUST = dict(attack="sign_flip", attack_frac=0.25, attack_scale=4.0, trim_frac=0.25, guard="full")
+ROBUST_AGGREGATORS = ("coordinate_median", "trimmed_mean", "norm_clip", "centered_clip", "krum",
+                      "multi_krum")
+ROBUST_ROUNDS = 2
+# the aggregators whose round is traced: the sorting ones, and krum's Gram
+ROBUST_TRACED = ("coordinate_median", "trimmed_mean", "krum")
+# trimmed mean and the clips against the same estimator in fp64 on the same
+# stack: each element within this share of its leaf's largest magnitude (an
+# fp32 sum of 8 weighted terms is within 8 * 2^-24 = 4.8e-7 of its terms'
+# magnitudes, whatever order it adds in; the clip factors add as much again)
+ROBUST_FP64_RTOL = 1e-5
+# the median's leaves recomputed on the CPU (the CPU's sorts of all 114 M
+# coordinates would take minutes there)
+MEDIAN_CPU_LEAVES = ("embed", "blocks/0/attn/wq", "blocks/11/mlp/down", "lm_head")
+# (d) a blown round: the sign flip at 1e6 through the plain mean; SCAFFOLD
+# gives the round an opt (c) and a bank for the guard to restore
+REJECT = dict(attack="sign_flip", attack_frac=0.25, attack_scale=1e6, aggregator="mean",
+              guard="reject", server_opt="scaffold")
+# (e) the whole stack: (b)'s ticks, (c)'s attack, qsgd both ways, quarantine
+# and the trimmed mean over the staleness-discounted coefficients
+COMPOSED = {**FLEET_BUFFERED, **ROBUST, "aggregator": "trimmed_mean", "guard": "quarantine",
+            **COMM}
+COMPOSED_ROUNDS = 2
+
+
+def e2e_host_plans(rounds: int, **kw):
+    """The e2e run's host pipeline and its index plans for rounds
+    0..rounds-1 as the cohort engine makes them (bucketized under
+    ``exec_mode="bucketed"``), without task data."""
+    from repro_torch.data.federated import FederatedPipeline, Population
+    from repro_torch.launch.train import charlm_e2e_config
+
+    _, fl = charlm_e2e_config(**kw)
+    pipe = FederatedPipeline(None, Population.build(fl), fl)
+    plans = [pipe.index_plan(r, with_idx=False) for r in range(rounds)]
+    if fl.exec_mode == "bucketed":
+        plans = [pipe.bucketize(p) for p in plans]
+    return pipe, plans
+
+
+def rr_launches_of(plans) -> int:
+    """rr_perm launches the device plane makes for these host plans: one a
+    padded round, one a bucket the round runs (``bucketing.occupied``)."""
+    from repro_torch.data.federated import BucketedPlan
+    from repro_torch.fed.bucketing import occupied
+
+    return sum(len(occupied(p.buckets, p.pos)[0]) if isinstance(p, BucketedPlan) else 1
+               for p in plans)
+
+
+def fleet_round(dev, label: str, rounds: int, kw: dict, plans):
+    """One path-13 run through ``run_charlm_e2e`` with rr_perm's count set
+    to 0 just before and read just after, held to the launches its host
+    plans predict; returns (result, round wall ms, peak bytes, launches)."""
+    import torch
+
+    from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rr_indices_kernel)
+    t0 = time.perf_counter()
+    res = run_main_path(dev, "device", rounds, **kw)
+    torch.cuda.synchronize()
+    n = rr_indices_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    wall = report_rounds(label, res, time.perf_counter() - t0, peak, rounds)
+    want = rr_launches_of(plans)
+    if n != want:
+        raise AssertionError(f"{label}: rr_perm launched {n} times, the host plans make {want}")
+    return res, wall, peak, n
+
+
+def host_fleet_metrics(meta) -> dict:
+    """The fleet keys a round's metrics must carry, from its host plan's
+    meta in numpy fp32 (the round computes them in fp32 on the card)."""
+    f32 = np.float32
+    valid = meta.valid.astype(f32)
+    return {"round_virtual_time": float((meta.arrive_time.astype(f32) * valid).max()),
+            "arrived_clients": float(valid.sum()),
+            "dropped_clients": float(meta.dropped.astype(f32).sum()),
+            "mean_staleness": float((meta.staleness.astype(f32) * valid).sum()
+                                    / max(f32(valid.sum()), f32(1.0)))}
+
+
+def check_fleet_rows(label: str, rows, plans) -> None:
+    for r, p in zip(rows, plans):
+        want = host_fleet_metrics(p.meta)
+        got = {k: r[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{label} round {r['round']}: fleet metrics {got}, host plan "
+                                 f"{want}")
+
+
+def sync_fleet_path(dev) -> dict:
+    """(a): the tiered fleet with dropout, stragglers and the deadline, 4
+    rounds vmapped padded and bucketed (the abort caps folded into the
+    bucket edges), held bitwise by ``held_to_twin``; every round's
+    ``round_virtual_time`` and dropped and arrived counts equal to its host
+    plan's."""
+    import torch
+
+    out = {}
+    pipe, plans = e2e_host_plans(ROUNDS, **FLEET_SYNC, **VMAPPED, **BUCKETED)
+    unfolded, _ = e2e_host_plans(0, **VMAPPED, **BUCKETED)
+    out["edges"] = {"folded": list(pipe.bucket_layout.edges),
+                    "caps": list(pipe.bucket_layout.caps),
+                    "unfolded": list(unfolded.bucket_layout.edges),
+                    "deadline_caps_by_tier": [sorted({int(c) for c in pipe.fleet.deadline_caps(
+                        FLEET_SYNC["round_deadline"])[pipe.fleet.tier == t]}) for t in range(3)]}
+    print(f"sync fleet: deadline caps by tier {out['edges']['deadline_caps_by_tier']}; bucket "
+          f"edges with the caps folded in {out['edges']['folded']} (caps "
+          f"{out['edges']['caps']}), without {out['edges']['unfolded']}", flush=True)
+    twin = None
+    for label, kw in (("padded", {}), ("bucketed", BUCKETED)):
+        _, pplans = e2e_host_plans(ROUNDS, **FLEET_SYNC, **VMAPPED, **kw)
+        res, wall, peak, n = fleet_round(dev, f"sync fleet path, {label}", ROUNDS,
+                                         {**FLEET_SYNC, **VMAPPED, **kw}, pplans)
+        check_fleet_rows(f"sync fleet {label}", res.metrics.rows, plans)
+        vt = [(r["round_virtual_time"], r["arrived_clients"], r["dropped_clients"])
+              for r in res.metrics.rows]
+        if twin is None:
+            twin = {k: v.cpu() for k, v in res.state.params.items()}
+            held = "twin"
+        else:
+            held = held_to_twin("sync fleet", res.state.params, twin)
+        del res
+        out[label] = {"round_ms": wall, "peak_bytes": peak, "rr_perm": n, "held": held,
+                      "virtual_time_arrived_dropped": vt}
+        print(f"sync fleet path, {label}: (round_virtual_time, arrived, dropped) a round {vt}, "
+              f"equal to the host plans'; rr_perm {n}; round wall {wall:.1f} ms, peak "
+              f"{peak / 2**30:.3f} GiB; vs padded: {held}", flush=True)
+    torch.cuda.empty_cache()
+    out["padded"]["trace"] = traced_round(dev, "sync fleet, padded", {**FLEET_SYNC, **VMAPPED})
+    return out
+
+
+def traced_round(dev, label: str, kw: dict) -> tuple[int, float]:
+    """(device kernels and copies, their device ms) of one round of a
+    path-13 configuration (:func:`round_kernels`), printed."""
+    t0 = time.perf_counter()
+    n, ms = round_kernels(dev, **kw)
+    print(f"{label}: one round {n} device kernels and copies, {ms:.1f} ms of device time "
+          f"(traced in {time.perf_counter() - t0:.1f} s)", flush=True)
+    return n, ms
+
+
+def schedule_counts(pipe, ticks: int) -> tuple[np.ndarray, np.ndarray]:
+    """Each client's aggregations and summed staleness over the buffered
+    schedule's ticks 0..ticks-1 ([N+1] fp32, the scratch row 0)."""
+    n = pipe.population.num_clients
+    arrivals, stale = np.zeros(n + 1, np.float32), np.zeros(n + 1, np.float32)
+    for t in range(ticks):
+        tick = pipe._fleet_sched.tick(t)
+        np.add.at(arrivals, tick.ids, np.float32(1.0))
+        np.add.at(stale, tick.ids, tick.staleness.astype(np.float32))
+    return arrivals, stale
+
+
+def buffered_path(dev) -> dict:
+    """(b): the buffered FedBuff server, 4 ticks vmapped padded and
+    bucketed, held bitwise; the fleet bank's ``arrivals`` / ``stale_sum``
+    equal to the schedule's own counts; each tick's fleet metrics equal to
+    its host plan's."""
+    import torch
+
+    out = {}
+    pipe, plans = e2e_host_plans(ROUNDS, **FLEET_BUFFERED, **VMAPPED)
+    arrivals, stale = schedule_counts(pipe, ROUNDS)
+    twin = None
+    for label, kw in (("padded", {}), ("bucketed", BUCKETED)):
+        _, pplans = e2e_host_plans(ROUNDS, **FLEET_BUFFERED, **VMAPPED, **kw)
+        res, wall, peak, n = fleet_round(dev, f"buffered path, {label}", ROUNDS,
+                                         {**FLEET_BUFFERED, **VMAPPED, **kw}, pplans)
+        check_fleet_rows(f"buffered {label}", res.metrics.rows, plans)
+        bank = {k: v.cpu() for k, v in res.state.clients["fleet"].items()}
+        if not (np.array_equal(bank["arrivals"].numpy(), arrivals)
+                and np.array_equal(bank["stale_sum"].numpy(), stale)):
+            raise AssertionError(f"buffered {label}: fleet bank {bank} vs the schedule's counts "
+                                 f"{arrivals}, {stale}")
+        got = {**{f"params/{k}": v for k, v in res.state.params.items()},
+               **{f"fleet/{k}": v for k, v in res.state.clients["fleet"].items()}}
+        if twin is None:
+            twin, held = {k: v.cpu() for k, v in got.items()}, "twin"
+        else:
+            held = held_to_twin("buffered", got, twin)
+        del res, got
+        out[label] = {"tick_ms": wall, "peak_bytes": peak, "rr_perm": n, "held": held}
+        print(f"buffered path, {label}: {ROUNDS} ticks of {pipe.fl.buffer_size} arrivals "
+              f"({pipe.cohort_slots} slots); fleet bank equal to the schedule's counts "
+              f"(arrivals {int(arrivals.sum())}, stale_sum {float(stale.sum())}); rr_perm {n}; "
+              f"tick wall {wall:.1f} ms, peak {peak / 2**30:.3f} GiB; vs padded: {held}",
+              flush=True)
+    torch.cuda.empty_cache()
+    out["padded"]["trace"] = traced_round(dev, "buffered, padded", {**FLEET_BUFFERED, **VMAPPED})
+    return out
+
+
+@contextlib.contextmanager
+def captured_aggregator(name: str):
+    """Swap the registered robust aggregator ``name`` for a wrapper that
+    keeps round 0's inputs and output on the card (the decoded, scrubbed
+    [C] stack the round hands it, its renormalized coefficients), and put
+    the original back after."""
+    from repro_torch.fed.robust import ROBUST_AGGS, register_robust_agg
+
+    inner = ROBUST_AGGS[name]
+    seen: dict = {}
+
+    def wrapper(deltas, coeff, meta, fl):
+        out = inner(deltas, coeff, meta, fl)
+        if not seen:
+            seen.update(deltas=deltas, coeff=coeff, out=out)
+        return out
+
+    register_robust_agg(name, wrapper, overwrite=True)
+    try:
+        yield seen
+    finally:
+        register_robust_agg(name, inner, overwrite=True)
+
+
+def _bcast64(w, like):
+    return w.double().reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def robust_fp64(name: str, deltas, coeff, trim: float) -> dict:
+    """trimmed_mean, norm_clip and centered_clip in fp64 over the same
+    stack and coefficients (the estimators' definitions, as
+    ``fed/robust/aggregators.py`` states them)."""
+    import torch
+
+    cf = coeff.double()
+    W = cf.sum()
+    keep = coeff > 0
+    if name == "trimmed_mean":
+        lo, hi = trim * W, (1.0 - trim) * W
+        out = {}
+        for k, x in deltas.items():
+            xs, order = torch.sort(x.double(), dim=0, stable=True)
+            ws = _bcast64(cf, x).expand(x.shape).gather(0, order)
+            cw_hi = torch.cumsum(ws, 0)
+            eff = cw_hi.clamp(lo, hi) - (cw_hi - ws).clamp(lo, hi)
+            out[k] = (eff * xs).sum(0) / (hi - lo) * W
+        return out
+    norm = sum(x.double().square().flatten(1).sum(1) for x in deltas.values()).sqrt()
+    valid_norms = torch.sort(norm[keep]).values
+    tau = valid_norms[(valid_norms.numel() - 1) // 2]          # the lower median
+    if name == "norm_clip":
+        fac = torch.clamp(tau / norm.clamp_min(1e-12), max=1.0)
+        return {k: torch.einsum("c,c...->...", cf * fac, x.double()) for k, x in deltas.items()}
+    v = {k: torch.zeros(x.shape[1:], dtype=torch.float64, device=x.device)
+         for k, x in deltas.items()}
+    for _ in range(3):
+        r = sum((x.double() - v[k]).square().flatten(1).sum(1) for k, x in deltas.items()).sqrt()
+        fac = torch.clamp(tau / r.clamp_min(1e-12), max=1.0)
+        v = {k: v[k] + torch.einsum("c,c...->...", cf / W * fac, x.double() - v[k])
+             for k, x in deltas.items()}
+    return {k: vl * W for k, vl in v.items()}
+
+
+def krum_selection64(deltas, coeff) -> list[int]:
+    """Clients in order of their krum score recomputed in fp64 from the same
+    stack: the sum of squared distances to every other valid client (the
+    rule the reference's threshold search realizes, ROADMAP §3); invalid
+    (zero-coefficient) clients last."""
+    import torch
+
+    g = sum(torch.einsum("cn,en->ce", x.double().flatten(1), x.double().flatten(1))
+            for x in deltas.values())
+    sq = torch.diagonal(g)
+    dist = (sq[:, None] + sq[None, :] - 2.0 * g).clamp_min(0.0)
+    m = (coeff > 0).double()
+    C = m.numel()
+    pair = m[:, None] * m[None, :] * (1.0 - torch.eye(C, dtype=torch.float64, device=m.device))
+    scores = torch.where(m > 0, (pair * dist).sum(1), torch.inf)
+    return torch.sort(scores, stable=True).indices.tolist()
+
+
+def check_robust_round0(name: str, seen: dict) -> dict:
+    """Round 0's aggregate against its references on the same stack: the
+    median bitwise against the plain torch aggregator on the CPU (the
+    leaves in ``MEDIAN_CPU_LEAVES``), trimmed mean and the clips within
+    ``ROBUST_FP64_RTOL`` of fp64, krum's and multi-krum's selections equal
+    to fp64's."""
+    import torch
+
+    from repro_torch.fed.robust.aggregators import ROBUST_AGGS, _krum_scores
+    from repro_torch.launch.train import charlm_e2e_config
+
+    deltas, coeff, out = seen["deltas"], seen["coeff"], seen["out"]
+    fl = charlm_e2e_config(**ROBUST, aggregator=name)[1]
+    res = {"valid": int((coeff > 0).sum())}
+    if name == "coordinate_median":
+        sub = {k: deltas[k].cpu() for k in MEDIAN_CPU_LEAVES}
+        cpu = ROBUST_AGGS[name](sub, coeff.cpu(), None, fl)
+        differ = [k for k in sub if not torch.equal(cpu[k], out[k].cpu())]
+        if differ:
+            raise AssertionError(f"coordinate_median: card vs CPU differ in {differ}")
+        res["held"] = f"bitwise against the CPU on {len(sub)} leaves"
+    elif name in ("krum", "multi_krum"):
+        scores, k = _krum_scores(deltas, coeff, fl.trim_frac)
+        order32 = torch.sort(scores, stable=True).indices.tolist()
+        order64 = krum_selection64(deltas, coeff)
+        k = int(k)
+        if name == "krum":
+            sel, sel64 = order32[0], order64[0]
+            W = coeff.float().sum()
+            if sel != sel64 or not all(torch.equal(out[n], (x[sel] * W).to(x.dtype))
+                                       for n, x in deltas.items()):
+                raise AssertionError(f"krum selected {sel}, fp64 {sel64}")
+            res["held"] = f"selected client slot {sel}, as fp64"
+        else:
+            if set(order32[:k]) != set(order64[:k]):
+                raise AssertionError(f"multi_krum kept {order32[:k]}, fp64 {order64[:k]}")
+            res["held"] = f"kept slots {sorted(order32[:k])} (k {k}), as fp64"
+    else:
+        ref = robust_fp64(name, deltas, coeff, fl.trim_frac)
+        worst = max(float((out[k].double() - r).abs().max() / r.abs().max().clamp_min(1e-30))
+                    for k, r in ref.items())
+        if worst > ROBUST_FP64_RTOL:
+            raise AssertionError(f"{name}: {worst:.3e} of a leaf's max off fp64 (bound "
+                                 f"{ROBUST_FP64_RTOL})")
+        res["held"] = f"within {worst:.3e} of a leaf's max of fp64 (bound {ROBUST_FP64_RTOL})"
+    return res
+
+
+def check_scaled_noise(dev) -> dict:
+    """``scaled_noise`` on the card vs the CPU, bitwise: the adversary mask,
+    the round keys and the noise over three of CharLM-100M's leaves."""
+    import torch
+
+    from repro_torch.fed.robust.attacks import ATTACKS, adversary_mask, attack_round_keys
+    from repro_torch.launch.train import charlm_e2e_config
+
+    fl = charlm_e2e_config(attack="scaled_noise", attack_frac=0.25, attack_scale=4.0)[1]
+    shapes = {"embed": (512, 768), "blocks/0/mlp/up": (768, 3072),
+              "blocks/1/mlp/up": (768, 3072)}
+    ids = torch.tensor([21, 9, 8, 27, 10, 4, 18, 2])
+    outs, t = {}, {}
+    for where in (dev, torch.device("cpu")):
+        i = ids.to(where)
+        adv = adversary_mask(fl.seed, i, fl.attack_frac)
+        keys = attack_round_keys(fl.seed, i, 3)
+        deltas = {k: torch.zeros((8, *s), device=where) for k, s in shapes.items()}
+        t0 = time.perf_counter()
+        noise = ATTACKS["scaled_noise"](deltas, torch.ones(8, device=where), None, keys, fl)
+        torch.cuda.synchronize()
+        t[where.type] = time.perf_counter() - t0
+        outs[where.type] = (adv.cpu(), keys.cpu(), {k: v.cpu() for k, v in noise.items()})
+    (a, k, n), (ca, ck, cn) = outs[dev.type], outs["cpu"]
+    if not (torch.equal(a, ca) and torch.equal(k, ck) and all(torch.equal(n[x], cn[x]) for x in n)):
+        raise AssertionError("scaled_noise: card vs CPU not bitwise")
+    values = sum(v.numel() for v in n.values())
+    print(f"scaled_noise on the card vs the CPU: adversary mask, round keys and {values} noise "
+          f"values bitwise equal ({t[dev.type]:.3f} s on the card, {t['cpu']:.3f} s on the CPU)",
+          flush=True)
+    return {"values": values, "card_s": t[dev.type], "cpu_s": t["cpu"]}
+
+
+def robust_paths(dev) -> tuple[dict, dict]:
+    """(c): under (``ROBUST``) each aggregator 2 rounds vmapped padded, each
+    round 0 held to its reference (:func:`check_robust_round0`); returns the
+    results and the trimmed mean's params (on the host) for (f)."""
+    import torch
+
+    out = {"scaled_noise": check_scaled_noise(dev)}
+    _, plans = e2e_host_plans(ROBUST_ROUNDS, **ROBUST, **VMAPPED)
+    kept = None
+    for name in ROBUST_AGGREGATORS:
+        with captured_aggregator(name) as seen:
+            res, wall, peak, n = fleet_round(dev, f"robust path, {name}", ROBUST_ROUNDS,
+                                             {**ROBUST, "aggregator": name, **VMAPPED}, plans)
+        rrows = res.metrics.rows
+        if name == "trimmed_mean":
+            kept = {k: v.cpu() for k, v in res.state.params.items()}
+        del res
+        held_bytes = sum(v.numel() * v.element_size() for v in seen["deltas"].values())
+        chk = check_robust_round0(name, seen)
+        seen.clear()
+        torch.cuda.empty_cache()
+        counts = [(r["quarantined_clients"], r["suspected_adversaries"], r["rounds_rejected"])
+                  for r in rrows]
+        out[name] = {"round_ms": wall, "peak_bytes": peak, "held_stack_bytes": held_bytes,
+                     "rr_perm": n, "quarantined_suspected_rejected": counts, **chk}
+        print(f"robust path, {name}: (quarantined, suspected, rejected) a round {counts}; "
+              f"rr_perm {n}; round wall {wall:.1f} ms, peak {peak / 2**30:.3f} GiB (with round "
+              f"0's [C] stack, {held_bytes / 2**30:.3f} GiB, held for the check); round 0: "
+              f"{chk['held']}", flush=True)
+    for name in ROBUST_TRACED:
+        out[name]["trace"] = traced_round(dev, f"robust, {name}",
+                                          {**ROBUST, "aggregator": name, **VMAPPED})
+    return out, kept
+
+
+def reject_path(dev) -> dict:
+    """(d): a blown round (``REJECT``) through a round step built by hand:
+    ``rounds_rejected`` 1, the params, SCAFFOLD's c and its [33, ...] bank
+    bitwise equal to the round's input, ``rnd`` advanced."""
+    import torch
+
+    from repro_torch.utils.pytree import flatten, tree_map
+
+    step, state, eng, *_ = round_setup(dev, warm_up=False, **REJECT, **VMAPPED)
+    before = tree_map(torch.clone, {"params": state.params, "opt": state.opt,
+                                    "bank": state.clients})
+    t0 = time.perf_counter()
+    state, mets = step(state, eng.device_plan(0))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    after = {"params": state.params, "opt": state.opt, "bank": state.clients}
+    after, before = flatten(after), flatten(before)
+    same = after.keys() == before.keys() and all(torch.equal(after[k], v)
+                                                 for k, v in before.items())
+    if float(mets["rounds_rejected"]) != 1.0 or not same or state.rnd != 1:
+        raise AssertionError(f"reject path: rounds_rejected {float(mets['rounds_rejected'])}, "
+                             f"state restored {same}, rnd {state.rnd}")
+    peak = torch.cuda.max_memory_allocated()
+    del state, before, after, step, eng
+    torch.cuda.empty_cache()
+    print(f"reject path: rounds_rejected 1; params, c and the [33, ...] bank bitwise equal to "
+          f"the round's input; rnd 0 -> 1; round wall {wall:.1f} ms, peak {peak / 2**30:.3f} "
+          f"GiB (with the input's copy)", flush=True)
+    return {"round_ms": wall, "peak_bytes": peak, "delta_norm": float(mets["delta_norm"])}
+
+
+def composed_path(dev, rows: dict) -> dict:
+    """(e): ``COMPOSED``, 2 ticks vmapped padded and bucketed, held
+    bitwise over params, the fleet counters and the downlink references
+    (the padded twin's bank held on the card, its bytes left out of the
+    bucketed run's peak); the quantize kernels' launches (12 wire leaves a
+    direction, one launch of each kernel a leaf and a direction a tick)."""
+    import torch
+
+    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+
+    out, twin, twin_bytes = {}, None, 0
+    want_q = 2 * len(e2e_wire_leaves()) * COMPOSED_ROUNDS
+    for label, kw in (("padded", {}), ("bucketed", BUCKETED)):
+        _, plans = e2e_host_plans(COMPOSED_ROUNDS, **COMPOSED, **VMAPPED, **kw)
+        zero_counts(quantize_pack_kernel, unpack_dequantize_kernel)
+        res, wall, peak, n = fleet_round(dev, f"composed path, {label}", COMPOSED_ROUNDS,
+                                         {**COMPOSED, **VMAPPED, **kw}, plans)
+        q = (quantize_pack_kernel.launches, unpack_dequantize_kernel.launches)
+        if q != (want_q, want_q):
+            raise AssertionError(f"composed {label}: quantize launches {q}, want {want_q} each")
+        got = {**{f"params/{k}": v for k, v in res.state.params.items()},
+               **{f"fleet/{k}": v for k, v in res.state.clients["fleet"].items()},
+               **{f"ref/{k}": v for k, v in res.state.clients["downlink"]["ref"].items()}}
+        rrows = res.metrics.rows
+        del res
+        if twin is None:
+            twin, held = got, "twin"
+            twin_bytes = sum(v.numel() * v.element_size() for v in got.values())
+        else:
+            peak -= twin_bytes
+            held = "bitwise" if all(torch.equal(got[k], v) for k, v in twin.items()) else \
+                held_to_twin("composed", got, {k: v.cpu() for k, v in twin.items()})
+        del got
+        out[label] = {"tick_ms": wall, "peak_bytes": peak, "rr_perm": n, "quantize": q[0],
+                      "unpack": q[1], "held": held,
+                      "quarantined": [r["quarantined_clients"] for r in rrows]}
+        rows["quantize_pack"].setdefault("fleet_robust_launches", {})[label] = q[0]
+        rows["unpack_dequantize"].setdefault("fleet_robust_launches", {})[label] = q[1]
+        print(f"composed path, {label}: quantize_pack {q[0]}, unpack_dequantize {q[1]} "
+              f"launches, rr_perm {n}; quarantined a tick {out[label]['quarantined']}; tick wall "
+              f"{wall:.1f} ms, peak {peak / 2**30:.3f} GiB (the padded twin held aside "
+              f"excluded); vs padded: {held}", flush=True)
+    del twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def sequential_robust_path(dev, kept: dict) -> dict:
+    """(f): (c)'s trimmed mean in the sequential cohort mode, 2 rounds,
+    its params within ``VMAPPED_SEQ_RTOL`` of each leaf's largest magnitude
+    of the vmapped run's."""
+    kw = {**ROBUST, "aggregator": "trimmed_mean", "cohort_mode": "sequential"}
+    _, plans = e2e_host_plans(ROBUST_ROUNDS, **kw)
+    res, wall, peak, n = fleet_round(dev, "robust path, trimmed_mean, sequential", ROBUST_ROUNDS,
+                                     kw, plans)
+    worst = max(float((res.state.params[k].cpu() - v).abs().max() / v.abs().max().clamp_min(1e-12))
+                for k, v in kept.items())
+    del res
+    if worst > VMAPPED_SEQ_RTOL:
+        raise AssertionError(f"robust sequential vs vmapped: {worst:.3e} of a leaf's max (bound "
+                             f"{VMAPPED_SEQ_RTOL})")
+    print(f"robust path, trimmed_mean, sequential: params within {worst:.3e} of a leaf's max of "
+          f"the vmapped run's (bound {VMAPPED_SEQ_RTOL}); rr_perm {n}; round wall {wall:.1f} ms, "
+          f"peak {peak / 2**30:.3f} GiB", flush=True)
+    return {"round_ms": wall, "peak_bytes": peak, "rr_perm": n, "worst_vs_vmapped": worst}
+
+
+def fleet_robust_paths(dev, rows: dict) -> dict:
+    """Main path 13, (a)-(f) above; each run's rr_perm count goes into
+    ``rows["rr_perm"]["fleet_robust_launches"]``, (e)'s quantize counts
+    into the quantize rows'."""
+    t0 = time.perf_counter()
+    out = {"sync_fleet": sync_fleet_path(dev), "buffered": buffered_path(dev)}
+    out["robust"], kept = robust_paths(dev)
+    out["reject"] = reject_path(dev)
+    out["composed"] = composed_path(dev, rows)
+    out["sequential"] = sequential_robust_path(dev, kept)
+    launches = {}
+    for part in ("sync_fleet", "buffered", "composed"):
+        for label in ("padded", "bucketed"):
+            launches[f"{part}/{label}"] = out[part][label]["rr_perm"]
+    for name in ROBUST_AGGREGATORS:
+        launches[f"robust/{name}"] = out["robust"][name]["rr_perm"]
+    launches["robust/sequential"] = out["sequential"]["rr_perm"]
+    rows["rr_perm"]["fleet_robust_launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # phase (a)'s prefetch depths, run in this order (ABBA: a drift of the host's
 # speed during the phase falls on both depths alike)
 PREFETCH_TURNS = (2, 0, 0, 2)
@@ -3497,6 +4041,12 @@ def main() -> int:
     scaffold = scaffold_main_paths(dev, rows)
     print(json.dumps({"scaffold": scaffold}), flush=True)
     print(f"scaffold and chain paths: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # main path 13, the fleet plane (sync faults, the buffered FedBuff
+    # server) and the robust plane (attacks, aggregators, guards)
+    fleet_robust = fleet_robust_paths(dev, rows)
+    print(json.dumps({"fleet_robust": fleet_robust}), flush=True)
+    print(f"fleet and robust paths: {fleet_robust['seconds']:.1f} s", flush=True)
 
     # main path 9, the host side of train(): prefetch, resume through a
     # server-state file, the params file served, a resume with both banks

@@ -4,8 +4,8 @@ The same frozen dataclasses as ``repro.configs.base``, cut to the fields
 this port implements: ``ArchConfig`` for the dense, vlm (a patch prefix on
 the dense family), hybrid (attention + Mamba2 SSD, ``SSMConfig``) and audio
 (encoder-decoder) families with ``reduced()``, and
-``FLConfig`` with the comm plane's knobs but without those of the planes
-that are not ported yet (fleet, robust, privacy, obs).  Shared fields keep
+``FLConfig`` with the comm, fleet and robust planes' knobs but without
+those of the planes that are not ported yet (privacy, obs).  Shared fields keep
 the JAX package's names and defaults, so one keyword dict builds both
 configs, with one exception: ``uplink_backend`` takes ``"kernel"`` (the
 default: the CUDA kernel for a CUDA tensor, the plain torch version for a
@@ -134,6 +134,31 @@ RRBackend = Literal["host", "host_feistel", "device_ref", "device"]
 # The qsgd pack path of both wire directions: the CUDA kernel for a CUDA
 # tensor (plain torch on a CPU tensor), or the plain torch version anywhere
 UplinkBackend = Literal["kernel", "ref"]
+# Heterogeneous fleet plane (repro_torch.fed.fleet).  Fleet model (FLEETS
+# registry; extensible via register_fleet, hence plain str):
+#   "homogeneous"  — unit speed, zero latency (with server_mode="sync" and no
+#                    faults the fleet plane is fully off — bitwise-frozen)
+#   "tiered"       — fleet_tiers discrete device tiers, speeds 1..1/tier_spread
+#   "zipf_latency" — Pareto(zipf_alpha)-tailed per-client latency (stragglers)
+# Fault scenarios ride FLConfig.faults as a comma-separated list of FAULTS
+# registry names ("dropout,straggler,abort"), each with its knobs below.
+# Server aggregation mode:
+#   "sync"     — the classic synchronous round (the default; frozen contract)
+#   "buffered" — FedBuff-style async: cohort_size clients in flight, the
+#                server aggregates the first buffer_size arrivals per virtual
+#                tick, late updates discounted by the staleness weighting
+ServerMode = Literal["sync", "buffered"]
+Staleness = Literal["constant", "poly"]
+# Byzantine-robustness plane (repro_torch.fed.robust).  The defaults
+# (attack="none", aggregator="mean", guard="off") keep the plane fully off.
+# Attacks (ATTACKS: sign_flip, zero_update, scaled_noise, ipm) rewrite the
+# slot-order delta stack before the uplink codec; aggregators (ROBUST_AGGS:
+# mean, coordinate_median, trimmed_mean, norm_clip, centered_clip, krum,
+# multi_krum) combine over the strategy's bound coefficients on the
+# weighted_sum scale; guards: "quarantine" (per-client NaN/Inf/norm-spike
+# removal with coefficient renormalization), "reject" (revert a blown
+# round's state; the round counter still advances), "full" (both).
+Guard = Literal["off", "quarantine", "reject", "full"]
 
 
 @dataclass(frozen=True)
@@ -187,6 +212,32 @@ class FLConfig:
     downlink_bits: int = 4         # qsgd: bits per value (2 | 4 | 8)
     downlink_chunk: int = 256      # qsgd: values per fp32 scale
     downlink_frac: float = 0.1     # randk: fraction of coords shipped
+    # heterogeneous fleet plane (device tiers, fault injection, async server;
+    # see the ServerMode note above and repro_torch.fed.fleet) — the defaults
+    # keep the synchronous path bitwise-frozen
+    fleet: str = "homogeneous"     # device-tier model (key into fed.fleet.FLEETS)
+    fleet_tiers: int = 3           # tiered: number of device speed tiers
+    tier_spread: float = 4.0       # tiered: slowest/fastest speed ratio (>= 1)
+    tier_latency: float = 1.0      # base per-round latency (virtual-time units)
+    zipf_alpha: float = 1.2        # zipf_latency: Pareto tail exponent
+    faults: str = ""               # comma-separated fed.fleet.FAULTS scenarios
+    drop_prob: float = 0.0         # "dropout": per-(client, round) failure prob
+    straggler_prob: float = 0.0    # "straggler": P(round slowed by the factor)
+    straggler_factor: float = 8.0  # "straggler": wall-time multiplier (>= 1)
+    round_deadline: float = 0.0    # "abort": virtual-time budget cutting steps
+    server_mode: ServerMode = "sync"
+    buffer_size: int = 16          # buffered: aggregate first K arrivals/tick
+    staleness: Staleness = "poly"  # buffered staleness discount kind
+    staleness_power: float = 0.5   # poly: weight = (1 + tau) ** -staleness_power
+    # byzantine-robustness plane (adversarial clients, robust aggregation,
+    # self-healing guards; see the Guard note above and repro_torch.fed.robust)
+    # — the defaults keep the plane bitwise-frozen off
+    attack: str = "none"           # adversary model (key into robust.ATTACKS)
+    attack_frac: float = 0.0       # expected adversarial fraction of clients
+    attack_scale: float = 1.0      # attack magnitude multiplier
+    aggregator: str = "mean"       # server combiner (key into robust.ROBUST_AGGS)
+    trim_frac: float = 0.1         # trimmed_mean/krum breakdown parameter (0, 0.5)
+    guard: Guard = "off"           # self-healing guards (quarantine/reject/full)
     # system heterogeneity (Fig. 4): every client is cut short by this many
     # local steps (planned vs actual); the "gen" hybrid algorithm corrects it
     drop_last_steps: int = 0

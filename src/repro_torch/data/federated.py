@@ -1,8 +1,10 @@
 """Federated data pipeline: population metadata + per-round batch assembly.
 
-The port's numpy copy of ``repro.data.federated``, both execution layouts,
-without the fleet plane's hooks.  It turns (task, FLConfig) into the
-static-shape host arrays a round consumes:
+The port's numpy copy of ``repro.data.federated``, both execution layouts
+and the fleet plane's hooks (``repro_torch.fed.fleet``: sync-mode fault
+passes, the buffered server's ticks as cohorts, deadline caps folded into
+the bucket layout).  It turns (task, FLConfig) into the static-shape host
+arrays a round consumes:
 
 * ``Population`` — client dataset sizes |D_i| (equal / log-normal / zipf
   imbalance), objective weights w_i = |D_i|/|D|.
@@ -48,7 +50,11 @@ def _chernoff_bound(mu: float) -> int:
 
 
 class ClientMeta(NamedTuple):
-    """Per-cohort-slot scalars consumed by the algorithms (all [C])."""
+    """Per-cohort-slot scalars consumed by the algorithms (all [C]).
+
+    The trailing fleet-plane fields default to None for hand-built metas;
+    the pipeline always fills real arrays — zeros when the fleet plane is
+    off, so the default path computes nothing new."""
 
     weight: Any              # w_i = |D_i|/|D|
     prob: Any                # p_i (inclusion probability of the sampling S)
@@ -58,6 +64,11 @@ class ClientMeta(NamedTuple):
     num_steps_planned: Any   # K_i = E_i * ceil(|D_i|/B) (planned)
     valid: Any               # 1.0 if the slot holds a sampled client else 0.0
     client_id: Any           # int ids; -1 on padding slots
+    # heterogeneous fleet plane (repro_torch.fed.fleet); zeros outside
+    # buffered / faulty configurations
+    staleness: Any = None    # server ticks the slot's update is stale (>= 0)
+    arrive_time: Any = None  # virtual arrival offset within the round/tick
+    dropped: Any = None      # 1.0 where a sampled client dropped out (valid=0)
 
 
 class RoundBatch(NamedTuple):
@@ -185,10 +196,37 @@ class FederatedPipeline:
         self.k_max = self.fl.k_max or int((spe_all * e_max).max())
         self._weights = self.population.weights
         self._probs = self.inclusion_probs()
+        # heterogeneous fleet plane: None with every knob at its default, so
+        # the frozen path builds nothing and computes nothing new
+        from ..fed import fleet as _fleet  # deferred: the fleet plane imports Population
+
+        self.fleet = _fleet.build_fleet(self.fl, self.population)
+        if self.fleet is not None:
+            _fleet.validate_fleet_config(self.fl)
+        self._fault_names = _fleet.parse_faults(self.fl.faults)
         self.cohort_slots = self._cohort_slots()
+        self._fleet_sched = None
+        if self.fl.server_mode == "buffered":
+            self._fleet_sched = _fleet.BufferedSchedule(
+                self.fl, self.population, self.fleet,
+                probs=self._probs, steps_fn=self._fleet_steps)
         self._bucket_layout: BucketLayout | None = None
 
     def _cohort_slots(self) -> int:
+        if self.fl.server_mode == "buffered":
+            # one server tick aggregates exactly buffer_size arrivals; failed
+            # clients ride trailing padding slots, sized by Chernoff slack
+            # over the expected failure count per K arrivals (overflow past
+            # the slack warns and truncates the *dropped* record, never the
+            # aggregated arrivals)
+            p = 0.0
+            if "dropout" in self._fault_names:
+                p += float(self.fl.drop_prob)
+            if "abort" in self._fault_names and self.fleet is not None:
+                p += float(np.mean(self.fleet.deadline_caps(self.fl.round_deadline) < 1))
+            p = min(p, 0.99)
+            slack = _chernoff_bound(self.fl.buffer_size * p / (1.0 - p)) if p > 0 else 0
+            return self.fl.buffer_size + slack
         if self.fl.sampling == "full":
             return self.population.num_clients
         if self.fl.sampling == "uniform":
@@ -225,6 +263,16 @@ class FederatedPipeline:
             return self.fl.epochs
         return int(_rng(self.fl.seed, 0xE70C, rnd, client).integers(self.fl.epochs, self.fl.epochs_max + 1))
 
+    def _fleet_steps(self, cid: int, rnd: int) -> int:
+        """Planned local steps of one (client, round) — the wall-time driver
+        the buffered schedule dispatches with (mirrors the per-slot math in
+        ``index_plan``: epoch draw, interrupt cut, k_max clamp)."""
+        n_i = int(self.population.sizes[int(cid)])
+        steps = steps_for(n_i, self.epochs_for(rnd, int(cid)), self.fl.local_batch)
+        if self.fl.drop_last_steps:
+            steps = max(1, steps - self.fl.drop_last_steps)
+        return min(steps, self.k_max)
+
     # -- index-plan assembly ----------------------------------------------
 
     def _equalized_steps(self, rnd: int, cohort: np.ndarray) -> int | None:
@@ -249,8 +297,15 @@ class FederatedPipeline:
         backend regenerates the streams) — the host then does only
         O(cohort) scalar work plus the [C, K_max] mask.
         """
-        sample = self._sample(rnd)
-        cohort, probs_slot = sample.ids, sample.probs
+        tick = None
+        if self._fleet_sched is not None:
+            # buffered-async: the cohort is server tick ``rnd``'s first-K
+            # arrivals from the virtual-clock executor, not a fresh sample
+            tick = self._fleet_sched.tick(rnd)
+            cohort, probs_slot = tick.ids, tick.probs
+        else:
+            sample = self._sample(rnd)
+            cohort, probs_slot = sample.ids, sample.probs
         C, K, B = self.cohort_slots, self.k_max, self.fl.local_batch
         w = self._weights
         fixed_k = self._equalized_steps(rnd, cohort)
@@ -263,6 +318,7 @@ class FederatedPipeline:
             weight=np.zeros(C), prob=np.ones(C), num_samples=np.ones(C),
             epochs=np.ones(C), num_steps=np.ones(C), num_steps_planned=np.ones(C),
             valid=np.zeros(C), client_id=np.full(C, -1, dtype=np.int64),
+            staleness=np.zeros(C), arrive_time=np.zeros(C), dropped=np.zeros(C),
         )
 
         for slot, cid in enumerate(cohort):
@@ -308,8 +364,63 @@ class FederatedPipeline:
             meta.valid[slot] = 1.0
             meta.client_id[slot] = cid
 
+        if self.fleet is not None:
+            if tick is None:
+                self._apply_fleet_sync(rnd, cohort, step_mask, meta)
+            else:
+                self._apply_fleet_buffered(tick, step_mask, meta)
         return IndexPlan(idx=idx_all, step_mask=step_mask, meta=meta,
                          sizes=sizes, spe=spe, rnd=int(rnd))
+
+    def _apply_fleet_sync(self, rnd: int, cohort, step_mask, meta) -> None:
+        """Sync-mode fleet pass over the filled slots: realize tier wall
+        times and fault scenarios, cut masks at deadline step caps, turn
+        dropped clients into padding (valid=0, mask zeroed) in place."""
+        from ..fed.fleet import apply_faults  # deferred: the fleet plane imports Population
+
+        m = len(cohort)
+        if m == 0:
+            return
+        ids = meta.client_id[:m].astype(np.int64)
+        rf = apply_faults(self.fl, self.fleet, ids, rnd, meta.num_steps[:m].astype(np.int64))
+        K = step_mask.shape[1]
+        cap = np.minimum(np.maximum(rf.steps_cap, 1), K)
+        # masks are step-prefixes, so a cut at cap stays a prefix
+        step_mask[:m] *= (np.arange(K)[None, :] < cap[:, None]).astype(np.float32)
+        step_mask[:m][rf.dropped] = 0.0
+        meta.num_steps[:m] = np.maximum(step_mask[:m].sum(axis=1), 1.0)
+        meta.arrive_time[:m] = rf.wall
+        meta.dropped[:m] = rf.dropped.astype(np.float64)
+        meta.valid[:m][rf.dropped] = 0.0
+
+    def _apply_fleet_buffered(self, tick, step_mask, meta) -> None:
+        """Buffered-mode fleet pass: staleness/arrival offsets from the tick
+        (dropout and straggler were realized inside the schedule — only the
+        deterministic abort step caps re-apply to the realized masks), plus
+        the tick's dropped clients recorded on trailing padding slots."""
+        m = len(tick.ids)
+        meta.staleness[:m] = tick.staleness
+        meta.arrive_time[:m] = tick.arrive
+        if "abort" in self._fault_names and self.fl.round_deadline > 0:
+            K = step_mask.shape[1]
+            cap = self.fleet.deadline_caps(self.fl.round_deadline)[tick.ids]
+            cap = np.minimum(np.maximum(cap, 1), K)
+            step_mask[:m] *= (np.arange(K)[None, :] < cap[:, None]).astype(np.float32)
+            meta.num_steps[:m] = np.maximum(step_mask[:m].sum(axis=1), 1.0)
+        d = np.asarray(tick.dropped_ids, np.int64)
+        if len(d) == 0:
+            return
+        room = len(meta.valid) - m
+        if len(d) > room:
+            warnings.warn(
+                f"buffered tick recorded {len(d)} dropped clients but only "
+                f"{room} padding slots exist; truncating the dropped record "
+                f"(aggregation is unaffected).", RuntimeWarning, stacklevel=3)
+            d = d[:room]
+        sl = slice(m, m + len(d))
+        meta.client_id[sl] = d
+        meta.dropped[sl] = 1.0
+        meta.arrive_time[sl] = tick.dropped_arrive[:len(d)]
 
     # -- bucketed layout (padding-free execution) ---------------------------
 
@@ -338,6 +449,14 @@ class FederatedPipeline:
         if self.fl.drop_last_steps:
             # interrupts shorten every client's realized mask identically
             k_pop = np.maximum(1, k_pop - self.fl.drop_last_steps)
+        if "abort" in self._fault_names and self.fleet is not None \
+                and self.fl.round_deadline > 0:
+            # deadline aborts cap realized steps *deterministically* per
+            # client — folding the caps in maps device tiers onto step
+            # buckets, so slow tiers land in narrow buckets and the loop
+            # never pays for work the deadline forbids
+            caps_pop = self.fleet.deadline_caps(self.fl.round_deadline)
+            k_pop = np.minimum(k_pop, np.maximum(1, caps_pop))
         qs = np.quantile(k_pop, [(b + 1) / nb for b in range(nb)], method="higher")
         edges = sorted({int(q) for q in qs})
         edges[-1] = max(edges[-1], int(k_pop.max()))

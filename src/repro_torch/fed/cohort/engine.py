@@ -87,6 +87,15 @@ class CohortEngine:
     def k_max(self) -> int:
         return self.pipeline.k_max
 
+    @property
+    def fleet(self):
+        """The pipeline's :class:`~repro_torch.fed.fleet.model.FleetModel`
+        (None when the fleet plane is off).  Fleet math lives entirely in
+        the pipeline's index-plan assembly (sync fault passes, the buffered
+        virtual-clock schedule), so the engine's plans carry the fleet meta
+        fields with no engine-side changes."""
+        return self.pipeline.fleet
+
     def index_plan(self, rnd: int) -> "IndexPlan | BucketedPlan":
         """One round's host plan under the configured RR backend (bucketized
         when ``fl.exec_mode == "bucketed"``; a bucket-overflow round falls

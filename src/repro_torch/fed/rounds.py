@@ -64,8 +64,22 @@ package, which returns a new bank, the commit updates the bank in place
 (15.1 GB at CharLM-100M's 32 clients; a copy would double it), so a state
 passed to a round step must not be used again.  ``identity`` in both
 directions keeps the plane-off op sequence: no staging, no bank, no new
-metric keys.  The port's counterpart of ``repro.fed.rounds`` with the
-fleet, robust, privacy and obs planes off.
+metric keys.
+
+The fleet plane (``repro_torch.fed.fleet``) lives in the host plan (fault
+cuts, dropped slots, the buffered server's ticks as cohorts); the step adds
+the buffered server's per-client counters (bank key ``"fleet"``, bumped
+before the masked commit) and, while the plane is on, the metric keys
+``round_virtual_time``, ``arrived_clients``, ``dropped_clients`` and
+``mean_staleness``.  The robust plane (``repro_torch.fed.robust``) runs on
+the slot-order [C] stack: the attack before the uplink codec, then
+quarantine, coefficient renormalization, scrub and the bound aggregator
+(``robust_combine``), and the reject guard after the server update (a
+rejected round keeps its input's params, opt and bank rows; ``rnd``
+advances); its keys are ``quarantined_clients``, ``suspected_adversaries``
+and ``rounds_rejected``.  While the robust plane is on the sequential mode
+stages its deltas, as it does for a codec.  The port's counterpart of
+``repro.fed.rounds`` with the privacy and obs planes off.
 
 The server optimizer's momentum tree (``state.opt["m"]``, zeros when the
 optimizer keeps none) and its whole opt-state dict ride down to every
@@ -90,8 +104,13 @@ from ..utils.pytree import tree_map, tree_sq_norm, tree_zeros_like
 from .bucketing import occupied, run_buckets, slot_inputs
 from .comm import (DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, dense_bits, downlink_apply,
                    downlink_round_keys, round_keys, uplink_apply, wire_bits_total)
+from .fleet import FLEET_STATE_KEY, fleet_active, slot_staleness
+from .robust import (build_attack, guard_quarantines, guard_rejects, params_ok,
+                     quarantine_masks, renormalize_coeffs, robust_active, scrub_deltas,
+                     select_state)
 from .server import ServerState
-from .strategy import BoundStrategy, CohortState, FedStrategy, RoundCtx, bind_strategy
+from .strategy import (BoundStrategy, CohortState, FedStrategy, RoundCtx, bind_strategy,
+                       weighted_sum)
 
 
 def to_device(x, device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -109,7 +128,8 @@ def as_device_meta(meta: ClientMeta, device) -> ClientMeta:
     (legacy path) and ``cohort.plan.as_device_plan`` (engine path) both use
     it, which keeps the two paths bitwise-interchangeable."""
     return ClientMeta(*[
-        to_device(a, device, torch.int64 if name == "client_id" else torch.float32)
+        None if a is None
+        else to_device(a, device, torch.int64 if name == "client_id" else torch.float32)
         for name, a in zip(ClientMeta._fields, meta)])
 
 
@@ -164,6 +184,16 @@ def build_round_step(loss_fn: Callable,
     dl_on = down is not None and down.name != "identity"
     apply_up = uplink_apply(codec) if up_on else None
     apply_down = downlink_apply(down) if dl_on else None
+    fleet_on = fleet_active(fl)
+    # robust plane: the attack on the stack before encode (adversaries
+    # control their wire payload), quarantine and the robust combiner after
+    # decode, the reject guard after the server step; off, no op is added
+    robust_on = robust_active(fl)
+    apply_attack = build_attack(fl) if robust_on else None
+    g_quar = robust_on and guard_quarantines(fl)
+    g_rej = robust_on and guard_rejects(fl)
+    # the sequential mode stages the [C] stack for whatever runs on it
+    staged_seq = up_on or robust_on
 
     def add_weighted(acc, delta, coeff_i):
         # THE accumulation rule: slot order, fp32 product, accumulator dtype
@@ -183,13 +213,44 @@ def build_round_step(loss_fn: Callable,
             new_cs = {**new_cs, UPLINK_STATE_KEY: ef2}
         return dhat, new_cs
 
+    def robust_combine(deltas, meta):
+        """The decoded slot-order stack under the robust plane: quarantine
+        -> coefficient renormalization -> scrub -> the bound aggregator."""
+        coeff = strat.agg_coeffs(meta)                                 # [C]
+        zero = meta.valid.new_zeros(())
+        info = {"quarantined_clients": zero, "suspected_adversaries": zero}
+        if g_quar:
+            healthy, suspected = quarantine_masks(deltas, meta)
+            info["quarantined_clients"] = (meta.valid * (1.0 - healthy)).sum()
+            info["suspected_adversaries"] = suspected.sum()
+            coeff = renormalize_coeffs(coeff, healthy)
+            # zero the quarantined slots' values too: a zeroed coefficient
+            # alone would leak NaN/Inf through sorted estimators (0 * nan)
+            deltas = scrub_deltas(deltas, healthy)
+        combine = strat.robust_aggregate
+        if combine is None:           # hand-built strategy: canonical mean
+            return weighted_sum(deltas, coeff), info
+        return combine(deltas, coeff, meta), info
+
+    def after_local(deltas, new_cs, meta, rnd):
+        """The [C] stack from the local steps to the aggregate: the attack,
+        the uplink codec, then the robust combiner (robust plane on; else
+        None, and the caller aggregates)."""
+        if apply_attack is not None:
+            deltas = apply_attack(deltas, meta, rnd)
+        if up_on:
+            deltas, new_cs = uplink(deltas, new_cs, meta, rnd)
+        if robust_on:
+            return deltas, new_cs, robust_combine(deltas, meta)
+        return deltas, new_cs, None
+
     def run_sequential(state, batch, starts, eta, momentum, new_cs):
         """The slots one after another, accumulated in slot order."""
         meta = batch.meta
         C = meta.valid.shape[0]
         coeff = strat.agg_coeffs(meta)                                 # [C]
         acc = tree_zeros_like(state.params, dtype=acc_dt)
-        if up_on:
+        if staged_seq:
             staged = {k: torch.empty((C, *v.shape), dtype=v.dtype, device=v.device)
                       for k, v in state.params.items()}
         # the chain's state rows: a slot's finalized row, or (a slot no
@@ -201,7 +262,7 @@ def build_round_step(loss_fn: Callable,
             if inputs is None:
                 # a slot no bucket holds: the zero delta and loss of a fully
                 # masked slot (its coefficient is 0 and acc + 0 is acc)
-                if up_on:
+                if staged_seq:
                     for v in staged.values():
                         v[c].zero_()
                 losses.append(meta.valid.new_zeros(()))
@@ -211,22 +272,25 @@ def build_round_step(loss_fn: Callable,
             delta, loss, cs_c = strat.local_step(p_c, momentum, state.opt, data, mask, eta[c],
                                                  tree_map(lambda t: t[c], cs_in))
             tree_map(lambda o, t: o[c].copy_(t), cs_out, {k: cs_c[k] for k in chain_keys})
-            if up_on:
+            if staged_seq:
                 for k, v in delta.items():
                     staged[k][c] = v
             else:
                 acc = add_weighted(acc, delta, coeff[c])
             losses.append(loss)
         new_cs = {**new_cs, **cs_out}
-        if up_on:
-            # the decoded deltas accumulated in slot order by the same rule
-            dhat, new_cs = uplink(staged, new_cs, meta, state.rnd)
+        losses = torch.stack(losses)
+        if staged_seq:
+            dhat, new_cs, combined = after_local(staged, new_cs, meta, state.rnd)
             del staged
+            if combined is not None:
+                return combined[0], losses, new_cs, combined[1]
+            # the decoded deltas accumulated in slot order by the same rule
             for c in range(C):
                 acc = add_weighted(acc, {k: v[c] for k, v in dhat.items()}, coeff[c])
             del dhat
         delta_agg = {k: a.to(state.params[k].dtype) for k, a in acc.items()}
-        return delta_agg, torch.stack(losses), new_cs
+        return delta_agg, losses, new_cs, None
 
     def run_vmapped(state, batch, starts, eta, momentum, new_cs):
         """The slots' local steps batched over the cohort (a bucket at a time
@@ -250,9 +314,10 @@ def build_round_step(loss_fn: Callable,
                                                        batch.step_mask, eta, cs_in,
                                                        stacked=dl_on)
         new_cs = {**new_cs, **{k: cs_out[k] for k in chain_keys}}
-        if up_on:
-            deltas, new_cs = uplink(deltas, new_cs, batch.meta, state.rnd)
-        return strat.aggregate(deltas, batch.meta), losses, new_cs
+        deltas, new_cs, combined = after_local(deltas, new_cs, batch.meta, state.rnd)
+        if combined is not None:
+            return combined[0], losses, new_cs, combined[1]
+        return strat.aggregate(deltas, batch.meta), losses, new_cs, None
 
     run_cohort = run_vmapped if fl.cohort_mode == "vmapped" else run_sequential
 
@@ -296,8 +361,21 @@ def build_round_step(loss_fn: Callable,
             starts = apply_down(state.params, cstate0[DOWNLINK_STATE_KEY]["ref"],
                                 slot_keys(down, downlink_round_keys, meta, state.rnd))
             new_cs = {**cstate0, DOWNLINK_STATE_KEY: {"ref": starts}}
-        delta_agg, losses, new_cs = run_cohort(state, batch, starts, eta, momentum, new_cs)
+        # the reject guard reverts to the round's input: params and opt copied
+        # here (the bank's rows are cstate0)
+        prev = ServerState(params=tree_map(torch.clone, state.params),
+                           opt=tree_map(torch.clone, state.opt), rnd=state.rnd) if g_rej else None
+        delta_agg, losses, new_cs, rb_info = run_cohort(state, batch, starts, eta, momentum,
+                                                        new_cs)
         cstate = None
+        if banked and FLEET_STATE_KEY in new_cs:
+            # buffered server bookkeeping: bump the cohort's arrival /
+            # staleness counters before the masked commit, so padding slots
+            # (and dropped clients) write back what they read
+            fb = new_cs[FLEET_STATE_KEY]
+            new_cs = {**new_cs, FLEET_STATE_KEY: {
+                "arrivals": fb["arrivals"] + 1.0,
+                "stale_sum": fb["stale_sum"] + slot_staleness(meta)}}
         if banked:
             # masked commit: valid slots write their new rows, padding slots
             # (and slots no bucket holds, whose rows read zeros) what they
@@ -314,6 +392,17 @@ def build_round_step(loss_fn: Callable,
         state = strat.server_update(state, delta_agg, fl.server_lr, ctx)
         if banked:
             state = state._replace(clients=bank)
+        rejected = None
+        if g_rej:
+            # divergence guard: a blown round's params and opt revert, and
+            # its committed rows are written back to what the round read
+            ok = params_ok(prev.params, state.params)
+            state = select_state(ok, state, prev)
+            if banked:
+                tree_map(lambda b, u, o: b.index_copy_(0, ids, torch.where(
+                    ok, u, o).to(b.dtype)), bank, cstate.new, cstate.old)
+            rejected = 1.0 - ok.to(torch.float32)
+            del prev
         valid_sum = torch.clamp_min(meta.valid.sum(), 1.0)
         metrics = {
             "local_loss": (losses * meta.valid).sum() / valid_sum,
@@ -334,6 +423,22 @@ def build_round_step(loss_fn: Callable,
                 metrics["downlink_mbytes"] = n_valid * _f32(down_bits / 8e6)
                 metrics["downlink_compression"] = torch.tensor(_f32(dense / down_bits))
             metrics["total_comm_mbytes"] = n_valid * _f32((up_bits + down_bits) / 8e6)
+        if fleet_on:
+            # round_virtual_time: sync = the slowest surviving client's wall
+            # time; buffered = the tick's span (the K-th arrival flushes it)
+            zero = torch.zeros_like(meta.valid)
+            arrive = zero if meta.arrive_time is None else meta.arrive_time
+            dropped = zero if meta.dropped is None else meta.dropped
+            metrics["round_virtual_time"] = torch.max(arrive * meta.valid)
+            metrics["arrived_clients"] = meta.valid.sum()
+            metrics["dropped_clients"] = dropped.sum()
+            metrics["mean_staleness"] = (slot_staleness(meta) * meta.valid).sum() / valid_sum
+        if robust_on:
+            # the counts are 0 whenever their guard is off
+            metrics["quarantined_clients"] = rb_info["quarantined_clients"]
+            metrics["suspected_adversaries"] = rb_info["suspected_adversaries"]
+            metrics["rounds_rejected"] = meta.valid.new_zeros(()) if rejected is None \
+                else rejected
         return state, metrics
 
     return round_step

@@ -21,9 +21,12 @@ A :class:`FedStrategy` declares the round recipe as a composition of
 :func:`bind_strategy` closes a strategy over a concrete ``FLConfig`` and
 ``loss_fn`` and yields the hooks the round driver (``repro_torch.fed.rounds``)
 calls, the comm plane's two codecs (``fl.uplink`` / ``fl.downlink``,
-``repro_torch.fed.comm``) and the per-client state they keep included.  The
-port's counterpart of ``repro.fed.strategy`` with the fleet, robust and
-privacy planes off.
+``repro_torch.fed.comm``) and the per-client state they keep included, the
+fleet plane's buffered server (``fl.server_mode="buffered"``: tick-sized,
+staleness-discounted coefficients and its counters in the bank,
+``repro_torch.fed.fleet``) and the robust plane's combiner
+(``fl.aggregator``, ``repro_torch.fed.robust``).  The port's counterpart of
+``repro.fed.strategy`` with the privacy plane off.
 """
 from __future__ import annotations
 
@@ -43,6 +46,9 @@ from ..kernels.server_update.ops import apply_fused_update
 from ..utils.pytree import tree_copy, tree_map, tree_zeros_like
 from .bucketing import run_buckets, slot_inputs
 from .comm import DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, build_codec
+from .fleet import (FLEET_STATE_KEY, fleet_active, fleet_client_state, staleness_weights,
+                    validate_fleet_config)
+from .robust import build_robust_aggregate, robust_active, validate_robust_config
 from .server import ServerState
 
 
@@ -497,6 +503,13 @@ class BoundStrategy(NamedTuple):
     #                                      round driver then runs dense)
     chain_state: tuple = ()            # the local chain's stateful transforms:
     #                                      the bank keys its steps read and write
+    robust_aggregate: Callable | None = None  # (deltas, coeff, meta) ->
+    #                                      delta_agg: the robust plane's combiner
+    #                                      over explicit coefficients
+    #                                      (fl.aggregator; "mean" is weighted_sum),
+    #                                      called only while the plane is on;
+    #                                      None (hand-built) falls back to
+    #                                      weighted_sum there
 
 
 def weighted_sum(deltas: dict, coeff: torch.Tensor) -> dict:
@@ -559,6 +572,12 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
             f"{strategy.server_opt!r} but FLConfig.server_opt is "
             f"{fl.server_opt!r}; make them agree.")
     _check_config(fl)
+    if fleet_active(fl):
+        # every fleet-plane knob fails at bind time, not rounds deep into
+        # the virtual-clock simulation
+        validate_fleet_config(fl)
+    if robust_active(fl):
+        validate_robust_config(fl)
     server_opt = strategy.server_opt or fl.server_opt
     if server_opt not in SERVER_OPTS:
         raise ValueError(f"unknown server opt {server_opt!r}; have {sorted(SERVER_OPTS)}")
@@ -630,6 +649,22 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
             d[DOWNLINK_STATE_KEY] = {"ref": params}
             return d
 
+    buffered = fl.server_mode == "buffered"
+    if buffered:
+        if FLEET_STATE_KEY in state_names:
+            raise ValueError(
+                f"local update {local_update!r} has a stateful client transform named "
+                f"{FLEET_STATE_KEY!r} — that bank key is reserved for the buffered server's "
+                f"per-client staleness counters; rename the transform.")
+        pre_fleet_state = client_state
+
+        def client_state(params):
+            # per-client arrival / staleness counters share the bank under
+            # the reserved key, like the codec's EF residual
+            d = dict(pre_fleet_state(params)) if pre_fleet_state is not None else {}
+            d[FLEET_STATE_KEY] = fleet_client_state(next(iter(params.values())).device)
+            return d
+
     gen = strategy.gen
 
     def init(params) -> ServerState:
@@ -648,7 +683,14 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
         return fl.local_lr * lr_mult * lr_scale(gen, meta)
 
     def agg_coeffs(meta) -> torch.Tensor:
-        return agg_coeff(gen, meta, num_clients=num_clients, cohort_size=fl.cohort_size)
+        # buffered-async: each tick aggregates |S| = buffer_size arrivals (the
+        # q normalization's cohort size) and discounts stale updates; the
+        # sync path multiplies nothing
+        coeff = agg_coeff(gen, meta, num_clients=num_clients,
+                          cohort_size=fl.buffer_size if buffered else fl.cohort_size)
+        if buffered:
+            coeff = coeff * staleness_weights(fl, meta).to(coeff.device)
+        return coeff
 
     def aggregate(deltas, meta):
         return weighted_sum(deltas, agg_coeffs(meta))
@@ -672,6 +714,9 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
         chain_state=state_names,
         codec=codec,
         down_codec=down_codec,
+        # the same coefficients as aggregate (staleness discounts and all),
+        # explicit so the round driver can renormalize them after a quarantine
+        robust_aggregate=build_robust_aggregate(fl),
     )
 
 

@@ -5,7 +5,9 @@ staircase), periodic eval, checkpointing, resume and metric logging.  Rounds
 arrive in the layout ``fl.exec_mode`` asks for: padded ``RoundBatch`` /
 ``IndexPlan`` or bucketed ``BucketedBatch`` / ``BucketedPlan`` (a round
 whose slots overflow the buckets comes padded); on the cohort engine they
-are prefetched ``fl.prefetch`` rounds ahead.  The port's counterpart of
+are prefetched ``fl.prefetch`` rounds ahead.  With the fleet plane on, each
+row also carries the cumulative ``virtual_time`` (the sum of the rounds'
+``round_virtual_time``).  The port's counterpart of
 ``repro.fed.train_loop``; the observability plane is not ported yet.
 """
 from __future__ import annotations
@@ -107,12 +109,18 @@ def train(
         save_checkpoint(checkpoint_path, state.params,
                         {"round": r, "elapsed_s": time.time() - t0, "name": name})
 
+    virtual_time = 0.0
     rit = round_iter()
     try:
         for r, batch in rit:
             state, mets = step(state, batch, sched(r, rounds))
             row = {"round": r, "lr_mult": sched(r, rounds),
                    **{k: float(v) for k, v in mets.items()}}
+            if "round_virtual_time" in row:
+                # the cumulative virtual clock fleet runs plot loss against
+                # (present only with the fleet plane on)
+                virtual_time += row["round_virtual_time"]
+                row["virtual_time"] = virtual_time
             if eval_fn is not None and (r % eval_every == 0 or r == rounds - 1):
                 row.update({f"eval_{k}": float(v) for k, v in eval_fn(state.params).items()})
             row["elapsed_s"] = time.time() - t0

@@ -98,6 +98,19 @@ def _read(npz, template: dict, axis: int = 0, prefix: str = "") -> dict:
     return got
 
 
+def _read_leaf(npz, template: torch.Tensor, key: str) -> np.ndarray:
+    """One array entry of an open ``.npz`` (a bank field that is a single
+    tensor, the buffered server's counters), checked against its template."""
+    if key not in npz:
+        raise KeyError(f"checkpoint missing keys: [{key!r}]")
+    arr = npz[key]
+    if tuple(arr.shape) != tuple(template.shape):
+        raise ValueError(f"checkpoint leaf {key!r} has shape {tuple(arr.shape)} but the "
+                         f"template expects {tuple(template.shape)}: it was saved under a "
+                         f"different population/model configuration")
+    return arr
+
+
 def _cast_like(restored: dict, template: dict, prefix: str = "") -> dict:
     """``restored`` (flat, on the CPU) in ``template``'s nesting, each leaf
     on its template leaf's device and in its dtype."""
@@ -175,6 +188,8 @@ def load_server_state(path: str, template: ServerState) -> ServerState:
             clients=None if template.clients is None else {
                 name: {field: unflatten(_read(npz, tree, axis=1,
                                               prefix=f"clients/{name}/{field}/"))
+                       if isinstance(tree, dict) else
+                       _read_leaf(npz, tree, f"clients/{name}/{field}")
                        for field, tree in entry.items()}
                 for name, entry in template.clients.items()})
     got = server_state_from_jax(np_state, None, "cpu")
@@ -183,6 +198,8 @@ def load_server_state(path: str, template: ServerState) -> ServerState:
         opt={k: _cast_like(v, template.opt[k]) for k, v in got.opt.items()},
         rnd=got.rnd,
         clients=None if got.clients is None else {
-            name: {field: _cast_like(tree, template.clients[name][field])
+            name: {field: _cast_like(tree, template.clients[name][field]) if isinstance(tree, dict)
+                   else tree.to(device=template.clients[name][field].device,
+                                dtype=template.clients[name][field].dtype)
                    for field, tree in entry.items()}
             for name, entry in got.clients.items()})

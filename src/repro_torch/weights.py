@@ -82,10 +82,12 @@ def server_state_from_jax(np_state, cfg: ArchConfig | None, device) -> ServerSta
     and ``nu``), the round counter as an int, and the client bank ``{name:
     {field: params-like}}`` (SCAFFOLD's ``"scaffold"`` / ``"c"``, the comm
     plane's ``"uplink"`` / ``"downlink"`` entries) unstacked along the layer
-    axis after the bank axis."""
+    axis after the bank axis; a field that is one array (the buffered
+    server's ``"fleet"`` counters, ``[N+1]``) stays one tensor."""
     clients = None
     if np_state.clients is not None:
         clients = {name: {field: params_from_jax(tree, cfg, device, axis=1)
+                          if isinstance(tree, dict) else np_to_tensor(tree).to(device)
                           for field, tree in entry.items()}
                    for name, entry in np_state.clients.items()}
     return ServerState(
@@ -101,7 +103,8 @@ def server_state_to_jax(state: ServerState) -> ServerState:
     trees on layer axis 1, and the round counter a 0-d int32 array."""
     clients = None
     if state.clients is not None:
-        clients = {name: {field: params_to_jax(tree, axis=1) for field, tree in entry.items()}
+        clients = {name: {field: params_to_jax(tree, axis=1) if isinstance(tree, dict)
+                          else tensor_to_np(tree) for field, tree in entry.items()}
                    for name, entry in state.clients.items()}
     return ServerState(params=params_to_jax(state.params),
                        opt={k: params_to_jax(v) for k, v in state.opt.items()},

@@ -298,7 +298,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "kernels/flash_attention/ops.py", "kernels/ssd/ops.py", "launch/serve.py",
                  "models/mamba2.py", "configs/registry.py", "utils/checkpoint.py",
                  "fed/cohort/prefetch.py", "configs/llava_next_mistral_7b.py",
-                 "data/tasks.py", "launch/train.py"):
+                 "data/tasks.py", "launch/train.py", "fed/fleet/clock.py",
+                 "fed/robust/aggregators.py"):
         assert PORT_SRC / part in files, part
     for f in files:
         assert not bad.search(f.read_text()), f
