@@ -60,7 +60,9 @@
    buffered FedBuff server, each 4 rounds padded and bucketed; a sign flip
    under each robust aggregator, 2 rounds each; a rejected round; the
    buffered server with the attack, quarantine, the trimmed mean and qsgd
-   both ways, 2 ticks padded and bucketed; the trimmed mean sequential),
+   both ways, 2 ticks padded, on the kernels' plain versions and bucketed,
+   each held bitwise; a round of it in which quarantine removes a spike,
+   held to fp64; the trimmed mean sequential),
    ``rr_perm`` once a padded round or a bucket, the quantize kernels 24
    launches each a tick; then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
    seed 0) through ``launch/serve.py:generate``: batch 4, 2,048-token
@@ -2607,6 +2609,16 @@ REJECT = dict(attack="sign_flip", attack_frac=0.25, attack_scale=1e6, aggregator
 COMPOSED = {**FLEET_BUFFERED, **ROBUST, "aggregator": "trimmed_mean", "guard": "quarantine",
             **COMM}
 COMPOSED_ROUNDS = 2
+# (e) with a spike that quarantine removes: the sign flip at 64x (eight
+# times SPIKE_MULT, so an adversary whose own update is an eighth of the
+# median's still trips it), one round on tick 2 of the buffered schedule,
+# whose 4 arrivals hold one adversary and are stale by [2, 2, 0, 1] ticks
+# (quarantine_path checks both on the host plan)
+QUARANTINE = {**COMPOSED, "attack_scale": 64.0}
+QUARANTINE_TICK = 2
+# the coefficients against the port's on the CPU and against the fp64
+# renormalization: each within this share of the largest (a few fp32 ulps)
+QUARANTINE_COEFF_RTOL = 1e-6
 
 
 def e2e_host_plans(rounds: int, **kw):
@@ -2681,7 +2693,7 @@ def check_fleet_rows(label: str, rows, plans) -> None:
 def sync_fleet_path(dev) -> dict:
     """(a): the tiered fleet with dropout, stragglers and the deadline, 4
     rounds vmapped padded and bucketed (the abort caps folded into the
-    bucket edges), held bitwise by ``held_to_twin``; every round's
+    bucket edges), held bitwise by ``held_bitwise``; every round's
     ``round_virtual_time`` and dropped and arrived counts equal to its host
     plan's."""
     import torch
@@ -2709,7 +2721,7 @@ def sync_fleet_path(dev) -> dict:
             twin = {k: v.cpu() for k, v in res.state.params.items()}
             held = "twin"
         else:
-            held = held_to_twin("sync fleet", res.state.params, twin)
+            held = held_bitwise("sync fleet, bucketed", res.state.params, twin)
         del res
         out[label] = {"round_ms": wall, "peak_bytes": peak, "rr_perm": n, "held": held,
                       "virtual_time_arrived_dropped": vt}
@@ -2719,6 +2731,23 @@ def sync_fleet_path(dev) -> dict:
     torch.cuda.empty_cache()
     out["padded"]["trace"] = traced_round(dev, "sync fleet, padded", {**FLEET_SYNC, **VMAPPED})
     return out
+
+
+def held_bitwise(label: str, got: dict, want: dict) -> str:
+    """Path 13's bucketed (or plain-kernel) runs against their padded twins:
+    every leaf bitwise equal, or raise naming the leaves that differ and
+    their largest difference.  ``want`` on the host or on the card."""
+    import torch
+
+    differ = {}
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        if not torch.equal(g, w):
+            differ[k] = float((g.double() - w.double()).abs().max())
+    if differ:
+        raise AssertionError(f"{label}: not bitwise equal to its padded twin in "
+                             f"{len(differ)} leaves, largest differences {differ}")
+    return "bitwise"
 
 
 def traced_round(dev, label: str, kw: dict) -> tuple[int, float]:
@@ -2769,7 +2798,7 @@ def buffered_path(dev) -> dict:
         if twin is None:
             twin, held = {k: v.cpu() for k, v in got.items()}, "twin"
         else:
-            held = held_to_twin("buffered", got, twin)
+            held = held_bitwise("buffered, bucketed", got, twin)
         del res, got
         out[label] = {"tick_ms": wall, "peak_bytes": peak, "rr_perm": n, "held": held}
         print(f"buffered path, {label}: {ROUNDS} ticks of {pipe.fl.buffer_size} arrivals "
@@ -3014,15 +3043,44 @@ def composed_path(dev, rows: dict) -> dict:
     """(e): ``COMPOSED``, 2 ticks vmapped padded and bucketed, held
     bitwise over params, the fleet counters and the downlink references
     (the padded twin's bank held on the card, its bytes left out of the
-    bucketed run's peak); the quantize kernels' launches (12 wire leaves a
-    direction, one launch of each kernel a leaf and a direction a tick)."""
+    later runs' peaks); the quantize kernels' launches (12 wire leaves a
+    direction, one launch of each kernel a leaf and a direction a tick).
+    Between the two, the padded run again on the kernels' plain versions
+    (``rr_backend="device_ref"``, ``uplink_backend="ref"``), held bitwise:
+    it holds rr_perm over the [12, K, 4] slots of a tick and both quantize
+    kernels over the [12, ...] wire stacks of attacked deltas, shapes no
+    earlier path gives them."""
     import torch
 
     from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+    from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
 
     out, twin, twin_bytes = {}, None, 0
     want_q = 2 * len(e2e_wire_leaves()) * COMPOSED_ROUNDS
-    for label, kw in (("padded", {}), ("bucketed", BUCKETED)):
+
+    def state_of(res) -> dict:
+        return {**{f"params/{k}": v for k, v in res.state.params.items()},
+                **{f"fleet/{k}": v for k, v in res.state.clients["fleet"].items()},
+                **{f"ref/{k}": v for k, v in res.state.clients["downlink"]["ref"].items()}}
+
+    for label, kw in (("padded", {}), ("plain kernels", None), ("bucketed", BUCKETED)):
+        if kw is None:
+            torch.cuda.empty_cache()
+            kernels = (rr_indices_kernel, quantize_pack_kernel, unpack_dequantize_kernel)
+            zero_counts(*kernels)
+            res = run_main_path(dev, "device_ref", COMPOSED_ROUNDS, uplink_backend="ref",
+                                **COMPOSED, **VMAPPED)
+            n = [k.launches for k in kernels]
+            if n != [0, 0, 0]:
+                raise AssertionError(f"composed, plain kernels: kernel launches {n}, want none")
+            got = state_of(res)
+            del res
+            out[label] = held_bitwise("composed, plain kernels", got, twin)
+            del got
+            print("composed path, padded with rr_backend='device_ref', uplink_backend='ref': "
+                  "params, fleet bank and downlink refs bitwise equal to the kernels' run",
+                  flush=True)
+            continue
         _, plans = e2e_host_plans(COMPOSED_ROUNDS, **COMPOSED, **VMAPPED, **kw)
         zero_counts(quantize_pack_kernel, unpack_dequantize_kernel)
         res, wall, peak, n = fleet_round(dev, f"composed path, {label}", COMPOSED_ROUNDS,
@@ -3030,9 +3088,7 @@ def composed_path(dev, rows: dict) -> dict:
         q = (quantize_pack_kernel.launches, unpack_dequantize_kernel.launches)
         if q != (want_q, want_q):
             raise AssertionError(f"composed {label}: quantize launches {q}, want {want_q} each")
-        got = {**{f"params/{k}": v for k, v in res.state.params.items()},
-               **{f"fleet/{k}": v for k, v in res.state.clients["fleet"].items()},
-               **{f"ref/{k}": v for k, v in res.state.clients["downlink"]["ref"].items()}}
+        got = state_of(res)
         rrows = res.metrics.rows
         del res
         if twin is None:
@@ -3040,8 +3096,7 @@ def composed_path(dev, rows: dict) -> dict:
             twin_bytes = sum(v.numel() * v.element_size() for v in got.values())
         else:
             peak -= twin_bytes
-            held = "bitwise" if all(torch.equal(got[k], v) for k, v in twin.items()) else \
-                held_to_twin("composed", got, {k: v.cpu() for k, v in twin.items()})
+            held = held_bitwise(f"composed, {label}", got, twin)
         del got
         out[label] = {"tick_ms": wall, "peak_bytes": peak, "rr_perm": n, "quantize": q[0],
                       "unpack": q[1], "held": held,
@@ -3055,6 +3110,128 @@ def composed_path(dev, rows: dict) -> dict:
     del twin
     torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def captured_quarantine():
+    """Swap ``fed/rounds.py``'s ``quarantine_masks`` and
+    ``renormalize_coeffs`` for wrappers that keep what they see (the raw
+    decoded [C] stack, the healthy mask, the coefficients before and after),
+    and put the originals back after."""
+    from repro_torch.fed import rounds
+
+    inner_q, inner_r = rounds.quarantine_masks, rounds.renormalize_coeffs
+    seen: dict = {}
+
+    def masks(deltas, meta):
+        healthy, suspected = inner_q(deltas, meta)
+        seen.update(raw=dict(deltas), healthy=healthy, suspected=suspected)
+        return healthy, suspected
+
+    def renorm(coeff, healthy):
+        out = inner_r(coeff, healthy)
+        seen.update(coeff0=coeff, coeff=out)
+        return out
+
+    rounds.quarantine_masks, rounds.renormalize_coeffs = masks, renorm
+    try:
+        yield seen
+    finally:
+        rounds.quarantine_masks, rounds.renormalize_coeffs = inner_q, inner_r
+
+
+def quarantine_path(dev) -> dict:
+    """(e) with a planted spike (``QUARANTINE``): one round on tick
+    ``QUARANTINE_TICK`` through a round step built by hand, in which
+    quarantine removes the adversary (``quarantined_clients`` > 0).  Held,
+    from the raw decoded stack the round hands the guard: the healthy mask
+    against fp64 norms over the valid, finite slots' lower median; the
+    staleness-discounted coefficients against the port's on the CPU from the
+    host plan (and unlike the undiscounted ones); the renormalized ones
+    against the fp64 renormalization, their total mass kept; the scrubbed
+    stack bitwise (the healthy slots' raw rows, zeros elsewhere); the
+    trimmed mean over it within ``ROBUST_FP64_RTOL`` of fp64."""
+    import torch
+
+    from repro_torch.fed.robust.attacks import adversary_mask
+    from repro_torch.fed.robust.guards import SPIKE_MULT
+    from repro_torch.fed.rounds import as_device_meta
+    from repro_torch.fed.strategy import bind_strategy
+
+    _, plans = e2e_host_plans(QUARANTINE_TICK + 1, **QUARANTINE, **VMAPPED)
+    meta = plans[-1].meta
+    with captured_aggregator(QUARANTINE["aggregator"]) as agg:     # bound at bind time
+        step, state, eng, _, _, fl = round_setup(dev, warm_up=False, **QUARANTINE, **VMAPPED)
+    valid = torch.as_tensor(meta.valid, dtype=torch.float64)
+    adv = adversary_mask(fl.seed, torch.as_tensor(meta.client_id), fl.attack_frac).double() * valid
+    stale = meta.staleness * meta.valid
+    if not 0 < float(adv.sum()) < float(valid.sum()) / 2 or not (stale > 0).any():
+        raise AssertionError(f"quarantine: tick {QUARANTINE_TICK} has adversaries {adv.tolist()} "
+                             f"and staleness {stale.tolist()}; want a minority and some > 0")
+    cpu = bind_strategy(None, fl, None, num_clients=fl.num_clients)
+    host_c = cpu.agg_coeffs(as_device_meta(meta, "cpu")).double()
+    flat_c = cpu.agg_coeffs(as_device_meta(meta._replace(staleness=np.zeros_like(meta.staleness)),
+                                           "cpu")).double()
+    torch.cuda.reset_peak_memory_stats()
+    with captured_quarantine() as seen:
+        t0 = time.perf_counter()
+        state, mets = step(state, eng.device_plan(QUARANTINE_TICK))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if not all(torch.isfinite(v).all() for v in state.params.values()):
+        raise AssertionError("quarantine: non-finite params")
+    del state, step, eng
+    raw, h = seen["raw"], seen["healthy"].double()
+    norm = torch.sqrt(sum(x.double().square().flatten(1).sum(1) for x in raw.values()))
+    fin = torch.stack([torch.isfinite(x).flatten(1).all(1) for x in raw.values()]).all(0)
+    norms = torch.sort(norm[(valid.to(norm.device) > 0) & fin]).values
+    med = norms[(norms.numel() - 1) // 2]
+    healthy = (fin & ~(norm > SPIKE_MULT * med)).double()
+    quarantined = float((valid.to(norm.device) * (1.0 - healthy)).sum())
+    if not torch.equal(h, healthy) or quarantined < 1 \
+            or float(mets["quarantined_clients"]) != quarantined:
+        raise AssertionError(f"quarantine: healthy {h.tolist()}, fp64 {healthy.tolist()}; "
+                             f"quarantined {float(mets['quarantined_clients'])}, fp64 {quarantined}")
+    c0, c = seen["coeff0"].double(), seen["coeff"].double()
+    err0 = float((c0.cpu() - host_c).abs().max() / host_c.abs().max())
+    c64 = c0 * healthy * (c0.sum() / (c0 * healthy).sum())
+    err = float((c - c64).abs().max() / c64.abs().max())
+    mass = abs(float(c.sum() / c0.sum()) - 1.0)
+    if max(err0, err, mass) > QUARANTINE_COEFF_RTOL or torch.equal(host_c, flat_c) \
+            or not torch.equal(agg["coeff"], seen["coeff"]):
+        raise AssertionError(f"quarantine: coefficients {err0:.3e} off the CPU's, {err:.3e} off "
+                             f"fp64, mass off by {mass:.3e} (bound {QUARANTINE_COEFF_RTOL})")
+    keep = healthy > 0
+    for k, x in raw.items():
+        want = torch.where(keep.reshape((-1,) + (1,) * (x.dim() - 1)), x, torch.zeros_like(x))
+        if not torch.equal(agg["deltas"][k], want):
+            raise AssertionError(f"quarantine: scrubbed {k} is not the healthy slots' raw rows")
+    ref = robust_fp64(fl.aggregator, agg["deltas"], agg["coeff"], fl.trim_frac)
+    worst = max(float((agg["out"][k].double() - r).abs().max() / r.abs().max().clamp_min(1e-30))
+                for k, r in ref.items())
+    if worst > ROBUST_FP64_RTOL:
+        raise AssertionError(f"quarantine: {fl.aggregator} {worst:.3e} of a leaf's max off fp64 "
+                             f"(bound {ROBUST_FP64_RTOL})")
+    v = valid > 0
+    discount = (host_c[v] / flat_c[v]).tolist()
+    ratio = (norm / med).cpu()[v].tolist()
+    seen.clear()
+    agg.clear()
+    del raw, ref
+    torch.cuda.empty_cache()
+    print(f"quarantine path (tick {QUARANTINE_TICK}, sign flip x{fl.attack_scale:g}): "
+          f"quarantined_clients {quarantined:g}, suspected {float(mets['suspected_adversaries']):g}"
+          f"; norm / median a valid slot {[round(r, 3) for r in ratio]}; healthy mask equal to "
+          f"fp64's; staleness discounts {[round(d, 6) for d in discount]}; coefficients within "
+          f"{err0:.3e} of the CPU's, renormalized within {err:.3e} of fp64, mass kept within "
+          f"{mass:.3e} (bound {QUARANTINE_COEFF_RTOL}); scrubbed stack bitwise; {fl.aggregator} "
+          f"within {worst:.3e} of fp64 (bound {ROBUST_FP64_RTOL}); round wall {wall:.1f} ms, "
+          f"peak {peak / 2**30:.3f} GiB (with the raw and scrubbed stacks held)", flush=True)
+    return {"round_ms": wall, "peak_bytes": peak, "quarantined_clients": quarantined,
+            "suspected": float(mets["suspected_adversaries"]), "norm_ratio": ratio,
+            "discount": discount, "coeff_vs_cpu": err0, "coeff_vs_fp64": err, "mass": mass,
+            "aggregate_vs_fp64": worst}
 
 
 def sequential_robust_path(dev, kept: dict) -> dict:
@@ -3086,6 +3263,7 @@ def fleet_robust_paths(dev, rows: dict) -> dict:
     out["robust"], kept = robust_paths(dev)
     out["reject"] = reject_path(dev)
     out["composed"] = composed_path(dev, rows)
+    out["quarantine"] = quarantine_path(dev)
     out["sequential"] = sequential_robust_path(dev, kept)
     launches = {}
     for part in ("sync_fleet", "buffered", "composed"):
