@@ -31,7 +31,7 @@
    beside unmasked SDPA; ``rr_perm``'s latency bound (the launch floor plus
    the cipher's serial chain, counted from its SASS) beside its operations
    bound;
-3. drives thirteen main paths through the user entry point, each with every
+3. drives fourteen main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
@@ -62,7 +62,12 @@
    buffered server with the attack, quarantine, the trimmed mean and qsgd
    both ways, 2 ticks padded, on the kernels' plain versions and bucketed,
    each held bitwise; a round of it in which quarantine removes a spike,
-   held to fp64; the trimmed mean sequential),
+   held to fp64; the trimmed mean sequential), then the privacy and obs
+   planes (main path 14, ``privacy_obs_paths``: every plane off, 4 rounds;
+   DP at a clip between round 0's update norms, 4 rounds padded and
+   bucketed and 2 + 2 through a DP server-state file; DP with secure
+   aggregation, qsgd both ways and dropout, 2 rounds padded and bucketed;
+   DP under ``telemetry="full"`` through ``train(telemetry_dir=)``),
    ``rr_perm`` once a padded round or a bucket, the quantize kernels 24
    launches each a tick; then serving full-width Hymba-1.5B (32 x 1600, bf16, random weights from
    seed 0) through ``launch/serve.py:generate``: batch 4, 2,048-token
@@ -114,7 +119,18 @@
    stack, trimmed mean and the clips within ``ROBUST_FP64_RTOL`` of fp64,
    ``scaled_noise`` bitwise card vs CPU, the rejected round's params, c and
    bank bitwise its input's, and the sequential trimmed mean within
-   ``VMAPPED_SEQ_RTOL`` of the vmapped run;
+   ``VMAPPED_SEQ_RTOL`` of the vmapped run; for main path 14, bitwise: the
+   planes-off run to the dense vmapped run, each bucketed, resumed or
+   telemetry run to its padded twin (``dp_epsilon`` too), round 0's masked
+   sum to ``secagg_reference``; each round's ``dp_clipped_frac`` and
+   ``dp_sigma`` equal to a host recount and formula; a resume under another
+   ``dp_noise_mult`` refused; one leaf's noise against the plain function
+   on the CPU (uniforms bitwise, normals within ``NOISE_NORMAL_ATOL``);
+   every dispatched client's payload unlike its encoding; the aggregate
+   within the fixed-point grid of ``weighted_sum``; each round's
+   ``hist_steps`` summing to its valid count, ``hist_dp_scale`` in the
+   summary, every ``round/*`` span and the producer's
+   ``prefetch/plan_build`` in ``trace.json``;
    for serving, finite logits, each layer's flash and SSD launch against
    its plain version on the path's own inputs (flash within one bf16 step),
    the bf16 run no further from the plain versions in fp32 than 1.5x the
@@ -154,6 +170,7 @@ import argparse
 import contextlib
 import ctypes
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3277,6 +3294,496 @@ def fleet_robust_paths(dev, rows: dict) -> dict:
     return out
 
 
+# main path 14, the privacy plane and the obs plane.  (a) DP: the clip is
+# the median of round 0's update norms (the planes-off run captures them),
+# so some updates are clipped and some are not; the noise multiplier keeps
+# the noise a small fraction of the clipped update a coordinate
+DP_ON = dict(dp="on", dp_noise_mult=0.01, dp_delta=1e-5)
+# (b) secure aggregation over (a)'s mechanism, qsgd both ways and a fleet
+# whose dropout drops 1 client in round 0 and 2 in round 1 (the host plans)
+SECAGG = dict(secagg="pairwise", secagg_bits=20, faults="dropout", drop_prob=0.125, **COMM)
+SECAGG_ROUNDS = 2
+# (c) (a) with every span and histogram
+TELEMETRY = dict(telemetry="full")
+# every plane off, its inactive knobs away from their defaults
+PLANES_OFF = dict(dp_clip=123.0, dp_noise_mult=9.0, dp_delta=0.42, secagg_bits=24,
+                  telemetry_bins=5)
+# the noise's normals on the card against the plain function on the CPU:
+# the uniforms are integers (bitwise), but fp32 log, cos and sqrt may each
+# differ by a few ulps between the two, and |z| <= 6.7 for u in (0, 1)
+NOISE_NORMAL_ATOL = 1e-5
+# the leaf whose noise is recomputed: layer 11 of JAX's stacked MLP leaf, so
+# its counters start 11 layers into the leaf
+NOISE_LEAF = "blocks/11/mlp/down"
+ROUND_SPANS = ("round/plan_wait", "round/step_dispatch", "round/metrics_fetch", "round/eval",
+               "round/log", "round/checkpoint")
+
+
+@contextlib.contextmanager
+def captured_privacy():
+    """Swap ``fed/rounds.py``'s ``dp_clip_cohort``, ``add_dp_noise`` and
+    ``secagg_combine`` for wrappers that keep what they see, and put the
+    originals back after: each round's slot norms (``obs.hist.slot_sqnorms``
+    of the stack the clip gets) and clipped indicators, round 0's noise
+    (the input and output of its last leaf, the sigma), round 0's secure
+    aggregation (its inputs and output, on the card)."""
+    import torch
+
+    import repro_torch.fed.rounds as rounds
+    from repro_torch.obs.hist import slot_sqnorms
+
+    seen: dict = {"norms": [], "clipped": [], "noise": None, "secagg": None}
+    clip0, noise0, sa0 = rounds.dp_clip_cohort, rounds.add_dp_noise, rounds.secagg_combine
+
+    def clip(deltas, fl):
+        # kept on the card: a copy to the host here would wait for the round
+        out = clip0(deltas, fl)
+        seen["norms"].append(torch.sqrt(slot_sqnorms(deltas)))
+        seen["clipped"].append(out[1])
+        return out
+
+    def noise(delta_agg, coeff, valid, fl, rnd):
+        out, sigma = noise0(delta_agg, coeff, valid, fl, rnd)
+        if seen["noise"] is None:
+            name = NOISE_LEAF if NOISE_LEAF in delta_agg else list(delta_agg)[-1]
+            seen["noise"] = {"name": name, "in": delta_agg[name].clone(), "out": out[name].clone(),
+                             "sigma": sigma, "rnd": int(rnd),
+                             "shapes": {k: v.shape for k, v in delta_agg.items()}}
+        return out, sigma
+
+    def secagg(deltas, coeff, valid, dropped, client_id, rnd, fl, **kw):
+        out = sa0(deltas, coeff, valid, dropped, client_id, rnd, fl, **kw)
+        if seen["secagg"] is None:
+            seen["secagg"] = {"deltas": deltas, "coeff": coeff, "valid": valid,
+                              "dropped": dropped, "ids": client_id, "rnd": int(rnd), "fl": fl,
+                              "out": out}
+        return out
+
+    rounds.dp_clip_cohort, rounds.add_dp_noise, rounds.secagg_combine = clip, noise, secagg
+    try:
+        yield seen
+    finally:
+        rounds.dp_clip_cohort, rounds.add_dp_noise, rounds.secagg_combine = clip0, noise0, sa0
+
+
+@contextlib.contextmanager
+def captured_norms():
+    """Swap the strategy module's ``weighted_sum`` (the plane-off
+    aggregate) for a wrapper that keeps round 0's slot norms, computed from
+    the stack it gets; the aggregate is untouched."""
+    import torch
+
+    import repro_torch.fed.strategy as strategy
+    from repro_torch.obs.hist import slot_sqnorms
+
+    seen: list = []
+    inner = strategy.weighted_sum
+
+    def wrapper(deltas, coeff):
+        if not seen:
+            seen.append(torch.sqrt(slot_sqnorms(deltas)))
+        return inner(deltas, coeff)
+
+    strategy.weighted_sum = wrapper
+    try:
+        yield seen
+    finally:
+        strategy.weighted_sum = inner
+
+
+@contextlib.contextmanager
+def captured_hist_merges():
+    """Record each ``Histogram.merge_counts`` of the registry (one a round
+    and histogram in ``train()``): ``[(name, counts)]``."""
+    from repro_torch.obs.metrics import Histogram
+
+    seen: list = []
+    inner = Histogram.merge_counts
+
+    def wrapper(self, counts):
+        seen.append((self.name, np.asarray(counts, np.float64).copy()))
+        return inner(self, counts)
+
+    Histogram.merge_counts = wrapper
+    try:
+        yield seen
+    finally:
+        Histogram.merge_counts = inner
+
+
+def host_dp_rows(fl, plans, seen) -> list[tuple[float, float]]:
+    """Each round's (``dp_clipped_frac``, ``dp_sigma``) recomputed on the
+    host in fp32: the clipped indicator counted from the captured slot norms
+    against ``fl.dp_clip`` (and held to the round's own), sigma by the
+    formula ``dp_noise_mult * dp_clip * max(valid * |coeff|)`` over the
+    coefficients of the port's strategy on the CPU from the host plan."""
+    from repro_torch.fed.rounds import as_device_meta
+    from repro_torch.fed.strategy import bind_strategy
+
+    f32 = np.float32
+    cpu = bind_strategy(None, fl, None, num_clients=fl.num_clients)
+    out = []
+    for plan, norms, clipped in zip(plans, seen["norms"], seen["clipped"]):
+        valid = plan.meta.valid.astype(f32)
+        norms, clipped = norms.cpu(), clipped.cpu()
+        recount = (norms.numpy() > f32(fl.dp_clip)).astype(f32)
+        if not np.array_equal(recount, clipped.numpy()):
+            raise AssertionError(f"dp: clipped {clipped.tolist()} vs the host recount "
+                                 f"{recount.tolist()} from norms {norms.tolist()}")
+        coeff = cpu.agg_coeffs(as_device_meta(plan.meta, "cpu")).numpy()
+        sigma = f32(fl.dp_noise_mult) * (f32(fl.dp_clip) * np.max(valid * np.abs(coeff)))
+        out.append((float((recount * valid).sum() / max(valid.sum(), f32(1.0))), float(sigma)))
+    return out
+
+
+def check_noise_leaf(dev, fl, noise: dict) -> dict:
+    """Round 0's noise on one leaf (a later layer of a stacked leaf: its
+    counters start past the layers before it): the card's round output
+    equal, bitwise, to its input plus sigma times the normals the plain
+    function makes on the card; those normals' uniforms bitwise equal to
+    the plain function's on the CPU, the normals within
+    ``NOISE_NORMAL_ATOL``."""
+    import torch
+
+    from repro_torch.fed.privacy.dp import _std_normal, noise_key, noise_uniforms
+    from repro_torch.kernels.rr_perm.ref import key_combine_torch
+    from repro_torch.utils.pytree import wire_layout
+
+    name, shapes = noise["name"], noise["shapes"]
+    for i, (_, names) in enumerate(wire_layout(shapes)):
+        if name in names:
+            idx, off = i, sum(math.prod(shapes[k]) for k in names[:names.index(name)])
+    leaf = noise["in"]
+    n = leaf.numel()
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        lk = key_combine_torch(noise_key(fl.seed, noise["rnd"], where), idx)
+        out[where.type] = (noise_uniforms(lk, n, off), _std_normal(lk, n, off))
+    (u_card, z_card), (u_cpu, z_cpu) = out[dev.type], out["cpu"]
+    again = (leaf.float() + noise["sigma"] * z_card.reshape(leaf.shape)).to(leaf.dtype)
+    if not torch.equal(again, noise["out"]):
+        raise AssertionError(f"dp noise on {name}: the round's output is not its input plus "
+                             f"sigma times the plain normals")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(u_card, u_cpu)):
+        raise AssertionError(f"dp noise on {name}: uniforms on the card differ from the CPU's")
+    err = float((z_card.cpu() - z_cpu).abs().max())
+    if err > NOISE_NORMAL_ATOL:
+        raise AssertionError(f"dp noise on {name}: normals {err:.3e} off the CPU's (bound "
+                             f"{NOISE_NORMAL_ATOL})")
+    print(f"dp noise, round 0, {name} (JAX leaf {idx}, counters {off} .. {off + n - 1}): the "
+          f"round's output bitwise its input + sigma {float(noise['sigma']):.6e} x the plain "
+          f"normals; uniforms bitwise the CPU's; normals {err:.3e} off the CPU's (bound "
+          f"{NOISE_NORMAL_ATOL})", flush=True)
+    return {"leaf": name, "jax_leaf": idx, "offset": off, "values": n, "normal_err": err}
+
+
+def planes_off_path(dev, vm_params: dict) -> tuple[dict, list[float]]:
+    """(c2): every plane off with its inactive knobs moved (``PLANES_OFF``),
+    4 rounds vmapped padded: params bitwise equal to the dense vmapped run
+    (``vm_params["dense"]``); round 0's slot norms (the stack the aggregate
+    gets) for (a)'s clip."""
+    _, plans = e2e_host_plans(ROUNDS, **VMAPPED)
+    with captured_norms() as norms:
+        res, wall, peak, n = fleet_round(dev, "planes off", ROUNDS, {**PLANES_OFF, **VMAPPED},
+                                         plans)
+    keys = set(res.metrics.rows[0])
+    if any(k.startswith(("dp_", "hist_")) for k in keys):
+        raise AssertionError(f"planes off: keys {sorted(keys)}")
+    held = held_bitwise("planes off vs the dense vmapped run", res.state.params, vm_params["dense"])
+    del res
+    print(f"planes off ({PLANES_OFF}): params {held} to the dense vmapped run; no dp_ or hist_ "
+          f"key; rr_perm {n}; round wall {wall:.1f} ms, peak {peak / 2**30:.3f} GiB", flush=True)
+    return {"round_ms": wall, "peak_bytes": peak, "rr_perm": n, "held": held}, \
+        [float(v) for v in norms[0]]
+
+
+def dp_path(dev, norms0: list[float], tmp: str) -> tuple[dict, dict, dict]:
+    """(a): DP at a clip between round 0's norms, 4 rounds vmapped padded
+    and bucketed (held bitwise), each round's ``dp_clipped_frac`` and
+    ``dp_sigma`` equal to the host's recount and formula; 2 rounds, a DP
+    server-state file, 2 more: params and ``dp_epsilon`` bitwise the
+    straight run's, and a resume under another ``dp_noise_mult`` refused;
+    one leaf's noise against the plain function on the CPU.  -> (its
+    numbers, the DP knobs, the padded params on the host)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from repro_torch.fed.privacy import accountant_for, dp_checkpoint_record
+    from repro_torch.fed.train_loop import SCHEDULES, train
+    from repro_torch.launch.train import charlm_e2e_config
+    from repro_torch.utils.checkpoint import load_metadata, load_server_state, save_server_state
+
+    s = sorted(norms0)
+    dp = {**DP_ON, "dp_clip": float(np.float32(0.5 * (s[len(s) // 2 - 1] + s[len(s) // 2])))}
+    out = {"dp_clip": dp["dp_clip"], "round0_norms": norms0}
+    twin = None
+    for label, kw in (("padded", {}), ("bucketed", BUCKETED)):
+        _, plans = e2e_host_plans(ROUNDS, **dp, **VMAPPED, **kw)
+        with captured_privacy() as seen:
+            res, wall, peak, n = fleet_round(dev, f"dp path, {label}", ROUNDS,
+                                             {**dp, **VMAPPED, **kw}, plans)
+        rows = res.metrics.rows
+        got = [(r["dp_clipped_frac"], r["dp_sigma"]) for r in rows]
+        fl = charlm_e2e_config(**dp, **VMAPPED, **kw)[1]
+        want = host_dp_rows(fl, plans, seen)
+        if got != want:
+            raise AssertionError(f"dp {label}: (dp_clipped_frac, dp_sigma) a round {got}, the "
+                                 f"host's {want}")
+        if not 0 < got[0][0] < 1:
+            raise AssertionError(f"dp {label}: round 0 clipped fraction {got[0][0]}")
+        acct = accountant_for(fl)
+        eps = [r["dp_epsilon"] for r in rows]
+        if eps != [acct.epsilon(r + 1) for r in range(ROUNDS)]:
+            raise AssertionError(f"dp {label}: dp_epsilon {eps}")
+        params = {k: v.cpu() for k, v in res.state.params.items()}
+        if twin is None:
+            twin, held, straight_rows = params, "twin", rows
+            out["noise"] = check_noise_leaf(dev, fl, seen["noise"])
+        else:
+            held = held_bitwise("dp, bucketed", params, twin)
+        del res, seen
+        out[label] = {"round_ms": wall, "peak_bytes": peak, "rr_perm": n, "held": held,
+                      "clipped_frac_sigma": got, "dp_epsilon": eps}
+        print(f"dp path, {label}: clip {dp['dp_clip']:.6e}; (dp_clipped_frac, dp_sigma) a round "
+              f"{got}, equal to the host's recount and formula; dp_epsilon {eps}; rr_perm {n}; "
+              f"round wall {wall:.1f} ms, peak {peak / 2**30:.3f} GiB; vs padded: {held}",
+              flush=True)
+    # 2 rounds, the DP server-state file, 2 more (the first half takes the
+    # staircase of the unbroken 4-round run, as resume_path does)
+    torch.cuda.empty_cache()
+    loss_fn, params, pipe, fl, strat = e2e_parts(dev, prefetch=0, **dp, **VMAPPED)
+    run = dict(strategy=strat, log_every=0, device=dev)
+    half, path = ROUNDS // 2, os.path.join(tmp, "dp_state.npz")
+    staircase, first_half = SCHEDULES["staircase"], f"staircase_over_{ROUNDS}"
+    SCHEDULES[first_half] = lambda r, total: staircase(r, ROUNDS)
+    try:
+        first = train(loss_fn, params, pipe, fl, half, schedule=first_half, **run)
+    finally:
+        del SCHEDULES[first_half]
+    save_server_state(path, first.state, {"round": half - 1}, fl=fl)
+    record = load_metadata(path)["dp_accounting"]
+    if record != dp_checkpoint_record(fl, half):
+        raise AssertionError(f"dp resume: record {record}")
+    del first
+    torch.cuda.empty_cache()
+    try:
+        load_server_state(path, strat.init(params), fl=dataclasses.replace(
+            fl, dp_noise_mult=2 * fl.dp_noise_mult))
+    except ValueError as e:
+        refused = str(e).split(" — ")[0]
+    else:
+        raise AssertionError("dp resume under another dp_noise_mult was not refused")
+    torch.cuda.empty_cache()
+    restored = load_server_state(path, strat.init(params), fl=fl)
+    res = train(loss_fn, params, pipe, fl, ROUNDS, schedule="staircase", state=restored,
+                start_round=half, **run)
+    held = held_bitwise("dp, resumed", {k: v.cpu() for k, v in res.state.params.items()}, twin)
+    eps = [r["dp_epsilon"] for r in res.metrics.rows]
+    if eps != [r["dp_epsilon"] for r in straight_rows[half:]]:
+        raise AssertionError(f"dp resumed: dp_epsilon {eps}, straight "
+                             f"{[r['dp_epsilon'] for r in straight_rows[half:]]}")
+    del res, restored
+    torch.cuda.empty_cache()
+    out["resume"] = {"held": held, "dp_epsilon": eps, "record": record, "refused": refused}
+    print(f"dp resumed ({half} + {ROUNDS - half} rounds through a DP server-state file): params "
+          f"{held} to the straight run; dp_epsilon {eps} bitwise its; the record {record}; a "
+          f"resume at dp_noise_mult x2 refused ({refused})", flush=True)
+    return out, dp, twin
+
+
+def secagg_path(dev, dp: dict, rows: dict) -> dict:
+    """(b): ``SECAGG`` over (a)'s DP, 2 rounds vmapped padded and bucketed,
+    held bitwise over params and downlink refs; the quantize kernels 12
+    launches each a direction and round; on round 0's captured stack (one
+    client dropped), the masked aggregate bitwise ``secagg_reference``,
+    every dispatched client's payload unlike its encoding, and the
+    aggregate within the fixed-point grid of the float ``weighted_sum``."""
+    import torch
+
+    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+
+    kw = {**dp, **SECAGG, **VMAPPED}
+    want_q = 2 * len(e2e_wire_leaves()) * SECAGG_ROUNDS
+    out, twin = {}, None
+    for label, lay in (("padded", {}), ("bucketed", BUCKETED)):
+        _, plans = e2e_host_plans(SECAGG_ROUNDS, **kw, **lay)
+        drops = [int(p.meta.dropped.sum()) for p in plans]
+        if drops[0] < 1:
+            raise AssertionError(f"secagg: no client dropped in round 0 ({drops})")
+        zero_counts(quantize_pack_kernel, unpack_dequantize_kernel)
+        with captured_privacy() as seen:
+            res, wall, peak, n = fleet_round(dev, f"secagg path, {label}", SECAGG_ROUNDS,
+                                             {**kw, **lay}, plans)
+        q = (quantize_pack_kernel.launches, unpack_dequantize_kernel.launches)
+        if q != (want_q, want_q):
+            raise AssertionError(f"secagg {label}: quantize launches {q}, want {want_q} each")
+        got = {**{f"params/{k}": v.cpu() for k, v in res.state.params.items()},
+               **{f"ref/{k}": v.cpu() for k, v in res.state.clients["downlink"]["ref"].items()}}
+        del res
+        if twin is None:
+            twin, held = got, "twin"
+            out["round0"] = check_secagg_round0(seen["secagg"])
+        else:
+            held = held_bitwise(f"secagg, {label}", got, twin)
+        del seen, got
+        torch.cuda.empty_cache()
+        out[label] = {"round_ms": wall, "peak_bytes": peak, "rr_perm": n, "quantize": q[0],
+                      "unpack": q[1], "held": held, "dropped": drops}
+        rows["quantize_pack"].setdefault("privacy_obs_launches", {})[label] = q[0]
+        rows["unpack_dequantize"].setdefault("privacy_obs_launches", {})[label] = q[1]
+        print(f"secagg path, {label}: dropped a round {drops}; quantize_pack {q[0]}, "
+              f"unpack_dequantize {q[1]}, rr_perm {n}; round wall {wall:.1f} ms, peak "
+              f"{peak / 2**30:.3f} GiB; vs padded: {held}", flush=True)
+    return out
+
+
+def check_secagg_round0(sa: dict) -> dict:
+    """Round 0's secure aggregation on the card, from what the round gave
+    it (the decoded, clipped [C] stack, the coefficients, the fleet's
+    dropped slots)."""
+    import torch
+
+    from repro_torch.fed.privacy import secagg_chunks, secagg_reference
+    from repro_torch.fed.strategy import weighted_sum
+
+    t0 = time.perf_counter()
+    fl, deltas, coeff, valid = sa["fl"], sa["deltas"], sa["coeff"], sa["valid"]
+    ref = secagg_reference(deltas, coeff, valid, fl)
+    differ = [k for k in ref if not torch.equal(ref[k], sa["out"][k])]
+    if differ:
+        raise AssertionError(f"secagg round 0: masked aggregate vs secagg_reference differ in "
+                             f"{differ}")
+    del ref
+    C = valid.shape[0]
+    blinded = torch.zeros(C, dtype=torch.bool, device=valid.device)
+    for _, _, enc, pay, _ in secagg_chunks(deltas, coeff, valid, sa["dropped"], sa["ids"],
+                                           sa["rnd"], fl):
+        blinded |= (pay != enc).any(1)
+    dispatched = (valid + sa["dropped"]) > 0
+    if not bool(blinded[dispatched].all()):
+        raise AssertionError(f"secagg round 0: payload equal to its encoding for dispatched "
+                             f"slots {torch.nonzero(dispatched & ~blinded).flatten().tolist()}")
+    # the grid: each valid encoding rounds by at most half a step, the
+    # decode and the fp32 weighted sum round by a few ulps of the terms
+    coeff_v = (valid * coeff).float()
+    plain = weighted_sum(deltas, coeff_v)
+    step, n_valid, worst = 2.0 ** -fl.secagg_bits, float(valid.sum()), 0.0
+    for k, agg in sa["out"].items():
+        terms = torch.einsum("c,c...->...", coeff_v.abs(), deltas[k].float().abs())
+        bound = n_valid * step / 2 + 2.0 ** -20 * terms
+        worst = max(worst, float(((agg.float() - plain[k].float()).abs() / bound).max()))
+    if worst > 1.0:
+        raise AssertionError(f"secagg round 0: the aggregate off the float weighted_sum by "
+                             f"{worst:.3f} of the fixed-point bound")
+    info = {"dispatched": int(dispatched.sum()), "valid": int(n_valid),
+            "dropped": int(sa["dropped"].sum()), "grid_share": worst,
+            "check_s": time.perf_counter() - t0}
+    print(f"secagg round 0 ({info['valid']} valid, {info['dropped']} dropped, recovered): masked "
+          f"aggregate bitwise secagg_reference; all {info['dispatched']} dispatched payloads "
+          f"unlike their encodings; within {worst:.3f} of the fixed-point bound of the float "
+          f"weighted_sum ({info['check_s']:.1f} s)", flush=True)
+    return info
+
+
+def telemetry_path(dev, dp: dict, dp_params: dict, tmp: str) -> dict:
+    """(c): (a)'s padded run with ``telemetry="full"`` through ``train()``
+    at prefetch 2 with eval and a log line each round and a params file
+    every other round, into
+    a ``telemetry_dir``: params bitwise (a)'s; each round's ``hist_steps``
+    summing to its valid count; ``hist_dp_scale`` in the summary; every
+    ``round/*`` span in ``trace.json`` and ``prefetch/plan_build`` on the
+    producer's thread; the spans' median ms printed."""
+    import json
+    import os
+
+    import torch
+
+    from repro_torch.fed.train_loop import train
+    from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
+    from repro_torch.utils.checkpoint import load_metadata
+
+    torch.cuda.empty_cache()
+    loss_fn, params, pipe, fl, strat = e2e_parts(dev, prefetch=2, **dp, **VMAPPED, **TELEMETRY)
+    ev = pipe.task.batch(0, np.arange(4).reshape(1, 4))
+    batch = {k: torch.as_tensor(v[0], device=dev) for k, v in ev.items()}
+    tele, ckpt = os.path.join(tmp, "telemetry"), os.path.join(tmp, "tele_params")
+    zero_counts(rr_indices_kernel)
+    t0 = time.perf_counter()
+    with captured_hist_merges() as merges:
+        res = train(loss_fn, params, pipe, fl, ROUNDS, strategy=strat, schedule="staircase",
+                    eval_fn=torch.no_grad()(lambda p: {"loss": loss_fn(p, batch)[0]}),
+                    eval_every=1, log_every=1, checkpoint_path=ckpt, checkpoint_every=2,
+                    telemetry_dir=tele, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = rr_indices_kernel.launches
+    held = held_bitwise("telemetry full vs off", {k: v.cpu() for k, v in res.state.params.items()},
+                        dp_params)
+    rows = res.metrics.rows
+    del res
+    steps = [c for name, c in merges if name == "hist_steps"]
+    if [float(c.sum()) for c in steps] != [r["cohort"] for r in rows]:
+        raise AssertionError(f"telemetry: hist_steps sums {[c.sum() for c in steps]}, valid "
+                             f"{[r['cohort'] for r in rows]}")
+    summary = json.load(open(os.path.join(tele, "summary.json")))
+    if "hist_dp_scale" not in summary["histograms"] or \
+            summary["histograms"]["hist_dp_scale"]["total"] != sum(r["cohort"] for r in rows):
+        raise AssertionError(f"telemetry: summary histograms {sorted(summary['histograms'])}")
+    jsonl = [json.loads(line) for line in open(os.path.join(tele, "metrics.jsonl"))]
+    if [r["round"] for r in jsonl] != list(range(ROUNDS)):
+        raise AssertionError(f"telemetry: metrics.jsonl rounds {[r['round'] for r in jsonl]}")
+    evs = json.load(open(os.path.join(tele, "trace.json")))["traceEvents"]
+    threads = {e["tid"]: e["args"]["name"] for e in evs if e["name"] == "thread_name"}
+    spans: dict = {}
+    for e in evs:
+        if e["ph"] == "X":
+            spans.setdefault(e["name"], []).append((e["dur"] / 1e3, threads[e["tid"]]))
+    missing = [s for s in ROUND_SPANS + ("prefetch/plan_build",) if s not in spans]
+    if missing:
+        raise AssertionError(f"telemetry: trace.json lacks spans {missing}")
+    producer = {t for _, t in spans["prefetch/plan_build"]}
+    if producer != {"cohort-prefetch"} or len(spans["prefetch/plan_build"]) != ROUNDS:
+        raise AssertionError(f"telemetry: prefetch/plan_build on threads {producer}")
+    if load_metadata(ckpt)["dp_accounting"]["rounds"] != ROUNDS:
+        raise AssertionError("telemetry: the params file's dp_accounting record")
+    medians = {k: float(np.median([d for d, _ in v])) for k, v in sorted(spans.items())}
+    print("telemetry spans, median ms (count): " + ", ".join(
+        f"{k} {medians[k]:.3f} ({len(spans[k])})" for k in medians), flush=True)
+    print(f"telemetry path (full, telemetry_dir): params {held} to the dp path's; hist_steps a "
+          f"round sums to its valid count; hist_dp_scale total "
+          f"{summary['histograms']['hist_dp_scale']['total']}; every round/* span, "
+          f"prefetch/plan_build on the cohort-prefetch thread; rr_perm {n}; {ROUNDS} rounds in "
+          f"{wall:.2f} s with eval and logs each round, a params file every 2", flush=True)
+    return {"held": held, "rr_perm": n, "span_median_ms": medians, "seconds": wall,
+            "files": sorted(os.listdir(tele))}
+
+
+def privacy_obs_paths(dev, vm_params: dict, rows: dict) -> dict:
+    """Main path 14: (c2) every plane off, (a) DP, (b) secure aggregation
+    composed, (c) telemetry; files in a temporary directory.  rr_perm
+    counts go to ``rows["rr_perm"]["privacy_obs_launches"]``, (b)'s quantize
+    counts to the quantize rows'."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    out["planes_off"], norms0 = planes_off_path(dev, vm_params)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["dp"], dp, dp_params = dp_path(dev, norms0, tmp)
+        out["secagg"] = secagg_path(dev, dp, rows)
+        out["telemetry"] = telemetry_path(dev, dp, dp_params, tmp)
+    rows["rr_perm"]["privacy_obs_launches"] = {
+        "planes_off": out["planes_off"]["rr_perm"], "dp/padded": out["dp"]["padded"]["rr_perm"],
+        "dp/bucketed": out["dp"]["bucketed"]["rr_perm"],
+        "secagg/padded": out["secagg"]["padded"]["rr_perm"],
+        "secagg/bucketed": out["secagg"]["bucketed"]["rr_perm"],
+        "telemetry": out["telemetry"]["rr_perm"]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # phase (a)'s prefetch depths, run in this order (ABBA: a drift of the host's
 # speed during the phase falls on both depths alike)
 PREFETCH_TURNS = (2, 0, 0, 2)
@@ -4225,6 +4732,13 @@ def main() -> int:
     fleet_robust = fleet_robust_paths(dev, rows)
     print(json.dumps({"fleet_robust": fleet_robust}), flush=True)
     print(f"fleet and robust paths: {fleet_robust['seconds']:.1f} s", flush=True)
+
+    # main path 14, the privacy plane (DP clip and noise, the RDP accountant,
+    # pairwise secure aggregation) and the obs plane (spans, the metric
+    # registry, in-round histograms)
+    privacy_obs = privacy_obs_paths(dev, vm_params, rows)
+    print(json.dumps({"privacy_obs": privacy_obs}), flush=True)
+    print(f"privacy and obs paths: {privacy_obs['seconds']:.1f} s", flush=True)
 
     # main path 9, the host side of train(): prefetch, resume through a
     # server-state file, the params file served, a resume with both banks

@@ -4,8 +4,9 @@ The same frozen dataclasses as ``repro.configs.base``, cut to the fields
 this port implements: ``ArchConfig`` for the dense, vlm (a patch prefix on
 the dense family), hybrid (attention + Mamba2 SSD, ``SSMConfig``) and audio
 (encoder-decoder) families with ``reduced()``, and
-``FLConfig`` with the comm, fleet and robust planes' knobs but without
-those of the planes that are not ported yet (privacy, obs).  Shared fields keep
+``FLConfig`` with the knobs of every plane: comm, fleet, robust, privacy
+and obs.  It has 70 of the JAX package's 71 fields; the unused
+``aggregation`` is left out.  Shared fields keep
 the JAX package's names and defaults, so one keyword dict builds both
 configs, with one exception: ``uplink_backend`` takes ``"kernel"`` (the
 default: the CUDA kernel for a CUDA tensor, the plain torch version for a
@@ -149,6 +150,13 @@ UplinkBackend = Literal["kernel", "ref"]
 #                tick, late updates discounted by the staleness weighting
 ServerMode = Literal["sync", "buffered"]
 Staleness = Literal["constant", "poly"]
+# Observability plane (repro_torch.obs).  "off" (the default): no new metric
+# keys, bitwise-identical rounds.  "metrics": the round emits fixed-shape
+# distribution summaries (hist_* keys: per-client step counts, update norms,
+# staleness, wire bytes, the DP clip scale) and train() folds them into a
+# metric registry; "trace": only the host spans (no-ops until a tracer is
+# installed, obs.trace.capture or train(telemetry_dir=)); "full": both.
+Telemetry = Literal["off", "metrics", "trace", "full"]
 # Byzantine-robustness plane (repro_torch.fed.robust).  The defaults
 # (attack="none", aggregator="mean", guard="off") keep the plane fully off.
 # Attacks (ATTACKS: sign_flip, zero_update, scaled_noise, ipm) rewrite the
@@ -159,6 +167,18 @@ Staleness = Literal["constant", "poly"]
 # removal with coefficient renormalization), "reject" (revert a blown
 # round's state; the round counter still advances), "full" (both).
 Guard = Literal["off", "quarantine", "reject", "full"]
+# Privacy plane (repro_torch.fed.privacy).  The defaults (dp="off",
+# secagg="off") keep the plane off: no op, no metric key.  dp="on": each
+# shipped client update is L2-clipped to dp_clip, and Gaussian noise with
+# sigma = dp_noise_mult * dp_clip * max_i |coeff_i| is added to the weighted
+# aggregate, drawn counter-based per (seed, round); the host RDP accountant
+# reports the cumulative eps(dp_delta) as "dp_epsilon".  secagg="pairwise":
+# the weighted updates are encoded in uint32 fixed point (secagg_bits
+# fractional bits, after the uplink codec) and blinded with seeded pairwise
+# masks that cancel exactly in the modular sum; dropped clients' shares are
+# recovered.  It needs aggregator="mean" and no quarantine guard.
+DP = Literal["off", "on"]
+Secagg = Literal["off", "pairwise"]
 
 
 @dataclass(frozen=True)
@@ -229,6 +249,10 @@ class FLConfig:
     buffer_size: int = 16          # buffered: aggregate first K arrivals/tick
     staleness: Staleness = "poly"  # buffered staleness discount kind
     staleness_power: float = 0.5   # poly: weight = (1 + tau) ** -staleness_power
+    # observability plane (spans, metric registry, in-round histograms; see
+    # the Telemetry note above and repro_torch.obs): "off" adds nothing
+    telemetry: Telemetry = "off"
+    telemetry_bins: int = 16       # bins per in-round histogram (static shapes)
     # byzantine-robustness plane (adversarial clients, robust aggregation,
     # self-healing guards; see the Guard note above and repro_torch.fed.robust)
     # — the defaults keep the plane bitwise-frozen off
@@ -238,6 +262,14 @@ class FLConfig:
     aggregator: str = "mean"       # server combiner (key into robust.ROBUST_AGGS)
     trim_frac: float = 0.1         # trimmed_mean/krum breakdown parameter (0, 0.5)
     guard: Guard = "off"           # self-healing guards (quarantine/reject/full)
+    # privacy plane (DP clip + noise + RDP accountant, secure-aggregation
+    # simulation; see the DP/Secagg note above and repro_torch.fed.privacy)
+    dp: DP = "off"                 # DP-FedShuffle mechanism (clip + noise + eps)
+    dp_clip: float = 1.0           # per-update L2 clip bound (DP sensitivity C)
+    dp_noise_mult: float = 1.0     # noise multiplier z: sigma = z * sensitivity
+    dp_delta: float = 1e-5         # target delta for the eps(delta) report
+    secagg: Secagg = "off"         # pairwise-mask secure-aggregation simulation
+    secagg_bits: int = 16          # fixed-point fractional bits (1..30)
     # system heterogeneity (Fig. 4): every client is cut short by this many
     # local steps (planned vs actual); the "gen" hybrid algorithm corrects it
     drop_last_steps: int = 0

@@ -38,6 +38,7 @@ import torch
 from ...configs.base import FLConfig
 from ...data.federated import BucketedPlan, FederatedPipeline, IndexPlan, Population
 from ...kernels.rr_perm.ref import rr_indices, stream_key
+from ...obs import trace
 from ...utils.device import resolve_device
 from .plan import as_device_plan
 from .plane import DevicePlane, build_plane
@@ -119,8 +120,14 @@ class CohortEngine:
             return plan._replace(idx=idx)
         return plan  # device backends: the round step regenerates the streams
 
-    def device_plan(self, rnd: int) -> "IndexPlan | BucketedPlan":
-        return as_device_plan(self.index_plan(rnd), self.device)
+    def device_plan(self, rnd: int, device=None) -> "IndexPlan | BucketedPlan":
+        """Round ``rnd``'s plan on ``device`` (the engine's unless given).
+        Two spans: the host's cohort sampling and index assembly, then the
+        copy to the device (no-ops unless an obs tracer is active)."""
+        with trace.span("plan/assemble", round=rnd):
+            plan = self.index_plan(rnd)
+        with trace.span("plan/h2d_commit", round=rnd):
+            return as_device_plan(plan, self.device if device is None else device)
 
     @contextmanager
     def round_plans(self, rounds: int, *, prefetch: int | None = None, start: int = 0):
@@ -134,6 +141,6 @@ class CohortEngine:
         device = self.device
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        with RoundPrefetcher(lambda r: as_device_plan(self.index_plan(r), device), rounds,
-                             depth=depth, start=start) as pf:
+        with RoundPrefetcher(lambda r: self.device_plan(r, device), rounds, depth=depth,
+                             start=start) as pf:
             yield iter(pf)

@@ -23,6 +23,8 @@ import queue
 import threading
 from typing import Any, Callable, Iterator
 
+from ...obs import trace
+
 _DONE = object()
 
 
@@ -58,7 +60,17 @@ class RoundPrefetcher:
     def _produce(self) -> None:
         try:
             for r in range(self._start, self._start + self._rounds):
-                if self._stop.is_set() or not self._put((r, self._make_plan(r))):
+                if self._stop.is_set():
+                    return
+                # spans land on this thread's own trace track: plan builds
+                # overlapping the consumer's rounds, and "backpressure" when
+                # the producer outruns the consumer
+                with trace.span("prefetch/plan_build", round=r):
+                    plan = self._make_plan(r)
+                with trace.span("prefetch/backpressure", round=r):
+                    queued = self._put((r, plan))
+                trace.counter("prefetch/queue_depth", depth=self._q.qsize())
+                if not queued:
                     return
         except BaseException as e:  # noqa: BLE001 — surfaced to the consumer
             self._exc = e

@@ -78,8 +78,24 @@ quarantine, coefficient renormalization, scrub and the bound aggregator
 rejected round keeps its input's params, opt and bank rows; ``rnd``
 advances); its keys are ``quarantined_clients``, ``suspected_adversaries``
 and ``rounds_rejected``.  While the robust plane is on the sequential mode
-stages its deltas, as it does for a codec.  The port's counterpart of
-``repro.fed.rounds`` with the privacy and obs planes off.
+stages its deltas, as it does for a codec.
+
+The privacy plane (``fl.dp`` / ``fl.secagg``; ``repro_torch.fed.privacy``)
+works on the same stack, in the JAX package's order: the DP clip of each
+slot's shipped update right after the local steps (before the attack and
+the codec), the masked modular fixed-point aggregation in place of the
+float weighted sum when the robust plane's combiner does not run (or
+inside it, where validation limits the robust plane to the attack and the
+reject guard), and the round's counter-based Gaussian noise on the
+aggregate in every mode; keys ``dp_clipped_frac`` and ``dp_sigma`` with DP
+on.  Under either knob the sequential mode stages its deltas.  The obs
+plane (``fl.telemetry`` in ``"metrics"`` / ``"full"``;
+``repro_torch.obs.hist``) adds ``hist_*`` keys: fixed-shape [bins] counts
+of the slots' step counts and update norms, and of staleness, wire bytes,
+suspicion ratios and DP clip scales while those planes are on, over the
+static edges ``round_step.telemetry_hist_edges`` carries.  With both planes
+off nothing is added: no op, no key, no copy.  The port's counterpart of
+``repro.fed.rounds``.
 
 The server optimizer's momentum tree (``state.opt["m"]``, zeros when the
 optimizer keeps none) and its whole opt-state dict ride down to every
@@ -99,15 +115,20 @@ import torch
 from ..configs.base import FLConfig
 from ..data.federated import (Bucket, BucketedBatch, BucketedPlan, ClientMeta, IndexPlan,
                               RoundBatch)
+from ..obs import metrics_enabled
+from ..obs.hist import (device_edges, fixed_histogram, round_hist_edges, slot_sqnorms,
+                        tree_sqnorm)
 from ..utils.device import resolve_device
 from ..utils.pytree import tree_map, tree_sq_norm, tree_zeros_like
 from .bucketing import occupied, run_buckets, slot_inputs
 from .comm import (DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, dense_bits, downlink_apply,
-                   downlink_round_keys, round_keys, uplink_apply, wire_bits_total)
+                   downlink_round_keys, mbytes_per_slot, round_keys, uplink_apply,
+                   wire_bits_total)
 from .fleet import FLEET_STATE_KEY, fleet_active, slot_staleness
+from .privacy import add_dp_noise, dp_active, dp_clip_cohort, secagg_active, secagg_combine
 from .robust import (build_attack, guard_quarantines, guard_rejects, params_ok,
                      quarantine_masks, renormalize_coeffs, robust_active, scrub_deltas,
-                     select_state)
+                     select_state, suspicion_ratio)
 from .server import ServerState
 from .strategy import (BoundStrategy, CohortState, FedStrategy, RoundCtx, bind_strategy,
                        weighted_sum)
@@ -192,8 +213,17 @@ def build_round_step(loss_fn: Callable,
     apply_attack = build_attack(fl) if robust_on else None
     g_quar = robust_on and guard_quarantines(fl)
     g_rej = robust_on and guard_rejects(fl)
+    # privacy plane: the DP clip on the stack right after the local steps,
+    # secure aggregation in place of the weighted sum, noise on the aggregate
+    dp_on, sa_on = dp_active(fl), secagg_active(fl)
+    # in-round histograms over static, config-derived edges
+    tele = metrics_enabled(fl.telemetry)
+    hist_edges = round_hist_edges(fl, with_staleness=fleet_on, with_uplink=up_on,
+                                  with_robust=robust_on, with_dp=dp_on,
+                                  with_downlink=dl_on) if tele else {}
+    hist_dev = {k: device_edges(e, device) for k, e in hist_edges.items()}
     # the sequential mode stages the [C] stack for whatever runs on it
-    staged_seq = up_on or robust_on
+    staged_seq = up_on or robust_on or dp_on or sa_on
 
     def add_weighted(acc, delta, coeff_i):
         # THE accumulation rule: slot order, fp32 product, accumulator dtype
@@ -213,12 +243,20 @@ def build_round_step(loss_fn: Callable,
             new_cs = {**new_cs, UPLINK_STATE_KEY: ef2}
         return dhat, new_cs
 
-    def robust_combine(deltas, meta):
+    def secagg_agg(deltas, coeff, meta, rnd):
+        # masked modular fixed-point aggregation: the pairwise masks cancel
+        # exactly, dropped clients' shares are recovered
+        return secagg_combine(deltas, coeff, meta.valid, meta.dropped, meta.client_id, rnd, fl)
+
+    def robust_combine(deltas, meta, rnd, obs):
         """The decoded slot-order stack under the robust plane: quarantine
-        -> coefficient renormalization -> scrub -> the bound aggregator."""
+        -> coefficient renormalization -> scrub -> the bound aggregator (or,
+        under secagg, the masked sum)."""
         coeff = strat.agg_coeffs(meta)                                 # [C]
         zero = meta.valid.new_zeros(())
         info = {"quarantined_clients": zero, "suspected_adversaries": zero}
+        if "hist_suspicion" in hist_edges:
+            obs["suspicion"] = suspicion_ratio(deltas, meta)
         if g_quar:
             healthy, suspected = quarantine_masks(deltas, meta)
             info["quarantined_clients"] = (meta.valid * (1.0 - healthy)).sum()
@@ -227,24 +265,38 @@ def build_round_step(loss_fn: Callable,
             # zero the quarantined slots' values too: a zeroed coefficient
             # alone would leak NaN/Inf through sorted estimators (0 * nan)
             deltas = scrub_deltas(deltas, healthy)
+        obs["robust"] = info
+        if sa_on:
+            # validation pins aggregator="mean" and forbids quarantine here:
+            # the server only ever sees the blinded sum
+            return secagg_agg(deltas, coeff, meta, rnd)
         combine = strat.robust_aggregate
         if combine is None:           # hand-built strategy: canonical mean
-            return weighted_sum(deltas, coeff), info
-        return combine(deltas, coeff, meta), info
+            return weighted_sum(deltas, coeff)
+        return combine(deltas, coeff, meta)
 
-    def after_local(deltas, new_cs, meta, rnd):
-        """The [C] stack from the local steps to the aggregate: the attack,
-        the uplink codec, then the robust combiner (robust plane on; else
-        None, and the caller aggregates)."""
+    def after_local(deltas, new_cs, meta, rnd, obs):
+        """The [C] stack from the local steps to the aggregate: the DP clip,
+        the attack, the uplink codec, then the robust combiner or the secure
+        aggregation (else None, and the caller aggregates).  ``obs`` takes
+        what the metrics read."""
+        if dp_on:
+            # the client-side clip of the shipped update, before the attack:
+            # adversaries are not assumed to honor it
+            deltas, obs["dp_clipped"], obs["dp_scale"] = dp_clip_cohort(deltas, fl)
         if apply_attack is not None:
             deltas = apply_attack(deltas, meta, rnd)
         if up_on:
             deltas, new_cs = uplink(deltas, new_cs, meta, rnd)
+        if tele:
+            obs["slot_sq"] = slot_sqnorms(deltas)
         if robust_on:
-            return deltas, new_cs, robust_combine(deltas, meta)
+            return deltas, new_cs, robust_combine(deltas, meta, rnd, obs)
+        if sa_on:
+            return deltas, new_cs, secagg_agg(deltas, strat.agg_coeffs(meta), meta, rnd)
         return deltas, new_cs, None
 
-    def run_sequential(state, batch, starts, eta, momentum, new_cs):
+    def run_sequential(state, batch, starts, eta, momentum, new_cs, obs):
         """The slots one after another, accumulated in slot order."""
         meta = batch.meta
         C = meta.valid.shape[0]
@@ -257,7 +309,7 @@ def build_round_step(loss_fn: Callable,
         # bucket holds) the row it read, which the masked commit keeps
         cs_in = {k: new_cs[k] for k in chain_keys}
         cs_out = tree_map(torch.clone, cs_in)
-        losses = []
+        losses, sq = [], []
         for c, inputs in enumerate(slot_inputs(batch)):
             if inputs is None:
                 # a slot no bucket holds: the zero delta and loss of a fully
@@ -266,6 +318,7 @@ def build_round_step(loss_fn: Callable,
                     for v in staged.values():
                         v[c].zero_()
                 losses.append(meta.valid.new_zeros(()))
+                sq.append(meta.valid.new_zeros(()))
                 continue
             data, mask = inputs
             p_c = {k: v[c] for k, v in starts.items()} if dl_on else state.params
@@ -277,22 +330,26 @@ def build_round_step(loss_fn: Callable,
                     staged[k][c] = v
             else:
                 acc = add_weighted(acc, delta, coeff[c])
+                if tele:
+                    sq.append(tree_sqnorm(delta))
             losses.append(loss)
         new_cs = {**new_cs, **cs_out}
         losses = torch.stack(losses)
         if staged_seq:
-            dhat, new_cs, combined = after_local(staged, new_cs, meta, state.rnd)
+            dhat, new_cs, combined = after_local(staged, new_cs, meta, state.rnd, obs)
             del staged
             if combined is not None:
-                return combined[0], losses, new_cs, combined[1]
+                return combined, losses, new_cs
             # the decoded deltas accumulated in slot order by the same rule
             for c in range(C):
                 acc = add_weighted(acc, {k: v[c] for k, v in dhat.items()}, coeff[c])
             del dhat
+        elif tele:
+            obs["slot_sq"] = torch.stack(sq)
         delta_agg = {k: a.to(state.params[k].dtype) for k, a in acc.items()}
-        return delta_agg, losses, new_cs, None
+        return delta_agg, losses, new_cs
 
-    def run_vmapped(state, batch, starts, eta, momentum, new_cs):
+    def run_vmapped(state, batch, starts, eta, momentum, new_cs, obs):
         """The slots' local steps batched over the cohort (a bucket at a time
         in the bucketed layout), then the strategy's aggregate of the
         (decoded) slot-order stack."""
@@ -314,10 +371,10 @@ def build_round_step(loss_fn: Callable,
                                                        batch.step_mask, eta, cs_in,
                                                        stacked=dl_on)
         new_cs = {**new_cs, **{k: cs_out[k] for k in chain_keys}}
-        deltas, new_cs, combined = after_local(deltas, new_cs, batch.meta, state.rnd)
+        deltas, new_cs, combined = after_local(deltas, new_cs, batch.meta, state.rnd, obs)
         if combined is not None:
-            return combined[0], losses, new_cs, combined[1]
-        return strat.aggregate(deltas, batch.meta), losses, new_cs, None
+            return combined, losses, new_cs
+        return strat.aggregate(deltas, batch.meta), losses, new_cs
 
     run_cohort = run_vmapped if fl.cohort_mode == "vmapped" else run_sequential
 
@@ -365,8 +422,14 @@ def build_round_step(loss_fn: Callable,
         # here (the bank's rows are cstate0)
         prev = ServerState(params=tree_map(torch.clone, state.params),
                            opt=tree_map(torch.clone, state.opt), rnd=state.rnd) if g_rej else None
-        delta_agg, losses, new_cs, rb_info = run_cohort(state, batch, starts, eta, momentum,
-                                                        new_cs)
+        obs = {}
+        delta_agg, losses, new_cs = run_cohort(state, batch, starts, eta, momentum, new_cs, obs)
+        if dp_on:
+            # the round's counter-based Gaussian noise, per (seed, round):
+            # the same wherever the round is produced (legacy, engine,
+            # prefetch, resume)
+            delta_agg, dp_sigma = add_dp_noise(delta_agg, strat.agg_coeffs(meta), meta.valid,
+                                               fl, state.rnd)
         cstate = None
         if banked and FLEET_STATE_KEY in new_cs:
             # buffered server bookkeeping: bump the cohort's arrival /
@@ -435,12 +498,35 @@ def build_round_step(loss_fn: Callable,
             metrics["mean_staleness"] = (slot_staleness(meta) * meta.valid).sum() / valid_sum
         if robust_on:
             # the counts are 0 whenever their guard is off
-            metrics["quarantined_clients"] = rb_info["quarantined_clients"]
-            metrics["suspected_adversaries"] = rb_info["suspected_adversaries"]
+            metrics["quarantined_clients"] = obs["robust"]["quarantined_clients"]
+            metrics["suspected_adversaries"] = obs["robust"]["suspected_adversaries"]
             metrics["rounds_rejected"] = meta.valid.new_zeros(()) if rejected is None \
                 else rejected
+        if dp_on:
+            # the exact indicator from the clip itself, not a post-hoc norm test
+            metrics["dp_clipped_frac"] = (obs["dp_clipped"] * meta.valid).sum() / valid_sum
+            metrics["dp_sigma"] = dp_sigma
+        if tele:
+            # [bins] counts; train() routes them to registry Histograms
+            def hist(key, values):
+                metrics[key] = fixed_histogram(values, hist_dev[key], weights=meta.valid)
+
+            hist("hist_steps", meta.num_steps)
+            hist("hist_update_norm", torch.sqrt(obs["slot_sq"]))
+            if fleet_on:
+                hist("hist_staleness", slot_staleness(meta))
+            if up_on:
+                hist("hist_uplink_mbytes", mbytes_per_slot(codec, params, meta.valid))
+            if dl_on:
+                hist("hist_downlink_mbytes", mbytes_per_slot(down, params, meta.valid))
+            if robust_on:
+                hist("hist_suspicion", obs["suspicion"])
+            if dp_on:
+                hist("hist_dp_scale", obs["dp_scale"])
         return state, metrics
 
+    # train() builds its registry Histograms from the same edge table
+    round_step.telemetry_hist_edges = hist_edges
     return round_step
 
 

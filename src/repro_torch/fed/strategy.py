@@ -25,8 +25,10 @@ calls, the comm plane's two codecs (``fl.uplink`` / ``fl.downlink``,
 fleet plane's buffered server (``fl.server_mode="buffered"``: tick-sized,
 staleness-discounted coefficients and its counters in the bank,
 ``repro_torch.fed.fleet``) and the robust plane's combiner
-(``fl.aggregator``, ``repro_torch.fed.robust``).  The port's counterpart of
-``repro.fed.strategy`` with the privacy plane off.
+(``fl.aggregator``, ``repro_torch.fed.robust``).  Binding also validates
+the telemetry knobs and, with the privacy plane on, its knobs against the
+resolved chain (``repro_torch.fed.privacy``).  The port's counterpart of
+``repro.fed.strategy``.
 """
 from __future__ import annotations
 
@@ -46,8 +48,10 @@ from ..kernels.server_update.ops import apply_fused_update
 from ..utils.pytree import tree_copy, tree_map, tree_zeros_like
 from .bucketing import run_buckets, slot_inputs
 from .comm import DOWNLINK_STATE_KEY, UPLINK_STATE_KEY, build_codec
+from ..obs import validate_telemetry_config
 from .fleet import (FLEET_STATE_KEY, fleet_active, fleet_client_state, staleness_weights,
                     validate_fleet_config)
+from .privacy import privacy_active, validate_privacy_config
 from .robust import build_robust_aggregate, robust_active, validate_robust_config
 from .server import ServerState
 
@@ -109,14 +113,15 @@ def register_local_update(name: str, make: "ClientChain | Callable", *,
 class CompiledLocal(NamedTuple):
     """A LOCAL_UPDATES entry closed over (loss_fn, fl): the per-client and
     the cohort step (``core.local``'s signatures), one client's state
-    template (None for a stateless rule), the opt-state keys it needs and
-    its stateful transforms' names."""
+    template (None for a stateless rule), the opt-state keys it needs, its
+    stateful transforms' names and all its transforms' names."""
 
     local_step: Callable
     cohort_step: Callable
     client_template: Callable | None
     needs: tuple
     state_names: tuple
+    transform_names: tuple
 
 
 def _compile_local(entry: "ClientChain | Callable", loss_fn: Callable,
@@ -131,7 +136,8 @@ def _compile_local(entry: "ClientChain | Callable", loss_fn: Callable,
             build_cohort_step(cohort_transforms, loss_fn),
             chain_client_template(transforms),
             tuple(dict.fromkeys(k for t in transforms for k in t.needs)),
-            tuple(t.name for t in transforms if t.client_init is not None))
+            tuple(t.name for t in transforms if t.client_init is not None),
+            tuple(t.name for t in transforms))
     inner = entry(loss_fn, fl)        # legacy raw rule: stateless, opt-blind
 
     def one_client(params, momentum, opt, data, mask, eta, cstate):
@@ -146,7 +152,7 @@ def _compile_local(entry: "ClientChain | Callable", loss_fn: Callable,
         return ({k: torch.stack([d[k] for d, _ in outs]) for k in outs[0][0]},
                 torch.stack([loss for _, loss in outs]), cstate)
 
-    return CompiledLocal(one_client, cohort, None, (), ())
+    return CompiledLocal(one_client, cohort, None, (), (), ())
 
 
 # ---------------------------------------------------------------------------
@@ -572,6 +578,8 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
             f"{strategy.server_opt!r} but FLConfig.server_opt is "
             f"{fl.server_opt!r}; make them agree.")
     _check_config(fl)
+    # telemetry knobs validated at bind time like every other plane's
+    validate_telemetry_config(fl)
     if fleet_active(fl):
         # every fleet-plane knob fails at bind time, not rounds deep into
         # the virtual-clock simulation
@@ -595,6 +603,10 @@ def bind_strategy(strategy: "FedStrategy | BoundStrategy | None", fl: FLConfig,
         raise ValueError(
             f"unknown local update {local_update!r}; have {sorted(LOCAL_UPDATES)}")
     local = _compile_local(LOCAL_UPDATES[local_update], loss_fn, fl)
+    if privacy_active(fl):
+        # privacy knobs (dp / secagg) validated against the *resolved* local
+        # chain: the per-step clip + DP clip stack is a bind-time error
+        validate_privacy_config(fl, transform_names=local.transform_names)
     state_names = local.state_names
     missing_state = [k for k in sdef.consumes if k not in state_names]
     if missing_state:

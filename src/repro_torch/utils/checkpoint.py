@@ -14,21 +14,25 @@ Writes are atomic: both files go to tmp names in the target directory and
 are ``os.replace``-d over the real ones, the sidecar last as the commit
 marker.  Loads refuse what would resume a different run: missing keys,
 shape mismatches, a bank the template lacks (or the reverse), another
-format or version, and a DP run's spent-budget record (the privacy plane
-is not ported).
+format or version, and, given a DP run's ``fl=``, a file whose
+``dp_accounting`` record is missing or names another mechanism
+(``fed.privacy.check_dp_resume``); ``save_server_state(fl=)`` writes that
+record, in the JAX package's format.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
 import torch
 
-from ..fed.server import ServerState
 from ..weights import params_from_jax, params_to_jax, server_state_from_jax, server_state_to_jax
 from .pytree import flatten, tree_map, unflatten, wire_layout
+
+if TYPE_CHECKING:     # fed imports this module
+    from ..fed.server import ServerState
 
 SERVER_STATE_FORMAT = "fedshuffle/server-state"
 # version 2: the sidecar may carry a "dp_accounting" record; version-1
@@ -134,14 +138,22 @@ def load_metadata(path: str) -> dict[str, Any]:
 
 
 def save_server_state(path: str, state: ServerState,
-                      metadata: dict[str, Any] | None = None) -> None:
+                      metadata: dict[str, Any] | None = None, *, fl=None) -> None:
     """Save a whole ``ServerState`` (params, optimizer state, round counter
     and the per-client bank when there is one), resumable bitwise.  The
-    sidecar records the format, its version and whether a bank was saved."""
+    sidecar records the format, its version and whether a bank was saved;
+    with ``fl=`` of a DP run (``fl.dp="on"``) also the ``dp_accounting``
+    record (noise multiplier, clip, delta, sampling rate and the epsilon
+    spent through ``state.rnd`` completed rounds)."""
     meta = dict(metadata or {})
     meta["state_format"] = SERVER_STATE_FORMAT
     meta["state_version"] = SERVER_STATE_VERSION
     meta["has_client_state"] = state.clients is not None
+    if fl is not None:
+        from ..fed.privacy import dp_active, dp_checkpoint_record  # deferred: fed imports utils
+
+        if dp_active(fl):
+            meta["dp_accounting"] = dp_checkpoint_record(fl, int(state.rnd))
     np_state = server_state_to_jax(state._replace(
         params=_widened(state.params), opt=_widened(state.opt),
         clients=None if state.clients is None else _widened(state.clients)))
@@ -151,17 +163,22 @@ def save_server_state(path: str, state: ServerState,
     _write(path, tree, meta)
 
 
-def load_server_state(path: str, template: ServerState) -> ServerState:
+def load_server_state(path: str, template: ServerState, *, fl=None) -> ServerState:
     """Restore a ``ServerState`` saved by :func:`save_server_state` (by
     either package).  ``template`` is ``bound_strategy.init(params)`` of
     the same strategy and configuration: its bank (or its absence), shapes,
-    dtypes and devices are what the checkpoint must match."""
+    dtypes and devices are what the checkpoint must match.  With ``fl=`` of
+    a DP run the file's ``dp_accounting`` record must name the mechanism
+    ``fl`` binds (noise multiplier, clip, delta, sampling rate): a resume
+    under other knobs would misreport the cumulative epsilon."""
+    from ..fed.server import ServerState
+
     meta = load_metadata(path)
-    if "dp_accounting" in meta:
-        raise NotImplementedError(
-            f"{path!r} was saved by a DP run; the privacy plane is not ported (ROADMAP "
-            f"'Modules to port', item 9), and resuming without its mechanism would "
-            f"misreport epsilon")
+    if fl is not None:
+        from ..fed.privacy import check_dp_resume, dp_active
+
+        if dp_active(fl):
+            check_dp_resume(meta.get("dp_accounting"), fl)
     if meta.get("state_format") != SERVER_STATE_FORMAT:
         raise ValueError(
             f"{path!r} is not a server-state checkpoint (state_format="

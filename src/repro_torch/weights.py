@@ -20,12 +20,16 @@ checkpoint module writes and reads the JAX package's files through them).
 """
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 
 from .configs.base import ArchConfig
-from .fed.server import ServerState
 from .utils.pytree import STACKS, flatten, np_to_tensor, to_torch, unflatten, wire_layout
+
+if TYPE_CHECKING:     # fed imports utils.checkpoint, which imports this module
+    from .fed.server import ServerState
 
 
 def tensor_to_np(t) -> np.ndarray:
@@ -84,6 +88,8 @@ def server_state_from_jax(np_state, cfg: ArchConfig | None, device) -> ServerSta
     plane's ``"uplink"`` / ``"downlink"`` entries) unstacked along the layer
     axis after the bank axis; a field that is one array (the buffered
     server's ``"fleet"`` counters, ``[N+1]``) stays one tensor."""
+    from .fed.server import ServerState
+
     clients = None
     if np_state.clients is not None:
         clients = {name: {field: params_from_jax(tree, cfg, device, axis=1)
@@ -101,6 +107,8 @@ def server_state_to_jax(state: ServerState) -> ServerState:
     ``ServerState`` with the JAX package's leaves: params and each
     optimizer-state tree restacked like :func:`params_to_jax`, the bank's
     trees on layer axis 1, and the round counter a 0-d int32 array."""
+    from .fed.server import ServerState
+
     clients = None
     if state.clients is not None:
         clients = {name: {field: params_to_jax(tree, axis=1) if isinstance(tree, dict)

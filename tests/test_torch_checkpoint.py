@@ -219,8 +219,9 @@ def test_server_state_version_and_dp_refusals(tmp_path):
         load_server_state(path, state)
     with open(meta_path, "w") as f:
         json.dump(meta | {"dp_accounting": {"noise_multiplier": 1.0}}, f)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        load_server_state(path, state)
+    # a DP resume refuses a record that does not name its mechanism
+    with pytest.raises(ValueError, match="noise_mult"):
+        load_server_state(path, state, fl=dataclasses.replace(fl, dp="on"))
 
 
 def test_resume_round_mismatch_raises():

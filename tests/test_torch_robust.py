@@ -37,9 +37,9 @@ the JAX package and within the port.
   of its largest magnitude).
 
 JAX's ``test_single_compilation_robust`` waits for compiled round steps
-(ROADMAP item 2), and the suspicion histogram of
-``test_robust_telemetry_histogram_and_counters`` for the obs plane (item
-11); the counters half is held here.
+(ROADMAP item 2); ``test_robust_telemetry_histogram_and_counters`` (the
+suspicion histogram) is held in ``tests/test_torch_obs.py``, its counters
+half here too.
 """
 import dataclasses
 

@@ -299,7 +299,9 @@ def test_port_imports_neither_jax_nor_repro():
                  "models/mamba2.py", "configs/registry.py", "utils/checkpoint.py",
                  "fed/cohort/prefetch.py", "configs/llava_next_mistral_7b.py",
                  "data/tasks.py", "launch/train.py", "fed/fleet/clock.py",
-                 "fed/robust/aggregators.py"):
+                 "fed/robust/aggregators.py", "fed/privacy/__init__.py",
+                 "fed/privacy/accountant.py", "fed/privacy/dp.py", "fed/privacy/secagg.py",
+                 "obs/__init__.py", "obs/hist.py", "obs/metrics.py", "obs/trace.py"):
         assert PORT_SRC / part in files, part
     for f in files:
         assert not bad.search(f.read_text()), f
