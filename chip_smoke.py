@@ -31,7 +31,7 @@
    beside unmasked SDPA; ``rr_perm``'s latency bound (the launch floor plus
    the cipher's serial chain, counted from its SASS) beside its operations
    bound;
-3. drives fourteen main paths through the user entry point, each with every
+3. drives fifteen main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
@@ -100,7 +100,17 @@
    LLaVA-NeXT-Mistral-7B (32 x 4096, 32 / 8 heads of 128, bf16) through
    ``generate``: batch 4, 256-token prompts after 1,176 zero patch
    embeddings, 32 greedy tokens (one causal flash launch a layer in the
-   prefill on ``flash_fwd_mma`` at hd 128; none in decode);
+   prefill on ``flash_fwd_mma`` at hd 128; none in decode); then the rest
+   of the zoo (main path 15, ``zoo_paths``): mamba2-1.3b (48 x 2048, the
+   ssm family, bf16), MiniCPM-2B (40 x 2304, 36 heads of 64), ChatGLM3-6B
+   (28 x 4096, 32 / 2 heads of 128, the "half" RoPE) and Qwen2-72B at full
+   width with its depth cut from 80 to 20 layers (8192, 64 / 8 heads of
+   128) served through ``generate`` at batch 4, 2,048-token prompts, 32
+   greedy tokens (48 ``ssd_intra_chunk_mma`` launches a mamba2 prefill, 40
+   / 28 / 20 causal ``flash_fwd_mma`` launches a dense prefill; none in
+   decode), each model freed before the next, then the smoke runs of the
+   ssm, hybrid and audio families' train losses on the card in both
+   cohort modes;
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
@@ -155,7 +165,16 @@
    the path's inputs, the prefill over random patches held to the plain
    versions in fp32 as for the other serving paths (the planted fault:
    flash launched non-causal), and LLaVA-tiny served on the card agreeing
-   with the port on the CPU;
+   with the port on the CPU; for path 15, each SSD and flash launch
+   against its plain version on the path's inputs, the last layer's whole
+   ``ssd_scan`` (y in fp32, the state) within atol 3e-5 / rtol 3e-4 of the
+   step in fp64, each bf16 run held to the plain versions in fp32 as for
+   the other serving paths (the planted faults: mamba2's last chunk's
+   decay dropped, the dense archs' flash launched non-causal; Qwen2's fp32
+   anchor at 2 layers), mamba2's fp32 prefill -> decode consistency at full
+   width, each tiny config served on the card agreeing with the CPU, and
+   the three smokes within 1e-4 of a leaf's largest magnitude of the CPU
+   run, Hymba's bucketed run bitwise its padded twin;
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -4497,6 +4516,522 @@ def check_llava_prefill(dev, model, params: dict, prompts, cache_len: int, out) 
             "vs_fp32_rel_err": errs}
 
 
+# ---------------------------------------------------------------------------
+# main path 15: the rest of the model zoo
+# ---------------------------------------------------------------------------
+
+# the dense archs served at full width, batch 4 x 2,048-token prompts, 32
+# greedy tokens: MiniCPM-2B (MHA at hd 64), ChatGLM3-6B (16-way GQA at hd
+# 128, the "half" RoPE) and Qwen2-72B (8-way GQA at hd 128, width 8192)
+ZOO_DENSE = ("minicpm-2b", "chatglm3-6b", "qwen2-72b")
+# Qwen2-72B's depth cut from 80 layers: 20 layers of full width are ~40.1 GB
+# of bf16 weights, which leave room on an 80 GB card for the cache, the
+# prefill and the per-launch checks' plain attention (~11 GB at its width)
+ZOO_DEPTH = {"qwen2-72b": 20}
+# the fp32 anchor's depth where a full-depth fp32 copy does not fit beside
+# the bf16 weights
+ZOO_ANCHOR_DEPTH = {"qwen2-72b": 2}
+# the families whose train loss is new, smoke-trained on the card in both
+# cohort modes and held to the port on the CPU
+ZOO_TRAIN = ("mamba2-1.3b", "hymba-1.5b", "seamless-m4t-medium")
+ZOO_TRAIN_ROUNDS = 2
+# the card vs the CPU in fp32 with a dense wire: every element within this
+# share of its leaf's largest magnitude (check_small_reference's bound)
+CARD_CPU_RTOL = 1e-4
+
+
+def traced_serve(label: str, model, params: dict, batch: dict, cache_len: int,
+                 names: tuple) -> dict:
+    """One prefill and one decode step traced (CUDA activity only): device
+    kernels and copies, device ms, and the ms of the kernels whose names
+    hold each of ``names``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    res = {}
+    with torch.inference_mode():
+        lg, cache = model.prefill(params, batch, cache_len)
+        tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+        for phase, fn in (("prefill", lambda: model.prefill(params, batch, cache_len)),
+                          ("decode", lambda: model.decode_step(params, tok, cache))):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            n, dev_ms = count_device(prof)
+            mine = {f"{nm}_ms": sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                                    if nm in e.name()) / 1e6 for nm in names}
+            res[f"{phase}_trace"] = {"kernels": n, "device_ms": dev_ms, **mine}
+            print(f"{label} {phase} traced: {n} device kernels and copies, {dev_ms:.2f} ms of "
+                  f"device time, " + ", ".join(f"{k} {v:.2f}" for k, v in mine.items()),
+                  flush=True)
+    del cache, lg, tok
+    return res
+
+
+def decode_bound(label: str, params: dict, cache_bytes: int, st: dict) -> dict:
+    """A decode step's weight-read bound (every weight read once at the
+    card's memory rate), and with the whole cache read too, beside the
+    step's wall."""
+    weight_bytes = sum(v.numel() * v.element_size() for v in params.values())
+    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"{label} decode step: {st['decode_ms_per_step']:.2f} ms of wall against the "
+          f"weight-read bound {bound:.3f} ms ({weight_bytes} B at {HBM_BYTES_PER_S / 1e12} TB/s; "
+          f"{bound + cache_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms with the {cache_bytes}-byte "
+          f"cache read)", flush=True)
+    return {"weight_bytes": weight_bytes, "decode_bound_ms": {
+        "weights": bound, "weights_and_cache": bound + cache_bytes / HBM_BYTES_PER_S * 1e3}}
+
+
+def ssd_step64(xdt, a, bm, cm):
+    """The SSD recurrence a step at a time in float64 throughout, the
+    witness the whole scan is held to: xdt [B,T,H,P]; a [B,T,H]; B/C
+    [B,T,N] -> (y [B,T,H,P], S [B,H,P,N]), float64."""
+    import torch
+
+    x, a, b, c = xdt.double(), a.double(), bm.double(), cm.double()
+    S = torch.zeros(x.shape[:1] + x.shape[2:] + b.shape[-1:], dtype=torch.float64,
+                    device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        S = S * torch.exp(a[:, t])[..., None, None] + torch.einsum("bn,bhp->bhpn", b[:, t],
+                                                                    x[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", c[:, t], S))
+    return torch.stack(ys, dim=1), S
+
+
+def scan_fp32_cumsum(xdt, a, bm, cm, chunk: int):
+    """``ssd_scan`` as it was before the cross-chunk term's ``cum`` was summed
+    in fp64: the intra-chunk kernel, then the chunk decays and ``exp(cum)``
+    from torch's fp32 cumsum on the card; y in fp32."""
+    import torch
+
+    from repro_torch.kernels.ssd.ops import ssd_intra_chunk
+
+    B, T, H, P = xdt.shape
+    N = bm.shape[-1]
+    nc = T // chunk
+    x_c, a_c = xdt.reshape(B, nc, chunk, H, P), a.reshape(B, nc, chunk, H).float()
+    b_c, c_c = bm.reshape(B, nc, chunk, N), cm.reshape(B, nc, chunk, N)
+    y_intra, s_local = ssd_intra_chunk(x_c, a_c, b_c, c_c)
+    cum = torch.cumsum(a_c, dim=2)
+    decay = torch.exp(cum[:, :, -1])
+    S = torch.zeros((B, H, P, N), dtype=torch.float32, device=xdt.device)
+    prev = []
+    for c in range(nc):
+        prev.append(S)
+        S = S * decay[:, c, :, None, None] + s_local[:, c]
+    y = y_intra + torch.einsum("bcqn,bchpn->bcqhp", c_c.float(),
+                               torch.stack(prev, dim=1)) * torch.exp(cum)[..., None]
+    return y.reshape(B, T, H, P), S
+
+
+def serve_mamba2_path(dev, ssd_row: dict) -> dict:
+    """Main path 15 (a): full-width mamba2-1.3b (48 x 2048, d_inner 4096,
+    64 heads of P 64, N 128, vocab 50,280, bf16, random weights from seed 0)
+    serves batch 4 x 2,048-token prompts (numpy seed 1; 8 SSD chunks of 256)
+    for 32 greedy tokens through ``generate`` (:func:`timed_generate`): one
+    ``ssd_intra_chunk_mma`` launch a layer in the prefill, none in decode.
+    One prefill and one decode step traced.  Then the checks: (1) each
+    launch against its plain version on the path's own inputs (atol 3e-5,
+    rtol 3e-4), the last one with its last chunk's decay dropped (a = 0)
+    leaving that bound; (2) the whole ``ssd_scan`` of the last layer (y in
+    fp32 and the final state) against the step in fp64 (:func:`ssd_step64`),
+    before (:func:`scan_fp32_cumsum`) and after the fp64 cum, and the
+    kernel timed on those inputs; (3) :func:`anchor_check` of the prefill
+    logits, the state and conv caches and the decode logits, the planted
+    fault the last chunk's decay dropped in every launch; (4) fp32 at full
+    width, a prefill -> decode consistency check (the plain versions: the
+    ``simt`` kernel refuses this tile in fp32); (5) mamba2-tiny served on
+    the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.kernels.ssd.ops as sops
+    import repro_torch.models.mamba2 as m2
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_kernel
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_torch
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("mamba2-1.3b")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(0, dev)
+    n_params = sum(v.numel() for v in params.values())
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    cache_len = SERVE_PROMPT + SERVE_STEPS + 1
+    run = timed_generate(model, params, prompts, cache_len, (ssd_intra_chunk_kernel,))
+    (total,), (prefill,), (decode,) = run["total"], run["prefill"], run["decode"]
+    st, L = run["stats"], cfg.n_layers
+    res = {"arch": cfg.name, "params": n_params, "dtype": cfg.dtype, "batch": SERVE_BATCH,
+           "prompt": SERVE_PROMPT, "steps": SERVE_STEPS, **st,
+           "prefill_launches": {"ssd_intra_chunk": prefill[0], "by_route": prefill[1]},
+           "decode_launches": {"ssd_intra_chunk": decode[0]}}
+    print(f"zoo path (a): {cfg.name} {n_params} params ({cfg.dtype}), batch {SERVE_BATCH} x "
+          f"{SERVE_PROMPT}-token prompts, {SERVE_STEPS} greedy tokens: prefill "
+          f"{st['prefill_ms']:.2f} ms, decode {st['decode_ms_per_step']:.2f} ms a step "
+          f"({st['decode_tok_per_s']:.1f} tokens/s), {st['e2e_tok_per_s']:.1f} tokens/s end to "
+          f"end, peak device memory {st['peak_gib']:.3f} GiB; ssd_intra_chunk launches in the "
+          f"prefill: {prefill[0]} ({prefill[1]}); in decode: {decode[0]}", flush=True)
+    if (prefill[0], prefill[1], decode[0]) != (L, {"mma": L, "simt": 0}, 0):
+        raise AssertionError(f"zoo {cfg.name} launches: prefill {prefill}, decode {decode}; "
+                             f"want {L} on mma and 0")
+    ssd_row["launches_by_path"] = {"hymba-1.5b": ssd_row["launches"], cfg.name: total[0]}
+    ssd_row["launches"] += total[0]
+    ssd_row["route_launches"] = {r: ssd_row["route_launches"][r] + n for r, n in total[1].items()}
+    out, seen = run["tokens"], run["logits"]
+    del run
+    res.update(traced_serve(f"zoo {cfg.name}", model, params, {"tokens": prompts}, cache_len,
+                            ("ssd_intra_chunk",)))
+    d_inner, H, P, N = m2.dims(cfg)
+    state_bytes = L * SERVE_BATCH * (4 * H * P * N + 2 * (cfg.ssm.conv_width - 1)
+                                     * (d_inner + 2 * N))
+    res.update(decode_bound(f"zoo {cfg.name}", params, state_bytes, st))
+
+    # (1) each launch against its plain version on the path's own inputs;
+    # the last layer's whole scan kept for (2)
+    layer_err, last = {"ssd_intra_chunk": 0.0}, {}
+
+    def ssd_checked(*args):
+        got = ssd_intra_chunk_kernel(*args)
+        for g, w in zip(got, ssd_intra_chunk_torch(*args)):
+            layer_err["ssd_intra_chunk"] = max(layer_err["ssd_intra_chunk"], _allclose(
+                g, w, SSD_ATOL, SSD_RTOL, f"{cfg.name} ssd on the path's inputs"))
+        last["intra"] = args
+        return got
+
+    def decay_dropped(xdt, a, bm, cm):
+        a = a.clone()
+        a[:, -1] = 0.0
+        return ssd_intra_chunk_kernel(xdt, a, bm, cm)
+
+    scan = m2.ssd_scan
+
+    def scan_kept(*args, **kw):
+        last["scan"] = args[:5]
+        return scan(*args, **kw)
+
+    with torch.inference_mode(), swapped({(sops, "ssd_intra_chunk_kernel"): ssd_checked,
+                                          (m2, "ssd_scan"): scan_kept}):
+        lg, _ = model.prefill(params, {"tokens": prompts}, cache_len)
+    if not torch.equal(lg[:, -1].argmax(-1), out[:, 0]):
+        raise AssertionError(f"zoo {cfg.name}: the checked prefill picks other first tokens")
+    with torch.inference_mode():
+        xdt, a, bm, cm = last.pop("intra")
+        want = ssd_intra_chunk_torch(xdt, a, bm, cm)
+        fault_off = [_off(g, w, SSD_ATOL, SSD_RTOL)[0]
+                     for g, w in zip(decay_dropped(xdt, a, bm, cm), want)]
+        t_ms, _ = time_ms(lambda: ssd_intra_chunk_kernel(xdt, a, bm, cm), 20)
+        t_plain, _ = time_ms(lambda: ssd_intra_chunk_torch(xdt, a, bm, cm), 3, behind_sleep=False)
+        Bz, nc, Q = xdt.shape[:3]
+        tri = Q * (Q + 1) // 2
+        flops = 2 * (Bz * nc * tri * N + Bz * nc * H * (tri * P + Q * P * N))
+        nbytes = ((2 + 4) * xdt.numel() + 4 * a.numel() + 2 * (bm.numel() + cm.numel())
+                  + 4 * Bz * nc * H * P * N)
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        ssd_row["mamba2_in_path"] = {
+            "shape": list(xdt.shape[:4]) + [P, N], "ms": t_ms, "plain_ms": t_plain,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes
+            else "bytes", "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+        del want
+    print(f"zoo {cfg.name} prefill's ssd inputs, {L} layers: within atol {SSD_ATOL} / rtol "
+          f"{SSD_RTOL} of the plain version (max abs diff {layer_err['ssd_intra_chunk']:.3e}); "
+          f"the last layer with its last chunk's decay dropped: (y, S) elements off "
+          f"{fault_off}; on those inputs {list(xdt.shape)}: ssd_intra_chunk_mma {t_ms:.4f} ms, "
+          f"plain {t_plain:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms", flush=True)
+    if fault_off[0] == 0:
+        raise AssertionError(f"zoo {cfg.name}: the layer check passed a dropped chunk decay")
+    res["layer_max_abs_err"] = layer_err["ssd_intra_chunk"]
+    res["layer_fault_elements_off"] = fault_off
+
+    # (2) the whole scan of the last layer against the step in fp64
+    xdt, a, bm, cm, chunk = last.pop("scan")
+    with torch.inference_mode():
+        exact = ssd_step64(xdt, a, bm, cm)
+        scans = {"before (fp32 cumsum)": scan_fp32_cumsum(xdt, a, bm, cm, chunk),
+                 "after (fp64 cum)": scan(xdt, a, bm, cm, chunk, out_dtype=torch.float32)}
+        witness = {name: [_off(g, w, SSD_ATOL, SSD_RTOL) for g, w in zip(got, exact)]
+                   for name, got in scans.items()}
+    del exact, scans
+    res["scan_fp64_witness"] = witness
+    print(f"zoo {cfg.name} whole ssd_scan of the last layer ({list(xdt.shape)}, chunk {chunk}, "
+          f"N {N}) against the step in fp64, (elements off atol {SSD_ATOL} / rtol {SSD_RTOL}, "
+          f"worst share of the bound) of y, S: " + "; ".join(
+              f"{k} {v}" for k, v in witness.items()), flush=True)
+    if any(n for n, _ in witness["after (fp64 cum)"]):
+        raise AssertionError(f"zoo {cfg.name}: the whole scan is off the fp64 step: "
+                             f"{witness['after (fp64 cum)']}")
+    del xdt, a, bm, cm
+
+    # (3) the bf16 run held to the plain versions in fp32
+    def twin(m, p, decode: bool = True) -> dict:
+        lg, c = m.prefill(p, {"tokens": prompts}, cache_len)
+        r = {"logits": lg[:, -1].float()}
+        r.update({k: v.to(torch.float32, copy=True) for k, v in c["layers"].items()})
+        if decode:
+            r["decode_logits"] = torch.stack([
+                m.decode_step(p, out[:, i - 1:i], c)[0][:, -1].float()
+                for i in range(1, SERVE_STEPS)])
+        return r
+
+    anchor_err = {"ssd_intra_chunk": 0.0}
+
+    def anchor_checked(*args):
+        got = ssd_intra_chunk_kernel(*args)
+        for g, w in zip(got, ssd_intra_chunk_torch(*args)):
+            anchor_err["ssd_intra_chunk"] = max(anchor_err["ssd_intra_chunk"], _allclose(
+                g, w, SSD_ATOL, SSD_RTOL, f"{cfg.name} ssd in the anchor's kernel run"))
+        return got
+
+    res["vs_fp32_rel_err"] = anchor_check(
+        f"zoo {cfg.name}", model, params, twin, {(sops, "ssd_intra_chunk_kernel"): anchor_checked},
+        model, {(sops, "ssd_intra_chunk_kernel"): decay_dropped}, "the last chunk's decay dropped",
+        {"logits": seen[0], "decode_logits": torch.stack(seen[1:])})
+    del params, seen
+    torch.cuda.empty_cache()
+
+    # (4) fp32 at full width: 3 decoded tokens against the prefill of all
+    # 2,051 (a ragged last chunk)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    ref32 = build_model(cfg32, backend="ref")
+    params = ref32.init(0, dev)
+    T = SERVE_PROMPT
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, T + 3)), device=dev)
+    with torch.inference_mode():
+        lg, cache = ref32.prefill(params, {"tokens": toks[:, :T]}, T + 5)
+        for i in range(3):
+            lg, cache = ref32.decode_step(params, toks[:, T + i:T + i + 1], cache)
+        full, _ = ref32.prefill(params, {"tokens": toks}, T + 5)
+    res["fp32_decode_vs_prefill"] = _allclose(lg, full, FP32_ATOL, FP32_RTOL,
+                                              f"{cfg.name} fp32 prefill -> decode consistency")
+    del params, cache, lg, full
+    torch.cuda.empty_cache()
+    res["tiny_card_vs_cpu_err"] = check_serve_tiny(dev, cfg.name)
+    print(f"zoo {cfg.name} fp32 at full width (2 x {T} prompts, plain versions): 3 decoded "
+          f"tokens vs the prefill of {T + 3}, max abs diff {res['fp32_decode_vs_prefill']:.3e} "
+          f"(within {FP32_ATOL} + {FP32_RTOL}|ref|); mamba2-tiny served on the card vs the port "
+          f"on the CPU: equal tokens, logits max abs diff {res['tiny_card_vs_cpu_err']:.3e}",
+          flush=True)
+    return res
+
+
+def serve_zoo_dense_path(dev, arch: str, flash_row: dict) -> dict:
+    """Main path 15 (b)-(d): a dense arch at full width (depth cut by
+    ``ZOO_DEPTH``; bf16, random weights from seed 0) serves batch 4 x
+    2,048-token prompts (numpy seed 1) for 32 greedy tokens through
+    ``generate`` (:func:`timed_generate`): one causal flash launch a layer
+    in the prefill on ``mma``, none in decode.  One prefill and one decode
+    step traced.  Then the checks of :func:`check_llava_prefill`: each launch
+    within one bf16 step of the plain version on the path's inputs (the
+    last one launched non-causal leaving that bound); the prefill's logits
+    and caches held to :func:`anchor_check` (at ``ZOO_ANCHOR_DEPTH``'s depth
+    where it is set, on the first layers' weights), the flash launches made
+    non-causal the planted fault; ``flash_fwd_mma`` timed at the path's
+    shape beside SDPA (causal, ``enable_gqa``) and its bound; the tiny
+    config served on the card against the CPU."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.kernels.flash_attention.ops as fops
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.models.model import build_model
+
+    full = get_arch(arch)
+    L = ZOO_DEPTH.get(arch, full.n_layers)
+    cfg = dataclasses.replace(full, n_layers=L)
+    cut = f", depth cut from {full.n_layers} to {L} layers" if L != full.n_layers else ""
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(0, dev)
+    n_params = sum(v.numel() for v in params.values())
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    cache_len = SERVE_PROMPT + SERVE_STEPS + 1
+    run = timed_generate(model, params, prompts, cache_len, (flash_attention_kernel,))
+    (total,), (prefill,), (decode,) = run["total"], run["prefill"], run["decode"]
+    st = run["stats"]
+    B, H, KV, hd, T = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd(), SERVE_PROMPT
+    res = {"arch": arch, "layers": L, "full_layers": full.n_layers, "params": n_params,
+           "dtype": cfg.dtype, "batch": B, "prompt": T, "steps": SERVE_STEPS, **st,
+           "prefill_launches": {"flash_attention": prefill[0], "by_route": prefill[1],
+                                "by_mode": prefill[2]},
+           "decode_launches": {"flash_attention": decode[0]}}
+    print(f"zoo path: {arch} at full width ({cfg.d_model}, {H} / {KV} heads of {hd}){cut}: "
+          f"{n_params} params ({cfg.dtype}), batch {B} x {T}-token prompts, {SERVE_STEPS} greedy "
+          f"tokens: prefill {st['prefill_ms']:.2f} ms, decode {st['decode_ms_per_step']:.2f} ms "
+          f"a step ({st['decode_tok_per_s']:.1f} tokens/s), {st['e2e_tok_per_s']:.1f} tokens/s "
+          f"end to end, peak device memory {st['peak_gib']:.3f} GiB; flash_attention launches in "
+          f"the prefill: {prefill[0]} (by route {prefill[1]}, by mode {prefill[2]}); in decode: "
+          f"{decode[0]}", flush=True)
+    want = (L, {"wgmma": 0, "mma": L, "simt": 0}, {"causal": L, "noncausal": 0})
+    if prefill != want or decode[0] != 0:
+        raise AssertionError(f"zoo {arch} launches: prefill {prefill}, decode {decode[0]}; "
+                             f"want {want} and 0")
+    flash_row["launches_by_path"][arch] = total[0]
+    flash_row["launches"] += total[0]
+    out = run["tokens"]
+    del run
+    res.update(traced_serve(f"zoo {arch}", model, params, {"tokens": prompts}, cache_len,
+                            ("flash_fwd",)))
+    res.update(decode_bound(f"zoo {arch}", params, 2 * L * B * cache_len * KV * hd * 2, st))
+
+    # each launch within one bf16 step of the plain version on its inputs;
+    # the last layer's launched non-causal must leave that bound
+    layer_err, last = {}, {}
+    checked = flash_checked(layer_err, last, lambda q, k, causal: "flash_attention")
+    with torch.inference_mode(), swapped({(fops, "flash_attention_kernel"): checked}):
+        lg, _ = model.prefill(params, {"tokens": prompts}, cache_len)
+    if not torch.equal(lg[:, -1].argmax(-1), out[:, 0]):
+        raise AssertionError(f"zoo {arch}: the checked prefill picks other first tokens")
+    q, k, v, _, want = last.pop("flash_attention")
+    with torch.inference_mode():
+        d = (flash_attention_kernel(q, k, v, causal=False).float() - want.float()).abs()
+    fault_off = int((d > FLASH_MAIN_BF16_ATOL + FLASH_MAIN_BF16_RTOL * want.float().abs()).sum())
+    print(f"zoo {arch} prefill's flash inputs, {L} layers: within {FLASH_MAIN_BF16_ATOL} + 2^-7 "
+          f"|ref| of the plain version (max abs diff {layer_err['flash_attention']:.3e}); the "
+          f"last layer launched non-causal: {fault_off} of {q.numel()} elements off", flush=True)
+    if fault_off == 0:
+        raise AssertionError(f"zoo {arch}: the layer check passed a non-causal fault")
+    res["layer_max_abs_err"] = layer_err["flash_attention"]
+    res["layer_fault_elements_off"] = fault_off
+    del q, k, v, want, d, lg
+
+    # the bf16 run held to the plain versions in fp32, at a cut depth on the
+    # first layers' weights where a full-depth fp32 copy does not fit
+    depth = ZOO_ANCHOR_DEPTH.get(arch, L)
+    if depth != L:
+        params = {n: t for n, t in params.items()
+                  if not n.startswith("blocks/") or int(n.split("/")[1]) < depth}
+        model = build_model(dataclasses.replace(cfg, n_layers=depth))
+        torch.cuda.empty_cache()
+
+    def twin(m, p, decode: bool = True) -> dict:
+        lg, c = m.prefill(p, {"tokens": prompts}, cache_len)
+        r = {"logits": lg[:, -1].float()}
+        r.update({name: x.float() for name, x in c["layers"].items()})
+        return r
+
+    def flash_faulty(q, k, v, *, causal=True, window=0):
+        return flash_attention_kernel(q, k, v, causal=False, window=window)
+
+    anchor_err = {}
+    errs = anchor_check(f"zoo {arch} ({depth} layers)", model, params, twin,
+                        {(fops, "flash_attention_kernel"): flash_checked(
+                            anchor_err, {}, lambda q, k, causal: "flash_attention")}, model,
+                        {(fops, "flash_attention_kernel"): flash_faulty}, "a non-causal fault")
+    res["anchor_layers"] = depth
+    res["vs_fp32_rel_err"] = errs
+    del params
+    torch.cuda.empty_cache()
+
+    # flash_fwd_mma at the prefill's shape, beside SDPA and its bound
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((B, T, n, hd), generator=gen, device=dev).to(torch.bfloat16)
+               for n in (H, KV, KV))
+    t = time_flash(q, k, v, lambda qt, kt, vt: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 4 * hd * band_pairs(T, 0) * B * H, "mma")
+    flash_row[arch] = {"shape": [B, T, H, KV, hd], "dtype": "bfloat16",
+                       "library": "F.scaled_dot_product_attention(is_causal=True, "
+                                  "enable_gqa=True)", **t}
+    print(f"flash_attention at bf16 {[B, T, H, KV, hd]}, causal ({arch}'s prefill): "
+          f"flash_fwd_mma {t['ms']:.4f} ms, flash_fwd {t['simt_ms']:.4f} ms, SDPA "
+          f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}, {t['gflop']:.2f} GFLOP)", flush=True)
+    del q, k, v
+    res["tiny_card_vs_cpu_err"] = check_serve_tiny(dev, arch)
+    print(f"zoo {arch}-tiny served on the card vs the port on the CPU: equal tokens, logits max "
+          f"abs diff {res['tiny_card_vs_cpu_err']:.3e}", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def card_vs_cpu(label: str, got: dict, want: dict) -> float:
+    """A run on the card against the same run of the port on the CPU (fp32,
+    TF32 off, a dense wire): every element finite and within
+    ``CARD_CPU_RTOL`` of its leaf's largest magnitude.  -> the largest
+    share."""
+    import torch
+
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].cpu()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label} on the card: non-finite {k}")
+        rel = float((g - w).abs().max() / w.abs().max().clamp_min(1e-12))
+        if rel > CARD_CPU_RTOL:
+            raise AssertionError(f"{label}: {k} differs from the CPU by {rel:.3e} of its largest "
+                                 f"magnitude (bound {CARD_CPU_RTOL})")
+        worst = max(worst, rel)
+    return worst
+
+
+def zoo_train_paths(dev) -> dict:
+    """Main path 15 (e): the smoke run (``launch/train.py:run_smoke``: the
+    reduced config, 6 clients, 3 a round, 32-token samples) of the three
+    families whose train loss is new, mamba2-1.3b (ssm), hymba-1.5b (hybrid)
+    and seamless-m4t-medium (audio, 32 frames a sample), ``ZOO_TRAIN_ROUNDS``
+    rounds in each cohort mode on the card, each held to the same run of
+    the port on the CPU (:func:`card_vs_cpu`), both from the weights seed 0
+    draws on the CPU (a CUDA generator draws others); Hymba's bucketed run
+    (``exec_mode="bucketed"``) bitwise equal to its padded twin in each
+    mode."""
+    import torch
+
+    from repro_torch.launch.train import run_smoke
+    from repro_torch.models.model import Model
+
+    init = Model.init
+
+    def cpu_drawn(self, seed, device):
+        return {k: v.to(device) for k, v in init(self, seed, "cpu").items()}
+
+    res = {}
+    for arch in ZOO_TRAIN:
+        for mode in ("vmapped", "sequential"):
+            with swapped({(Model, "init"): cpu_drawn}):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                card = run_smoke(arch, ZOO_TRAIN_ROUNDS, device=dev, cohort_mode=mode)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                cpu = run_smoke(arch, ZOO_TRAIN_ROUNDS, device="cpu", cohort_mode=mode)
+                bucketed = (run_smoke(arch, ZOO_TRAIN_ROUNDS, device=dev, cohort_mode=mode,
+                                      exec_mode="bucketed") if arch == "hymba-1.5b" else None)
+            row = {"wall_s": wall, "local_loss": [r["local_loss"] for r in card.metrics.rows],
+                   "card_vs_cpu": card_vs_cpu(f"{arch} {mode} smoke", card.state.params,
+                                              cpu.state.params)}
+            if bucketed is not None:
+                row["bucketed"] = held_bitwise(f"{arch} {mode} bucketed smoke",
+                                               bucketed.state.params, card.state.params)
+            res[f"{arch} {mode}"] = row
+            print(f"zoo train {arch} {mode}: {ZOO_TRAIN_ROUNDS} rounds on the card in "
+                  f"{wall:.2f} s, local_loss {row['local_loss']}, max share of a leaf's largest "
+                  f"magnitude off the CPU {row['card_vs_cpu']:.3e} (bound {CARD_CPU_RTOL})"
+                  + (f", bucketed {row['bucketed']}" if bucketed is not None else ""), flush=True)
+    return res
+
+
+def zoo_paths(dev, flash_row: dict, ssd_row: dict) -> dict:
+    """Main path 15, the rest of the model zoo: (a) mamba2-1.3b served
+    (:func:`serve_mamba2_path`), (b)-(d) MiniCPM-2B, ChatGLM3-6B and
+    Qwen2-72B (depth cut) served (:func:`serve_zoo_dense_path`), each model
+    freed before the next, and (e) the smoke runs of the ssm, hybrid and
+    audio families' train losses (:func:`zoo_train_paths`)."""
+    t0 = time.perf_counter()
+    res = {"mamba2-1.3b": serve_mamba2_path(dev, ssd_row)}
+    for arch in ZOO_DENSE:
+        res[arch] = serve_zoo_dense_path(dev, arch, flash_row)
+    res["train"] = zoo_train_paths(dev)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def profile_serve(dev, out_dir: Path) -> None:
     """The serving main path's prefill (4 x 2,048 tokens) and one decode
     step of full-width Hymba-1.5B under torch.profiler, after a warm-up:
@@ -4783,6 +5318,14 @@ def main() -> int:
     llava = serve_llava_path(dev, flash)
     print(json.dumps({"serve_llava": llava}), flush=True)
     print(f"llava serve path: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # main path 15, the rest of the zoo: mamba2-1.3b (48 SSD launches a
+    # prefill on mma), MiniCPM-2B, ChatGLM3-6B and Qwen2-72B (depth cut; 40,
+    # 28 and 20 causal flash launches a prefill on mma), none in decode; the
+    # train losses of the ssm, hybrid and audio families on the card
+    zoo = zoo_paths(dev, flash, ssd)
+    print(json.dumps({"zoo": zoo}), flush=True)
+    print(f"zoo paths: {zoo['seconds']:.1f} s", flush=True)
 
     for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd"), MVR,
                  dict(mvr_exact=True, **MVR), VMAPPED, VMAPPED | MVR,

@@ -6,9 +6,13 @@ intra-chunk kernel (``kernel.py``) and nothing else, there is no fallback;
 a CPU tensor takes the plain torch version (``ref.ssd_intra_chunk_torch``).
 ``backend="ref"``: the plain version on any device.  The cross-chunk
 recurrence is a tiny [B, H, P, N] rescale and add per chunk and stays in
-torch.  The scan is the port's counterpart of ``repro.models.mamba2.
-ssd_chunked`` as well: both compute :func:`ref.ssd_ref`'s recurrence.
-The kernel is forward-only (no backward pass).
+torch; its chunk decays and the ``exp(cum)`` factor of the inter-chunk
+term come from ``cum = cumsum(a)`` summed in fp64 and rounded once to
+fp32, the exponents the intra-chunk step uses.  The scan is the port's
+counterpart of ``repro.models.mamba2.ssd_chunked`` as well: both compute
+:func:`ref.ssd_ref`'s recurrence.  The kernel is forward-only (no backward
+pass); the train loss takes the plain version (``backend="ref"``), under
+autograd and ``torch.func.vmap``.
 """
 from __future__ import annotations
 
@@ -35,9 +39,11 @@ def ssd_intra_chunk(xdt, a, Bm, Cm, *, backend: str = "kernel"):
 
 
 def ssd_scan(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-             chunk: int, state0: torch.Tensor | None = None, *, backend: str = "kernel"):
-    """xdt [B,T,H,P]; a [B,T,H]; Bm/Cm [B,T,N] -> (y [B,T,H,P] in xdt's
-    dtype, final state S [B,H,P,N] fp32), in chunks of ``min(chunk, T)``.
+             chunk: int, state0: torch.Tensor | None = None, *, backend: str = "kernel",
+             out_dtype: torch.dtype | None = None):
+    """xdt [B,T,H,P]; a [B,T,H]; Bm/Cm [B,T,N] -> (y [B,T,H,P] in
+    ``out_dtype``, xdt's dtype when None, final state S [B,H,P,N] fp32), in
+    chunks of ``min(chunk, T)``; y is summed in fp32 and rounded once.
 
     The JAX package asserts that T is a multiple of the chunk; the port pads
     a ragged last chunk with steps that leave the state as it is (a = 0,
@@ -56,7 +62,9 @@ def ssd_scan(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Ten
     C_c = Cm.reshape(B, nc, Q, N)
     y_intra, S_local = ssd_intra_chunk(xdt_c, a_c, B_c, C_c, backend=backend)
 
-    cum = torch.cumsum(a_c, dim=2)                                    # [B,nc,Q,H]
+    # cum summed in fp64 and rounded once to fp32, as the intra-chunk
+    # kernel and its plain version form their exponents (ref.py's note)
+    cum = torch.cumsum(a_c.double(), dim=2).float()                   # [B,nc,Q,H]
     decay = torch.exp(cum[:, :, -1])                                  # [B,nc,H]
     S = (torch.zeros((B, H, P, N), dtype=torch.float32, device=xdt.device)
          if state0 is None else state0.float())
@@ -66,4 +74,4 @@ def ssd_scan(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Ten
         S = S * decay[:, c, :, None, None] + S_local[:, c]
     y_inter = torch.einsum("bcqn,bchpn->bcqhp", C_c.float(), torch.stack(S_prev, dim=1))
     y = y_intra + y_inter * torch.exp(cum)[..., None]
-    return y.reshape(B, nc * Q, H, P)[:, :T].to(xdt.dtype), S
+    return y.reshape(B, nc * Q, H, P)[:, :T].to(out_dtype or xdt.dtype), S

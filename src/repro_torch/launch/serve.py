@@ -12,6 +12,10 @@ from numpy seed 1::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-mistral-7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
+
+(or ``minicpm-2b``, ``chatglm3-6b``, ``qwen2-72b``: every arch of the
+registry).
 
 The cache holds a vlm model's ``num_patches`` patch positions before the
 prompt and the generated tokens.

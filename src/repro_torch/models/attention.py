@@ -11,7 +11,8 @@ audio encoder's self-attention and the decoder's cross-attention).  The
 train loss (:func:`gqa_forward`, under autograd) and the decode step
 (:func:`gqa_decode`) use it; the prefill (:func:`gqa_prefill`) goes through
 the flash attention kernel (``kernels/flash_attention``), which has no
-backward pass.  MLA is not ported yet.
+backward pass.  Both take a sliding window, the non-causal mode and
+cross-attention.  MLA is not ported yet.
 """
 from __future__ import annotations
 
@@ -111,12 +112,22 @@ def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
     return q, k, _proj(p, cfg, x, "v", cfg.n_kv_heads)
 
 
-def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
-    """Causal self-attention of one layer (the train loss, under autograd);
-    ``p`` holds its wq/wk/wv/wo."""
+def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
+                window: int = 0, causal: bool = True, kv_override=None):
+    """One attention layer of the train loss (under autograd, through the
+    plain :func:`attend`); ``p`` holds its wq/wk/wv/wo.  Causal
+    self-attention over ``positions`` (sliding-window when ``window``), or
+    over every key with ``causal=False``; ``kv_override=(k, v)`` [B, S, KV,
+    hd] is cross-attention: the encoder memory as K/V, and no RoPE on q."""
     B, T, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, positions)
-    return attend(q, k, v).reshape(B, T, -1) @ p["wo"]
+    if kv_override is None:
+        q, k, v = _qkv(p, cfg, x, positions)
+        kv_pos = positions
+    else:
+        q, (k, v) = _proj(p, cfg, x, "q", cfg.n_heads), kv_override
+        kv_pos = None
+    out = attend(q, k, v, positions, kv_pos, causal=causal, window=window)
+    return out.reshape(B, T, -1) @ p["wo"]
 
 
 def gqa_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,

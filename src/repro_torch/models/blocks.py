@@ -1,16 +1,23 @@
 """Transformer blocks: init, the train forward, the prefill and the decode
-step, for the dense family, the hybrid (Hymba: parallel attention + SSD
-branches) family and the audio encoder-decoder.
+step, for the dense family, the ssm (Mamba2: the mixer alone) family, the
+hybrid (Hymba: parallel attention + SSD branches) family and the audio
+encoder-decoder.
 
 A block's parameters are the flat-dict entries under its prefix
 (``blocks/{i}/ln1/scale``, ``blocks/{i}/attn/wq``, …, ``blocks/{i}/mlp/down``;
 the hybrid block adds ``blocks/{i}/mixer/...`` and ``blocks/{i}/branch_scale``;
+an ssm block is ``blocks/{i}/ln1/scale`` and ``blocks/{i}/mixer/...`` alone;
 an encoder block is a dense one under ``enc_blocks/{i}/``; a decoder block
 has ``self/``, ``ln_x/`` and ``cross/`` in place of ``attn/``).
 A prefill returns the layer's cache entry in the structure its decode step
-takes (``{"k", "v"}``, plus ``{"state", "conv"}`` for the hybrid block and
-``{"xk", "xv"}``, the encoder memory's K/V, for the decoder block).  The
-port's counterpart of ``repro.models.blocks`` for these families.
+takes (``{"k", "v"}``, ``{"state", "conv"}`` for the ssm block, both for
+the hybrid block, and ``{"k", "v", "xk", "xv"}``, the encoder memory's K/V
+added, for the decoder block).  The train forwards (``*_block_forward``)
+run under autograd and ``torch.func.vmap`` (the vmapped cohort mode): the
+plain attention and the plain SSD scan (``backend="ref"``: the kernels have
+no backward pass, and the JAX package's loss runs its plain ``ssd_chunked``
+too), no in-place write.  The port's counterpart of
+``repro.models.blocks`` for these families.
 """
 from __future__ import annotations
 
@@ -62,27 +69,64 @@ def dense_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefi
 
 
 def dense_block_forward(params: dict, cfg: ArchConfig, h: torch.Tensor,
-                        positions: torch.Tensor, prefix: str) -> torch.Tensor:
+                        positions: torch.Tensor, prefix: str, *, window: int = 0) -> torch.Tensor:
     h = h + gqa_forward(_attn(params, prefix), cfg,
-                        rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), positions)
+                        rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), positions,
+                        window=window)
     return _mlp(params, cfg, h, prefix)
 
 
 def dense_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
-                        prefix: str, *, backend: str = "kernel"):
-    """Full causal attention (no window). -> (h, {"k", "v"} over the prompt)."""
+                        prefix: str, *, window: int = 0, backend: str = "kernel"):
+    """Causal attention, sliding-window when ``window``.
+    -> (h, {"k", "v"} over the prompt)."""
     a, (k, v) = gqa_prefill(_attn(params, prefix), cfg,
                             rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), positions,
-                            backend=backend)
+                            window=window, backend=backend)
     return _mlp(params, cfg, h + a, prefix), {"k": k, "v": v}
 
 
 def dense_block_decode(params: dict, cfg: ArchConfig, h: torch.Tensor, pos: int, cache: dict,
-                       prefix: str):
-    """One token over the linear cache."""
+                       prefix: str, *, ring: bool = False):
+    """One token over the linear cache, or with ``ring`` over a ring cache
+    (slot ``pos % S``), as the JAX package's ``dense_block_decode``: the
+    cache's size is the only window the decode step applies."""
     a, cache = gqa_decode(_attn(params, prefix), cfg,
-                          rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), pos, cache)
+                          rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), pos, cache,
+                          ring=ring)
     return _mlp(params, cfg, h + a, prefix), cache
+
+
+# -- ssm (Mamba2: mixer only, no separate MLP) --------------------------------
+
+
+def ssm_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefix: str) -> dict:
+    p = {f"{prefix}ln1/scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    p.update({f"{prefix}mixer/{k}": v for k, v in mamba2_init(gen, cfg, dtype, device).items()})
+    return p
+
+
+def ssm_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor, prefix: str, *,
+                      backend: str = "kernel"):
+    """ln1, the mixer (the SSD kernel), the residual.
+    -> (h, {"state", "conv"})."""
+    y, mcache = mamba2_forward(_mixer(params, prefix), cfg,
+                               rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps),
+                               backend=backend)
+    return h + y, mcache
+
+
+def ssm_block_forward(params: dict, cfg: ArchConfig, h: torch.Tensor, prefix: str) -> torch.Tensor:
+    """The train forward: the prefill's arithmetic on the plain SSD scan."""
+    return ssm_block_prefill(params, cfg, h, prefix, backend="ref")[0]
+
+
+def ssm_block_decode(params: dict, cfg: ArchConfig, h: torch.Tensor, cache: dict, prefix: str):
+    """One token of the recurrence; ``cache`` {"state", "conv"} written in
+    place."""
+    y, cache = mamba2_decode(_mixer(params, prefix), cfg,
+                             rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), cache)
+    return h + y, cache
 
 
 # -- hybrid (Hymba: parallel attention + SSM branches) ------------------------
@@ -93,6 +137,18 @@ def hybrid_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, pref
     p.update({f"{prefix}mixer/{k}": v for k, v in mamba2_init(gen, cfg, dtype, device).items()})
     p[f"{prefix}branch_scale"] = torch.full((2,), 0.5, dtype=torch.float32, device=device)
     return p
+
+
+def hybrid_block_forward(params: dict, cfg: ArchConfig, h: torch.Tensor,
+                         positions: torch.Tensor, prefix: str) -> torch.Tensor:
+    """The train forward: both branches on the same normalised input (the
+    attention's window ``cfg.sliding_window``, the mixer's plain SSD scan),
+    summed with the layer's branch scales, then the MLP."""
+    x = rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps)
+    a = gqa_forward(_attn(params, prefix), cfg, x, positions, window=cfg.sliding_window)
+    m, _ = mamba2_forward(_mixer(params, prefix), cfg, x, backend="ref")
+    s = params[f"{prefix}branch_scale"].to(h.dtype)
+    return _mlp(params, cfg, h + s[0] * a + s[1] * m, prefix)
 
 
 def hybrid_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor,
@@ -125,6 +181,16 @@ def hybrid_block_decode(params: dict, cfg: ArchConfig, h: torch.Tensor, pos: int
 enc_block_init = dense_block_init
 
 
+def enc_block_forward(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
+                      prefix: str) -> torch.Tensor:
+    """The train forward: self-attention over every frame (plain), then the
+    MLP."""
+    a = gqa_forward(_attn(params, prefix), cfg,
+                    rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), positions,
+                    causal=False)
+    return _mlp(params, cfg, h + a, prefix)
+
+
 def enc_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
                       prefix: str, *, backend: str = "kernel") -> torch.Tensor:
     """Self-attention over every frame (non-causal flash), then the MLP."""
@@ -145,6 +211,18 @@ def cross_kv(params: dict, cfg: ArchConfig, enc_out: torch.Tensor, prefix: str):
     return _proj(p, cfg, enc_out, "k", cfg.n_kv_heads), _proj(p, cfg, enc_out, "v", cfg.n_kv_heads)
 
 
+def dec_block_forward(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
+                      xkv: tuple, prefix: str) -> torch.Tensor:
+    """The train forward: causal self-attention, then cross-attention over
+    the encoder memory ``xkv = (xk, xv)``, both plain, then the MLP."""
+    h = h + gqa_forward(_attn(params, prefix, "self"), cfg,
+                        rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), positions)
+    c = gqa_forward(_attn(params, prefix, "cross"), cfg,
+                    rmsnorm(params[f"{prefix}ln_x/scale"], h, cfg.norm_eps), positions,
+                    causal=False, kv_override=xkv)
+    return _mlp(params, cfg, h + c, prefix)
+
+
 def dec_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
                       xkv: tuple, prefix: str, *, backend: str = "kernel"):
     """Causal self-attention, then non-causal cross-attention over the
@@ -161,11 +239,13 @@ def dec_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor, positions:
 
 
 def dec_block_decode(params: dict, cfg: ArchConfig, h: torch.Tensor, pos: int, cache: dict,
-                     prefix: str):
-    """One token: self-attention over the linear cache ``{"k", "v"}``
-    (written in place), cross-attention over ``{"xk", "xv"}``."""
+                     prefix: str, *, ring: bool = False):
+    """One token: self-attention over the linear cache ``{"k", "v"}`` (a
+    ring with ``ring``; written in place), cross-attention over ``{"xk",
+    "xv"}``."""
     a, _ = gqa_decode(_attn(params, prefix, "self"), cfg,
-                      rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), pos, cache)
+                      rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), pos, cache,
+                      ring=ring)
     h = h + a
     c, _ = gqa_decode(_attn(params, prefix, "cross"), cfg,
                       rmsnorm(params[f"{prefix}ln_x/scale"], h, cfg.norm_eps), pos, None,

@@ -4,34 +4,38 @@ One ``Model`` per ArchConfig, the API the FL stack and the serving path use:
 
   * ``init(seed, device) -> params``  (flat dict of tensors, random weights
     drawn with a ``torch.Generator`` on ``device``; shapes only on ``meta``)
-  * ``loss(params, batch) -> (scalar, metrics)``  (the train objective,
-    dense and vlm families; gradients come from autograd)
+  * ``loss(params, batch) -> (scalar, {"ce", "aux"})``  (the train
+    objective; gradients come from autograd)
   * ``init_cache(batch_size, cache_len, device) -> cache``  (decode state,
     zeros)
   * ``prefill(params, batch, cache_len) -> (logits, cache)``
-  * ``decode_step(params, token, cache) -> (logits, cache)``
+  * ``decode_step(params, token, cache, ring=False) -> (logits, cache)``
 
-The port's counterpart of ``repro.models.model`` for the dense, vlm,
-hybrid and audio (encoder-decoder) families.  A cache is ``{"layers":
-{name: [L, B, ...] tensor}, "pos": int}`` with the JAX package's entries
-and layouts; ``decode_step`` writes it in place (the JAX step returns a
-new one) and returns it.  ``backend`` picks the prefill's kernels (flash
-attention, SSD intra-chunk): ``"kernel"`` (the default) launches them for
-CUDA tensors and takes their plain torch versions for CPU tensors;
-``"ref"`` takes the plain versions on any device.  The decode step runs no
-kernel of the port.  The dense family's cache is linear, the hybrid
-family's a ring of the window's size; a dense config with a sliding window
-is not served (its windowed decode is not ported) and raises.  The vlm
-family is the dense family with ``batch["patches"]`` [B, num_patches,
-d_model] (the patch embeddings the stubbed vision tower would give)
-projected by ``patch_proj`` and prefixed to the token embeddings:
-positions run over patches and tokens, the train loss reads the text
-positions only, and the prefill caches K/V over both (``pos`` =
-num_patches + T); its decode step is the dense one.  The audio family runs
-its encoder once a prefill over ``batch["frames"]`` [B, src_frames,
-d_model] (the frame embeddings the stubbed front end would give), with
-sinusoidal positions (``rope_kind="none"``) on both sides; its cache adds
-the encoder memory's K/V per decoder layer (``xk``, ``xv``).
+The port's counterpart of ``repro.models.model`` for the dense, vlm, ssm,
+hybrid and audio (encoder-decoder) families; the moe family (MLA) raises.
+A cache is ``{"layers": {name: [L, B, ...] tensor}, "pos": int}`` with the
+JAX package's entries and layouts; ``decode_step`` writes it in place (the
+JAX step returns a new one) and returns it.  ``backend`` picks the
+prefill's kernels (flash attention, SSD intra-chunk): ``"kernel"`` (the
+default) launches them for CUDA tensors and takes their plain torch
+versions for CPU tensors; ``"ref"`` takes the plain versions on any
+device.  The decode step runs no kernel of the port, and the train loss
+none either (the plain attention and SSD scan, under autograd).  The dense
+family's cache is linear, or a ring with ``decode_step(ring=True)``; the
+hybrid family's is a ring of the window's size.  As in the JAX package, a
+dense config's sliding window applies to the prefill and the loss, and
+its decode step sees the whole cache: a window-sized ring cache is what
+windows it.  The ssm family (Mamba2) adds no positions and caches the SSD
+state and the conv tail alone.  The vlm family is the dense family with
+``batch["patches"]`` [B, num_patches, d_model] (the patch embeddings the
+stubbed vision tower would give) projected by ``patch_proj`` and prefixed
+to the token embeddings: positions run over patches and tokens, the train
+loss reads the text positions only, and the prefill caches K/V over both
+(``pos`` = num_patches + T); its decode step is the dense one.  The
+audio family runs its encoder once a prefill over ``batch["frames"]`` [B,
+src_frames, d_model] (the frame embeddings the stubbed front end would
+give), with sinusoidal positions (``rope_kind="none"``) on both sides; its
+cache adds the encoder memory's K/V per decoder layer (``xk``, ``xv``).
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ from . import blocks as B
 from .layers import dense_init, embed_init, rmsnorm, softmax_xent
 from .mamba2 import dims as ssm_dims
 
-FAMILIES = ("dense", "vlm", "hybrid", "audio")
+FAMILIES = ("dense", "vlm", "ssm", "hybrid", "audio")
+UNPOSITIONED = ("ssm", "audio")  # rope_kind "none": audio adds a sinusoid, ssm nothing
 BACKENDS = ("kernel", "ref")
 SEQ_KEYS = ("k", "v")            # sequence-indexed cache entries
 
@@ -81,10 +86,14 @@ class Model:
 
     def __post_init__(self):
         cfg = self.cfg
-        if cfg.family not in FAMILIES or (cfg.rope_kind == "none") != (cfg.family == "audio"):
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense, vlm and hybrid families with RoPE and the "
-                f"audio family with sinusoidal positions are ported yet")
+                f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP 'Modules to "
+                f"port', item 10: MLA and the moe family)")
+        if (cfg.rope_kind == "none") != (cfg.family in UNPOSITIONED):
+            raise NotImplementedError(
+                f"{cfg.name}: the dense, vlm and hybrid families are ported with RoPE, the ssm "
+                f"and audio families with rope_kind 'none'")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; have {BACKENDS}")
 
@@ -94,7 +103,7 @@ class Model:
         # device "meta" gives the shapes alone (it has no generator)
         gen = (None if torch.device(device).type == "meta"
                else torch.Generator(device=device).manual_seed(seed))
-        init_block = {"hybrid": B.hybrid_block_init,
+        init_block = {"ssm": B.ssm_block_init, "hybrid": B.hybrid_block_init,
                       "audio": B.dec_block_init}.get(cfg.family, B.dense_block_init)
         p = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dt, device)}
         if cfg.family == "audio":
@@ -130,23 +139,35 @@ class Model:
         return h @ (params["embed"].T if self.cfg.tie_embeddings else params["lm_head"])
 
     def loss(self, params: dict, batch: dict):
+        """Mean next-token cross entropy of ``batch["tokens"]`` [B, T+1]
+        (after the vlm family's patches; for the audio family, the decoder
+        over the encoder of ``batch["frames"]``) -> (ce, {"ce", "aux"}),
+        aux 0 as in every family but the JAX package's moe.  The plain
+        attention (the dense family's window ``cfg.sliding_window``) and the
+        plain SSD scan, with no in-place write, so that it runs under
+        autograd and ``torch.func.vmap``."""
         cfg = self.cfg
-        if cfg.family == "audio":
-            raise NotImplementedError(f"{cfg.name}: the audio family's train loss (the JAX "
-                                      f"package's _loss_encdec) is not ported yet (ROADMAP "
-                                      f"'Modules to port', item 10)")
-        if cfg.family not in ("dense", "vlm"):
-            raise NotImplementedError(f"{cfg.name}: the {cfg.family} family's train loss is "
-                                      f"not ported yet, only its serving path (ROADMAP "
-                                      f"'Modules to port', item 10)")
         toks = batch["tokens"]
         inputs, labels = toks[..., :-1], toks[..., 1:]
         h, offset = self._embed(params, batch, inputs, train=True)
         positions = torch.arange(h.shape[1], device=h.device)
+        if cfg.family == "audio":
+            h = h + sinusoid(positions, cfg.d_model)[None].to(h.dtype)
+            enc_out = self._encode(params, batch["frames"], train=True)
         for i in range(cfg.n_layers):
-            h = B.dense_block_forward(params, cfg, h, positions, f"blocks/{i}/")
+            prefix = f"blocks/{i}/"
+            if cfg.family == "audio":
+                h = B.dec_block_forward(params, cfg, h, positions,
+                                        B.cross_kv(params, cfg, enc_out, prefix), prefix)
+            elif cfg.family == "ssm":
+                h = B.ssm_block_forward(params, cfg, h, prefix)
+            elif cfg.family == "hybrid":
+                h = B.hybrid_block_forward(params, cfg, h, positions, prefix)
+            else:
+                h = B.dense_block_forward(params, cfg, h, positions, prefix,
+                                          window=cfg.sliding_window)
         ce = softmax_xent(self._logits(params, h[:, offset:]), labels).mean()
-        return ce, {"ce": ce}
+        return ce, {"ce": ce, "aux": torch.zeros_like(ce)}
 
     # ---------------------------------------------------------------- serve
 
@@ -154,19 +175,23 @@ class Model:
         """{name: (shape [L, B, ...], dtype)} of the decode cache.  The
         hybrid family's attention cache is a ring of the window's size; the
         audio family's adds the encoder memory's K/V over ``src_len``
-        frames (``cfg.src_frames`` when 0)."""
+        frames (``cfg.src_frames`` when 0); the ssm family has no attention
+        cache, and it and the hybrid family keep the SSD state (fp32) and
+        the conv tail."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         L, S, hd = cfg.n_layers, cache_len, cfg.hd()
         if cfg.family == "hybrid":
             S = min(S, cfg.sliding_window or S)
-        spec = {"k": ((L, batch_size, S, cfg.n_kv_heads, hd), dt),
-                "v": ((L, batch_size, S, cfg.n_kv_heads, hd), dt)}
+        spec = {}
+        if cfg.family != "ssm":
+            spec["k"] = ((L, batch_size, S, cfg.n_kv_heads, hd), dt)
+            spec["v"] = ((L, batch_size, S, cfg.n_kv_heads, hd), dt)
         if cfg.family == "audio":
             src = src_len or cfg.src_frames
             spec["xk"] = ((L, batch_size, src, cfg.n_kv_heads, hd), dt)
             spec["xv"] = ((L, batch_size, src, cfg.n_kv_heads, hd), dt)
-        if cfg.family == "hybrid":
+        if cfg.family in ("ssm", "hybrid"):
             d_inner, H, P, N = ssm_dims(cfg)
             spec["state"] = ((L, batch_size, H, P, N), torch.float32)
             spec["conv"] = ((L, batch_size, cfg.ssm.conv_width - 1, d_inner + 2 * N), dt)
@@ -177,21 +202,18 @@ class Model:
                   for k, (shape, d) in self.cache_spec(batch_size, cache_len, src_len).items()}
         return {"layers": layers, "pos": 0}
 
-    def _check_servable(self):
-        cfg = self.cfg
-        if cfg.family in ("dense", "vlm") and cfg.sliding_window:
-            raise NotImplementedError(f"{cfg.name}: serving a dense config with a sliding "
-                                      f"window is not ported yet")
-
-    def _encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params: dict, frames: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         """The audio encoder over frame embeddings [B, S, d_model]: the
-        sinusoid added, ``enc_layers`` non-causal blocks, the final norm."""
+        sinusoid added, ``enc_layers`` non-causal blocks (flash, or the
+        plain attention in the train loss), the final norm."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         pos = torch.arange(frames.shape[1], device=frames.device)
         h = frames.to(dt) + sinusoid(pos, cfg.d_model)[None].to(dt)
         for i in range(cfg.enc_layers):
-            h = B.enc_block_prefill(params, cfg, h, pos, f"enc_blocks/{i}/", backend=self.backend)
+            prefix = f"enc_blocks/{i}/"
+            h = (B.enc_block_forward(params, cfg, h, pos, prefix) if train else
+                 B.enc_block_prefill(params, cfg, h, pos, prefix, backend=self.backend))
         return rmsnorm(params["enc_norm/scale"], h, cfg.norm_eps)
 
     def prefill(self, params: dict, batch: dict, cache_len: int):
@@ -199,8 +221,7 @@ class Model:
         family's ``batch["patches"]``; for the audio family, the encoder over
         ``batch["frames"]``), collecting decode-ready caches: -> (logits of
         the last position [B, 1, V], cache at ``pos`` T, or num_patches +
-        T for the vlm family)."""
-        self._check_servable()
+        T for the vlm family).  A dense config's sliding window applies."""
         cfg = self.cfg
         h, _ = self._embed(params, batch, batch["tokens"])
         Bsz, T = h.shape[:2]
@@ -217,12 +238,14 @@ class Model:
                 h, entry = B.dec_block_prefill(params, cfg, h, positions, (xk, xv), prefix,
                                                backend=self.backend)
                 entry.update(xk=xk, xv=xv)
+            elif cfg.family == "ssm":
+                h, entry = B.ssm_block_prefill(params, cfg, h, prefix, backend=self.backend)
             elif cfg.family == "hybrid":
                 h, entry = B.hybrid_block_prefill(params, cfg, h, positions, prefix,
                                                   backend=self.backend)
             else:
                 h, entry = B.dense_block_prefill(params, cfg, h, positions, prefix,
-                                                 backend=self.backend)
+                                                 window=cfg.sliding_window, backend=self.backend)
             for name, x in entry.items():
                 dst = cache["layers"][name][i]
                 if name in SEQ_KEYS:
@@ -232,10 +255,12 @@ class Model:
         cache["pos"] = T
         return self._logits(params, h[:, -1:]), cache
 
-    def decode_step(self, params: dict, token: torch.Tensor, cache: dict):
+    def decode_step(self, params: dict, token: torch.Tensor, cache: dict, *, ring: bool = False):
         """token [B, 1] -> (logits [B, 1, V], cache), the cache written in
-        place and advanced by one position."""
-        self._check_servable()
+        place and advanced by one position.  ``ring`` writes the dense,
+        vlm and audio decoders' self-attention caches at slot ``pos % S``
+        (the JAX package's keyword); the hybrid family's cache is always a
+        ring, the ssm family's has no slots."""
         cfg = self.cfg
         pos = cache["pos"]
         h = F.embedding(token.long(), params["embed"])
@@ -245,11 +270,13 @@ class Model:
             prefix = f"blocks/{i}/"
             layer = {k: v[i] for k, v in cache["layers"].items()}
             if cfg.family == "audio":
-                h, _ = B.dec_block_decode(params, cfg, h, pos, layer, prefix)
+                h, _ = B.dec_block_decode(params, cfg, h, pos, layer, prefix, ring=ring)
+            elif cfg.family == "ssm":
+                h, _ = B.ssm_block_decode(params, cfg, h, layer, prefix)
             elif cfg.family == "hybrid":
                 h, _ = B.hybrid_block_decode(params, cfg, h, pos, layer, prefix)
             else:
-                h, _ = B.dense_block_decode(params, cfg, h, pos, layer, prefix)
+                h, _ = B.dense_block_decode(params, cfg, h, pos, layer, prefix, ring=ring)
         cache["pos"] = pos + 1
         return self._logits(params, h), cache
 

@@ -2,10 +2,14 @@
 ``launch/serve.py:generate``) against the JAX package's, on
 ``hymba-1.5b.reduced(n_kv_heads=2)`` (the hybrid family: window 64, SSD
 chunk 32, groups of 2 heads), ``qwen1.5-0.5b.reduced()`` (dense, QKV
-bias, tied embeddings) and ``seamless-m4t-medium.reduced()`` (the audio
+bias, tied embeddings), ``seamless-m4t-medium.reduced()`` (the audio
 encoder-decoder: 2 + 2 layers, sinusoidal positions, 32 frames from numpy
-seed 3, so the decoder's cross-attention has Tq 128 > Tk 32), all fp32,
-T = 128 prompts (past the window).
+seed 3, so the decoder's cross-attention has Tq 128 > Tk 32),
+``mamba2-1.3b.reduced()`` (the ssm family: 4 SSD chunks of 32, no
+positions), ``minicpm-2b.reduced()`` (tied embeddings),
+``chatglm3-6b.reduced()`` (the "half" RoPE, groups of 2 heads, QKV bias)
+and ``qwen2-72b.reduced()`` (theta 1e6, QKV bias), all fp32, T = 128
+prompts (past the window).
 
 * ``params_from_jax`` carries the JAX tree across (``enc_blocks`` too; a
   bf16 one with its fp32 SSD leaves); ``cache_from_jax`` a cache (``xk``
@@ -17,11 +21,10 @@ T = 128 prompts (past the window).
   frameworks sum in their own order), tokens exactly;
 * the serve CLI on ``--device cpu``; sampling from an explicit generator;
 * ``backend="kernel"`` on CPU tensors takes the plain versions (no launch),
-  the registry refuses the archs the port does not run and serves the vlm
-  ones, and the prefill's
-  kernels are never reached under autograd; a dense config with a sliding
-  window is refused (its windowed decode is not ported), and so is the
-  audio family's train loss.
+  the registry refuses the moe family's archs and serves the vlm ones and
+  the rest of the zoo, and the prefill's kernels are never reached under
+  autograd; a dense config with a sliding window is served as JAX serves
+  it, and only a moe config's train loss is refused.
 """
 import dataclasses
 
@@ -44,7 +47,8 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.weights import cache_from_jax, params_from_jax  # noqa: E402
 
 TOL = dict(atol=2e-5, rtol=2e-4)
-ARCH_KW = {"hymba-1.5b": dict(n_kv_heads=2), "qwen1.5-0.5b": {}, "seamless-m4t-medium": {}}
+ARCH_KW = {"hymba-1.5b": dict(n_kv_heads=2), "qwen1.5-0.5b": {}, "seamless-m4t-medium": {},
+           "mamba2-1.3b": {}, "minicpm-2b": {}, "chatglm3-6b": {}, "qwen2-72b": {}}
 B, T, EXTRA = 2, 128, 3
 
 
@@ -219,22 +223,35 @@ def test_kernel_backend_on_cpu_takes_plain_versions_and_needs_no_grad():
     grad_params = {k: v.requires_grad_() for k, v in params.items()}
     with pytest.raises(RuntimeError, match="forward-only"):
         build_model(cfg).prefill(grad_params, {"tokens": toks}, 70)
-    with pytest.raises(NotImplementedError, match="train loss"):
-        build_model(cfg).loss(params, {"tokens": toks})
+    loss, metrics = build_model(cfg).loss(params, {"tokens": toks})
+    assert torch.isfinite(loss) and set(metrics) == {"ce", "aux"}
     with pytest.raises(ValueError, match="backend"):
         build_model(cfg, backend="pallas")
-    audio = get_arch("seamless-m4t-medium").reduced()
-    with pytest.raises(NotImplementedError, match="train loss.*item 10"):
-        build_model(audio).loss(build_model(audio).init(0, "cpu"), {"tokens": toks})
+    with pytest.raises(NotImplementedError, match="moe family.*item 10"):
+        build_model(dataclasses.replace(cfg, family="moe"))
 
 
-@pytest.mark.parametrize("arch", ["qwen2-72b", "mamba2-1.3b", "deepseek-v3-671b",
-                                  "minicpm-2b", "chatglm3-6b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "deepseek-v2-lite-16b"])
 def test_registry_refuses_unported_archs(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10.*moe"):
         get_arch(arch)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "minicpm-2b", "chatglm3-6b", "qwen2-72b"])
+def test_registry_serves_the_zoo_archs(arch):
+    """Each new arch is the JAX config field for field (the JAX fields the
+    port has no counterpart of at their defaults, but Qwen2-72B's
+    ``remat``, which changes memory only)."""
+    cfg = get_arch(arch)
+    assert cfg.name == arch and cfg == port_cfg(J_ARCHS[arch])
+    port_fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    jcfg = J_ARCHS[arch]
+    left_out = {f.name: getattr(jcfg, f.name) != f.default
+                for f in dataclasses.fields(jcfg) if f.name not in port_fields}
+    assert {k for k, moved in left_out.items() if moved} == (
+        {"remat"} if arch == "qwen2-72b" else set())
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "vision-tiny"])
@@ -245,14 +262,23 @@ def test_registry_serves_the_vlm_archs(arch):
 
 
 def test_windowed_dense_config_is_not_served():
-    """The dense family decodes over a linear cache, so a dense config with
-    a sliding window (windowed prefill, windowed decode) is refused rather
-    than served with a decode that would see the whole cache."""
-    cfg = dataclasses.replace(get_arch("qwen1.5-0.5b").reduced(), sliding_window=16)
+    """A dense config with a sliding window is now served as the JAX
+    package serves it: the prefill windowed, then a decode step over the
+    linear cache, which sees the whole cache (JAX's ``gqa_decode`` never
+    reads its ``window``): logits and cache equal to JAX's at the serve
+    tolerance.  ``tests/test_torch_zoo.py`` holds the ring cache too."""
+    jcfg = J_ARCHS["qwen1.5-0.5b"].reduced(sliding_window=8)
+    jmodel = j_build(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    cfg = port_cfg(jcfg)
     model = build_model(cfg)
-    params = model.init(0, "cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        model.prefill(params, {"tokens": toks}, 12)
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        model.decode_step(params, toks[:, :1], model.init_cache(1, 12, "cpu"))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 25)).astype(np.int32)
+    jl, jc = jmodel.prefill(jparams, {"tokens": toks[:, :24]}, 28)
+    jl, jc = jmodel.decode_step(jparams, toks[:, 24:25], jc)
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": torch.from_numpy(toks[:, :24])}, 28)
+        lg, cache = model.decode_step(params, torch.from_numpy(toks[:, 24:25]), cache)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
+    for k, v in cache_from_jax(jax.tree.map(np.asarray, jc), "cpu")["layers"].items():
+        np.testing.assert_allclose(cache["layers"][k].numpy(), v.numpy(), **TOL)
