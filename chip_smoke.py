@@ -31,7 +31,7 @@
    beside unmasked SDPA; ``rr_perm``'s latency bound (the launch floor plus
    the cipher's serial chain, counted from its SASS) beside its operations
    bound;
-3. drives fifteen main paths through the user entry point, each with every
+3. drives sixteen main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
@@ -110,7 +110,16 @@
    / 28 / 20 causal ``flash_fwd_mma`` launches a dense prefill; none in
    decode), each model freed before the next, then the smoke runs of the
    ssm, hybrid and audio families' train losses on the card in both
-   cohort modes;
+   cohort modes; then MLA and the moe family (main path 16, ``moe_paths``):
+   DeepSeek-V2-Lite-16B (27 x 2048, MLA of 16 heads, 64 experts top-6 + 2
+   shared, bf16) and DeepSeek-V3-671B at full width with its depth cut from
+   61 to 2 layers and its MTP block left out (7168, MLA of 128 heads with
+   q_lora 1536, 256 experts top-8 + 1 shared) served through ``generate``
+   at batch 4, 2,048-token prompts, 32 greedy tokens, with no launch of any
+   kernel of the port (the JAX package's MLA and MoE reach no Pallas
+   kernel either; the choices the capacity drops counted from the
+   dispatch), then both archs' smoke runs (V3 with MTP) in both cohort
+   modes;
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
@@ -174,7 +183,17 @@
    anchor at 2 layers), mamba2's fp32 prefill -> decode consistency at full
    width, each tiny config served on the card agreeing with the CPU, and
    the three smokes within 1e-4 of a leaf's largest magnitude of the CPU
-   run, Hymba's bucketed run bitwise its padded twin;
+   run, Hymba's bucketed run bitwise its padded twin; for path 16, V2-Lite's
+   first MoE block in fp32 on the card and the CPU over 4 x 300 tokens
+   (two dispatch groups, the second padded) and one decode step of it at
+   batch 4 (capacity 1): each group's dispatch mask bitwise equal, the
+   router probabilities within ``MOE_PROB_ATOL`` and any token whose top-k
+   differs at a near tie, the block within ``CARD_CPU_RTOL``, the planted
+   fault (ties broken toward the higher index) changing the padded group's
+   mask; V3's first-layer router and dispatch the same way; both tiny
+   configs served on the card agreeing with the CPU; V2-Lite's bf16 prefill
+   against fp32 at 2 layers reported; the smokes within 1e-4 of a leaf's
+   largest magnitude of the CPU run;
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -4541,11 +4560,13 @@ CARD_CPU_RTOL = 1e-4
 
 
 def traced_serve(label: str, model, params: dict, batch: dict, cache_len: int,
-                 names: tuple) -> dict:
+                 names: tuple, top: int = 0) -> dict:
     """One prefill and one decode step traced (CUDA activity only): device
-    kernels and copies, device ms, and the ms of the kernels whose names
-    hold each of ``names``."""
+    kernels and copies, device ms, the ms of the kernels whose names hold
+    each of ``names``, and with ``top`` the ms of the ``top`` kernels (by
+    name) that take the most."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     res = {}
@@ -4562,8 +4583,18 @@ def traced_serve(label: str, model, params: dict, batch: dict, cache_len: int,
             mine = {f"{nm}_ms": sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
                                     if nm in e.name()) / 1e6 for nm in names}
             res[f"{phase}_trace"] = {"kernels": n, "device_ms": dev_ms, **mine}
+            most = ""
+            if top:
+                by_name = {}
+                for e in prof.profiler.kineto_results.events():
+                    if e.device_type() != DeviceType.CPU:
+                        by_name[e.name()[:80]] = by_name.get(e.name()[:80], 0) + e.duration_ns()
+                res[f"{phase}_trace"]["top_ms"] = {k: ns / 1e6 for k, ns in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:top]}
+                most = "; the most time: " + "; ".join(
+                    f"{k} {ms:.2f}" for k, ms in res[f"{phase}_trace"]["top_ms"].items())
             print(f"{label} {phase} traced: {n} device kernels and copies, {dev_ms:.2f} ms of "
-                  f"device time, " + ", ".join(f"{k} {v:.2f}" for k, v in mine.items()),
+                  f"device time, " + ", ".join(f"{k} {v:.2f}" for k, v in mine.items()) + most,
                   flush=True)
     del cache, lg, tok
     return res
@@ -5032,6 +5063,441 @@ def zoo_paths(dev, flash_row: dict, ssd_row: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# main path 16: MLA and the moe family (DeepSeek-V2-Lite-16B, DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+MOE_SERVE = ("deepseek-v2-lite-16b", "deepseek-v3-671b")
+# DeepSeek-V3's depth cut from 61 layers to 2: ~49.7 GB of bf16 weights
+# (an MoE layer is 11.5 B params), which leave room on an 80 GB card for the
+# prefill's plain MLA attention (fp32 scores [4, 128, 2048, 2048], ~16 GiB
+# at their peak).  Its MTP block enters the train loss only, so the served
+# model is built with mtp=False; the train smoke holds the MTP block.
+MOE_DEPTH = {"deepseek-v3-671b": 2}
+# the depth of V2-Lite's bf16-vs-fp32 prefill comparison (reported, not a
+# limit: in bf16 a token near a routing tie may take another expert)
+MOE_ANCHOR_DEPTH = 2
+# the card-vs-CPU checks' prompt: 4 x 300 = 1,200 tokens, two dispatch
+# groups of 1,024, the second holding 848 pad rows
+MOE_CHECK_PROMPT = 300
+# the card's and the CPU's fp32 router probabilities of the same input
+MOE_PROB_ATOL = 1e-5
+
+
+def kernel_wrappers() -> tuple:
+    """Every kernel wrapper of the port, each with its launch count."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
+    from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
+    from repro_torch.kernels.server_update.kernel import server_update_kernel
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_kernel
+
+    return (rr_indices_kernel, quantize_pack_kernel, unpack_dequantize_kernel,
+            server_update_kernel, flash_attention_kernel, ssd_intra_chunk_kernel)
+
+
+def top_k_high(probs, k: int):
+    """The planted fault of the dispatch's tie order: the k largest with
+    ties broken toward the higher index."""
+    import torch
+
+    vals, idx = torch.sort(probs.flip(-1), dim=-1, descending=True, stable=True)
+    return vals[..., :k], probs.shape[-1] - 1 - idx[..., :k]
+
+
+@contextlib.contextmanager
+def dispatch_seen(route_by: list | None = None):
+    """Swap ``moe._dispatch_group`` for one that records each group's
+    {probs, disp, k, cap} in the list it yields.  With ``route_by`` (a list
+    of probability tensors, one a group in call order) each group is routed
+    by those (moved to its device) in place of its own probabilities, which
+    are recorded."""
+    from repro_torch.models import moe
+
+    orig, seen = moe._dispatch_group, []
+
+    def recording(probs, k, cap):
+        used = probs if route_by is None else route_by[len(seen)].to(probs.device)
+        out = orig(used, k, cap)
+        seen.append({"probs": probs, "disp": out[0], "k": k, "cap": cap})
+        return out
+
+    with swapped({(moe, "_dispatch_group"): recording}):
+        yield seen
+
+
+def drops_of(seen: list) -> dict:
+    """Token choices (assignments) the capacity dropped, and tokens that
+    lost at least one of their k choices, over the recorded groups."""
+    out = {"assignments": 0, "assignments_dropped": 0, "tokens": 0, "tokens_losing_a_choice": 0}
+    for s in seen:
+        kept = s["disp"].sum(dim=(1, 2))                       # [g]
+        out["assignments"] += kept.numel() * s["k"]
+        out["assignments_dropped"] += int(kept.numel() * s["k"] - kept.sum())
+        out["tokens"] += kept.numel()
+        out["tokens_losing_a_choice"] += int((kept < s["k"]).sum())
+    return out
+
+
+def routing_flips(card: list, cpu: list, k: int) -> dict:
+    """The card's and the CPU's own fp32 router probabilities of the same
+    groups: within ``MOE_PROB_ATOL`` of each other, and every token whose
+    ordered top-k differs between them sits at a near tie (two adjacent
+    probabilities of the card's top k+1 no further apart than twice that
+    token's largest card-vs-CPU difference, the most a difference can
+    reorder).  -> the largest difference and the tokens that differ."""
+    import torch
+
+    from repro_torch.models import moe
+
+    diff, flips = 0.0, 0
+    for pc, pg in zip(card, cpu):
+        pc, pg = pc.float().cpu(), pg.float().cpu()
+        d = (pc - pg).abs().amax(dim=-1)                        # [g]
+        diff = max(diff, float(d.max()))
+        bad = (moe.top_k(pc, k)[1] != moe.top_k(pg, k)[1]).any(dim=-1)
+        if bad.any():
+            vals = moe.top_k(pc, min(k + 1, pc.shape[-1]))[0]
+            gap = (vals[:, :-1] - vals[:, 1:]).amin(dim=-1)
+            if (bad & (gap > 2 * d)).any():
+                raise AssertionError("moe routing: a token's top-k differs card vs CPU away "
+                                     "from any near tie")
+        flips += int(bad.sum())
+    if diff > MOE_PROB_ATOL:
+        raise AssertionError(f"moe routing: router probabilities differ card vs CPU by {diff:.3e} "
+                             f"(bound {MOE_PROB_ATOL})")
+    return {"max_prob_diff": diff, "tokens_differing": flips}
+
+
+def dispatch_fault(card_seen: list, want: list) -> list[int]:
+    """The planted fault: each recorded group dispatched again from the
+    card's probabilities with ties broken toward the higher index; -> the
+    elements of each group's mask off ``want``'s."""
+    import torch
+
+    from repro_torch.models import moe
+
+    with torch.inference_mode(), swapped({(moe, "top_k"): top_k_high}):
+        return [int((moe._dispatch_group(s["probs"], s["k"], s["cap"])[0].cpu() != w.cpu()).sum())
+                for s, w in zip(card_seen, want)]
+
+
+def check_moe_block(dev, cfg, params: dict, prompts) -> dict:
+    """DeepSeek-V2-Lite's first MoE block at full width in fp32 (TF32 off),
+    from the served model's layer-0 weights, on the card and on the CPU,
+    over the prompts' embeddings (4 x 300 tokens: two dispatch groups, the
+    second padded with 848 rows), then one decode step of the block at
+    batch 4 (capacity 1) over each device's own prefill cache.  The CPU is
+    routed by the card's router probabilities (:func:`routing_flips` holds
+    its own): every group's dispatch mask bitwise equal, the block's output,
+    caches and aux within ``CARD_CPU_RTOL`` of a tensor's largest magnitude.
+    The planted fault, ties broken toward the higher index, must change the
+    padded group's mask."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import blocks as MB
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p = {k: v.float() for k, v in params.items() if k.startswith("blocks/0/")}
+    B, T = prompts.shape
+    with torch.inference_mode():
+        emb = F.embedding(prompts, params["embed"]).float()
+        emb_next = F.embedding(prompts[:, -1:], params["embed"]).float()
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        pd = {k: v.to(d) for k, v in p.items()}
+        card = runs.get("card")
+        with torch.inference_mode():
+            with dispatch_seen(card and [s["probs"] for s in card["seen"]]) as seen:
+                h, aux, entry = MB.moe_block_prefill(pd, cfg32, emb.to(d),
+                                                     torch.arange(T, device=d), "blocks/0/")
+            cache = {k: torch.zeros((B, T + 1, v.shape[-1]), device=d) for k, v in entry.items()}
+            for k, v in entry.items():
+                cache[k][:, :T] = v
+            with dispatch_seen(card and [s["probs"] for s in card["dseen"]]) as dseen:
+                hd, cache = MB.moe_block_decode(pd, cfg32, emb_next.to(d), T, cache, "blocks/0/")
+        runs[name] = {"seen": seen, "dseen": dseen, "out": {
+            "h": h, "aux": aux[None], "decode_h": hd,
+            **{f"prefill_{k}": v for k, v in entry.items()},
+            **{f"decoded_{k}": v for k, v in cache.items()}}}
+        del pd
+    card, cpu = runs["card"], runs["cpu"]
+    res = {}
+    for phase in ("seen", "dseen"):
+        same = [torch.equal(a["disp"].cpu(), b["disp"]) for a, b in zip(card[phase], cpu[phase])]
+        if len(card[phase]) != len(cpu[phase]) or not all(same):
+            raise AssertionError(f"moe block: the {phase} dispatch masks differ card vs CPU "
+                                 f"({same})")
+        res[phase] = {"groups": len(same), **routing_flips(
+            [s["probs"] for s in card[phase]], [s["probs"] for s in cpu[phase]], cfg.moe.top_k),
+            **drops_of(card[phase])}
+    res["card_vs_cpu"] = card_vs_cpu("moe block (V2-Lite layer 0, fp32)", card["out"], cpu["out"])
+    res["fault_elements_off"] = dispatch_fault(card["seen"], [s["disp"] for s in cpu["seen"]])
+    if res["fault_elements_off"][-1] == 0:
+        raise AssertionError("moe block: ties broken toward the higher index leave the padded "
+                             "group's dispatch mask as it was")
+    print(f"moe block check (deepseek-v2-lite-16b layer 0 at full width, fp32, {B} x {T} tokens, "
+          f"{res['seen']['groups']} groups, the last padded): dispatch masks bitwise equal card "
+          f"vs CPU in the prefill and in one decode step at batch {B} (capacity 1); router "
+          f"probabilities within {res['seen']['max_prob_diff']:.3e} / "
+          f"{res['dseen']['max_prob_diff']:.3e} (bound {MOE_PROB_ATOL}), tokens whose own top-k "
+          f"differs card vs CPU {res['seen']['tokens_differing']} / "
+          f"{res['dseen']['tokens_differing']} (each at a near tie); output, caches and aux within"
+          f" {res['card_vs_cpu']:.3e} of a tensor's largest magnitude (bound {CARD_CPU_RTOL}); "
+          f"choices dropped {res['seen']['assignments_dropped']} of "
+          f"{res['seen']['assignments']} (pads included) / {res['dseen']['assignments_dropped']} "
+          f"of {res['dseen']['assignments']}; ties toward the higher index: elements off by group "
+          f"{res['fault_elements_off']}", flush=True)
+    return res
+
+
+def check_moe_router(dev, cfg, params: dict, prompts) -> dict:
+    """DeepSeek-V3's first layer on the same kind of prompt: the MoE's input
+    on the card (bf16: the embeddings, ln1, MLA, the residual, ln2), in its
+    groups; the fp32 router's probabilities on the card and on the CPU from
+    that input (:func:`routing_flips`), each group's dispatch bitwise equal
+    card vs CPU from the card's probabilities, and the tie-order fault
+    changing the padded group's mask.  V3's experts are not run on the
+    host: in fp32 they would take 46 GB of its memory."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import blocks as MB
+    from repro_torch.models import moe
+    from repro_torch.models.attention import MLA_KEYS, mla_forward
+    from repro_torch.models.layers import rmsnorm
+
+    T = prompts.shape[1]
+    with torch.inference_mode():
+        h = F.embedding(prompts, params["embed"])
+        a, _ = mla_forward(MB._sub(params, "blocks/0/attn/", MLA_KEYS), cfg,
+                           rmsnorm(params["blocks/0/ln1/scale"], h, cfg.norm_eps),
+                           torch.arange(T, device=dev))
+        x = rmsnorm(params["blocks/0/ln2/scale"], h + a, cfg.norm_eps)
+        xg, cap = moe.token_groups(cfg, x)
+        router = params["blocks/0/moe/router"]
+        pc = moe.router_probs(router, xg)
+        pg = moe.router_probs(router.cpu(), xg.cpu())
+        k = cfg.moe.top_k
+        card = [{"probs": pc[i], "disp": moe._dispatch_group(pc[i], k, cap)[0], "k": k,
+                 "cap": cap} for i in range(xg.shape[0])]
+        host = [moe._dispatch_group(pc[i].cpu(), k, cap)[0] for i in range(xg.shape[0])]
+    same = [torch.equal(c["disp"].cpu(), hd) for c, hd in zip(card, host)]
+    if not all(same):
+        raise AssertionError(f"moe router (V3 layer 0): dispatch masks differ card vs CPU ({same})")
+    res = {"groups": len(card), "router_dtype": str(router.dtype), **routing_flips(
+        [c["probs"] for c in card], list(pg), k), **drops_of(card),
+           "fault_elements_off": dispatch_fault(card, host)}
+    if router.dtype != torch.float32 or res["fault_elements_off"][-1] == 0:
+        raise AssertionError(f"moe router (V3 layer 0): router {router.dtype}, the tie-order "
+                             f"fault {res['fault_elements_off']}")
+    print(f"moe router check (deepseek-v3-671b layer 0, bf16 model, fp32 router, "
+          f"{prompts.shape[0]} x {T} tokens, {len(card)} groups, capacity {cap}): dispatch masks "
+          f"bitwise equal card vs CPU; router probabilities within {res['max_prob_diff']:.3e} "
+          f"(bound {MOE_PROB_ATOL}); tokens whose own top-k differs {res['tokens_differing']} "
+          f"(each at a near tie); choices dropped {res['assignments_dropped']} of "
+          f"{res['assignments']} (pads included); ties toward the higher index: elements off by "
+          f"group {res['fault_elements_off']}", flush=True)
+    return res
+
+
+def moe_anchor(model, params: dict, prompts) -> dict:
+    """V2-Lite's bf16 prefill logits at ``MOE_ANCHOR_DEPTH`` layers (the
+    first layers' weights) against the same prefill in fp32 on the
+    bf16-valued weights: the relative error of the norm and the share of
+    equal argmax tokens, reported only."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(model.cfg, n_layers=MOE_ANCHOR_DEPTH)
+    p = {n: t for n, t in params.items()
+         if not n.startswith("blocks/") or int(n.split("/")[1]) < MOE_ANCHOR_DEPTH}
+    batch, T = {"tokens": prompts}, prompts.shape[1]
+    with torch.inference_mode():
+        lb = build_model(cfg).prefill(p, batch, T)[0][:, -1].float()
+        lf = build_model(dataclasses.replace(cfg, dtype="float32")).prefill(
+            {k: v.float() for k, v in p.items()}, batch, T)[0][:, -1]
+    res = {"layers": MOE_ANCHOR_DEPTH, "rel_err": _rel_norm(lb, lf),
+           "argmax_equal": float((lb.argmax(-1) == lf.argmax(-1)).float().mean())}
+    print(f"moe anchor (reported, not a limit): deepseek-v2-lite-16b's bf16 prefill logits at "
+          f"{MOE_ANCHOR_DEPTH} layers against fp32 on the same weights: relative error of the "
+          f"norm {res['rel_err']:.3e}, argmax equal in {res['argmax_equal']:.2f} of the rows",
+          flush=True)
+    return res
+
+
+def serve_moe_path(dev, arch: str) -> dict:
+    """Main path 16 (a), (b): a DeepSeek arch at full width (depth cut by
+    ``MOE_DEPTH``, built with mtp=False; bf16, random weights from seed 0
+    drawn on the card) serves batch 4 x 2,048-token prompts (numpy seed 1)
+    for 32 greedy tokens through ``generate`` (:func:`timed_generate`): no
+    kernel of the port in the prefill or in decode.  One prefill and one
+    decode step traced; the decode step's weight-read bound (every weight
+    but the embedding table); the choices the capacity dropped in a prefill
+    and in one decode step, counted from the dispatch.  Then V2-Lite's
+    block check (:func:`check_moe_block`) and bf16-vs-fp32 report
+    (:func:`moe_anchor`), or V3's router check (:func:`check_moe_router`),
+    on the first ``MOE_CHECK_PROMPT`` tokens of the prompts; the tiny
+    config served on the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import build_model
+
+    full = get_arch(arch)
+    L = MOE_DEPTH.get(arch, full.n_layers)
+    cfg = dataclasses.replace(full, n_layers=L, mtp=False)
+    cut = (f", depth cut from {full.n_layers} to {L} layers, the MTP block left out"
+           if L != full.n_layers else "")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(0, dev)
+    n_params = sum(v.numel() for v in params.values())
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    cache_len = SERVE_PROMPT + SERVE_STEPS + 1
+    wrappers = kernel_wrappers()
+    run = timed_generate(model, params, prompts, cache_len, wrappers[4:])
+    st = run["stats"]
+    if any(c[0] for c in run["total"]):
+        raise AssertionError(f"moe {arch}: the port's kernels launched {run['total']}")
+    m = cfg.mla
+    res = {"arch": arch, "layers": L, "full_layers": full.n_layers, "params": n_params,
+           "dtype": cfg.dtype, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+           "steps": SERVE_STEPS, **st}
+    print(f"moe path: {arch} at full width ({cfg.d_model}, MLA {cfg.n_heads} heads, q/k "
+          f"{m.qk_nope_dim}+{m.qk_rope_dim}, v {m.v_head_dim}, kv_lora {m.kv_lora}, q_lora "
+          f"{m.q_lora}; {cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
+          f"{cfg.moe.num_shared} shared of {cfg.moe.expert_ff}){cut}: {n_params} params "
+          f"({cfg.dtype}), batch {SERVE_BATCH} x {SERVE_PROMPT}-token prompts, {SERVE_STEPS} "
+          f"greedy tokens: prefill {st['prefill_ms']:.2f} ms, decode "
+          f"{st['decode_ms_per_step']:.2f} ms a step ({st['decode_tok_per_s']:.1f} tokens/s), "
+          f"{st['e2e_tok_per_s']:.1f} tokens/s end to end, peak device memory "
+          f"{st['peak_gib']:.3f} GiB; launches of the port's kernels: 0 in the prefill, 0 in "
+          f"decode", flush=True)
+    del run
+    res.update(traced_serve(f"moe {arch}", model, params, {"tokens": prompts}, cache_len,
+                            ("nvjet", "elementwise", "reduce", "Sort"), top=8))
+    for phase, wall in (("prefill", st["prefill_ms"]), ("decode", st["decode_ms_per_step"])):
+        res[f"{phase}_trace"]["busy_share"] = res[f"{phase}_trace"]["device_ms"] / wall
+    print(f"moe {arch}: device busy share (traced device ms over the untimed wall): prefill "
+          f"{res['prefill_trace']['busy_share']:.3f}, decode "
+          f"{res['decode_trace']['busy_share']:.3f}", flush=True)
+    res.update(decode_bound(f"moe {arch}", {k: v for k, v in params.items() if k != "embed"},
+                            L * SERVE_BATCH * cache_len * (m.kv_lora + m.qk_rope_dim) * 2, st))
+    with torch.inference_mode():
+        with dispatch_seen() as seen:
+            lg, cache = model.prefill(params, {"tokens": prompts}, cache_len)
+        res["prefill_drops"] = drops_of(seen)
+        with dispatch_seen() as seen:
+            model.decode_step(params, torch.argmax(lg[:, -1], dim=-1, keepdim=True), cache)
+        res["decode_drops"] = drops_of(seen)
+    del lg, cache, seen
+    print(f"moe {arch} capacity drops (choices dropped of made, tokens losing a choice): prefill "
+          f"{res['prefill_drops']['assignments_dropped']} of {res['prefill_drops']['assignments']},"
+          f" {res['prefill_drops']['tokens_losing_a_choice']} of "
+          f"{res['prefill_drops']['tokens']} token-layers; one decode step "
+          f"{res['decode_drops']['assignments_dropped']} of {res['decode_drops']['assignments']}, "
+          f"{res['decode_drops']['tokens_losing_a_choice']} of {res['decode_drops']['tokens']}",
+          flush=True)
+    torch.cuda.empty_cache()
+    check = prompts[:, :MOE_CHECK_PROMPT]
+    if arch == "deepseek-v2-lite-16b":
+        res["block_check"] = check_moe_block(dev, cfg, params, check)
+        res["anchor"] = moe_anchor(model, params, prompts)
+    else:
+        res["router_check"] = check_moe_router(dev, cfg, params, check)
+    del params
+    torch.cuda.empty_cache()
+    res["tiny_card_vs_cpu_err"] = check_serve_tiny(dev, arch)
+    print(f"moe {arch}-tiny served on the card vs the port on the CPU: equal tokens, logits max "
+          f"abs diff {res['tiny_card_vs_cpu_err']:.3e}", flush=True)
+    return res
+
+
+def moe_train_paths(dev) -> dict:
+    """Main path 16 (d): the smoke run (``launch/train.py:run_smoke``: the
+    reduced config, 6 clients, 3 a round, 32-token samples) of both DeepSeek
+    archs (V3 with its MTP block), ``ZOO_TRAIN_ROUNDS`` rounds in each
+    cohort mode on the card, each held to the same run of the port on the
+    CPU (:func:`card_vs_cpu`), both from the weights seed 0 draws on the
+    CPU; the final params' ``ce``, ``aux`` and ``mtp_ce`` on a fixed batch
+    printed."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import run_smoke
+    from repro_torch.models.model import Model, build_model
+
+    init = Model.init
+
+    def cpu_drawn(self, seed, device):
+        return {k: v.to(device) for k, v in init(self, seed, "cpu").items()}
+
+    res = {}
+    for arch in MOE_SERVE:
+        model = build_model(get_arch(arch).reduced())
+        toks = torch.as_tensor(np.random.default_rng(4).integers(0, model.cfg.vocab, (2, 33)),
+                               device=dev)
+        for mode in ("vmapped", "sequential"):
+            with swapped({(Model, "init"): cpu_drawn}):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                card = run_smoke(arch, ZOO_TRAIN_ROUNDS, device=dev, cohort_mode=mode)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                cpu = run_smoke(arch, ZOO_TRAIN_ROUNDS, device="cpu", cohort_mode=mode)
+            with torch.no_grad():
+                _, mets = model.loss(card.state.params, {"tokens": toks})
+            row = {"wall_s": wall, "local_loss": [r["local_loss"] for r in card.metrics.rows],
+                   **{k: float(v) for k, v in mets.items()},
+                   "card_vs_cpu": card_vs_cpu(f"{arch} {mode} smoke", card.state.params,
+                                              cpu.state.params)}
+            if not all(math.isfinite(v) for v in row["local_loss"] + [row["ce"], row["aux"]]) \
+                    or ("mtp_ce" in row) != model.cfg.mtp:
+                raise AssertionError(f"moe train {arch} {mode}: {row}")
+            res[f"{arch} {mode}"] = row
+            print(f"moe train {arch} {mode}: {ZOO_TRAIN_ROUNDS} rounds on the card in {wall:.2f} "
+                  f"s, local_loss {row['local_loss']}; after them on a fixed batch ce "
+                  f"{row['ce']:.5f}, aux {row['aux']:.5f}"
+                  + (f", mtp_ce {row['mtp_ce']:.5f}" if "mtp_ce" in row else "")
+                  + f"; max share of a leaf's largest magnitude off the CPU "
+                    f"{row['card_vs_cpu']:.3e} (bound {CARD_CPU_RTOL})", flush=True)
+    return res
+
+
+def moe_paths(dev, rows: list) -> dict:
+    """Main path 16, MLA and the moe family: (a) DeepSeek-V2-Lite-16B and (b)
+    DeepSeek-V3-671B (2 of 61 layers) served (:func:`serve_moe_path`, each
+    with its checks (c), each model freed before the next), (d) both
+    archs' smoke runs (:func:`moe_train_paths`).  Every kernel wrapper's
+    launch count is set to 0 just before and read just after: the path
+    runs no kernel of the port (the JAX package's MLA and MoE reach no
+    Pallas kernel either), which each row of ``rows`` records."""
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    zero_counts(*wrappers)
+    res = {arch: serve_moe_path(dev, arch) for arch in MOE_SERVE}
+    res["train"] = moe_train_paths(dev)
+    launched = {w.__name__: w.launches for w in wrappers}
+    if any(launched.values()):
+        raise AssertionError(f"moe paths: the port's kernels launched {launched}")
+    for row in rows:
+        row["launches_path_16"] = 0
+    res["seconds"] = time.perf_counter() - t0
+    print(f"moe paths: launches of the port's kernels {launched}; {res['seconds']:.1f} s",
+          flush=True)
+    return res
+
+
 def profile_serve(dev, out_dir: Path) -> None:
     """The serving main path's prefill (4 x 2,048 tokens) and one decode
     step of full-width Hymba-1.5B under torch.profiler, after a warm-up:
@@ -5326,6 +5792,12 @@ def main() -> int:
     zoo = zoo_paths(dev, flash, ssd)
     print(json.dumps({"zoo": zoo}), flush=True)
     print(f"zoo paths: {zoo['seconds']:.1f} s", flush=True)
+
+    # main path 16, MLA and the moe family: DeepSeek-V2-Lite-16B and
+    # DeepSeek-V3-671B (2 of 61 layers) served, no kernel of the port; their
+    # checks; the moe train loss (V3 with MTP) on the card in both modes
+    moe_res = moe_paths(dev, [rr, quant, dequant, upd, flash, ssd])
+    print(json.dumps({"moe": moe_res}), flush=True)
 
     for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd"), MVR,
                  dict(mvr_exact=True, **MVR), VMAPPED, VMAPPED | MVR,

@@ -2,8 +2,10 @@
 
 The same frozen dataclasses as ``repro.configs.base``, cut to the fields
 this port implements: ``ArchConfig`` for the dense, vlm (a patch prefix on
-the dense family), hybrid (attention + Mamba2 SSD, ``SSMConfig``) and audio
-(encoder-decoder) families with ``reduced()``, and
+the dense family), moe (MLA attention, ``MLAConfig``, and a routed MoE FFN,
+``MoEConfig``; DeepSeek-V3's multi-token prediction, ``mtp``), ssm and
+hybrid (Mamba2 SSD, ``SSMConfig``) and audio (encoder-decoder) families
+with ``reduced()``, and
 ``FLConfig`` with the knobs of every plane: comm, fleet, robust, privacy
 and obs.  It has 70 of the JAX package's 71 fields; the unused
 ``aggregation`` is left out.  Shared fields keep
@@ -25,6 +27,29 @@ from dataclasses import dataclass
 from typing import Literal
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio"]
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int               # routed experts
+    top_k: int
+    num_shared: int = 0            # shared (always-on) experts
+    expert_ff: int = 0             # per-expert FFN hidden dim
+    capacity_factor: float = 1.25
+    group_size: int = 1024         # tokens per dispatch group (GShard-style)
+    scan_groups: bool = False      # one group at a time (bounds dispatch memory)
+    aux_coef: float = 0.01         # load-balance auxiliary loss weight
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek Multi-head Latent Attention (arXiv:2405.04434 / 2412.19437)."""
+
+    q_lora: int = 0                # 0 => no query compression
+    kv_lora: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -62,8 +87,12 @@ class ArchConfig:
     sliding_window: int = 0        # 0 => full causal attention
 
     # optional feature blocks
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
     hybrid: bool = False           # Hymba parallel attn+SSM heads
+    mtp: bool = False              # DeepSeek-V3 multi-token prediction head
+    mtp_coef: float = 0.3
 
     # encoder-decoder (audio) / multimodal stubs
     enc_layers: int = 0            # >0 => encoder-decoder
@@ -80,8 +109,10 @@ class ArchConfig:
 
     def reduced(self, **overrides) -> "ArchConfig":
         """A tiny same-family variant for CPU smoke tests (<=2 layers etc.),
-        with the JAX package's defaults: fp32, SSM chunk 32, 2 encoder
-        layers over 32 frames, 16 patches, window 64."""
+        with the JAX package's defaults: fp32, 4 experts (top-2, one
+        shared, FFN 128, groups of 64, capacity factor 8), MLA widths 32 /
+        16 / 32, SSM chunk 32, 2 encoder layers over 32 frames, 16
+        patches, window 64."""
         small: dict = dict(
             n_layers=2,
             d_model=min(self.d_model, 128),
@@ -91,6 +122,26 @@ class ArchConfig:
             head_dim=32 if self.head_dim else 0,
         )
         small["n_kv_heads"] = min(self.n_kv_heads, small["n_heads"])
+        if self.moe is not None:
+            small["moe"] = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                num_shared=min(self.moe.num_shared, 1),
+                expert_ff=min(self.moe.expert_ff, 128),
+                group_size=64,
+                # effectively dropless at smoke scale, as in the JAX package
+                capacity_factor=8.0,
+            )
+        if self.mla is not None:
+            small["mla"] = dataclasses.replace(
+                self.mla,
+                q_lora=min(self.mla.q_lora, 64) if self.mla.q_lora else 0,
+                kv_lora=min(self.mla.kv_lora, 64),
+                qk_nope_dim=32,
+                qk_rope_dim=16,
+                v_head_dim=32,
+            )
         if self.ssm is not None:
             small["ssm"] = dataclasses.replace(
                 self.ssm, state_dim=min(self.ssm.state_dim, 16), head_dim=32, num_heads=0, chunk=32

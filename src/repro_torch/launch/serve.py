@@ -14,8 +14,10 @@ from numpy seed 1::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-mistral-7b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
 
-(or ``minicpm-2b``, ``chatglm3-6b``, ``qwen2-72b``: every arch of the
-registry).
+(or ``minicpm-2b``, ``chatglm3-6b``, ``qwen2-72b``, ``deepseek-v2-lite-16b``,
+``deepseek-v3-671b``: every arch of the registry; the two DeepSeek archs
+cache MLA's latent ``c_kv`` / ``k_rope`` and route each token through the
+MoE's capacity-bounded dispatch, dropping what overflows, as JAX does).
 
 The cache holds a vlm model's ``num_patches`` patch positions before the
 prompt and the generated tokens.

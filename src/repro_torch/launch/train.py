@@ -34,10 +34,11 @@ round, as the JAX package's smoke run does; a vlm arch (``vision-tiny``,
   PYTHONPATH=src python -m repro_torch.launch.train --arch vision-tiny --smoke \\
       --rounds 4 --device cpu
 
-Every family but the moe one takes it: ``--arch mamba2-1.3b`` (ssm),
-``hymba-1.5b`` (hybrid) and ``seamless-m4t-medium`` (audio, Gaussian frame
-embeddings a sample) train through the plain attention and SSD scan; the
-two deepseek archs raise (ROADMAP 'Modules to port', item 10).
+Every family takes it: ``--arch mamba2-1.3b`` (ssm), ``hymba-1.5b``
+(hybrid) and ``seamless-m4t-medium`` (audio, Gaussian frame embeddings a
+sample) train through the plain attention and SSD scan, and
+``deepseek-v2-lite-16b`` and ``deepseek-v3-671b`` (moe: MLA through the
+plain attention, the MoE's aux in the loss, V3's MTP term too).
 Runs on ``cuda`` unless ``--device cpu`` is given.  The port's counterpart
 of ``repro.launch.train``.
 """
@@ -78,8 +79,8 @@ def run_smoke(arch: str, rounds: int, algorithm: str = "fedshuffle", server_opt:
               uplink: str = "identity", *, device=None, **fl_overrides) -> TrainResult:
     """The smoke run of ``arch``'s reduced config: 6 clients, 3 a round,
     ``local_batch=2``, random weights from seed 0; ``fl_overrides`` replace
-    fields of the run's ``FLConfig``.  An arch the registry does not serve
-    (the moe family's) raises ``NotImplementedError``."""
+    fields of the run's ``FLConfig``.  The rounds' ``local_loss`` is the
+    whole loss (a moe arch's aux and MTP terms included)."""
     cfg = get_arch(arch).reduced()
     device = resolve_device(device)
     fl = FLConfig(num_clients=6, cohort_size=3, sampling="uniform", epochs=1,

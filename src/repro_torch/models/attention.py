@@ -1,6 +1,6 @@
 """Attention: GQA (llama/qwen-style, optional QKV bias), sliding window,
-cross-attention over an encoder memory, and the decode caches (linear and
-ring).
+cross-attention over an encoder memory, DeepSeek's multi-head latent
+attention (MLA), and the decode caches (linear and ring).
 
 Layouts (the JAX package's): activations [B, T, D]; heads [B, T, H, hd];
 caches [B, S, KV, hd].  :func:`attend` is the port of
@@ -12,7 +12,12 @@ train loss (:func:`gqa_forward`, under autograd) and the decode step
 (:func:`gqa_decode`) use it; the prefill (:func:`gqa_prefill`) goes through
 the flash attention kernel (``kernels/flash_attention``), which has no
 backward pass.  Both take a sliding window, the non-causal mode and
-cross-attention.  MLA is not ported yet.
+cross-attention.  MLA (:func:`mla_forward`, :func:`mla_decode`) runs the
+plain :func:`attend` in the train loss and the prefill alike, as the JAX
+package does: its q and k are ``qk_nope_dim + qk_rope_dim`` wide (192 in
+DeepSeek) and its v ``v_head_dim`` (128), which the flash kernel's one
+head dim does not take.  It caches the compressed ``(c_kv, k_rope)``
+[B, S, kv_lora] / [B, S, qk_rope_dim], and decodes in the latent space.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attend
-from .layers import apply_rope, dense_init
+from .layers import apply_rope, dense_init, rmsnorm
 
 CHUNK_THRESHOLD = 2048
 Q_CHUNK = 1024
@@ -172,4 +177,114 @@ def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict 
     # positions are baked into the rotated keys: a validity-only mask
     out = attend(q, k, v, torch.full((1,), S + 1, device=x.device), torch.zeros_like(slots),
                  kv_valid=valid[None, :].expand(B, S))
+    return out.reshape(B, 1, -1) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+MLA_KEYS = ("wdkv", "wkr", "kv_norm/scale", "wuk", "wuv", "wo", "wq", "wdq", "q_norm/scale",
+            "wuq")
+
+
+def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
+    """The latent down-projections ``wdkv`` [D, kv_lora] (then ``kv_norm``)
+    and ``wkr`` [D, rope], the up-projections ``wuk`` / ``wuv``, ``wo``, and
+    the query's ``wq`` [D, H*qk], or with ``q_lora`` ``wdq``, ``q_norm`` and
+    ``wuq``."""
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    p = {
+        "wdkv": dense_init(gen, D, m.kv_lora, dtype, device),
+        "wkr": dense_init(gen, D, m.qk_rope_dim, dtype, device),
+        "kv_norm/scale": torch.ones((m.kv_lora,), dtype=dtype, device=device),
+        "wuk": dense_init(gen, m.kv_lora, H * m.qk_nope_dim, dtype, device),
+        "wuv": dense_init(gen, m.kv_lora, H * m.v_head_dim, dtype, device),
+        "wo": dense_init(gen, H * m.v_head_dim, D, dtype, device),
+    }
+    if m.q_lora:
+        p["wdq"] = dense_init(gen, D, m.q_lora, dtype, device)
+        p["q_norm/scale"] = torch.ones((m.q_lora,), dtype=dtype, device=device)
+        p["wuq"] = dense_init(gen, m.q_lora, H * qk, dtype, device)
+    else:
+        p["wq"] = dense_init(gen, D, H * qk, dtype, device)
+    return p
+
+
+def _mla_q(p: dict, cfg: ArchConfig, x: torch.Tensor):
+    """(q_nope [B,T,H,nope], q_rope [B,T,H,rope]), RoPE not applied yet."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    if m.q_lora:
+        q = rmsnorm(p["q_norm/scale"], x @ p["wdq"], cfg.norm_eps) @ p["wuq"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, T, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    return q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+
+
+def _mla_ckv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    """The cache entries: c_kv [B,T,kv_lora] after ``kv_norm``, and k_rope
+    [B,T,rope] after RoPE (one rope key shared by every head)."""
+    c_kv = rmsnorm(p["kv_norm/scale"], x @ p["wdkv"], cfg.norm_eps)
+    k_rope = apply_rope((x @ p["wkr"])[:, :, None, :], positions, cfg.rope_theta, "full")
+    return c_kv, k_rope[:, :, 0]
+
+
+def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
+                window: int = 0):
+    """Train loss and prefill: c_kv expanded into per-head K/V (the "naive"
+    form) through the plain :func:`attend` (scale ``1/sqrt(qk_nope +
+    qk_rope)``).  -> (out [B,T,D], (c_kv, k_rope)), the compressed cache
+    entries."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta, "full")
+    c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
+    k_nope = (c_kv @ p["wuk"]).reshape(B, T, H, m.qk_nope_dim)
+    v = (c_kv @ p["wuv"]).reshape(B, T, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, m.qk_rope_dim)], dim=-1)
+    out = attend(q, k, v, positions, positions, causal=True, window=window)
+    return out.reshape(B, T, -1) @ p["wo"], (c_kv, k_rope)
+
+
+def mla_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict, *,
+               ring: bool = False):
+    """Absorbed decode: scores and values in the kv_lora latent space (W_uk
+    folded into q, W_uv applied to the latent context), so a token costs
+    O(S * kv_lora) and the cache is (kv_lora + rope) wide.  x [B,1,D]; pos
+    the absolute position (an int); cache {"c_kv": [B,S,kv_lora],
+    "k_rope": [B,S,rope]} written in place at slot ``pos`` (``pos % S``
+    with ``ring``).  -> (out [B,1,D], cache)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x)                                  # [B,1,H,*]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta, "full")
+    c_new, kr_new = _mla_ckv(p, cfg, x, positions)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    S = c_kv.shape[1]
+    slot = pos % S if ring else pos
+    c_kv[:, slot] = c_new[:, 0].to(c_kv.dtype)
+    k_rope[:, slot] = kr_new[:, 0].to(k_rope.dtype)
+    slots = torch.arange(S, device=x.device)
+    valid = torch.ones_like(slots, dtype=torch.bool) if ring and pos + 1 >= S else slots <= pos
+
+    wuk = p["wuk"].reshape(m.kv_lora, H, m.qk_nope_dim)
+    q_c = torch.einsum("bqhn,lhn->bqhl", q_nope, wuk)                   # absorb W_uk
+    scores = torch.einsum("bqhl,bsl->bhqs", q_c, c_kv)
+    scores = scores + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(m.qk_nope_dim + m.qk_rope_dim)))
+    scores = scores.float() * scale
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+    ctx = torch.einsum("bhqs,bsl->bqhl", probs, c_kv)                   # latent context
+    wuv = p["wuv"].reshape(m.kv_lora, H, m.v_head_dim)
+    out = torch.einsum("bqhl,lhv->bqhv", ctx, wuv)                      # absorb W_uv
     return out.reshape(B, 1, -1) @ p["wo"], cache

@@ -1,16 +1,20 @@
 """Transformer blocks: init, the train forward, the prefill and the decode
-step, for the dense family, the ssm (Mamba2: the mixer alone) family, the
-hybrid (Hymba: parallel attention + SSD branches) family and the audio
-encoder-decoder.
+step, for the dense family, the moe family (MLA attention + a routed MoE
+FFN), the ssm (Mamba2: the mixer alone) family, the hybrid (Hymba:
+parallel attention + SSD branches) family and the audio encoder-decoder.
 
 A block's parameters are the flat-dict entries under its prefix
 (``blocks/{i}/ln1/scale``, ``blocks/{i}/attn/wq``, …, ``blocks/{i}/mlp/down``;
 the hybrid block adds ``blocks/{i}/mixer/...`` and ``blocks/{i}/branch_scale``;
 an ssm block is ``blocks/{i}/ln1/scale`` and ``blocks/{i}/mixer/...`` alone;
+a moe block has MLA's ``attn/wdkv``, ``attn/kv_norm/scale``, … and
+``moe/router``, ``moe/experts/{gate,up,down}`` [E, ...], ``moe/shared/...``
+in place of ``attn/wq``, … and ``mlp/``;
 an encoder block is a dense one under ``enc_blocks/{i}/``; a decoder block
 has ``self/``, ``ln_x/`` and ``cross/`` in place of ``attn/``).
 A prefill returns the layer's cache entry in the structure its decode step
-takes (``{"k", "v"}``, ``{"state", "conv"}`` for the ssm block, both for
+takes (``{"k", "v"}``, ``{"c_kv", "k_rope"}`` for the moe block,
+``{"state", "conv"}`` for the ssm block, both for
 the hybrid block, and ``{"k", "v", "xk", "xv"}``, the encoder memory's K/V
 added, for the decoder block).  The train forwards (``*_block_forward``)
 run under autograd and ``torch.func.vmap`` (the vmapped cohort mode): the
@@ -24,21 +28,29 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ArchConfig
-from .attention import _proj, gqa_decode, gqa_forward, gqa_init, gqa_prefill
+from .attention import (MLA_KEYS, _proj, gqa_decode, gqa_forward, gqa_init, gqa_prefill,
+                        mla_decode, mla_forward, mla_init)
 from .layers import dense_init, rmsnorm, swiglu
 from .mamba2 import mamba2_decode, mamba2_forward, mamba2_init
+from .moe import EXPERT_KEYS, SHARED_KEYS, moe_forward, moe_init
 
 ATTN_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 MIXER_KEYS = ("in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D", "gate_norm/scale",
               "out_proj")
 
 
+def _sub(params: dict, prefix: str, keys: tuple) -> dict:
+    """The entries ``prefix + k`` of ``params`` for each of ``keys`` it
+    holds, under their short names ``k``."""
+    return {k: params[f"{prefix}{k}"] for k in keys if f"{prefix}{k}" in params}
+
+
 def _attn(params: dict, prefix: str, name: str = "attn") -> dict:
-    return {k: params[f"{prefix}{name}/{k}"] for k in ATTN_KEYS if f"{prefix}{name}/{k}" in params}
+    return _sub(params, f"{prefix}{name}/", ATTN_KEYS)
 
 
 def _mixer(params: dict, prefix: str) -> dict:
-    return {k: params[f"{prefix}mixer/{k}"] for k in MIXER_KEYS}
+    return _sub(params, f"{prefix}mixer/", MIXER_KEYS)
 
 
 def _mlp(params: dict, cfg: ArchConfig, h: torch.Tensor, prefix: str) -> torch.Tensor:
@@ -95,6 +107,55 @@ def dense_block_decode(params: dict, cfg: ArchConfig, h: torch.Tensor, pos: int,
                           rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), pos, cache,
                           ring=ring)
     return _mlp(params, cfg, h + a, prefix), cache
+
+
+# -- moe (MLA attention + MoE FFN) -------------------------------------------
+
+MOE_KEYS = ("router",) + EXPERT_KEYS + SHARED_KEYS
+
+
+def moe_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefix: str) -> dict:
+    D = cfg.d_model
+    p = {f"{prefix}ln1/scale": torch.ones((D,), dtype=dtype, device=device)}
+    p.update({f"{prefix}attn/{k}": v for k, v in mla_init(gen, cfg, dtype, device).items()})
+    p[f"{prefix}ln2/scale"] = torch.ones((D,), dtype=dtype, device=device)
+    p.update({f"{prefix}moe/{k}": v for k, v in moe_init(gen, cfg, dtype, device).items()})
+    return p
+
+
+def moe_block_prefill(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
+                      prefix: str, *, window: int = 0):
+    """MLA (the plain attention, naive form), then the MoE FFN.
+    -> (h, aux, {"c_kv", "k_rope"} over the prompt)."""
+    a, (c_kv, k_rope) = mla_forward(_sub(params, f"{prefix}attn/", MLA_KEYS), cfg,
+                                    rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps),
+                                    positions, window=window)
+    h = h + a
+    y, aux = moe_forward(_sub(params, f"{prefix}moe/", MOE_KEYS), cfg,
+                         rmsnorm(params[f"{prefix}ln2/scale"], h, cfg.norm_eps))
+    return h + y, aux, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def moe_block_forward(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
+                      prefix: str, *, window: int = 0):
+    """The train forward: the prefill's arithmetic, no cache kept.
+    -> (h, aux)."""
+    h, aux, _ = moe_block_prefill(params, cfg, h, positions, prefix, window=window)
+    return h, aux
+
+
+def moe_block_decode(params: dict, cfg: ArchConfig, h: torch.Tensor, pos: int, cache: dict,
+                     prefix: str, *, ring: bool = False):
+    """One token: absorbed MLA over the latent cache ``{"c_kv", "k_rope"}``
+    (written in place; a ring with ``ring``), then the MoE FFN over the
+    batch's one group (its aux discarded)."""
+    a, cache = mla_decode(_sub(params, f"{prefix}attn/", MLA_KEYS), cfg,
+                          rmsnorm(params[f"{prefix}ln1/scale"], h, cfg.norm_eps), pos, cache,
+                          ring=ring)
+    h = h + a
+    y, _ = moe_forward(_sub(params, f"{prefix}moe/", MOE_KEYS), cfg,
+                       rmsnorm(params[f"{prefix}ln2/scale"], h, cfg.norm_eps))
+    return h + y, cache
 
 
 # -- ssm (Mamba2: mixer only, no separate MLP) --------------------------------

@@ -4,15 +4,15 @@ One ``Model`` per ArchConfig, the API the FL stack and the serving path use:
 
   * ``init(seed, device) -> params``  (flat dict of tensors, random weights
     drawn with a ``torch.Generator`` on ``device``; shapes only on ``meta``)
-  * ``loss(params, batch) -> (scalar, {"ce", "aux"})``  (the train
-    objective; gradients come from autograd)
+  * ``loss(params, batch) -> (scalar, {"ce", "aux"} (+ "mtp_ce"))``  (the
+    train objective; gradients come from autograd)
   * ``init_cache(batch_size, cache_len, device) -> cache``  (decode state,
     zeros)
   * ``prefill(params, batch, cache_len) -> (logits, cache)``
   * ``decode_step(params, token, cache, ring=False) -> (logits, cache)``
 
-The port's counterpart of ``repro.models.model`` for the dense, vlm, ssm,
-hybrid and audio (encoder-decoder) families; the moe family (MLA) raises.
+The port's counterpart of ``repro.models.model`` for every family: dense,
+vlm, moe (MLA + MoE), ssm, hybrid and audio (encoder-decoder).
 A cache is ``{"layers": {name: [L, B, ...] tensor}, "pos": int}`` with the
 JAX package's entries and layouts; ``decode_step`` writes it in place (the
 JAX step returns a new one) and returns it.  ``backend`` picks the
@@ -20,9 +20,11 @@ prefill's kernels (flash attention, SSD intra-chunk): ``"kernel"`` (the
 default) launches them for CUDA tensors and takes their plain torch
 versions for CPU tensors; ``"ref"`` takes the plain versions on any
 device.  The decode step runs no kernel of the port, and the train loss
-none either (the plain attention and SSD scan, under autograd).  The dense
-family's cache is linear, or a ring with ``decode_step(ring=True)``; the
-hybrid family's is a ring of the window's size.  As in the JAX package, a
+none either (the plain attention and SSD scan, under autograd); nor does
+the moe family's prefill (MLA through the plain attention, as in JAX).
+The dense family's cache is linear, or a ring with
+``decode_step(ring=True)``; the hybrid family's is a ring of the window's
+size.  As in the JAX package, a
 dense config's sliding window applies to the prefill and the loss, and
 its decode step sees the whole cache: a window-sized ring cache is what
 windows it.  The ssm family (Mamba2) adds no positions and caches the SSD
@@ -31,7 +33,11 @@ state and the conv tail alone.  The vlm family is the dense family with
 stubbed vision tower would give) projected by ``patch_proj`` and prefixed
 to the token embeddings: positions run over patches and tokens, the train
 loss reads the text positions only, and the prefill caches K/V over both
-(``pos`` = num_patches + T); its decode step is the dense one.  The
+(``pos`` = num_patches + T); its decode step is the dense one.  The moe
+family (DeepSeek) caches MLA's compressed ``c_kv`` and ``k_rope``
+(linear, or a ring with ``ring=True``); its loss adds the MoE aux summed
+over layers, and with ``cfg.mtp`` DeepSeek-V3's multi-token prediction
+(``mtp_block``, ``mtp_proj``: ``mtp_coef * (mtp_ce + mtp_aux)``).  The
 audio family runs its encoder once a prefill over ``batch["frames"]`` [B,
 src_frames, d_model] (the frame embeddings the stubbed front end would
 give), with sinusoidal positions (``rope_kind="none"``) on both sides; its
@@ -50,10 +56,10 @@ from . import blocks as B
 from .layers import dense_init, embed_init, rmsnorm, softmax_xent
 from .mamba2 import dims as ssm_dims
 
-FAMILIES = ("dense", "vlm", "ssm", "hybrid", "audio")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 UNPOSITIONED = ("ssm", "audio")  # rope_kind "none": audio adds a sinusoid, ssm nothing
 BACKENDS = ("kernel", "ref")
-SEQ_KEYS = ("k", "v")            # sequence-indexed cache entries
+SEQ_KEYS = ("k", "v", "c_kv", "k_rope")   # sequence-indexed cache entries
 
 
 def sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
@@ -87,13 +93,16 @@ class Model:
     def __post_init__(self):
         cfg = self.cfg
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP 'Modules to "
-                f"port', item 10: MLA and the moe family)")
+            raise NotImplementedError(f"{cfg.name}: no {cfg.family!r} family; have {FAMILIES}")
         if (cfg.rope_kind == "none") != (cfg.family in UNPOSITIONED):
             raise NotImplementedError(
-                f"{cfg.name}: the dense, vlm and hybrid families are ported with RoPE, the ssm "
-                f"and audio families with rope_kind 'none'")
+                f"{cfg.name}: the dense, vlm, moe and hybrid families are ported with RoPE, the "
+                f"ssm and audio families with rope_kind 'none'")
+        if (cfg.family == "moe") != (cfg.moe is not None and cfg.mla is not None) or \
+                (cfg.mtp and cfg.family != "moe"):
+            raise NotImplementedError(
+                f"{cfg.name}: the moe family is MLA + MoE (both configs set), and only it "
+                f"takes mtp")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; have {BACKENDS}")
 
@@ -104,7 +113,8 @@ class Model:
         gen = (None if torch.device(device).type == "meta"
                else torch.Generator(device=device).manual_seed(seed))
         init_block = {"ssm": B.ssm_block_init, "hybrid": B.hybrid_block_init,
-                      "audio": B.dec_block_init}.get(cfg.family, B.dense_block_init)
+                      "audio": B.dec_block_init, "moe": B.moe_block_init,
+                      }.get(cfg.family, B.dense_block_init)
         p = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dt, device)}
         if cfg.family == "audio":
             for i in range(cfg.enc_layers):
@@ -117,6 +127,9 @@ class Model:
             p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, dt, device)
         if cfg.family == "vlm":
             p["patch_proj"] = dense_init(gen, cfg.d_model, cfg.d_model, dt, device)
+        if cfg.mtp:
+            p.update(B.moe_block_init(gen, cfg, dt, device, "mtp_block/"))
+            p["mtp_proj"] = dense_init(gen, 2 * cfg.d_model, cfg.d_model, dt, device)
         return p
 
     def _embed(self, params: dict, batch: dict, toks: torch.Tensor, *, train: bool = False):
@@ -141,8 +154,13 @@ class Model:
     def loss(self, params: dict, batch: dict):
         """Mean next-token cross entropy of ``batch["tokens"]`` [B, T+1]
         (after the vlm family's patches; for the audio family, the decoder
-        over the encoder of ``batch["frames"]``) -> (ce, {"ce", "aux"}),
-        aux 0 as in every family but the JAX package's moe.  The plain
+        over the encoder of ``batch["frames"]``) -> (ce + aux, {"ce",
+        "aux"}), aux the moe family's load-balance loss summed over layers
+        (0 in the other families).  With ``cfg.mtp`` (DeepSeek-V3), the
+        MTP block predicts token t+2 from the normed h_t and the embedding
+        of token t+1 (``concat(.) @ mtp_proj``, positions 0..T-2), through
+        the final norm and the head: the loss adds ``mtp_coef * (mtp_ce +
+        mtp_aux)`` and the metrics ``mtp_ce``.  The plain
         attention (the dense family's window ``cfg.sliding_window``) and the
         plain SSD scan, with no in-place write, so that it runs under
         autograd and ``torch.func.vmap``."""
@@ -154,11 +172,16 @@ class Model:
         if cfg.family == "audio":
             h = h + sinusoid(positions, cfg.d_model)[None].to(h.dtype)
             enc_out = self._encode(params, batch["frames"], train=True)
+        aux = None      # the moe family's, summed over layers
         for i in range(cfg.n_layers):
             prefix = f"blocks/{i}/"
             if cfg.family == "audio":
                 h = B.dec_block_forward(params, cfg, h, positions,
                                         B.cross_kv(params, cfg, enc_out, prefix), prefix)
+            elif cfg.family == "moe":
+                h, a = B.moe_block_forward(params, cfg, h, positions, prefix,
+                                           window=cfg.sliding_window)
+                aux = a if aux is None else aux + a
             elif cfg.family == "ssm":
                 h = B.ssm_block_forward(params, cfg, h, prefix)
             elif cfg.family == "hybrid":
@@ -167,14 +190,29 @@ class Model:
                 h = B.dense_block_forward(params, cfg, h, positions, prefix,
                                           window=cfg.sliding_window)
         ce = softmax_xent(self._logits(params, h[:, offset:]), labels).mean()
-        return ce, {"ce": ce, "aux": torch.zeros_like(ce)}
+        if aux is None:
+            loss, metrics = ce, {"ce": ce, "aux": torch.zeros_like(ce)}
+        else:
+            loss, metrics = ce + aux, {"ce": ce, "aux": aux}
+        S = inputs.shape[-1]
+        if cfg.mtp and S >= 2:
+            hn = rmsnorm(params["final_norm/scale"], h[:, offset:], cfg.norm_eps)
+            nxt = onehot_lookup(params["embed"], inputs[:, 1:].long())
+            comb = torch.cat([hn[:, :-1], nxt], dim=-1) @ params["mtp_proj"]
+            hm, mtp_aux = B.moe_block_forward(params, cfg, comb,
+                                              torch.arange(S - 1, device=h.device), "mtp_block/")
+            mtp_ce = softmax_xent(self._logits(params, hm), labels[:, 1:]).mean()
+            loss = loss + cfg.mtp_coef * (mtp_ce + mtp_aux)
+            metrics["mtp_ce"] = mtp_ce
+        return loss, metrics
 
     # ---------------------------------------------------------------- serve
 
     def cache_spec(self, batch_size: int, cache_len: int, src_len: int = 0) -> dict:
         """{name: (shape [L, B, ...], dtype)} of the decode cache.  The
         hybrid family's attention cache is a ring of the window's size; the
-        audio family's adds the encoder memory's K/V over ``src_len``
+        moe family's is MLA's latent ``c_kv`` and ``k_rope``; the audio
+        family's adds the encoder memory's K/V over ``src_len``
         frames (``cfg.src_frames`` when 0); the ssm family has no attention
         cache, and it and the hybrid family keep the SSD state (fp32) and
         the conv tail."""
@@ -184,7 +222,10 @@ class Model:
         if cfg.family == "hybrid":
             S = min(S, cfg.sliding_window or S)
         spec = {}
-        if cfg.family != "ssm":
+        if cfg.family == "moe":
+            spec["c_kv"] = ((L, batch_size, S, cfg.mla.kv_lora), dt)
+            spec["k_rope"] = ((L, batch_size, S, cfg.mla.qk_rope_dim), dt)
+        elif cfg.family != "ssm":
             spec["k"] = ((L, batch_size, S, cfg.n_kv_heads, hd), dt)
             spec["v"] = ((L, batch_size, S, cfg.n_kv_heads, hd), dt)
         if cfg.family == "audio":
@@ -243,6 +284,9 @@ class Model:
             elif cfg.family == "hybrid":
                 h, entry = B.hybrid_block_prefill(params, cfg, h, positions, prefix,
                                                   backend=self.backend)
+            elif cfg.family == "moe":
+                h, _, entry = B.moe_block_prefill(params, cfg, h, positions, prefix,
+                                                  window=cfg.sliding_window)
             else:
                 h, entry = B.dense_block_prefill(params, cfg, h, positions, prefix,
                                                  window=cfg.sliding_window, backend=self.backend)
@@ -258,7 +302,7 @@ class Model:
     def decode_step(self, params: dict, token: torch.Tensor, cache: dict, *, ring: bool = False):
         """token [B, 1] -> (logits [B, 1, V], cache), the cache written in
         place and advanced by one position.  ``ring`` writes the dense,
-        vlm and audio decoders' self-attention caches at slot ``pos % S``
+        vlm, moe and audio decoders' self-attention caches at slot ``pos % S``
         (the JAX package's keyword); the hybrid family's cache is always a
         ring, the ssm family's has no slots."""
         cfg = self.cfg
@@ -275,6 +319,8 @@ class Model:
                 h, _ = B.ssm_block_decode(params, cfg, h, layer, prefix)
             elif cfg.family == "hybrid":
                 h, _ = B.hybrid_block_decode(params, cfg, h, pos, layer, prefix)
+            elif cfg.family == "moe":
+                h, _ = B.moe_block_decode(params, cfg, h, pos, layer, prefix, ring=ring)
             else:
                 h, _ = B.dense_block_decode(params, cfg, h, pos, layer, prefix, ring=ring)
         cache["pos"] = pos + 1

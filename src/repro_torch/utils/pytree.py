@@ -47,14 +47,15 @@ def tree_count_params(tree: Tree) -> int:
 
 def flatten(tree, prefix: str = "") -> dict:
     """A nested dict (numpy arrays or tensors at the leaves) -> flat dict
-    with '/'-joined keys, in the nested dict's key order."""
+    with '/'-joined keys, in the nested dict's key order; two leaves that
+    join to one key raise."""
     out = {}
     for k, v in tree.items():
         name = f"{prefix}{k}"
-        if isinstance(v, dict):
-            out.update(flatten(v, name + "/"))
-        else:
-            out[name] = v
+        sub = flatten(v, name + "/") if isinstance(v, dict) else {name: v}
+        if out.keys() & sub.keys():
+            raise ValueError(f"two leaves flatten to {sorted(out.keys() & sub.keys())}")
+        out.update(sub)
     return out
 
 

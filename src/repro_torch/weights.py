@@ -7,7 +7,12 @@ unstacks ``blocks`` into ``blocks/{i}/...`` (and an encoder-decoder's
 ``enc_blocks`` into ``enc_blocks/{i}/...``).  Dense weights stay ``[in, out]``
 (the port applies them as ``x @ w``, as the JAX package does), so nothing is
 transposed; every leaf keeps its dtype (a bf16 model's fp32 SSD leaves
-``A_log``, ``dt_bias``, ``D`` and ``branch_scale`` too).
+``A_log``, ``dt_bias``, ``D`` and ``branch_scale`` too, and the moe
+family's fp32 router).  The moe family's expert stacks ``[L, E, ...]``
+unstack to ``blocks/{i}/moe/experts/*`` ``[E, ...]``; DeepSeek-V3's
+``mtp_block`` is one unstacked block and keeps its names
+(``mtp_block/attn/wdkv``, …), as ``mtp_proj`` does.  Two JAX leaves whose
+names join to one port name raise (``utils.pytree.flatten``).
 :func:`cache_from_jax` carries a serving cache across.
 :func:`server_state_from_jax` carries a whole JAX
 ``ServerState`` across (params, optimizer state and the per-client bank,

@@ -21,10 +21,10 @@ prompts (past the window).
   frameworks sum in their own order), tokens exactly;
 * the serve CLI on ``--device cpu``; sampling from an explicit generator;
 * ``backend="kernel"`` on CPU tensors takes the plain versions (no launch),
-  the registry refuses the moe family's archs and serves the vlm ones and
-  the rest of the zoo, and the prefill's kernels are never reached under
-  autograd; a dense config with a sliding window is served as JAX serves
-  it, and only a moe config's train loss is refused.
+  the registry serves every arch (the moe family's, the vlm ones and the
+  rest of the zoo) as the JAX config, and the prefill's kernels are never
+  reached under autograd; a dense config with a sliding window is served
+  as JAX serves it.
 """
 import dataclasses
 
@@ -38,7 +38,7 @@ torch = pytest.importorskip("torch")
 from repro.configs.registry import ARCHS as J_ARCHS  # noqa: E402
 from repro.launch.serve import generate as j_generate  # noqa: E402
 from repro.models.model import build_model as j_build  # noqa: E402
-from repro_torch.configs.base import ArchConfig, SSMConfig  # noqa: E402
+from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig, SSMConfig  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel  # noqa: E402
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_kernel  # noqa: E402
@@ -67,8 +67,9 @@ def port_cfg(jcfg) -> ArchConfig:
     """The port's ArchConfig from the JAX one's fields (one keyword dict)."""
     fields = {f.name for f in dataclasses.fields(ArchConfig)}
     d = {k: v for k, v in dataclasses.asdict(jcfg).items() if k in fields}
-    if d.get("ssm") is not None:
-        d["ssm"] = SSMConfig(**d["ssm"])
+    for name, kind in (("ssm", SSMConfig), ("moe", MoEConfig), ("mla", MLAConfig)):
+        if d.get(name) is not None:
+            d[name] = kind(**d[name])
     return ArchConfig(**d)
 
 
@@ -227,14 +228,22 @@ def test_kernel_backend_on_cpu_takes_plain_versions_and_needs_no_grad():
     assert torch.isfinite(loss) and set(metrics) == {"ce", "aux"}
     with pytest.raises(ValueError, match="backend"):
         build_model(cfg, backend="pallas")
-    with pytest.raises(NotImplementedError, match="moe family.*item 10"):
-        build_model(dataclasses.replace(cfg, family="moe"))
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "deepseek-v2-lite-16b"])
 def test_registry_refuses_unported_archs(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10.*moe"):
-        get_arch(arch)
+    """No arch is left unported: each DeepSeek config is the JAX config
+    field for field (the JAX fields the port has no counterpart of at their
+    defaults, but V3's ``remat``, which changes memory only); an unknown
+    name still raises ``KeyError``."""
+    cfg = get_arch(arch)
+    assert cfg.name == arch and cfg.family == "moe" and cfg == port_cfg(J_ARCHS[arch])
+    assert cfg.mtp == (arch == "deepseek-v3-671b") and cfg.moe.scan_groups == cfg.mtp
+    port_fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    jcfg = J_ARCHS[arch]
+    moved = {f.name for f in dataclasses.fields(jcfg)
+             if f.name not in port_fields and getattr(jcfg, f.name) != f.default}
+    assert moved == ({"remat"} if arch == "deepseek-v3-671b" else set())
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 

@@ -38,7 +38,8 @@ package's, on the CPU with TF32 off.
   ``qwen1.5-0.5b``, ``vision-tiny``, ``mamba2-1.3b`` (ssm),
   ``hymba-1.5b`` (hybrid) and ``seamless-m4t-medium`` (audio) from JAX's
   initial params: each round's ``local_loss`` against JAX's ``run_smoke``
-  at rtol 1e-4; only the moe family's archs raise.
+  at rtol 1e-4; the moe family's two archs take a round in each cohort
+  mode (their JAX twins are in ``tests/test_torch_moe.py``).
 """
 import dataclasses
 import os
@@ -449,11 +450,23 @@ def test_smoke_cli_matches_jax_run_smoke(arch, monkeypatch):
 
 
 def test_smoke_refuses_untrained_families():
-    """Only the moe family is left untrained: its two archs raise, naming
-    ROADMAP item 10, and so does a moe config's model."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        launch_train.run_smoke("deepseek-v2-lite-16b", 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        launch_train.run_smoke("deepseek-v3-671b", 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        build_model(dataclasses.replace(get_arch("qwen1.5-0.5b").reduced(), family="moe"))
+    """No family is left untrained: both DeepSeek archs' smoke runs (the moe
+    family) take a round on the CPU in each cohort mode with finite
+    losses, the two modes' losses within rtol 1e-5, and V3's loss has its
+    MTP term (``mtp_ce``).  A dense config cannot take the moe family
+    without its MoE and MLA configs, nor MTP."""
+    for arch in ("deepseek-v2-lite-16b", "deepseek-v3-671b"):
+        rows = {mode: launch_train.run_smoke(arch, 1, device="cpu", cohort_mode=mode).metrics.rows
+                for mode in ("vmapped", "sequential")}
+        losses = [r[0]["local_loss"] for r in rows.values()]
+        assert all(np.isfinite(losses)), arch
+        np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+        cfg = get_arch(arch).reduced()
+        model = build_model(cfg)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 33)))
+        loss, metrics = model.loss(model.init(0, "cpu"), {"tokens": toks})
+        assert torch.isfinite(loss) and ("mtp_ce" in metrics) == (arch == "deepseek-v3-671b")
+    dense = get_arch("qwen1.5-0.5b").reduced()
+    for bad in (dict(family="moe"), dict(mtp=True)):
+        with pytest.raises(NotImplementedError, match="moe family"):
+            build_model(dataclasses.replace(dense, **bad))
