@@ -13,7 +13,8 @@ rtol 1e-4 unless a case states its own.
   choice 0 takes a slot before a real token's choice 1); ties broken toward
   the higher index there give another mask;
 * ``moe_forward`` at ``capacity_factor`` 1.0 with a padded trailing group
-  against JAX's, ``scan_groups`` on and off within 1e-6 of each other;
+  against JAX's, ``scan_groups`` on and off within 1e-6 of each other, and
+  a decode step's group of 4 at capacity 1 (choices dropped);
 * ``mla_forward`` (the naive form, both q forms), the plain ``attend`` with
   v narrower than q on its chunked and unchunked branches, ``mla_decode``
   into a linear and a ring cache, against JAX's;
@@ -187,6 +188,34 @@ def test_moe_forward_matches_jax_with_a_padded_group(arch):
     _close(ys[True][0], ys[False][0].numpy(), atol=1e-6, rtol=1e-6)
     _close(ys[True][1], ys[False][1].numpy(), atol=1e-6, rtol=1e-6)
     assert p["router"].dtype == torch.float32
+
+
+def test_moe_forward_decode_group_at_capacity_one(monkeypatch):
+    """A decode step's one group of batch 4 at capacity 1 (16 experts, top-2,
+    capacity factor 1.25): each expert takes one choice, the rest are
+    dropped, as in JAX's ``moe_forward``."""
+    jcfg = _jcfg("deepseek-v2-lite-16b")
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, num_experts=16, capacity_factor=1.25))
+    cfg = port_cfg(jcfg)
+    assert moe.capacity(cfg, 4) == 1
+    jp = j_moe.moe_init(jax.random.PRNGKey(3), jcfg, jnp.float32)
+    x = np.random.default_rng(4).normal(size=(4, 1, cfg.d_model)).astype(np.float32)
+    jy, jaux = jax.jit(j_moe.moe_forward, static_argnums=1)(jp, jcfg, jnp.asarray(x))
+    seen = []
+    dispatch = moe._dispatch_group
+
+    def recording(probs, k, cap):
+        out = dispatch(probs, k, cap)
+        seen.append(out[0])
+        return out
+
+    monkeypatch.setattr(moe, "_dispatch_group", recording)
+    y, aux = moe.moe_forward(_flat(jp), cfg, torch.from_numpy(x))
+    _close(y, jy, "y")
+    _close(aux, jaux, "aux")
+    assert len(seen) == 1 and int(seen[0].sum()) < 4 * cfg.moe.top_k, "no choice dropped"
+    assert int(seen[0].sum(dim=(0, 2)).max()) == 1
 
 
 # ---------------------------------------------------------------------------
