@@ -31,20 +31,20 @@
    beside unmasked SDPA; ``rr_perm``'s latency bound (the launch floor plus
    the cipher's serial chain, counted from its SASS) beside its operations
    bound;
-3. drives sixteen main paths through the user entry point, each with every
+3. drives seventeen main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
    training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
    through the cohort engine with the CUDA index kernel
-   (``rr_backend="device"``), first with a dense wire, then with the qsgd
-   codec both ways (``uplink="qsgd", downlink="qsgd"``: the CUDA quantize
-   kernels, 12 launches of each a direction a round, all on the ``warp``
-   route); then FedShuffleMVR (``server_opt="mvr"``) for 4 rounds with the
-   App. F server step (the CUDA server_update kernel, one launch a round
-   over all 111 parameter tensors) and for 2 rounds with the exact eq. 14
-   step (torch, no kernel); then the same four training paths in the
-   vmapped cohort mode (``cohort_mode="vmapped"``, the JAX package's
-   default: every client's local steps batched over the cohort), with the
-   same launch counts, each path's round wall and peak memory printed
+   (``rr_backend="device"``), first with a dense wire, then for 2 rounds
+   with the qsgd codec both ways (``uplink="qsgd", downlink="qsgd"``: the
+   CUDA quantize kernels, 12 launches of each a direction a round, all on
+   the ``warp`` route); then FedShuffleMVR (``server_opt="mvr"``) for 2
+   rounds with the App. F server step (the CUDA server_update kernel, one
+   launch a round over all 111 parameter tensors) and for 2 rounds with
+   the exact eq. 14 step (torch, no kernel); then the same four training
+   paths in the vmapped cohort mode (``cohort_mode="vmapped"``, the JAX
+   package's default: every client's local steps batched over the cohort;
+   4 rounds, 2 for the exact step), with the same launch counts a round, each path's round wall and peak memory printed
    beside the sequential path's, and the device kernels in a dense round
    in both modes (``--profile`` traces the other paths' rounds); then the
    bucketed execution layout (``exec_mode="bucketed"``, 4 buckets: each
@@ -119,7 +119,17 @@
    kernel of the port (the JAX package's MLA and MoE reach no Pallas
    kernel either; the choices the capacity drops counted from the
    dispatch), then both archs' smoke runs (V3 with MTP) in both cohort
-   modes;
+   modes; then ``remat`` (main path 17, ``remat_paths``): the vmapped dense
+   CharLM-100M round with ``remat="full"`` and without, 2 rounds each; one
+   sequential client step with and without; Qwen2-72B at full width, 4 of
+   80 layers, bf16, one ``value_and_grad`` of the loss over 4,096 tokens
+   (``train_4k``'s sequence) with and without, and at 2 layers, each
+   step's peak memory (in two phases: the forward pass and the head's
+   backward, the layers' backward) and wall, each phase's growth a layer
+   and the deepest depth that fits the card reckoned from them; banded
+   attention at Hymba's
+   shape against unbanded; the one-hot cross entropy at Qwen2's vocab
+   against the gather;
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
@@ -220,6 +230,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 ROUNDS = 4
 MVR_EXACT_ROUNDS = 2
+# the sequential qsgd and MVR App. F paths (and the qsgd path's plain-kernel
+# twin) run 2 rounds, their vmapped and bucketed twins ROUNDS: no check
+# reads the sequential rounds past the second
+SEQ_CUT_ROUNDS = 2
 KERNELS = ("rr_perm", "quantize", "server_update", "flash_attention", "ssd")
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 3.35 TB/s;
 # 64 INT32 lanes per SM x 132 SMs x 1.98 GHz = 16.7e12 integer ops/s; the
@@ -5498,6 +5512,311 @@ def moe_paths(dev, rows: list) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# main path 17: remat, banded attention, the one-hot cross entropy
+# ---------------------------------------------------------------------------
+
+REMAT_ROUNDS = 2
+REMAT_ARCH = "qwen2-72b"
+REMAT_DEPTHS = (2, 4)           # Qwen2-72B's layers (of 80) for the peak's growth a layer
+REMAT_BAND = dict(T=4096, H=25, KV=5, hd=64, window=1024)   # Hymba-1.5B's attention
+
+
+def shifted_recompute():
+    """A planted fault: a ``remat`` whose backward pass recomputes each
+    layer at positions shifted by one (every integer input of the body)."""
+    from repro_torch.models import remat
+
+    class ShiftedRecompute(remat._Checkpoint):
+        @staticmethod
+        def backward(ctx, *cts):
+            xs = tuple(x if x.is_floating_point() else x + 1 for x in ctx.saved_tensors)
+            return (None, *remat.recompute_vjp(ctx.body, xs, cts))
+
+    return swapped({(remat, "_Checkpoint"): ShiftedRecompute})
+
+
+def timed_grad(model, params: dict, batch: dict, phases: dict | None = None) -> tuple:
+    """``core/local.py:value_and_grad`` of ``model.loss`` -> (loss, grads,
+    wall ms to a synchronize, peak bytes after a reset).  With ``phases``,
+    the peak is split where the backward pass reaches the backbone's
+    output (the head's backward done): ``phases["head"]`` is the peak of
+    the forward pass and the head's backward, ``phases["layers"]`` that of
+    the layers' backward after it, and the peak returned the larger."""
+    import torch
+
+    from repro_torch.core.local import value_and_grad
+    from repro_torch.models.model import Model
+
+    def at_backbone_output(_):
+        phases["head"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    logits = Model._logits
+
+    def hooked(self, params, h):
+        if h.requires_grad:
+            h.register_hook(at_backbone_output)
+        return logits(self, params, h)
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with swapped({(Model, "_logits"): hooked} if phases is not None else {}):
+        loss, grads = value_and_grad(model.loss, params, batch)
+    torch.cuda.synchronize()
+    ms, peak = (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+    if phases is not None:
+        phases["layers"] = peak
+        peak = max(peak, phases["head"])
+    return loss, grads, ms, peak
+
+
+def grads_differ(got: dict, want: dict) -> list:
+    """The leaves of ``got`` not bitwise those of ``want`` (on the host or
+    the card), compared a leaf at a time on ``got``'s device."""
+    import torch
+
+    return [k for k, w in want.items() if not torch.equal(got[k], w.to(got[k].device))]
+
+
+def remat_e2e_path(dev) -> dict:
+    """Main path 17 (a): the e2e CharLM-100M run in the vmapped padded mode
+    (``run_charlm_e2e``, the cohort engine with ``rr_backend="device"``),
+    ``REMAT_ROUNDS`` rounds with ``remat="none"`` and with ``"full"``: the
+    parameters after them bitwise equal; each run's round wall and peak."""
+    import torch
+
+    res, kept = {}, None
+    for remat in ("none", "full"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = run_main_path(dev, "device", REMAT_ROUNDS, remat=remat, **VMAPPED)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        wall = report_rounds(f"remat path (a), vmapped dense, remat={remat!r}", run,
+                             time.perf_counter() - t0, peak, REMAT_ROUNDS)
+        res[remat] = {"round_ms": wall, "peak_gib": peak / 2**30}
+        if kept is None:      # held on the host: the next run's peak is its own
+            kept = {k: v.cpu() for k, v in run.state.params.items()}
+        else:
+            differ = grads_differ(run.state.params, kept)
+            if differ:
+                raise AssertionError(f"remat path (a): params with remat differ in {differ}")
+        del run
+    print(f"remat path (a), CharLM-100M vmapped dense, {REMAT_ROUNDS} rounds: params with "
+          f"remat='full' bitwise those without; round wall {res['full']['round_ms']:.1f} vs "
+          f"{res['none']['round_ms']:.1f} ms, peak {res['full']['peak_gib']:.3f} vs "
+          f"{res['none']['peak_gib']:.3f} GiB", flush=True)
+    return res
+
+
+def remat_step_path(dev) -> dict:
+    """Main path 17 (b): one sequential-mode client step of CharLM-100M
+    (``value_and_grad`` of the loss over a ``local_batch`` of 4 x 128
+    tokens, numpy seed 2) with ``remat="none"`` and ``"full"``, each after a
+    warm-up: loss and gradients bitwise equal; then the planted fault
+    (:func:`shifted_recompute`), whose gradients the same comparison must
+    find different."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.train import charlm_e2e_config
+    from repro_torch.models.model import build_model
+
+    cfg, fl = charlm_e2e_config()
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (fl.local_batch, 129)), device=dev)
+    params = build_model(cfg).init(0, dev)
+    res, got = {}, {}
+    for remat in ("none", "full"):
+        model = build_model(dataclasses.replace(cfg, remat=remat))
+        timed_grad(model, params, {"tokens": toks})
+        loss, grads, ms, peak = timed_grad(model, params, {"tokens": toks})
+        # held on the host: the next step's peak is its own
+        got[remat] = (loss, {k: g.cpu() for k, g in grads.items()})
+        del grads
+        res[remat] = {"ms": ms, "peak_gib": peak / 2**30}
+    (l0, g0), (l1, g1) = got["none"], got["full"]
+    differ = grads_differ(g1, g0)
+    if not torch.equal(l0, l1) or differ:
+        raise AssertionError(f"remat path (b): loss equal {torch.equal(l0, l1)}, grads differ "
+                             f"in {differ}")
+    with shifted_recompute():
+        f_loss, f_grads = timed_grad(model, params, {"tokens": toks})[:2]
+    caught = grads_differ(f_grads, g0)
+    if not torch.equal(f_loss, l0) or not caught:
+        raise AssertionError("remat path (b): the recompute at shifted positions was not caught")
+    res["fault_leaves_off"] = len(caught)
+    print(f"remat path (b), CharLM-100M one sequential client step: loss and {len(g0)} "
+          f"gradients with remat='full' bitwise those without; {res['full']['ms']:.1f} vs "
+          f"{res['none']['ms']:.1f} ms, peak {res['full']['peak_gib']:.3f} vs "
+          f"{res['none']['peak_gib']:.3f} GiB; the planted fault (a recompute at positions "
+          f"shifted by one) caught: {len(caught)} of {len(g0)} gradients differ", flush=True)
+    return res
+
+
+def remat_qwen_path(dev) -> dict:
+    """Main path 17 (c): Qwen2-72B at full width, bf16, random weights from
+    seed 0, depth cut to ``REMAT_DEPTHS`` layers of 80: one ``value_and_grad``
+    of the loss over batch 1 x ``train_4k``'s 4,096 tokens (+1 for the
+    labels, numpy seed 2) with ``remat="none"`` and ``"full"`` at each depth
+    (after one warm-up step at the smaller): each step's peak and wall; at
+    the larger depth the loss and every gradient bitwise equal (the first
+    run's held on the host).  The peak is split in two phases
+    (:func:`timed_grad`): the forward pass and the head's backward, and the
+    layers' backward (where the gradients gather: with remat the first
+    phase peaks at 4 layers, but only the second grows by a layer's
+    parameters and gradients).  Each phase's growth a layer between the
+    depths gives the deepest depth at which it fits the card's memory; the
+    step fits to the lesser of the two."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import build_model
+
+    full = get_arch(REMAT_ARCH)
+    lo, hi = REMAT_DEPTHS
+    cfg = dataclasses.replace(full, n_layers=hi)
+    T = INPUT_SHAPES["train_4k"].seq_len
+    torch.cuda.empty_cache()
+    params = build_model(cfg).init(0, dev)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, T + 1)), device=dev)}
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def depth_params(L):
+        return {k: v for k, v in params.items()
+                if not k.startswith("blocks/") or int(k.split("/")[1]) < L}
+
+    def model(L, remat):
+        return build_model(dataclasses.replace(cfg, n_layers=L, remat=remat))
+
+    timed_grad(model(lo, "none"), depth_params(lo), batch)      # warm-up
+    res, kept = {"layers": list(REMAT_DEPTHS), "full_layers": full.n_layers, "tokens": T,
+                 "card_bytes": total}, None
+    for L in REMAT_DEPTHS:
+        for remat in ("none", "full"):
+            phases = {}
+            loss, grads, ms, peak = timed_grad(model(L, remat), depth_params(L), batch, phases)
+            if not torch.isfinite(loss) or not all(torch.isfinite(g).all()
+                                                   for g in grads.values()):
+                raise AssertionError(f"remat path (c): {L} layers, {remat}: non-finite")
+            res[f"{remat}_{L}"] = {"ms": ms, "peak_gib": peak / 2**30, "loss": float(loss),
+                                   **{f"{k}_peak_gib": v / 2**30 for k, v in phases.items()}}
+            print(f"remat path (c), {REMAT_ARCH} at full width, {L} of {full.n_layers} layers, "
+                  f"{cfg.dtype}, 1 x {T} tokens, remat={remat!r}: loss {float(loss):.5f}, "
+                  f"value_and_grad {ms:.1f} ms, peak {peak / 2**30:.3f} GiB (forward and head "
+                  f"backward {phases['head'] / 2**30:.3f}, layers' backward "
+                  f"{phases['layers'] / 2**30:.3f})", flush=True)
+            if L == hi and kept is None:
+                kept = (loss, {k: g.cpu() for k, g in grads.items()})
+            elif L == hi:
+                differ = grads_differ(grads, kept[1])
+                if not torch.equal(loss, kept[0]) or differ:
+                    raise AssertionError(f"remat path (c): loss equal "
+                                         f"{torch.equal(loss, kept[0])}, grads differ in "
+                                         f"{differ}")
+            del grads
+    del kept, params
+    torch.cuda.empty_cache()
+    for remat in ("none", "full"):
+        deepest = {}
+        for phase in ("head", "layers"):
+            p_lo = res[f"{remat}_{lo}"][f"{phase}_peak_gib"] * 2**30
+            p_hi = res[f"{remat}_{hi}"][f"{phase}_peak_gib"] * 2**30
+            growth = (p_hi - p_lo) / (hi - lo)
+            res[f"{remat}_{phase}_growth_gib_a_layer"] = growth / 2**30
+            deepest[phase] = hi + int((total - p_hi) // growth)
+        res[f"{remat}_deepest"] = min(deepest.values())
+        print(f"remat path (c), remat={remat!r}: the peak grows "
+              f"{res[f'{remat}_head_growth_gib_a_layer']:.3f} GiB a layer in the forward pass "
+              f"and the head's backward (fits to {deepest['head']} layers) and "
+              f"{res[f'{remat}_layers_growth_gib_a_layer']:.3f} in the layers' backward (fits "
+              f"to {deepest['layers']})", flush=True)
+    print(f"remat path (c): loss and gradients at {hi} layers with remat='full' bitwise those "
+          f"without; the deepest {REMAT_ARCH} step that fits the card's {total / 2**30:.2f} GiB "
+          f"is reckoned at {res['none_deepest']} layers without remat and "
+          f"{res['full_deepest']} with it", flush=True)
+    return res
+
+
+def remat_attention_xent_path(dev) -> dict:
+    """Main path 17 (d) and (e): ``attend(banded=True)`` against the
+    unbanded ``attend`` at Hymba-1.5B's attention (q [1, 4096, 25, 64],
+    k/v [1, 4096, 5, 64], window 1,024), bf16 within ``FLASH_TOL``'s 2e-2
+    and fp32 within its 2e-5, both timed; the one-hot cross entropy at
+    Qwen2-72B's vocab ([4096, 152064] fp32 logits) against the gather,
+    bitwise (one value times 1 plus exact zeros), both timed."""
+    import torch
+
+    from repro_torch.models.attention import attend
+    from repro_torch.models.layers import softmax_xent
+
+    b = REMAT_BAND
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = {}
+    for dt in ("bfloat16", "float32"):
+        q, k, v = (torch.randn(1, b["T"], h, b["hd"], generator=gen, device=dev,
+                               dtype=getattr(torch, dt)) for h in (b["H"], b["KV"], b["KV"]))
+        banded = attend(q, k, v, window=b["window"], banded=True)
+        plain = attend(q, k, v, window=b["window"])
+        err = _allclose(banded, plain, FLASH_TOL[dt], FLASH_TOL[dt], f"banded attend, {dt}")
+        ms = time_ms(lambda: attend(q, k, v, window=b["window"], banded=True), 10)[0]
+        plain_ms = time_ms(lambda: attend(q, k, v, window=b["window"]), 10)[0]
+        res[f"band_{dt}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        print(f"remat path (d), banded attention at Hymba's [1, {b['T']}, {b['H']}/{b['KV']}, "
+              f"{b['hd']}], window {b['window']}, {dt}: max abs diff from unbanded {err:.3e} "
+              f"(bound {FLASH_TOL[dt]}); {ms:.3f} vs {plain_ms:.3f} ms", flush=True)
+        del q, k, v, banded, plain
+    from repro_torch.configs.registry import get_arch
+
+    V = get_arch(REMAT_ARCH).vocab
+    logits = torch.randn(4096, V, generator=gen, device=dev) * 4
+    labels = torch.randint(0, V, (4096,), generator=gen, device=dev)
+    onehot, gather = softmax_xent(logits, labels, onehot=True), softmax_xent(logits, labels)
+    if not torch.equal(onehot, gather):
+        raise AssertionError(f"remat path (e): the one-hot cross entropy differs from the "
+                             f"gather's by {float((onehot - gather).abs().max()):.3e}")
+    ms = time_ms(lambda: softmax_xent(logits, labels, onehot=True), 10)[0]
+    gather_ms = time_ms(lambda: softmax_xent(logits, labels), 10)[0]
+    res["onehot_xent"] = {"ms": ms, "gather_ms": gather_ms}
+    print(f"remat path (e), the one-hot cross entropy at [4096, {V}] fp32: bitwise the "
+          f"gather's; {ms:.3f} vs {gather_ms:.3f} ms", flush=True)
+    return res
+
+
+def remat_paths(dev, rows: list) -> dict:
+    """Main path 17: (a) :func:`remat_e2e_path`, (b) :func:`remat_step_path`
+    with the planted fault, (c) :func:`remat_qwen_path`, (d, e)
+    :func:`remat_attention_xent_path`.  Every kernel wrapper's launch count
+    is set to 0 just before and read just after: rr_perm launches once a
+    round of (a) and no other kernel of the port runs (the train loss
+    reaches none, nor does the JAX package's), which each row of ``rows``
+    (the kernels line's, rr_perm's first) records."""
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    zero_counts(*wrappers)
+    res = {"e2e": remat_e2e_path(dev), "step": remat_step_path(dev),
+           "qwen": remat_qwen_path(dev), "attention_xent": remat_attention_xent_path(dev)}
+    launched = [w.launches for w in wrappers]
+    want = [2 * REMAT_ROUNDS] + [0] * (len(wrappers) - 1)
+    if launched != want:
+        raise AssertionError(f"remat paths: the port's kernels launched {launched}, want {want}")
+    for row, n in zip(rows, launched):
+        row["launches_path_17"] = n
+    res["seconds"] = time.perf_counter() - t0
+    print(f"remat paths: launches of the port's kernels "
+          f"{ {w.__name__: w.launches for w in wrappers} }; {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def profile_serve(dev, out_dir: Path) -> None:
     """The serving main path's prefill (4 x 2,048 tokens) and one decode
     step of full-width Hymba-1.5B under torch.profiler, after a warm-up:
@@ -5632,7 +5951,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     zero_counts(rr_indices_kernel, quantize_pack_kernel, unpack_dequantize_kernel)
     t0 = time.perf_counter()
-    res = run_main_path(dev, "device", **COMM)
+    res = run_main_path(dev, "device", SEQ_CUT_ROUNDS, **COMM)
     torch.cuda.synchronize()
     quant["launches"] = quantize_pack_kernel.launches
     dequant["launches"] = unpack_dequantize_kernel.launches
@@ -5641,9 +5960,9 @@ def main() -> int:
     comm_rr = rr_indices_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     seq["qsgd"] = (report_rounds("comm path (qsgd up and down)", res, time.perf_counter() - t0,
-                                 peak), peak)
-    want = 2 * len(e2e_wire_leaves()) * ROUNDS
-    if (quant["launches"], dequant["launches"], comm_rr) != (want, want, ROUNDS):
+                                 peak, SEQ_CUT_ROUNDS), peak)
+    want = 2 * len(e2e_wire_leaves()) * SEQ_CUT_ROUNDS
+    if (quant["launches"], dequant["launches"], comm_rr) != (want, want, SEQ_CUT_ROUNDS):
         raise AssertionError(f"comm path launches: quantize {quant['launches']}, unpack "
                              f"{dequant['launches']} (want {want}), rr_perm {comm_rr}")
     all_warp = {"warp": want, "block": 0}
@@ -5651,12 +5970,13 @@ def main() -> int:
         raise AssertionError(f"comm path routes: quantize {quant['route_launches']}, unpack "
                              f"{dequant['route_launches']} (want all {want} warp)")
     print(f"comm path launches: quantize_pack {want}, unpack_dequantize {want} (all on the "
-          f"warp route), rr_perm {comm_rr} in {ROUNDS} rounds, as predicted", flush=True)
+          f"warp route), rr_perm {comm_rr} in {SEQ_CUT_ROUNDS} rounds, as predicted", flush=True)
     check_comm_metrics(res.metrics.rows, charlm_e2e_config(**COMM)[1])
     params = res.state.params
     del res
     torch.cuda.empty_cache()
-    ref = run_main_path(dev, "device", uplink_backend="ref", **COMM).state.params
+    ref = run_main_path(dev, "device", SEQ_CUT_ROUNDS, uplink_backend="ref",
+                        **COMM).state.params
     differ = [k for k in ref if not torch.equal(params[k], ref[k])]
     if differ:
         raise AssertionError(f"comm path: kernel vs plain quantize params differ in {differ}")
@@ -5670,20 +5990,20 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     rr_indices_kernel.launches = server_update_kernel.launches = 0
     t0 = time.perf_counter()
-    res = run_main_path(dev, "device", **MVR)
+    res = run_main_path(dev, "device", SEQ_CUT_ROUNDS, **MVR)
     torch.cuda.synchronize()
     upd["launches"] = server_update_kernel.launches
     mvr_rr = rr_indices_kernel.launches
     peak = torch.cuda.max_memory_allocated()
-    seq["mvr"] = (report_rounds("mvr path (App. F)", res, time.perf_counter() - t0, peak),
-                  peak)
-    if (upd["launches"], mvr_rr) != (ROUNDS, ROUNDS):
+    seq["mvr"] = (report_rounds("mvr path (App. F)", res, time.perf_counter() - t0, peak,
+                                SEQ_CUT_ROUNDS), peak)
+    if (upd["launches"], mvr_rr) != (SEQ_CUT_ROUNDS, SEQ_CUT_ROUNDS):
         raise AssertionError(f"mvr path launches: server_update {upd['launches']}, rr_perm "
-                             f"{mvr_rr} (want {ROUNDS} each)")
+                             f"{mvr_rr} (want {SEQ_CUT_ROUNDS} each)")
     if not all(torch.isfinite(v).all() for v in res.state.opt["m"].values()):
         raise AssertionError("mvr path: non-finite gradient estimate")
-    print(f"mvr path launches: server_update {ROUNDS}, rr_perm {mvr_rr} in {ROUNDS} rounds, "
-          f"as predicted", flush=True)
+    print(f"mvr path launches: server_update {SEQ_CUT_ROUNDS}, rr_perm {mvr_rr} in "
+          f"{SEQ_CUT_ROUNDS} rounds, as predicted", flush=True)
     del res
     torch.cuda.empty_cache()
 
@@ -5798,6 +6118,13 @@ def main() -> int:
     # checks; the moe train loss (V3 with MTP) on the card in both modes
     moe_res = moe_paths(dev, [rr, quant, dequant, upd, flash, ssd])
     print(json.dumps({"moe": moe_res}), flush=True)
+
+    # main path 17, remat: the vmapped CharLM-100M round and a sequential
+    # client step with and without it, bitwise; Qwen2-72B at full width (4
+    # of 80 layers) over 4,096 tokens, peaks and the deepest depth that
+    # fits; banded attention and the one-hot cross entropy
+    remat_res = remat_paths(dev, [rr, quant, dequant, upd, flash, ssd])
+    print(json.dumps({"remat": remat_res}), flush=True)
 
     for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd"), MVR,
                  dict(mvr_exact=True, **MVR), VMAPPED, VMAPPED | MVR,

@@ -1,16 +1,23 @@
 """Config system: model architecture and FL hyperparameters (the port's copy).
 
-The same frozen dataclasses as ``repro.configs.base``, cut to the fields
-this port implements: ``ArchConfig`` for the dense, vlm (a patch prefix on
+The same frozen dataclasses as ``repro.configs.base`` but ``RunConfig``
+and ``MeshConfig`` (the multi-device launch tools'): ``ArchConfig`` for the dense, vlm (a patch prefix on
 the dense family), moe (MLA attention, ``MLAConfig``, and a routed MoE FFN,
 ``MoEConfig``; DeepSeek-V3's multi-token prediction, ``mtp``), ssm and
 hybrid (Mamba2 SSD, ``SSMConfig``) and audio (encoder-decoder) families
-with ``reduced()``, and
-``FLConfig`` with the knobs of every plane: comm, fleet, robust, privacy
-and obs.  It has 70 of the JAX package's 71 fields; the unused
-``aggregation`` is left out.  Shared fields keep
-the JAX package's names and defaults, so one keyword dict builds both
-configs, with one exception: ``uplink_backend`` takes ``"kernel"`` (the
+with ``reduced()``; ``ShapeConfig`` and ``INPUT_SHAPES``, the assigned
+input shapes; and ``FLConfig`` with the knobs of every plane: comm, fleet,
+robust, privacy and obs.  ``ArchConfig`` and ``FLConfig`` have every
+field of the JAX package's classes, with its names and defaults, so one
+keyword dict builds both configs and a copied config compares equal to
+JAX's field for field.  Of ``ArchConfig``'s switches, ``remat``,
+``opt_banded_window`` and ``opt_onehot_xent`` act in the port's train
+loss (``models/model.py``); ``scan_unroll`` and ``opt_seq_shard`` steer
+XLA alone in the JAX package (the layer scan's unroll, a sharding
+constraint), change no value on one card, and are carried for equality
+and ignored; ``serve_window_long`` is read by no code of the port yet.
+``FLConfig.aggregation`` is read by nothing, in either package.  One
+default differs: ``uplink_backend`` takes ``"kernel"`` (the
 default: the CUDA kernel for a CUDA tensor, the plain torch version for a
 CPU tensor) or ``"ref"`` (the plain torch version on any device) where the
 JAX package takes ``"pallas"`` / ``"ref"``.  A default of ``"ref"`` would
@@ -85,6 +92,8 @@ class ArchConfig:
     rope_kind: Literal["full", "half", "none"] = "full"  # "half" = ChatGLM 2d RoPE
     rope_theta: float = 10000.0
     sliding_window: int = 0        # 0 => full causal attention
+    # serving variant: window used when serving long_500k on quadratic archs
+    serve_window_long: int = 4096
 
     # optional feature blocks
     moe: MoEConfig | None = None
@@ -103,6 +112,16 @@ class ArchConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
+    # remat ("none" | "full"): recompute each layer's activations in the
+    # backward pass of the train loss instead of keeping them
+    # (models/remat.py); it changes memory only, never a value
+    remat: str = "none"
+    # the JAX package's layer-scan unroll; no effect in the port
+    scan_unroll: int = 1
+    # --- the JAX package's perf switches (default = baseline)
+    opt_banded_window: bool = False   # slice K/V to the sliding-window band
+    opt_onehot_xent: bool = False     # one-hot picked logit in the cross entropy
+    opt_seq_shard: bool = False       # sequence-shard the residual stream; no effect here
 
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(1, self.n_heads))
@@ -159,6 +178,27 @@ class ArchConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+INPUT_SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # FL configuration (the paper's knobs)
 # ---------------------------------------------------------------------------
 
@@ -167,6 +207,7 @@ Algorithm = Literal[
     "fedavg_mean", "gen",
 ]
 Sampling = Literal["full", "uniform", "independent"]
+Aggregation = Literal["unbiased", "sum_one"]
 ServerOpt = Literal["sgd", "momentum", "mvr", "adam", "scaffold"]
 CohortMode = Literal["vmapped", "sequential"]
 Engine = Literal["legacy", "cohort"]
@@ -245,6 +286,7 @@ class FLConfig:
     k_max: int = 0                 # 0 => derived from data sizes at pipeline build
     # algorithm
     algorithm: Algorithm = "fedshuffle"
+    aggregation: Aggregation = "unbiased"  # read by nothing (as in the JAX package)
     reshuffle: bool = True         # RR vs with-replacement local sampling
     # step sizes
     local_lr: float = 0.1

@@ -2,10 +2,9 @@
 ``repro.configs.deepseek_v3_671b``.
 
 1 shared + 256 routed experts, top-8; MLA with kv_lora=512, q_lora=1536;
-one extra multi-token-prediction block (MTP).  The JAX config also sets
-``remat="full"`` (``jax.checkpoint`` of each layer in the train loss),
-which changes memory only; the port has no such field yet (ROADMAP
-'Modules to port', item 10), and every other field is the JAX config's.
+one extra multi-token-prediction block (MTP).  ``remat="full"``: the
+train loss recomputes each layer's activations in the backward pass
+(``models/remat.py``), as the JAX config's ``jax.checkpoint`` does.
 """
 from .base import ArchConfig, MLAConfig, MoEConfig
 
@@ -24,4 +23,5 @@ CONFIG = ArchConfig(
     moe=MoEConfig(num_experts=256, top_k=8, num_shared=1, expert_ff=2048, group_size=1024,
                   scan_groups=True),
     mtp=True,
+    remat="full",
 )

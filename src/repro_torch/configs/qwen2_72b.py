@@ -1,10 +1,9 @@
 """Qwen2-72B [arXiv:2407.10671] — dense, GQA kv=8, QKV bias (a copy of
 ``repro.configs.qwen2_72b``).
 
-The JAX config also sets ``remat="full"`` (``jax.checkpoint`` of each
-layer in the train loss), which changes memory only; the port has no such
-field yet (ROADMAP 'Modules to port', item 10), and every other field is
-the JAX config's."""
+``remat="full"``: the train loss recomputes each layer's activations in
+the backward pass (``models/remat.py``), as the JAX config's
+``jax.checkpoint`` does."""
 from .base import ArchConfig
 
 CONFIG = ArchConfig(
@@ -20,4 +19,5 @@ CONFIG = ArchConfig(
     qkv_bias=True,
     rope_kind="full",
     rope_theta=1e6,
+    remat="full",
 )

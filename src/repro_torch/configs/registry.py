@@ -5,7 +5,8 @@ Every assigned architecture of the JAX package's registry
 ``seamless-m4t-medium``, ``llava-next-mistral-7b``, ``mamba2-1.3b``,
 ``minicpm-2b``, ``chatglm3-6b``, ``qwen2-72b``, ``deepseek-v2-lite-16b``
 and ``deepseek-v3-671b``, and the paper's three task configs
-``charlm-tiny``, ``vision-tiny`` and ``charlm-100m``.
+``charlm-tiny``, ``vision-tiny`` and ``charlm-100m``; and the assigned
+input shapes by name (``get_shape``).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from . import (
     qwen2_72b,
     seamless_m4t_medium,
 )
-from .base import ArchConfig
+from .base import INPUT_SHAPES, ArchConfig, ShapeConfig
 from .paper_tasks import PAPER_ARCHS
 
 ARCHS: dict[str, ArchConfig] = {
@@ -36,3 +37,9 @@ def get_arch(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in INPUT_SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(INPUT_SHAPES)}")
+    return INPUT_SHAPES[name]

@@ -22,6 +22,8 @@ quantize backend go through ``run_charlm_e2e(..., mvr_exact=True)``,
 layout (each step bucket's occupied rows for its K_b steps, instead of every
 slot for K_max masked steps) is ``--exec-mode bucketed [--buckets 4]`` or
 ``run_charlm_e2e(..., exec_mode="bucketed", buckets=4)``.
+``run_charlm_e2e(..., remat="full")`` recomputes each layer's activations
+in the backward pass: less memory, the same bits.
 ``--checkpoint PATH`` saves the params in the JAX package's format every
 100 rounds and at the end (``serve --checkpoint`` and JAX's
 ``load_checkpoint`` read it).
@@ -96,11 +98,12 @@ def run_smoke(arch: str, rounds: int, algorithm: str = "fedshuffle", server_opt:
     return res
 
 
-def charlm_e2e_config(algorithm: str = "fedshuffle", server_opt: str = "sgd",
-                      **fl_overrides) -> tuple[ArchConfig, FLConfig]:
-    """The e2e run's model (CharLM-100M at vocab 512) and FL configuration;
-    ``fl_overrides`` replace fields of the ``FLConfig``."""
-    cfg = dataclasses.replace(CHARLM_100M, vocab=min(CHARLM_100M.vocab, 512))
+def charlm_e2e_config(algorithm: str = "fedshuffle", server_opt: str = "sgd", *,
+                      remat: str = "none", **fl_overrides) -> tuple[ArchConfig, FLConfig]:
+    """The e2e run's model (CharLM-100M at vocab 512, ``remat`` its layers'
+    recompute: "none" or "full") and FL configuration; ``fl_overrides``
+    replace fields of the ``FLConfig``."""
+    cfg = dataclasses.replace(CHARLM_100M, vocab=min(CHARLM_100M.vocab, 512), remat=remat)
     fl = FLConfig(num_clients=32, cohort_size=8, sampling="uniform", epochs=1,
                   local_batch=4, algorithm=algorithm, local_lr=0.05,
                   server_opt=server_opt, imbalance="lognormal", mean_samples=8,
@@ -109,14 +112,15 @@ def charlm_e2e_config(algorithm: str = "fedshuffle", server_opt: str = "sgd",
 
 
 def run_charlm_e2e(rounds: int, algorithm: str = "fedshuffle", server_opt: str = "sgd", *,
-                   device=None, checkpoint: str | None = None,
+                   device=None, checkpoint: str | None = None, remat: str = "none",
                    **fl_overrides) -> TrainResult:
     """The e2e driver: ~100M-param char-LM, heterogeneous clients, random
     weights from seed 0.  ``fl_overrides`` replace fields of the run's
     ``FLConfig``; ``checkpoint`` saves the params every 100 rounds and at
-    the end."""
+    the end; ``remat="full"`` recomputes each layer's activations in the
+    backward pass (less memory, the same bits)."""
     device = resolve_device(device)
-    cfg, fl = charlm_e2e_config(algorithm, server_opt, **fl_overrides)
+    cfg, fl = charlm_e2e_config(algorithm, server_opt, remat=remat, **fl_overrides)
     task = CharLMTask(vocab=cfg.vocab, seq_len=128, num_clients=fl.num_clients)
     pipe = FederatedPipeline(task, Population.build(fl), fl)
     model = build_model(cfg)

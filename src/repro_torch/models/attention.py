@@ -58,14 +58,20 @@ def _attend_block(q, k, v, mask, scale: float):
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor | None = None,
            kv_pos: torch.Tensor | None = None, *, causal: bool = True, window: int = 0,
-           kv_valid: torch.Tensor | None = None) -> torch.Tensor:
+           kv_valid: torch.Tensor | None = None, banded: bool = False) -> torch.Tensor:
     """Causal attention, or over every key with ``causal=False``: q
     [B,Tq,H,hd], k/v [B,Tk,KV,hd] -> [B,Tq,H,hd] (GQA: kv head = h // (H/KV)).
 
     q_pos [Tq] and kv_pos [Tk] are absolute positions (default 0..T-1);
     kv_valid optional bool [B,Tk] (decode cache validity).  Above
     ``CHUNK_THRESHOLD`` queries go ``Q_CHUNK`` at a time, which bounds the
-    fp32 score tensor and changes no result."""
+    fp32 score tensor and changes no result.  ``banded`` (the JAX
+    package's ``cfg.opt_banded_window``): chunked, causal, with a window,
+    no ``kv_valid`` and ``Tk > Q_CHUNK + window``, query chunk i scores
+    only the ``Q_CHUNK + window`` keys from ``clip(i * Q_CHUNK - window +
+    1, 0, Tk - band)``, the only ones its window reaches when query and
+    key positions run together; the keys it drops are the masked ones,
+    so only the softmax's sums change their order."""
     B, Tq, H, hd = q.shape
     dev = q.device
     q_pos = torch.arange(Tq, device=dev) if q_pos is None else q_pos
@@ -80,6 +86,15 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tenso
 
     if Tq <= CHUNK_THRESHOLD:
         return _attend_block(q, k, v, mask_for(q_pos), scale)
+    Tk = k.shape[1]
+    band = Q_CHUNK + window
+    if banded and window and causal and kv_valid is None and Tk > band:
+        starts = [min(max(q0 - window + 1, 0), Tk - band) for q0 in range(0, Tq, Q_CHUNK)]
+        return torch.cat([_attend_block(q[:, q0:q0 + Q_CHUNK], k[:, s:s + band],
+                                        v[:, s:s + band],
+                                        band_mask(q_pos[q0:q0 + Q_CHUNK], kv_pos[s:s + band],
+                                                  window=window), scale)
+                          for q0, s in zip(range(0, Tq, Q_CHUNK), starts)], dim=1)
     return torch.cat([_attend_block(q[:, q0:q0 + Q_CHUNK], k, v,
                                     mask_for(q_pos[q0:q0 + Q_CHUNK]), scale)
                       for q0 in range(0, Tq, Q_CHUNK)], dim=1)
@@ -131,7 +146,8 @@ def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tens
     else:
         q, (k, v) = _proj(p, cfg, x, "q", cfg.n_heads), kv_override
         kv_pos = None
-    out = attend(q, k, v, positions, kv_pos, causal=causal, window=window)
+    out = attend(q, k, v, positions, kv_pos, causal=causal, window=window,
+                 banded=cfg.opt_banded_window)
     return out.reshape(B, T, -1) @ p["wo"]
 
 
@@ -249,7 +265,8 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tens
     v = (c_kv @ p["wuv"]).reshape(B, T, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, m.qk_rope_dim)], dim=-1)
-    out = attend(q, k, v, positions, positions, causal=True, window=window)
+    out = attend(q, k, v, positions, positions, causal=True, window=window,
+                 banded=cfg.opt_banded_window)
     return out.reshape(B, T, -1) @ p["wo"], (c_kv, k_rope)
 
 

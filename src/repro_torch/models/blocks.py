@@ -265,11 +265,15 @@ def dec_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, prefix:
     return _attn_init(gen, cfg, dtype, device, prefix, (("ln1", "self"), ("ln_x", "cross")))
 
 
-def cross_kv(params: dict, cfg: ArchConfig, enc_out: torch.Tensor, prefix: str):
+def cross_kv(params: dict, cfg: ArchConfig, enc_out: torch.Tensor, prefix: str, *,
+             v_memory: torch.Tensor | None = None):
     """The encoder memory's K/V [B, S, KV, hd] for one decoder layer's
-    cross-attention (computed once a prefill, kept in the cache)."""
+    cross-attention (computed once a prefill, kept in the cache); V from
+    ``v_memory`` when given (the same memory as a second input: the
+    checkpointed train loss's)."""
     p = _attn(params, prefix, "cross")
-    return _proj(p, cfg, enc_out, "k", cfg.n_kv_heads), _proj(p, cfg, enc_out, "v", cfg.n_kv_heads)
+    v_in = enc_out if v_memory is None else v_memory
+    return _proj(p, cfg, enc_out, "k", cfg.n_kv_heads), _proj(p, cfg, v_in, "v", cfg.n_kv_heads)
 
 
 def dec_block_forward(params: dict, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,

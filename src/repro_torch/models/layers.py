@@ -54,9 +54,18 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor, x: torch.Te
     return (F.silu(x @ gate) * (x @ up)) @ down
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-position cross entropy, fp32; logits [..., V], labels [...]."""
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, onehot: bool = False) -> torch.Tensor:
+    """Per-position cross entropy, fp32; logits [..., V], labels [...].
+
+    ``onehot=True`` (``cfg.opt_onehot_xent``) picks the label's logit as
+    the sum of ``logits * one_hot(labels)`` (a compare with an iota, no
+    gather), as the JAX package does: one product by 1 and exact zeros, so
+    the same value as the gather for finite logits."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    picked = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if onehot:
+        iota = torch.arange(lf.shape[-1], device=lf.device)
+        picked = (lf * (labels[..., None].long() == iota).to(lf.dtype)).sum(-1)
+    else:
+        picked = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     return lse - picked

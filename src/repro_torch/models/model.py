@@ -55,10 +55,12 @@ from ..configs.base import ArchConfig
 from . import blocks as B
 from .layers import dense_init, embed_init, rmsnorm, softmax_xent
 from .mamba2 import dims as ssm_dims
+from .remat import checkpoint
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 UNPOSITIONED = ("ssm", "audio")  # rope_kind "none": audio adds a sinusoid, ssm nothing
 BACKENDS = ("kernel", "ref")
+REMAT = ("none", "full")
 SEQ_KEYS = ("k", "v", "c_kv", "k_rope")   # sequence-indexed cache entries
 
 
@@ -103,6 +105,8 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: the moe family is MLA + MoE (both configs set), and only it "
                 f"takes mtp")
+        if cfg.remat not in REMAT:
+            raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}; have {REMAT}")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; have {BACKENDS}")
 
@@ -161,9 +165,16 @@ class Model:
         of token t+1 (``concat(.) @ mtp_proj``, positions 0..T-2), through
         the final norm and the head: the loss adds ``mtp_coef * (mtp_ce +
         mtp_aux)`` and the metrics ``mtp_ce``.  The plain
-        attention (the dense family's window ``cfg.sliding_window``) and the
-        plain SSD scan, with no in-place write, so that it runs under
-        autograd and ``torch.func.vmap``."""
+        attention (the dense family's window ``cfg.sliding_window``; its
+        K/V band alone with ``cfg.opt_banded_window``) and the plain SSD
+        scan, with no in-place write, so that it runs under autograd and
+        ``torch.func.vmap``.  With ``cfg.remat == "full"`` each backbone
+        layer (an audio decoder layer with its cross-attention K/V) keeps
+        only its inputs and is recomputed in the backward pass
+        (``models/remat.py``); the encoder, the MTP block, the final norm
+        and the head are not, as in the JAX package.  With
+        ``cfg.opt_onehot_xent`` the cross entropies pick the label's logit
+        by a one-hot product."""
         cfg = self.cfg
         toks = batch["tokens"]
         inputs, labels = toks[..., :-1], toks[..., 1:]
@@ -175,21 +186,19 @@ class Model:
         aux = None      # the moe family's, summed over layers
         for i in range(cfg.n_layers):
             prefix = f"blocks/{i}/"
-            if cfg.family == "audio":
-                h = B.dec_block_forward(params, cfg, h, positions,
-                                        B.cross_kv(params, cfg, enc_out, prefix), prefix)
-            elif cfg.family == "moe":
-                h, a = B.moe_block_forward(params, cfg, h, positions, prefix,
-                                           window=cfg.sliding_window)
+            names = [k for k in params if k.startswith(prefix)]
+            # the audio decoder reads the encoder memory twice, V's first
+            xs = (h, positions, *([enc_out, enc_out] if cfg.family == "audio" else []),
+                  *(params[k] for k in names))
+            body = self._layer_body(prefix, names)
+            out = checkpoint(body, *xs) if cfg.remat == "full" else body(*xs)
+            if cfg.family == "moe":
+                h, a = out
                 aux = a if aux is None else aux + a
-            elif cfg.family == "ssm":
-                h = B.ssm_block_forward(params, cfg, h, prefix)
-            elif cfg.family == "hybrid":
-                h = B.hybrid_block_forward(params, cfg, h, positions, prefix)
             else:
-                h = B.dense_block_forward(params, cfg, h, positions, prefix,
-                                          window=cfg.sliding_window)
-        ce = softmax_xent(self._logits(params, h[:, offset:]), labels).mean()
+                h = out
+        onehot = cfg.opt_onehot_xent
+        ce = softmax_xent(self._logits(params, h[:, offset:]), labels, onehot).mean()
         if aux is None:
             loss, metrics = ce, {"ce": ce, "aux": torch.zeros_like(ce)}
         else:
@@ -201,10 +210,42 @@ class Model:
             comb = torch.cat([hn[:, :-1], nxt], dim=-1) @ params["mtp_proj"]
             hm, mtp_aux = B.moe_block_forward(params, cfg, comb,
                                               torch.arange(S - 1, device=h.device), "mtp_block/")
-            mtp_ce = softmax_xent(self._logits(params, hm), labels[:, 1:]).mean()
+            mtp_ce = softmax_xent(self._logits(params, hm), labels[:, 1:], onehot).mean()
             loss = loss + cfg.mtp_coef * (mtp_ce + mtp_aux)
             metrics["mtp_ce"] = mtp_ce
         return loss, metrics
+
+    def _layer_body(self, prefix: str, names: list):
+        """Layer ``prefix``'s train forward as a function of tensors alone,
+        ``(h, positions, [enc_v, enc_k,] *leaves) -> h`` (``(h, aux)`` for the
+        moe family), ``leaves`` the parameters ``names`` (the layer's), so
+        that :func:`~.remat.checkpoint` can run it: the audio decoder's
+        cross-attention K/V of the encoder memory inside it, as in the JAX
+        package's checkpointed body.  The audio body takes the memory
+        twice, ``(enc_v, enc_k)``, for the V and the K projection: the
+        memory's gradient then gathers one projection at a time, V's
+        before K's and the last layer's first, the order autograd adds
+        them in the plain graph, so that it has the same bits with
+        ``remat`` as without (one input would add each layer's two terms
+        first)."""
+        cfg, fam = self.cfg, self.cfg.family
+
+        def body(h, positions, *rest):
+            enc, rest = (rest[:2], rest[2:]) if fam == "audio" else (None, rest)
+            p = dict(zip(names, rest))
+            if fam == "audio":
+                xkv = B.cross_kv(p, cfg, enc[1], prefix, v_memory=enc[0])
+                return B.dec_block_forward(p, cfg, h, positions, xkv, prefix)
+            if fam == "moe":
+                return B.moe_block_forward(p, cfg, h, positions, prefix,
+                                           window=cfg.sliding_window)
+            if fam == "ssm":
+                return B.ssm_block_forward(p, cfg, h, prefix)
+            if fam == "hybrid":
+                return B.hybrid_block_forward(p, cfg, h, positions, prefix)
+            return B.dense_block_forward(p, cfg, h, positions, prefix, window=cfg.sliding_window)
+
+        return body
 
     # ---------------------------------------------------------------- serve
 

@@ -22,8 +22,9 @@ prompts (past the window).
 * the serve CLI on ``--device cpu``; sampling from an explicit generator;
 * ``backend="kernel"`` on CPU tensors takes the plain versions (no launch),
   the registry serves every arch (the moe family's, the vlm ones and the
-  rest of the zoo) as the JAX config, and the prefill's kernels are never
-  reached under autograd; a dense config with a sliding window is served
+  rest of the zoo) as the JAX config, field for field, with JAX's
+  ``param_counts``; ``FLConfig()`` and ``INPUT_SHAPES`` are JAX's; the
+  prefill's kernels are never reached under autograd; a dense config with a sliding window is served
   as JAX serves it.
 """
 import dataclasses
@@ -35,14 +36,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.configs.base import INPUT_SHAPES as J_SHAPES  # noqa: E402
+from repro.configs.base import FLConfig as JFL  # noqa: E402
 from repro.configs.registry import ARCHS as J_ARCHS  # noqa: E402
+from repro.configs.registry import get_shape as j_get_shape  # noqa: E402
+from repro.launch.roofline import param_counts as j_param_counts  # noqa: E402
 from repro.launch.serve import generate as j_generate  # noqa: E402
 from repro.models.model import build_model as j_build  # noqa: E402
-from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig, SSMConfig  # noqa: E402
-from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig, FLConfig, MLAConfig,  # noqa: E402
+                                      MoEConfig, SSMConfig)
+from repro_torch.configs.registry import ARCHS as PORT_ARCHS  # noqa: E402
+from repro_torch.configs.registry import get_arch, get_shape  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel  # noqa: E402
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_kernel  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.roofline import param_counts, tokens_for  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.weights import cache_from_jax, params_from_jax  # noqa: E402
 
@@ -233,34 +241,61 @@ def test_kernel_backend_on_cpu_takes_plain_versions_and_needs_no_grad():
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "deepseek-v2-lite-16b"])
 def test_registry_refuses_unported_archs(arch):
     """No arch is left unported: each DeepSeek config is the JAX config
-    field for field (the JAX fields the port has no counterpart of at their
-    defaults, but V3's ``remat``, which changes memory only); an unknown
-    name still raises ``KeyError``."""
+    field for field, with no JAX field left out (V3's ``remat="full"``
+    included); an unknown name still raises ``KeyError``."""
     cfg = get_arch(arch)
     assert cfg.name == arch and cfg.family == "moe" and cfg == port_cfg(J_ARCHS[arch])
     assert cfg.mtp == (arch == "deepseek-v3-671b") and cfg.moe.scan_groups == cfg.mtp
-    port_fields = {f.name for f in dataclasses.fields(ArchConfig)}
-    jcfg = J_ARCHS[arch]
-    moved = {f.name for f in dataclasses.fields(jcfg)
-             if f.name not in port_fields and getattr(jcfg, f.name) != f.default}
-    assert moved == ({"remat"} if arch == "deepseek-v3-671b" else set())
+    assert cfg.remat == ("full" if arch == "deepseek-v3-671b" else "none")
+    assert _fields(ArchConfig) == _fields(type(J_ARCHS[arch]))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(J_ARCHS[arch])
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
 
+def _fields(cls) -> list:
+    return [f.name for f in dataclasses.fields(cls)]
+
+
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "minicpm-2b", "chatglm3-6b", "qwen2-72b"])
 def test_registry_serves_the_zoo_archs(arch):
-    """Each new arch is the JAX config field for field (the JAX fields the
-    port has no counterpart of at their defaults, but Qwen2-72B's
-    ``remat``, which changes memory only)."""
+    """Each new arch is the JAX config field for field, with no JAX field
+    left out (Qwen2-72B's ``remat="full"`` included)."""
     cfg = get_arch(arch)
     assert cfg.name == arch and cfg == port_cfg(J_ARCHS[arch])
-    port_fields = {f.name for f in dataclasses.fields(ArchConfig)}
-    jcfg = J_ARCHS[arch]
-    left_out = {f.name: getattr(jcfg, f.name) != f.default
-                for f in dataclasses.fields(jcfg) if f.name not in port_fields}
-    assert {k for k, moved in left_out.items() if moved} == (
-        {"remat"} if arch == "qwen2-72b" else set())
+    assert cfg.remat == ("full" if arch == "qwen2-72b" else "none")
+    assert _fields(ArchConfig) == _fields(type(J_ARCHS[arch]))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(J_ARCHS[arch])
+
+
+@pytest.mark.parametrize("arch", sorted(PORT_ARCHS))
+def test_every_arch_equals_jax_and_counts_its_params(arch):
+    """Every arch of the port's registry (the JAX registry's, name for
+    name) equals its JAX config field for field, and its ``param_counts``
+    (total, and active: routed experts at top_k / E) equal JAX's exactly,
+    the twin of ``tests/test_models.py::test_param_counts_full_scale``."""
+    assert set(PORT_ARCHS) == set(J_ARCHS)
+    assert dataclasses.asdict(get_arch(arch)) == dataclasses.asdict(J_ARCHS[arch])
+    assert param_counts(arch) == j_param_counts(arch)
+
+
+def test_fl_config_and_input_shapes_equal_jax():
+    """``FLConfig()`` has JAX's fields in JAX's order with JAX's defaults,
+    ``aggregation`` included, but ``uplink_backend``: the port's default
+    ``"kernel"`` is JAX's ``"pallas"`` (the kernel on the card's main
+    path), where JAX defaults to ``"ref"``.  ``INPUT_SHAPES`` equals JAX's
+    and ``get_shape`` raises ``KeyError`` on an unknown name."""
+    assert _fields(FLConfig) == _fields(JFL)
+    mine, theirs = dataclasses.asdict(FLConfig()), dataclasses.asdict(JFL())
+    assert {k for k in theirs if mine[k] != theirs[k]} == {"uplink_backend"}
+    assert (mine["uplink_backend"], theirs["uplink_backend"]) == ("kernel", "ref")
+    assert {k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in J_SHAPES.items()}
+    assert get_shape("train_4k") == INPUT_SHAPES["train_4k"]
+    assert get_shape("train_4k").seq_len == j_get_shape("train_4k").seq_len == 4096
+    assert tokens_for("train_4k") == 4096 * 256 and tokens_for("decode_32k") == 128
+    with pytest.raises(KeyError):
+        get_shape("no-such-shape")
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "vision-tiny"])
