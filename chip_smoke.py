@@ -124,10 +124,9 @@
    sequential client step with and without; Qwen2-72B at full width, 4 of
    80 layers, bf16, one ``value_and_grad`` of the loss over 4,096 tokens
    (``train_4k``'s sequence) with and without, and at 2 layers, each
-   step's peak memory (in two phases: the forward pass and the head's
-   backward, the layers' backward) and wall, each phase's growth a layer
-   and the deepest depth that fits the card reckoned from them; banded
-   attention at Hymba's
+   step's peak memory (its own layers alone allocated) and wall, the
+   peak's growth a layer and the deepest depth that fits the card
+   reckoned from it; banded attention at Hymba's
    shape against unbanded; the one-hot cross entropy at Qwen2's vocab
    against the gather;
 4. checks the results: finite losses and parameters, the predicted launch
@@ -5536,41 +5535,20 @@ def shifted_recompute():
     return swapped({(remat, "_Checkpoint"): ShiftedRecompute})
 
 
-def timed_grad(model, params: dict, batch: dict, phases: dict | None = None) -> tuple:
+def timed_grad(model, params: dict, batch: dict) -> tuple:
     """``core/local.py:value_and_grad`` of ``model.loss`` -> (loss, grads,
-    wall ms to a synchronize, peak bytes after a reset).  With ``phases``,
-    the peak is split where the backward pass reaches the backbone's
-    output (the head's backward done): ``phases["head"]`` is the peak of
-    the forward pass and the head's backward, ``phases["layers"]`` that of
-    the layers' backward after it, and the peak returned the larger."""
+    wall ms to a synchronize, peak bytes after a reset)."""
     import torch
 
     from repro_torch.core.local import value_and_grad
-    from repro_torch.models.model import Model
-
-    def at_backbone_output(_):
-        phases["head"] = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-
-    logits = Model._logits
-
-    def hooked(self, params, h):
-        if h.requires_grad:
-            h.register_hook(at_backbone_output)
-        return logits(self, params, h)
 
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with swapped({(Model, "_logits"): hooked} if phases is not None else {}):
-        loss, grads = value_and_grad(model.loss, params, batch)
+    loss, grads = value_and_grad(model.loss, params, batch)
     torch.cuda.synchronize()
-    ms, peak = (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
-    if phases is not None:
-        phases["layers"] = peak
-        peak = max(peak, phases["head"])
-    return loss, grads, ms, peak
+    return loss, grads, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
 
 
 def grads_differ(got: dict, want: dict) -> list:
@@ -5663,16 +5641,13 @@ def remat_qwen_path(dev) -> dict:
     """Main path 17 (c): Qwen2-72B at full width, bf16, random weights from
     seed 0, depth cut to ``REMAT_DEPTHS`` layers of 80: one ``value_and_grad``
     of the loss over batch 1 x ``train_4k``'s 4,096 tokens (+1 for the
-    labels, numpy seed 2) with ``remat="none"`` and ``"full"`` at each depth
-    (after one warm-up step at the smaller): each step's peak and wall; at
-    the larger depth the loss and every gradient bitwise equal (the first
-    run's held on the host).  The peak is split in two phases
-    (:func:`timed_grad`): the forward pass and the head's backward, and the
-    layers' backward (where the gradients gather: with remat the first
-    phase peaks at 4 layers, but only the second grows by a layer's
-    parameters and gradients).  Each phase's growth a layer between the
-    depths gives the deepest depth at which it fits the card's memory; the
-    step fits to the lesser of the two."""
+    labels, numpy seed 2) with ``remat="none"`` and ``"full"`` at each depth,
+    the deeper first (after one warm-up step), each depth's step with its
+    own layers alone allocated (the deeper ones freed before it): each
+    step's peak and wall; at the larger depth the loss and every gradient
+    bitwise equal (the first run's held on the host); the peak's growth a
+    layer between the depths, and from it the deepest depth whose step fits
+    the card's memory."""
     import dataclasses
 
     import torch
@@ -5691,30 +5666,24 @@ def remat_qwen_path(dev) -> dict:
         0, cfg.vocab, (1, T + 1)), device=dev)}
     total = torch.cuda.get_device_properties(0).total_memory
 
-    def depth_params(L):
-        return {k: v for k, v in params.items()
-                if not k.startswith("blocks/") or int(k.split("/")[1]) < L}
-
     def model(L, remat):
         return build_model(dataclasses.replace(cfg, n_layers=L, remat=remat))
 
-    timed_grad(model(lo, "none"), depth_params(lo), batch)      # warm-up
+    timed_grad(model(hi, "none"), params, batch)      # warm-up
     res, kept = {"layers": list(REMAT_DEPTHS), "full_layers": full.n_layers, "tokens": T,
                  "card_bytes": total}, None
-    for L in REMAT_DEPTHS:
+    for L in (hi, lo):
+        for k in [k for k in params if k.startswith("blocks/") and int(k.split("/")[1]) >= L]:
+            del params[k]
         for remat in ("none", "full"):
-            phases = {}
-            loss, grads, ms, peak = timed_grad(model(L, remat), depth_params(L), batch, phases)
+            loss, grads, ms, peak = timed_grad(model(L, remat), params, batch)
             if not torch.isfinite(loss) or not all(torch.isfinite(g).all()
                                                    for g in grads.values()):
                 raise AssertionError(f"remat path (c): {L} layers, {remat}: non-finite")
-            res[f"{remat}_{L}"] = {"ms": ms, "peak_gib": peak / 2**30, "loss": float(loss),
-                                   **{f"{k}_peak_gib": v / 2**30 for k, v in phases.items()}}
+            res[f"{remat}_{L}"] = {"ms": ms, "peak_gib": peak / 2**30, "loss": float(loss)}
             print(f"remat path (c), {REMAT_ARCH} at full width, {L} of {full.n_layers} layers, "
                   f"{cfg.dtype}, 1 x {T} tokens, remat={remat!r}: loss {float(loss):.5f}, "
-                  f"value_and_grad {ms:.1f} ms, peak {peak / 2**30:.3f} GiB (forward and head "
-                  f"backward {phases['head'] / 2**30:.3f}, layers' backward "
-                  f"{phases['layers'] / 2**30:.3f})", flush=True)
+                  f"value_and_grad {ms:.1f} ms, peak {peak / 2**30:.3f} GiB", flush=True)
             if L == hi and kept is None:
                 kept = (loss, {k: g.cpu() for k, g in grads.items()})
             elif L == hi:
@@ -5727,23 +5696,20 @@ def remat_qwen_path(dev) -> dict:
     del kept, params
     torch.cuda.empty_cache()
     for remat in ("none", "full"):
-        deepest = {}
-        for phase in ("head", "layers"):
-            p_lo = res[f"{remat}_{lo}"][f"{phase}_peak_gib"] * 2**30
-            p_hi = res[f"{remat}_{hi}"][f"{phase}_peak_gib"] * 2**30
-            growth = (p_hi - p_lo) / (hi - lo)
-            res[f"{remat}_{phase}_growth_gib_a_layer"] = growth / 2**30
-            deepest[phase] = hi + int((total - p_hi) // growth)
-        res[f"{remat}_deepest"] = min(deepest.values())
-        print(f"remat path (c), remat={remat!r}: the peak grows "
-              f"{res[f'{remat}_head_growth_gib_a_layer']:.3f} GiB a layer in the forward pass "
-              f"and the head's backward (fits to {deepest['head']} layers) and "
-              f"{res[f'{remat}_layers_growth_gib_a_layer']:.3f} in the layers' backward (fits "
-              f"to {deepest['layers']})", flush=True)
+        p_lo = res[f"{remat}_{lo}"]["peak_gib"] * 2**30
+        p_hi = res[f"{remat}_{hi}"]["peak_gib"] * 2**30
+        growth = (p_hi - p_lo) / (hi - lo)
+        if growth <= 0:
+            raise AssertionError(f"remat path (c), {remat}: the peak at {hi} layers is not above "
+                                 f"the peak at {lo}")
+        res[f"{remat}_growth_gib_a_layer"] = growth / 2**30
+        res[f"{remat}_deepest"] = hi + int((total - p_hi) // growth)
     print(f"remat path (c): loss and gradients at {hi} layers with remat='full' bitwise those "
-          f"without; the deepest {REMAT_ARCH} step that fits the card's {total / 2**30:.2f} GiB "
-          f"is reckoned at {res['none_deepest']} layers without remat and "
-          f"{res['full_deepest']} with it", flush=True)
+          f"without; the peak grows {res['none_growth_gib_a_layer']:.3f} GiB a layer without "
+          f"remat and {res['full_growth_gib_a_layer']:.3f} with it, so the deepest "
+          f"{REMAT_ARCH} step that fits the card's {total / 2**30:.2f} GiB is reckoned at "
+          f"{res['none_deepest']} layers without remat and {res['full_deepest']} with it",
+          flush=True)
     return res
 
 
