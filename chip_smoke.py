@@ -120,7 +120,8 @@
    kernel either; the choices the capacity drops counted from the
    dispatch), then both archs' smoke runs (V3 with MTP) in both cohort
    modes; then ``remat`` (main path 17, ``remat_paths``): the vmapped dense
-   CharLM-100M round with ``remat="full"`` and without, 2 rounds each; one
+   CharLM-100M round with ``remat="full"`` and without, 3 rounds each, and
+   one traced round of each (its device time); one
    sequential client step with and without; Qwen2-72B at full width, 4 of
    80 layers, bf16, one ``value_and_grad`` of the loss over 4,096 tokens
    (``train_4k``'s sequence) with and without, and at 2 layers, each
@@ -5515,7 +5516,7 @@ def moe_paths(dev, rows: list) -> dict:
 # main path 17: remat, banded attention, the one-hot cross entropy
 # ---------------------------------------------------------------------------
 
-REMAT_ROUNDS = 2
+REMAT_ROUNDS = 3               # (a)'s rounds: the wall is the mean of the rounds after the first
 REMAT_ARCH = "qwen2-72b"
 REMAT_DEPTHS = (2, 4)           # Qwen2-72B's layers (of 80) for the peak's growth a layer
 REMAT_BAND = dict(T=4096, H=25, KV=5, hd=64, window=1024)   # Hymba-1.5B's attention
@@ -5563,7 +5564,9 @@ def remat_e2e_path(dev) -> dict:
     """Main path 17 (a): the e2e CharLM-100M run in the vmapped padded mode
     (``run_charlm_e2e``, the cohort engine with ``rr_backend="device"``),
     ``REMAT_ROUNDS`` rounds with ``remat="none"`` and with ``"full"``: the
-    parameters after them bitwise equal; each run's round wall and peak."""
+    parameters after them bitwise equal; each run's round wall and peak;
+    then one round of each traced (:func:`round_kernels`): its device
+    kernels and device ms, the recompute's cost without the host's."""
     import torch
 
     res, kept = {}, None
@@ -5584,10 +5587,16 @@ def remat_e2e_path(dev) -> dict:
             if differ:
                 raise AssertionError(f"remat path (a): params with remat differ in {differ}")
         del run
+    for remat in ("none", "full"):
+        res[remat]["kernels"], res[remat]["device_ms"] = round_kernels(dev, remat=remat,
+                                                                       **VMAPPED)
     print(f"remat path (a), CharLM-100M vmapped dense, {REMAT_ROUNDS} rounds: params with "
           f"remat='full' bitwise those without; round wall {res['full']['round_ms']:.1f} vs "
           f"{res['none']['round_ms']:.1f} ms, peak {res['full']['peak_gib']:.3f} vs "
-          f"{res['none']['peak_gib']:.3f} GiB", flush=True)
+          f"{res['none']['peak_gib']:.3f} GiB; one traced round: "
+          f"{res['full']['device_ms']:.1f} vs {res['none']['device_ms']:.1f} ms of device "
+          f"time in {res['full']['kernels']} vs {res['none']['kernels']} device kernels and "
+          f"copies", flush=True)
     return res
 
 
@@ -5763,7 +5772,7 @@ def remat_paths(dev, rows: list) -> dict:
     with the planted fault, (c) :func:`remat_qwen_path`, (d, e)
     :func:`remat_attention_xent_path`.  Every kernel wrapper's launch count
     is set to 0 just before and read just after: rr_perm launches once a
-    round of (a) and no other kernel of the port runs (the train loss
+    round of (a), its traced rounds included, and no other kernel of the port runs (the train loss
     reaches none, nor does the JAX package's), which each row of ``rows``
     (the kernels line's, rr_perm's first) records."""
     t0 = time.perf_counter()
@@ -5772,7 +5781,7 @@ def remat_paths(dev, rows: list) -> dict:
     res = {"e2e": remat_e2e_path(dev), "step": remat_step_path(dev),
            "qwen": remat_qwen_path(dev), "attention_xent": remat_attention_xent_path(dev)}
     launched = [w.launches for w in wrappers]
-    want = [2 * REMAT_ROUNDS] + [0] * (len(wrappers) - 1)
+    want = [2 * REMAT_ROUNDS + 2] + [0] * (len(wrappers) - 1)
     if launched != want:
         raise AssertionError(f"remat paths: the port's kernels launched {launched}, want {want}")
     for row, n in zip(rows, launched):

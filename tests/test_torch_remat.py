@@ -343,10 +343,34 @@ def test_unknown_remat_is_refused():
 
 def test_ignored_switches_change_no_value():
     """``scan_unroll`` and ``opt_seq_shard`` steer XLA alone in the JAX
-    package: the port's loss and gradients do not move with them."""
+    package, and ``serve_window_long`` sizes only the JAX launch tools'
+    long-context cache: the port's loss and gradients do not move with
+    them."""
     _, _, model, params = _setup("dense")
-    moved = build_model(dataclasses.replace(model.cfg, scan_unroll=2, opt_seq_shard=True))
+    moved = build_model(dataclasses.replace(model.cfg, scan_unroll=2, opt_seq_shard=True,
+                                            serve_window_long=64))
     loss, grads = _loss_and_grads(model, params, "sequential")
     m_loss, m_grads = _loss_and_grads(moved, params, "sequential")
     assert torch.equal(loss, m_loss) and _bitwise(m_grads, grads) == []
     assert JFL().aggregation == FLConfig().aggregation == "unbiased"
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_aggregation_changes_no_round(mode):
+    """``FLConfig.aggregation`` is read by nothing, in either package: a
+    FedShuffle round with ``"sum_one"`` is bitwise the default round."""
+    _, _, model, params = _setup("dense")
+    loss_fn = make_loss(model)
+    out = {}
+    for agg in ("unbiased", "sum_one"):
+        fl = FLConfig(**ROUND_FL, cohort_mode=mode, aggregation=agg)
+        pipe = FederatedPipeline(TokenTask(vocab=model.cfg.vocab, seq_len=16, num_clients=4),
+                                 Population.build(fl), fl)
+        strat = bind_strategy(None, fl, loss_fn, num_clients=4)
+        out[agg] = build_round_step(loss_fn, strat, fl, device="cpu")(
+            strat.init(dict(params)), pipe.round_batch(0))
+    (state, mets), (a_state, a_mets) = out["unbiased"], out["sum_one"]
+    assert float(mets["delta_norm"]) > 0
+    assert _bitwise(a_state.params, state.params) == []
+    assert all(torch.equal(torch.as_tensor(a_mets[k]), torch.as_tensor(v))
+               for k, v in mets.items())
