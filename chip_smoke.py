@@ -31,16 +31,16 @@
    beside unmasked SDPA; ``rr_perm``'s latency bound (the launch floor plus
    the cipher's serial chain, counted from its SASS) beside its operations
    bound;
-3. drives seventeen main paths through the user entry point, each with every
+3. drives eighteen main paths through the user entry point, each with every
    launch count set to 0 just before and read just after: FedShuffle
-   training of full-width CharLM-100M (12 x 768, d_ff 3072) for 4 rounds
+   training of full-width CharLM-100M (12 x 768, d_ff 3072) for 2 rounds
    through the cohort engine with the CUDA index kernel
-   (``rr_backend="device"``), first with a dense wire, then for 2 rounds
+   (``rr_backend="device"``), first with a dense wire, then for 1 round
    with the qsgd codec both ways (``uplink="qsgd", downlink="qsgd"``: the
    CUDA quantize kernels, 12 launches of each a direction a round, all on
-   the ``warp`` route); then FedShuffleMVR (``server_opt="mvr"``) for 2
-   rounds with the App. F server step (the CUDA server_update kernel, one
-   launch a round over all 111 parameter tensors) and for 2 rounds with
+   the ``warp`` route); then FedShuffleMVR (``server_opt="mvr"``) for 1
+   round with the App. F server step (the CUDA server_update kernel, one
+   launch a round over all 111 parameter tensors) and for 1 round with
    the exact eq. 14 step (torch, no kernel); then the same four training
    paths in the vmapped cohort mode (``cohort_mode="vmapped"``, the JAX
    package's default: every client's local steps batched over the cohort;
@@ -129,7 +129,18 @@
    peak's growth a layer and the deepest depth that fits the card
    reckoned from it; banded attention at Hymba's
    shape against unbanded; the one-hot cross entropy at Qwen2's vocab
-   against the gather;
+   against the gather; then the launch tools (main path 18,
+   ``launch_paths``): Hymba-1.5B at full width, bf16, through
+   ``launch/specs.py``'s setups at one card's share of each assigned shape
+   (prefill_32k at batch 1: 32 flash and 32 SSD launches at T = 32,768;
+   decode_32k at batch 128 against a random full cache; long_500k at pos
+   524,287, natively, and Qwen1.5-0.5B's through the ring of
+   ``serve_window_long``; train_4k, one client x 1 x 4,096, in the
+   hillclimb hymba pair's four configs), each step's count from
+   ``launch/dryrun.py`` (made on the meta device by a child process while
+   the earlier paths run: ``--launch-counts``), its bound, wall, device
+   time and peak; then ``examples/torch_objective_inconsistency.py`` and
+   ``examples/torch_serve_moe.py`` on the card;
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
@@ -203,7 +214,14 @@
    mask; V3's first-layer router and dispatch the same way; both tiny
    configs served on the card agreeing with the CPU; V2-Lite's bf16 prefill
    against fp32 at 2 layers reported; the smokes within 1e-4 of a leaf's
-   largest magnitude of the CPU run;
+   largest magnitude of the CPU run; for path 18, each flash launch at T =
+   32,768 on its last 128 query rows over all keys and each SSD launch
+   whole against the plain versions at the serving path's tolerances, each
+   decode step's attention against an fp64 softmax over the cache's keys
+   and its key written at slot pos % S alone, every step's device time at
+   or above its counted bound, the examples' claims (FedAvg at its biased
+   point, FedShuffle, FedNova and SCAFFOLD at the optimum; serve_moe's
+   greedy tokens equal to the CPU's);
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -219,6 +237,7 @@ import contextlib
 import ctypes
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -230,20 +249,23 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 ROUNDS = 4
 MVR_EXACT_ROUNDS = 2
-# the sequential qsgd and MVR App. F paths (and the qsgd path's plain-kernel
-# twin) run 2 rounds, their vmapped and bucketed twins ROUNDS: no check
-# reads the sequential rounds past the second
+# the sequential dense path and its plain-kernel twin (and the bucketed
+# sequential dense path) run 2 rounds, their vmapped and bucketed twins
+# ROUNDS: the vmapped dense path is held to the sequential one by a vmapped
+# run of 2 rounds
 SEQ_CUT_ROUNDS = 2
+# the sequential qsgd path and its plain-kernel twin, and the sequential MVR
+# App. F and exact paths run 1 round (their vmapped and bucketed twins
+# ROUNDS, or MVR_EXACT_ROUNDS): their checks (the launches, the twin
+# bitwise, a finite gradient estimate) read one round, and no other path is
+# held to them
+SEQ_ONE_ROUND = 1
 KERNELS = ("rr_perm", "quantize", "server_update", "flash_attention", "ssd")
-# H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 3.35 TB/s;
-# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz = 16.7e12 integer ops/s; the
-# 67 TFLOP/s fp32 rate counts an FMA as two, so 33.4e12 fp32 instructions/s,
-# which is also the most instructions of any mix the SMs issue (4 schedulers
-# x 32 lanes a clock).
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core rate
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
+# the H100 SXM's peaks, with their sources: one table for every bound
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.kernels.flash_attention.ref import band_pairs  # noqa: E402
+from repro_torch.launch.mesh import (BF16_FLOP_PER_S, HBM_BYTES_PER_S,  # noqa: E402
+                                     INT32_OPS_PER_S, INSTR_OPS_PER_S)
 # quantize.cu, source-level operations a value (a conversion, division or
 # modulo counted as one).  quantize_pack: integer 21 = key_combine 14,
 # position and mask 3, two conversions, shift and or; float 11 = abs and
@@ -736,7 +758,7 @@ def check_quantize(dev) -> list[dict]:
         int_ops, fp_ops = QUANT_OPS[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = max(int_ops * values / INT32_OPS_PER_S,
-                    (int_ops + fp_ops) * values / ISSUE_OPS_PER_S) * 1e3
+                    (int_ops + fp_ops) * values / INSTR_OPS_PER_S) * 1e3
         bound_ms = max(t_bytes, t_ops)
         print(f"{name} at the e2e leaves, one direction: warp {ms:.4f} ms "
               f"({100 * bound_ms / ms:.1f} % of bound), block {block_ms:.4f} ms, plain "
@@ -824,7 +846,7 @@ def check_server_update(dev) -> dict:
         behind_sleep=False)
     nbytes = 20 * n_values            # x, d, m read and x', m' written, 4 bytes each
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = SERVER_UPDATE_OPS * n_values / ISSUE_OPS_PER_S * 1e3
+    t_ops = SERVER_UPDATE_OPS * n_values / INSTR_OPS_PER_S * 1e3
     return {"name": "server_update", "route": "cuda",
             "source": "src/repro_torch/csrc/server_update.cu",
             "replaces": "src/repro/kernels/server_update/kernel.py:38",
@@ -846,7 +868,7 @@ def run_main_path(dev, rr_backend: str, rounds: int = ROUNDS, server_opt: str = 
 def report_rounds(label: str, res, wall: float, peak: int, rounds: int = ROUNDS) -> float:
     """Print a main-path run's rounds and fail on non-finite losses or
     parameters; returns the mean wall time (ms) of the rounds after the
-    first."""
+    first (of a one-round run, its round with the set-up)."""
     import torch
 
     from repro_torch.utils.pytree import tree_count_params
@@ -864,6 +886,8 @@ def report_rounds(label: str, res, wall: float, peak: int, rounds: int = ROUNDS)
         raise AssertionError(f"{label}: bad loss rows {rows}")
     if not all(torch.isfinite(v).all() for v in res.state.params.values()):
         raise AssertionError(f"{label}: non-finite parameters")
+    if rounds == 1:     # the one round, its set-up included
+        return rows[0]["elapsed_s"] * 1e3
     return (rows[-1]["elapsed_s"] - rows[0]["elapsed_s"]) / (rounds - 1) * 1e3
 
 
@@ -1036,13 +1060,6 @@ def _rel_norm(got, want) -> float:
     return float((g - w).norm() / w.norm().clamp_min(1e-30))
 
 
-def band_pairs(T: int, window: int) -> int:
-    """Unmasked (query, key) pairs of causal attention over T positions with
-    a sliding window (0: none)."""
-    w = np.minimum(np.arange(T) + 1, window or T)
-    return int(w.sum())
-
-
 def check_flash(dev) -> dict:
     """flash attention on the card vs its plain torch version on the card at
     Hymba-1.5B's prefill shape (q [4, 2048, 25, 64], k/v [4, 2048, 5, 64],
@@ -1104,8 +1121,8 @@ def check_flash(dev) -> dict:
     band = (lambda d: (d >= 0) & (d < W))(torch.arange(T, device=dev)[:, None]
                                           - torch.arange(T, device=dev)[None, :])
     t = time_flash(q, k, v, lambda qt, kt, vt: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=band, enable_gqa=True), 4 * hd * band_pairs(T, W) * B * H, "mma",
-        window=W)
+        qt, kt, vt, attn_mask=band, enable_gqa=True),
+        4 * hd * band_pairs(0, T, 0, T, window=W) * B * H, "mma", window=W)
     print(f"flash_attention at bf16 {[B, T, H, KV, hd]}, window {W}: flash_fwd_mma {t['ms']:.4f} "
           f"ms, flash_fwd {t['simt_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms", flush=True)
@@ -2086,8 +2103,11 @@ def vmapped_main_paths(dev, seq: dict, seq_params: dict, rows: dict) -> tuple[di
             twins["mvr_m"] = {k: v.cpu() for k, v in res.state.opt["m"].items()}
         del res
         if label == "dense":
-            worst = max(float((params[k].cpu() - v).abs().max() / v.abs().max())
+            # the sequential run has SEQ_CUT_ROUNDS rounds: a vmapped one as long
+            cut = run_main_path(dev, "device", SEQ_CUT_ROUNDS, **VMAPPED).state.params
+            worst = max(float((cut[k].cpu() - v).abs().max() / v.abs().max())
                         for k, v in seq_params.items())
+            del cut
             if worst > VMAPPED_SEQ_RTOL:
                 raise AssertionError(f"vmapped vs sequential dense params: {worst:.3e} of a "
                                      f"leaf's max (bound {VMAPPED_SEQ_RTOL})")
@@ -2307,7 +2327,7 @@ def bucketed_main_paths(dev, seq: dict, seq_params: dict, vm: dict, vm_params: d
           f"{layout[0][4]})", flush=True)
     nq = 2 * len(e2e_wire_leaves()) * ROUNDS
     seq_kw = dict(cohort_mode="sequential")
-    paths = [("dense", "sequential", seq_kw, ROUNDS),
+    paths = [("dense", "sequential", seq_kw, SEQ_CUT_ROUNDS),
              ("dense", "vmapped", VMAPPED, ROUNDS),
              ("qsgd", "vmapped", COMM | VMAPPED, ROUNDS),
              ("mvr_exact", "vmapped", dict(mvr_exact=True, **MVR, **VMAPPED),
@@ -4474,7 +4494,8 @@ def serve_llava_path(dev, flash_row: dict) -> dict:
     q, k, v = (torch.randn((B, T, n, hd), generator=gen, device=dev).to(torch.bfloat16)
                for n in (H, KV, KV))
     t = time_flash(q, k, v, lambda qt, kt, vt: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 4 * hd * band_pairs(T, 0) * B * H, "mma")
+        qt, kt, vt, is_causal=True, enable_gqa=True),
+        4 * hd * band_pairs(0, T, 0, T) * B * H, "mma")
     flash_row["llava"] = {"shape": [B, T, H, KV, hd], "dtype": "bfloat16",
                           "library": "F.scaled_dot_product_attention(is_causal=True, "
                                      "enable_gqa=True)", **t}
@@ -4980,7 +5001,8 @@ def serve_zoo_dense_path(dev, arch: str, flash_row: dict) -> dict:
     q, k, v = (torch.randn((B, T, n, hd), generator=gen, device=dev).to(torch.bfloat16)
                for n in (H, KV, KV))
     t = time_flash(q, k, v, lambda qt, kt, vt: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 4 * hd * band_pairs(T, 0) * B * H, "mma")
+        qt, kt, vt, is_causal=True, enable_gqa=True),
+        4 * hd * band_pairs(0, T, 0, T) * B * H, "mma")
     flash_row[arch] = {"shape": [B, T, H, KV, hd], "dtype": "bfloat16",
                        "library": "F.scaled_dot_product_attention(is_causal=True, "
                                   "enable_gqa=True)", **t}
@@ -5792,6 +5814,433 @@ def remat_paths(dev, rows: list) -> dict:
     return res
 
 
+# -- main path 18: the launch tools, Hymba-1.5B at the four assigned shapes --
+
+LAUNCH_ARCH = "hymba-1.5b"
+LAUNCH_RING_ARCH = "qwen1.5-0.5b"      # a dense arch: long_500k through the serve_window_long ring
+# (a) prefill_32k: one sequence of 32,768 tokens; the plain flash version is
+# held on the last LAUNCH_CHECK_ROWS query rows of each launch (over all keys)
+LAUNCH_CHECK_ROWS = 128
+# (d) train_4k: one client x 1 x 4,096 tokens.  Without remat or a banded
+# window a layer keeps ~2.5 GB of fp32 scores and bf16 probabilities for its
+# backward (25 heads x 4,096 x 4,096), so 32 layers do not fit a card: the
+# baseline runs 16 of them (recorded in its setup's ``reduced``)
+LAUNCH_TRAIN_DEPTH = {"baseline": 16}
+LAUNCH_COUNTS_DIR = ROOT / "build" / "dryrun" / "launch_paths"
+# (b) decode_32k: the largest batch, up to the shape's 128, whose weights and
+# cache take at most this much of the card's 80 GB
+LAUNCH_DECODE_BUDGET = 60 * 2**30
+
+
+def launch_decode_batch() -> int:
+    """decode_32k's batch for one card: the largest up to the shape's global
+    batch whose weights and cache (``Model.cache_spec``) fit
+    ``LAUNCH_DECODE_BUDGET``, counted on the meta device."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch, get_shape
+    from repro_torch.launch.specs import decode_cache_len
+    from repro_torch.models.model import build_model
+
+    cfg, shape = get_arch(LAUNCH_ARCH), get_shape("decode_32k")
+    model = build_model(cfg)
+    weights = sum(v.numel() * v.element_size() for v in model.init(0, "meta").values())
+    cache = sum(math.prod(s) * torch.empty((), dtype=d).element_size()
+                for s, d in model.cache_spec(1, decode_cache_len(cfg, shape.seq_len)[1]).values())
+    return min(shape.global_batch, int((LAUNCH_DECODE_BUDGET - weights) // cache))
+
+
+def launch_shares() -> list[dict]:
+    """Path 18's setups: (label, arch, shape, setup keywords, hillclimb
+    overrides), one card's share of each assigned shape."""
+    from repro_torch.launch.hillclimb import PAIRS
+
+    arch, shape, iters = PAIRS["hymba"]
+    shares = [dict(label="prefill_32k", arch=LAUNCH_ARCH, shape="prefill_32k", kw=dict(batch=1)),
+              dict(label="decode_32k", arch=LAUNCH_ARCH, shape="decode_32k",
+                   kw=dict(batch=launch_decode_batch())),
+              dict(label="long_500k", arch=LAUNCH_ARCH, shape="long_500k", kw={}),
+              dict(label="long_500k_ring", arch=LAUNCH_RING_ARCH, shape="long_500k", kw={})]
+    for tag, overrides, _ in [("baseline", {}, "")] + iters:
+        name = tag.split("-")[-1]
+        shares.append(dict(label=f"train_4k_{name}", arch=arch, shape=shape, overrides=overrides,
+                           kw=dict(dp=1, batch=1, n_layers=LAUNCH_TRAIN_DEPTH.get(name))))
+    return shares
+
+
+def launch_counts(out_dir: Path) -> None:
+    """Count each share of :func:`launch_shares` on the meta device
+    (``launch/dryrun.py:run_one``) into ``out_dir``: run in a child process
+    while the earlier paths hold the card, since the counts take a minute of
+    one host core."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hillclimb import _resolve
+
+    torch.set_num_threads(1)
+    for s in launch_shares():
+        rec = dryrun.run_one(s["arch"], s["shape"], out_dir=str(out_dir), tag=s["label"],
+                             cfg=_resolve(s["arch"], s.get("overrides", {})), **s["kw"])
+        if not rec["ok"]:
+            raise SystemExit(f"count of {s['label']} failed: {rec['error']}")
+
+
+def read_launch_counts(proc, out_dir: Path) -> dict:
+    """Wait for the child of :func:`launch_counts` and read its records:
+    label -> the record, with its bound (ms) and what bounds it."""
+    from repro_torch.launch.mesh import BF16_FLOP_PER_S, HBM_BYTES_PER_S
+
+    if proc.wait(timeout=900) != 0:
+        raise RuntimeError(f"the launch counts' process exited {proc.returncode}")
+    out = {}
+    for s in launch_shares():
+        path = out_dir / f"{s['arch']}_{s['shape']}_1xH100_{s['label']}.json"
+        rec = json.loads(path.read_text())
+        c = rec["cost"]
+        terms = {"operations": c["flops_kernel"] / BF16_FLOP_PER_S * 1e3,
+                 "bytes": c["bytes_min"] / HBM_BYTES_PER_S * 1e3}
+        rec["bound_ms"], rec["bound_by"] = max(terms.values()), max(terms, key=terms.get)
+        out[s["label"]] = rec
+    return out
+
+
+def launch_step(label: str, run, count: dict, *, grad: bool = False) -> dict:
+    """Run ``run()`` (a setup's step) on the card: once to warm up (its peak
+    memory), once timed on the host's clock, once traced (its device
+    kernels' time); print the step's count, bound, wall, device time and
+    peak, and fail if the device time falls under the bound (the count
+    would be wrong)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        with (contextlib.nullcontext() if grad else torch.inference_mode()):
+            out = run()
+        torch.cuda.synchronize()
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    t0 = time.perf_counter()
+    step()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+    kernels, device = count_device(prof)
+    c = count["cost"]
+    res = {"reduced": count["reduced"], "flops": c["flops"], "flops_kernel": c["flops_kernel"],
+           "bytes_min": c["bytes_min"], "bound_ms": count["bound_ms"],
+           "bound_by": count["bound_by"], "wall_ms": wall, "device_ms": device,
+           "device_kernels": kernels, "peak_gib": peak / 2**30}
+    print(f"launch {label} ({', '.join(count['reduced']) or 'no cut'}): counted "
+          f"{c['flops']:.6e} flops, {c['flops_kernel']:.6e} flops_kernel, {c['bytes_min']:.6e} "
+          f"bytes_min; bound {count['bound_ms']:.3f} ms ({count['bound_by']}); wall "
+          f"{wall:.2f} ms, device {device:.2f} ms in {kernels} kernels; peak "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    if device < count["bound_ms"]:
+        raise AssertionError(f"launch {label}: device time {device:.3f} ms under the bound "
+                             f"{count['bound_ms']:.3f} ms: the count is wrong")
+    return res
+
+
+def launch_prefill_path(dev, counts: dict) -> dict:
+    """(a) prefill_32k, batch 1: 32 flash and 32 SSD launches at T = 32,768,
+    each flash launch held to the plain version on its last
+    ``LAUNCH_CHECK_ROWS`` query rows over all keys and each SSD launch to the
+    plain version whole, at the serving path's tolerances; then timed."""
+    import torch
+
+    import repro_torch.kernels.flash_attention.ops as fops
+    import repro_torch.kernels.ssd.ops as sops
+    from repro_torch.configs.registry import get_arch, get_shape
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import _rows, flash_attention_torch
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_kernel
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_torch
+    from repro_torch.launch.specs import make_setup
+
+    setup = make_setup(get_arch(LAUNCH_ARCH), get_shape("prefill_32k"), device=dev, batch=1)
+    err = {"flash_attention": 0.0, "ssd_intra_chunk": 0.0}
+    seen = {"flash_T": set(), "ssd_chunks": set()}
+    last = {}
+
+    def flash(q, k, v, *, causal=True, window=0):
+        got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        T, r0 = q.shape[2], q.shape[2] - LAUNCH_CHECK_ROWS
+        want = _rows(q[:, :, r0:], k, v, r0, causal=causal, window=window)
+        err["flash_attention"] = max(err["flash_attention"], _allclose(
+            got[:, :, r0:], want, FLASH_MAIN_BF16_ATOL, FLASH_MAIN_BF16_RTOL,
+            f"prefill_32k flash, the last {LAUNCH_CHECK_ROWS} rows"))
+        seen["flash_T"].add(T)
+        last["flash"] = (q, k, v, causal, window)
+        return got
+
+    def ssd(*args):
+        out = ssd_intra_chunk_kernel(*args)
+        for got, want in zip(out, ssd_intra_chunk_torch(*args)):
+            err["ssd_intra_chunk"] = max(err["ssd_intra_chunk"], _allclose(
+                got, want, SSD_ATOL, SSD_RTOL, "prefill_32k ssd"))
+        seen["ssd_chunks"].add(args[0].shape[1])
+        last["ssd"] = args
+        return out
+
+    kernels = (flash_attention_kernel, ssd_intra_chunk_kernel)
+    zero_counts(*kernels)
+    with swapped({(fops, "flash_attention_kernel"): flash, (sops, "ssd_intra_chunk_kernel"): ssd}):
+        with torch.inference_mode():
+            logits, cache = setup.fn(*setup.args)
+    (nf, flash_routes, _), (ns, ssd_routes, _) = read_counts(*kernels)
+    L = get_arch(LAUNCH_ARCH).n_layers
+    if (nf, ns) != (L, L) or flash_routes["mma"] != L or ssd_routes["mma"] != L or \
+            seen != {"flash_T": {32768}, "ssd_chunks": {256}}:
+        raise AssertionError(f"prefill_32k launches: flash {nf} {flash_routes}, ssd {ns} "
+                             f"{ssd_routes}, shapes {seen}")
+    if logits.shape != (1, 1, get_arch(LAUNCH_ARCH).vocab) or not torch.isfinite(logits).all():
+        raise AssertionError("prefill_32k: bad logits")
+    print(f"launch prefill_32k: {L} flash_attention launches at T = 32768 (mma), each within "
+          f"{FLASH_MAIN_BF16_ATOL} + 2^-7 |ref| of the plain version on its last "
+          f"{LAUNCH_CHECK_ROWS} query rows (max abs diff {err['flash_attention']:.3e}); {L} "
+          f"ssd_intra_chunk launches over 256 chunks (mma), within atol {SSD_ATOL} / rtol "
+          f"{SSD_RTOL} of the plain version (max abs diff {err['ssd_intra_chunk']:.3e})",
+          flush=True)
+    del logits, cache
+    # one launch of each at T = 32,768, the last layer's inputs
+    q, k, v, causal, window = last.pop("flash")
+    T, H, hd = q.shape[2], q.shape[1], q.shape[3]
+    flash_ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=causal, window=window),
+                       20)[0]
+    flash_bound = 4 * H * hd * band_pairs(0, T, 0, T, window=window) / BF16_FLOP_PER_S * 1e3
+    flash_plain = time_ms(lambda: flash_attention_torch(q, k, v, causal=causal, window=window),
+                          2, behind_sleep=False)[0]
+    args = last.pop("ssd")
+    ssd_ms = time_ms(lambda: ssd_intra_chunk_kernel(*args), 20)[0]
+    ssd_plain = time_ms(lambda: ssd_intra_chunk_torch(*args), 2, behind_sleep=False)[0]
+    ssd_bytes = sum(t.numel() * t.element_size() for t in (*args, *ssd_intra_chunk_kernel(*args)))
+    ssd_bound = ssd_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"launch prefill_32k: a flash_attention launch at [1, {T}, {H}/{k.shape[1]}, {hd}], "
+          f"window {window}: {flash_ms:.4f} ms against its operations bound {flash_bound:.4f} "
+          f"ms (the plain version {flash_plain:.2f} ms); an ssd_intra_chunk launch over "
+          f"{args[0].shape[1]} chunks: {ssd_ms:.4f} ms against its byte bound {ssd_bound:.4f} "
+          f"ms ({ssd_bytes} B; the plain version {ssd_plain:.2f} ms)", flush=True)
+    del q, k, v, args
+    zero_counts(*kernels)
+    res = launch_step("prefill_32k", lambda: setup.fn(*setup.args), counts["prefill_32k"])
+    # the warm-up, timed and traced prefills: L launches of each
+    res["launches"] = {"flash_attention": flash_attention_kernel.launches,
+                       "ssd_intra_chunk": ssd_intra_chunk_kernel.launches}
+    if res["launches"] != {"flash_attention": 3 * L, "ssd_intra_chunk": 3 * L}:
+        raise AssertionError(f"prefill_32k: {res['launches']} launches in 3 prefills")
+    res["layer_max_abs_err"] = err
+    res["T32768"] = {"flash_attention": {"ms": flash_ms, "bound_ms": flash_bound,
+                                         "plain_ms": flash_plain},
+                     "ssd_intra_chunk": {"ms": ssd_ms, "bound_ms": ssd_bound,
+                                         "plain_ms": ssd_plain}}
+    del setup
+    return res
+
+
+def captured_attend(checks: list):
+    """A stand-in for ``models.attention.attend`` that holds each decode
+    step's attention (``kv_valid`` given) within ``FLASH_TOL["bfloat16"]``
+    of an fp64 softmax over every valid key of the cache: ``checks`` gains
+    (the largest difference, the valid keys) a call."""
+    import torch
+
+    from repro_torch.models import attention
+
+    plain = attention.attend
+
+    def attend(q, k, v, q_pos=None, kv_pos=None, **kw):
+        out = plain(q, k, v, q_pos, kv_pos, **kw)
+        valid = kw.get("kv_valid")
+        if valid is not None:
+            B, Tq, H, hd = q.shape
+            KV = k.shape[2]
+            qg = q.double().reshape(B, Tq, KV, H // KV, hd)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.double()) / hd ** 0.5
+            s = s.masked_fill(~valid[:, None, None, None, :], -torch.inf)
+            want = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1), v.double())
+            checks.append((_allclose(out, want.reshape(out.shape), FLASH_TOL["bfloat16"],
+                                     FLASH_TOL["bfloat16"], "a decode step's attention"),
+                           int(valid.sum())))
+        return out
+
+    return attend
+
+
+def launch_decode_path(dev, label: str, arch: str, shape: str, kw: dict, counts: dict) -> dict:
+    """(b), (c) one decode step against a random full cache at pos =
+    seq_len - 1: each layer's attention held to an fp64 softmax over the
+    cache's keys, the new key written at slot pos % S and no other; then
+    timed."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch, get_shape
+    from repro_torch.launch.specs import make_setup
+    from repro_torch.models import attention
+
+    cfg = get_arch(arch)
+    setup = make_setup(cfg, get_shape(shape), device=dev, **kw)
+    params, token, cache = setup.args
+    pos, S = cache["pos"], cache["layers"]["k"].shape[2]
+    before = cache["layers"]["k"][0].clone()
+    checks = []
+    with swapped({(attention, "attend"): captured_attend(checks)}), torch.inference_mode():
+        logits, _ = setup.fn(params, token, cache)
+    slot = pos % S
+    written = torch.nonzero((cache["layers"]["k"][0] != before).flatten(2).any(-1).any(0))
+    worst = max(e for e, _ in checks)
+    if written.flatten().tolist() != [slot] or len(checks) != cfg.n_layers or \
+            {n for _, n in checks} != {S * token.shape[0]} or \
+            not torch.isfinite(logits).all() or cache["pos"] != pos + 1:
+        raise AssertionError(f"launch {label}: slots written {written.flatten()[:4].tolist()} "
+                             f"(want [{slot}]), {len(checks)} attention checks, valid keys "
+                             f"{ {n for _, n in checks} }, pos {cache['pos']}")
+    print(f"launch {label}: batch {token.shape[0]} (the largest that fits "
+          f"{LAUNCH_DECODE_BUDGET / 2**30:.0f} GiB, at most the shape's), one token at pos {pos} "
+          f"against {S} cache "
+          f"slots (a ring); the key written at slot {slot} alone; each of {cfg.n_layers} "
+          f"layers' attention within {FLASH_TOL['bfloat16']} of an fp64 softmax over all {S} "
+          f"keys (max abs diff {worst:.3e})", flush=True)
+    del before, checks, logits
+
+    def step():
+        cache["pos"] = pos      # each timed step decodes the same position
+        return setup.fn(params, token, cache)
+
+    res = launch_step(label, step, counts[label])
+    res.update(batch=token.shape[0], pos=pos, slots=S, slot=slot, attention_max_abs_err=worst)
+    del setup, params, cache
+    return res
+
+
+def launch_train_path(dev, counts: dict) -> dict:
+    """(d) train_4k: the hillclimb hymba pair's four configs (baseline,
+    banded, remat, one-hot xent), one FedShuffle round of one client x 1 x
+    4,096 tokens each, at ``LAUNCH_TRAIN_DEPTH`` where the whole model does
+    not fit; each round's loss and params finite, and the params moved."""
+    import torch
+
+    from repro_torch.configs.registry import get_shape
+    from repro_torch.launch.hillclimb import _resolve
+    from repro_torch.launch.specs import make_setup
+
+    res = {}
+    for s in launch_shares():
+        if not s["label"].startswith("train_4k"):
+            continue
+        cfg = _resolve(s["arch"], s.get("overrides", {}))
+        setup = make_setup(cfg, get_shape("train_4k"), device=dev, **s["kw"])
+        state = setup.args[0]
+        new, mets = setup.fn(*setup.args)
+        # a bf16 leaf whose step is under half its ulp (a norm scale at 1.0)
+        # stays where it was
+        moved = sum(not torch.equal(new.params[k], state.params[k]) for k in state.params)
+        if not torch.isfinite(mets["local_loss"]) or not moved or \
+                not all(torch.isfinite(v).all() for v in new.params.values()):
+            raise AssertionError(f"launch {s['label']}: loss {float(mets['local_loss'])}, "
+                                 f"{moved} of {len(state.params)} leaves moved")
+        del new, mets
+        res[s["label"]] = launch_step(s["label"], lambda st=setup: st.fn(*st.args),
+                                      counts[s["label"]], grad=True)
+        del setup, state
+    return res
+
+
+def launch_examples(dev) -> dict:
+    """``examples/torch_objective_inconsistency.py`` and
+    ``examples/torch_serve_moe.py`` on the card, each through its ``main``:
+    the paper's claim (FedAvg at its biased point, FedShuffle and FedNova
+    and SCAFFOLD at the optimum, as the CPU tests hold them) and the
+    reduced DeepSeek-V2-Lite's tokens, sampled and greedy, the greedy ones
+    equal to the CPU's at the same weights."""
+    import importlib.util
+
+    import torch
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tasks import DuplicatedQuadraticTask
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    xs = load("torch_objective_inconsistency").main(dev)
+    task = DuplicatedQuadraticTask(copies=(1, 2, 3))
+    dist = {k: (float(np.linalg.norm(x - task.optimum())),
+                float(np.linalg.norm(x - task.fedavg_biased_point()))) for k, x in xs.items()}
+    if not (dist["fedavg"][1] < 0.03 < dist["fedavg"][0] and dist["fedshuffle"][0] < 0.01
+            and dist["fednova"][0] < 0.03 and dist["partial/fedavg+scaffold"][0] < 1e-3):
+        raise AssertionError(f"objective inconsistency on the card: |x - x*|, |x - x~| {dist}")
+    objective_s = time.perf_counter() - t0
+    serve = load("torch_serve_moe")
+    sampled = serve.main(dev)
+    cfg = get_arch("deepseek-v2-lite-16b").reduced()
+    params = build_model(cfg).init(0, "cpu")
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (4, 16)))
+    cpu = serve.main("cpu", params=params, prompts=prompts, temperature=0.0)
+    card = serve.main(dev, params={k: v.to(dev) for k, v in params.items()}, prompts=prompts,
+                      temperature=0.0)
+    if sampled.shape != (4, 16) or int(sampled.max()) >= cfg.vocab or \
+            not torch.equal(card.cpu(), cpu):
+        raise AssertionError("serve_moe on the card: bad sampled tokens, or greedy tokens "
+                             "other than the CPU's")
+    print(f"examples on the card: objective inconsistency {objective_s:.1f} s, |x - x*| / "
+          f"|x - x~| {dist}; serve_moe greedy tokens equal to the CPU's", flush=True)
+    return {"objective_dist": dist, "objective_s": objective_s}
+
+
+def launch_paths(dev, rows: list, counts_proc) -> dict:
+    """Main path 18: the launch tools (``launch/specs.py`` setups, their
+    ``launch/dryrun.py`` counts, made by ``counts_proc`` meanwhile) with
+    Hymba-1.5B at full width, bf16, on the ``kernel`` backend, at one card's
+    share of each assigned shape: (a) prefill_32k, (b) decode_32k, (c)
+    long_500k natively and Qwen1.5-0.5B's through its ring, (d) train_4k in
+    the hillclimb pair's four configs; then two examples.  ``rows`` are the
+    kernels line's, rr_perm's first: the flash and SSD rows gain the
+    launches of (a), the others none."""
+    import torch
+
+    t0 = time.perf_counter()
+    counts = read_launch_counts(counts_proc, LAUNCH_COUNTS_DIR)
+    print(f"launch counts (meta device, a child process): waited "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    wrappers = kernel_wrappers()
+    zero_counts(*wrappers)
+    res = {"prefill_32k": launch_prefill_path(dev, counts)}
+    launched = [w.launches for w in wrappers]
+    torch.cuda.empty_cache()
+    for s in launch_shares():
+        if s["shape"] in ("decode_32k", "long_500k"):
+            res[s["label"]] = launch_decode_path(dev, s["label"], s["arch"], s["shape"], s["kw"],
+                                                 counts)
+            torch.cuda.empty_cache()
+    res.update(launch_train_path(dev, counts))
+    torch.cuda.empty_cache()
+    res["examples"] = launch_examples(dev)
+    L = res["prefill_32k"]["launches"]
+    if [w.launches for w in wrappers] != launched:
+        raise AssertionError("launch paths: a kernel launched outside the prefill")
+    for row, n in zip(rows, launched):
+        row["launches_path_18"] = n
+    for row, name in ((rows[4], "flash_attention"), (rows[5], "ssd_intra_chunk")):
+        row["path_18_T32768"] = {"launches": L[name],
+                                 "max_abs_err": res["prefill_32k"]["layer_max_abs_err"][name],
+                                 **res["prefill_32k"]["T32768"][name]}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"launch paths: launches of the port's kernels "
+          f"{ {w.__name__: w.launches for w in wrappers} }; {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def profile_serve(dev, out_dir: Path) -> None:
     """The serving main path's prefill (4 x 2,048 tokens) and one decode
     step of full-width Hymba-1.5B under torch.profiler, after a warm-up:
@@ -5846,14 +6295,36 @@ def profile_serve(dev, out_dir: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", type=Path, default=None)
+    ap.add_argument("--launch-counts", type=Path, default=None,
+                    help="only count main path 18's setups on the meta device into this "
+                         "directory (the script runs this in a child process)")
     args = ap.parse_args()
+    if args.launch_counts is not None:
+        launch_counts(args.launch_counts)
+        return 0
     start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    # main path 18's counts take a minute of one host core: a child makes
+    # them while the other paths run
+    counts_proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                    "--launch-counts", str(LAUNCH_COUNTS_DIR)],
+                                   env={**os.environ, "OMP_NUM_THREADS": "1"})
+    try:
+        return run_paths(args, start, counts_proc)
+    finally:
+        if counts_proc.poll() is None:
+            counts_proc.kill()
+            counts_proc.wait()
+
+
+def run_paths(args, start: float, counts_proc) -> int:
+    """Every main path in turn, then the kernels line and the result line."""
+    import torch
+
     from repro_torch.kernels import build
     from repro_torch.kernels.quantize.kernel import quantize_pack_kernel, unpack_dequantize_kernel
     from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
@@ -5897,14 +6368,16 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     rr_indices_kernel.launches = 0
     t0 = time.perf_counter()
-    res = run_main_path(dev, "device")
+    res = run_main_path(dev, "device", SEQ_CUT_ROUNDS)
     torch.cuda.synchronize()
     rr["launches"] = rr_indices_kernel.launches
     peak = torch.cuda.max_memory_allocated()
-    seq = {"dense": (report_rounds("main path", res, time.perf_counter() - t0, peak), peak)}
-    if rr["launches"] != ROUNDS:
-        raise AssertionError(f"rr_perm launched {rr['launches']} times in {ROUNDS} rounds")
-    ref = run_main_path(dev, "device_ref").state.params
+    seq = {"dense": (report_rounds("main path", res, time.perf_counter() - t0, peak,
+                                   SEQ_CUT_ROUNDS), peak)}
+    if rr["launches"] != SEQ_CUT_ROUNDS:
+        raise AssertionError(f"rr_perm launched {rr['launches']} times in {SEQ_CUT_ROUNDS} "
+                             f"rounds")
+    ref = run_main_path(dev, "device_ref", SEQ_CUT_ROUNDS).state.params
     differ = [k for k in ref if not torch.equal(res.state.params[k], ref[k])]
     if differ:
         raise AssertionError(f"device vs device_ref params differ in {differ}")
@@ -5926,7 +6399,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     zero_counts(rr_indices_kernel, quantize_pack_kernel, unpack_dequantize_kernel)
     t0 = time.perf_counter()
-    res = run_main_path(dev, "device", SEQ_CUT_ROUNDS, **COMM)
+    res = run_main_path(dev, "device", SEQ_ONE_ROUND, **COMM)
     torch.cuda.synchronize()
     quant["launches"] = quantize_pack_kernel.launches
     dequant["launches"] = unpack_dequantize_kernel.launches
@@ -5935,9 +6408,9 @@ def main() -> int:
     comm_rr = rr_indices_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     seq["qsgd"] = (report_rounds("comm path (qsgd up and down)", res, time.perf_counter() - t0,
-                                 peak, SEQ_CUT_ROUNDS), peak)
-    want = 2 * len(e2e_wire_leaves()) * SEQ_CUT_ROUNDS
-    if (quant["launches"], dequant["launches"], comm_rr) != (want, want, SEQ_CUT_ROUNDS):
+                                 peak, SEQ_ONE_ROUND), peak)
+    want = 2 * len(e2e_wire_leaves()) * SEQ_ONE_ROUND
+    if (quant["launches"], dequant["launches"], comm_rr) != (want, want, SEQ_ONE_ROUND):
         raise AssertionError(f"comm path launches: quantize {quant['launches']}, unpack "
                              f"{dequant['launches']} (want {want}), rr_perm {comm_rr}")
     all_warp = {"warp": want, "block": 0}
@@ -5945,12 +6418,12 @@ def main() -> int:
         raise AssertionError(f"comm path routes: quantize {quant['route_launches']}, unpack "
                              f"{dequant['route_launches']} (want all {want} warp)")
     print(f"comm path launches: quantize_pack {want}, unpack_dequantize {want} (all on the "
-          f"warp route), rr_perm {comm_rr} in {SEQ_CUT_ROUNDS} rounds, as predicted", flush=True)
+          f"warp route), rr_perm {comm_rr} in {SEQ_ONE_ROUND} rounds, as predicted", flush=True)
     check_comm_metrics(res.metrics.rows, charlm_e2e_config(**COMM)[1])
     params = res.state.params
     del res
     torch.cuda.empty_cache()
-    ref = run_main_path(dev, "device", SEQ_CUT_ROUNDS, uplink_backend="ref",
+    ref = run_main_path(dev, "device", SEQ_ONE_ROUND, uplink_backend="ref",
                         **COMM).state.params
     differ = [k for k in ref if not torch.equal(params[k], ref[k])]
     if differ:
@@ -5965,20 +6438,20 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     rr_indices_kernel.launches = server_update_kernel.launches = 0
     t0 = time.perf_counter()
-    res = run_main_path(dev, "device", SEQ_CUT_ROUNDS, **MVR)
+    res = run_main_path(dev, "device", SEQ_ONE_ROUND, **MVR)
     torch.cuda.synchronize()
     upd["launches"] = server_update_kernel.launches
     mvr_rr = rr_indices_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     seq["mvr"] = (report_rounds("mvr path (App. F)", res, time.perf_counter() - t0, peak,
-                                SEQ_CUT_ROUNDS), peak)
-    if (upd["launches"], mvr_rr) != (SEQ_CUT_ROUNDS, SEQ_CUT_ROUNDS):
+                                SEQ_ONE_ROUND), peak)
+    if (upd["launches"], mvr_rr) != (SEQ_ONE_ROUND, SEQ_ONE_ROUND):
         raise AssertionError(f"mvr path launches: server_update {upd['launches']}, rr_perm "
-                             f"{mvr_rr} (want {SEQ_CUT_ROUNDS} each)")
+                             f"{mvr_rr} (want {SEQ_ONE_ROUND} each)")
     if not all(torch.isfinite(v).all() for v in res.state.opt["m"].values()):
         raise AssertionError("mvr path: non-finite gradient estimate")
-    print(f"mvr path launches: server_update {SEQ_CUT_ROUNDS}, rr_perm {mvr_rr} in "
-          f"{SEQ_CUT_ROUNDS} rounds, as predicted", flush=True)
+    print(f"mvr path launches: server_update {SEQ_ONE_ROUND}, rr_perm {mvr_rr} in "
+          f"{SEQ_ONE_ROUND} rounds, as predicted", flush=True)
     del res
     torch.cuda.empty_cache()
 
@@ -5986,18 +6459,18 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     rr_indices_kernel.launches = server_update_kernel.launches = 0
     t0 = time.perf_counter()
-    res = run_main_path(dev, "device", MVR_EXACT_ROUNDS, mvr_exact=True, **MVR)
+    res = run_main_path(dev, "device", SEQ_ONE_ROUND, mvr_exact=True, **MVR)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     seq["mvr_exact"] = (report_rounds("mvr path (exact eq. 14)", res, time.perf_counter() - t0,
-                                      peak, MVR_EXACT_ROUNDS), peak)
+                                      peak, SEQ_ONE_ROUND), peak)
     exact_launches = (server_update_kernel.launches, rr_indices_kernel.launches)
-    if exact_launches != (0, MVR_EXACT_ROUNDS):
+    if exact_launches != (0, SEQ_ONE_ROUND):
         raise AssertionError(f"exact mvr path launches (server_update, rr_perm): "
-                             f"{exact_launches}, want (0, {MVR_EXACT_ROUNDS})")
+                             f"{exact_launches}, want (0, {SEQ_ONE_ROUND})")
     if not all(torch.isfinite(v).all() for v in res.state.opt["m"].values()):
         raise AssertionError("exact mvr path: non-finite gradient estimate")
-    print(f"exact mvr path launches: server_update 0, rr_perm {MVR_EXACT_ROUNDS}, as predicted",
+    print(f"exact mvr path launches: server_update 0, rr_perm {SEQ_ONE_ROUND}, as predicted",
           flush=True)
     del res
     torch.cuda.empty_cache()
@@ -6100,6 +6573,13 @@ def main() -> int:
     # fits; banded attention and the one-hot cross entropy
     remat_res = remat_paths(dev, [rr, quant, dequant, upd, flash, ssd])
     print(json.dumps({"remat": remat_res}), flush=True)
+
+    # main path 18, the launch tools: Hymba-1.5B at one card's share of the
+    # four assigned shapes (32 flash and 32 SSD launches at T = 32,768 in the
+    # prefill, none elsewhere), each step's count and bound beside its times;
+    # Qwen1.5-0.5B's long context through its ring; two examples
+    launch_res = launch_paths(dev, [rr, quant, dequant, upd, flash, ssd], counts_proc)
+    print(json.dumps({"launch": launch_res}), flush=True)
 
     for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd"), MVR,
                  dict(mvr_exact=True, **MVR), VMAPPED, VMAPPED | MVR,

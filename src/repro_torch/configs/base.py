@@ -1,13 +1,15 @@
 """Config system: model architecture and FL hyperparameters (the port's copy).
 
-The same frozen dataclasses as ``repro.configs.base`` but ``RunConfig``
-and ``MeshConfig`` (the multi-device launch tools'): ``ArchConfig`` for the dense, vlm (a patch prefix on
+The same frozen dataclasses as ``repro.configs.base``: ``ArchConfig`` for the dense, vlm (a patch prefix on
 the dense family), moe (MLA attention, ``MLAConfig``, and a routed MoE FFN,
 ``MoEConfig``; DeepSeek-V3's multi-token prediction, ``mtp``), ssm and
 hybrid (Mamba2 SSD, ``SSMConfig``) and audio (encoder-decoder) families
 with ``reduced()``; ``ShapeConfig`` and ``INPUT_SHAPES``, the assigned
-input shapes; and ``FLConfig`` with the knobs of every plane: comm, fleet,
-robust, privacy and obs.  ``ArchConfig`` and ``FLConfig`` have every
+input shapes; ``FLConfig`` with the knobs of every plane: comm, fleet,
+robust, privacy and obs; and ``MeshConfig`` and ``RunConfig``, field for
+field the JAX package's (``MeshConfig`` names the TPU mesh of the JAX
+package's dry run; one card has no mesh, and ``launch/mesh.py`` says what
+of it the port keeps).  ``ArchConfig`` and ``FLConfig`` have every
 field of the JAX package's classes, with its names and defaults, so one
 keyword dict builds both configs and a copied config compares equal to
 JAX's field for field.  Of ``ArchConfig``'s switches, ``remat``,
@@ -15,7 +17,9 @@ JAX's field for field.  Of ``ArchConfig``'s switches, ``remat``,
 loss (``models/model.py``); ``scan_unroll`` and ``opt_seq_shard`` steer
 XLA alone in the JAX package (the layer scan's unroll, a sharding
 constraint), change no value on one card, and are carried for equality
-and ignored; ``serve_window_long`` is read by no code of the port yet.
+and ignored; ``serve_window_long`` is the ring cache that
+``launch/specs.py:decode_setup`` gives the dense, vlm, moe and audio
+families at ``long_500k``.
 ``FLConfig.aggregation`` is read by nothing, in either package.  One
 default differs: ``uplink_backend`` takes ``"kernel"`` (the
 default: the CUDA kernel for a CUDA tensor, the plain torch version for a
@@ -30,7 +34,7 @@ defaults (``prefetch=2``, ``participation="iid"``; all four schedules).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Literal
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio"]
@@ -371,3 +375,24 @@ class FLConfig:
     min_samples: int = 2
     mean_samples: int = 8
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    arch: ArchConfig = field(default_factory=ArchConfig)
+    shape: ShapeConfig = field(default_factory=lambda: INPUT_SHAPES["train_4k"])
+    fl: FLConfig = field(default_factory=FLConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)

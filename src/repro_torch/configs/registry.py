@@ -5,8 +5,9 @@ Every assigned architecture of the JAX package's registry
 ``seamless-m4t-medium``, ``llava-next-mistral-7b``, ``mamba2-1.3b``,
 ``minicpm-2b``, ``chatglm3-6b``, ``qwen2-72b``, ``deepseek-v2-lite-16b``
 and ``deepseek-v3-671b``, and the paper's three task configs
-``charlm-tiny``, ``vision-tiny`` and ``charlm-100m``; and the assigned
-input shapes by name (``get_shape``).
+``charlm-tiny``, ``vision-tiny`` and ``charlm-100m``; ``ASSIGNED``, the
+ten assigned ones in the JAX package's order; and the assigned input
+shapes by name (``get_shape``).
 """
 from __future__ import annotations
 
@@ -31,6 +32,20 @@ ARCHS: dict[str, ArchConfig] = {
               mamba2_1_3b, minicpm_2b, chatglm3_6b, qwen2_72b, deepseek_v2_lite_16b,
               deepseek_v3_671b)}
 ARCHS.update(PAPER_ARCHS)
+
+# the assigned architectures, in the JAX package's order (the dry run's --all)
+ASSIGNED = [
+    "qwen2-72b",
+    "chatglm3-6b",
+    "hymba-1.5b",
+    "seamless-m4t-medium",
+    "llava-next-mistral-7b",
+    "deepseek-v3-671b",
+    "mamba2-1.3b",
+    "deepseek-v2-lite-16b",
+    "minicpm-2b",
+    "qwen1.5-0.5b",
+]
 
 
 def get_arch(name: str) -> ArchConfig:

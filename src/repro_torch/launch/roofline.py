@@ -1,18 +1,42 @@
-"""Parameter and token counts of an architecture and an input shape (the
-port's ``param_counts`` and ``tokens_for`` of ``repro.launch.roofline``).
+"""Roofline of the dry-run records on one NVIDIA H100 (the port of
+``repro.launch.roofline``).
+
+``launch/dryrun.py`` counts the whole step of one card (the JAX package's
+records are per device of a TPU mesh after SPMD partitioning), so:
+
+    compute term = flops_kernel / BF16_FLOP_PER_S     [s]
+    memory term  = bytes_min / HBM_BYTES_PER_S        [s]
+
+with the H100's peaks of ``launch/mesh.py``; one card has no collective
+term.  ``flops_kernel`` takes attention over the pairs the flash kernel
+computes, ``bytes_min`` reads each argument and writes each output once:
+both terms are floors, and the larger is the step's bound.
+
+MODEL_FLOPS uses the 6*N*D (train) / 2*N*D (inference) rule with N = active
+parameters (``param_counts``: MoE shared + top_k/E of routed), D = tokens a
+step processes (``tokens_for``); ``useful_ratio`` = MODEL_FLOPS / flops
+(> 1: the step does less than the rule, e.g. a 1-token decode where
+attention dominates; < 1: recompute or aux compute).  A record cut from
+its shape or config (``reduced``) has no ratio.
 
 ``param_counts`` builds the params of the full-size config on the meta
 device (shapes alone, no allocation); its active count takes the routed
 experts (every leaf under ``/experts/``) at ``top_k / num_experts``, the
-JAX package's rule.  The rest of the JAX module reads the dry-run
-artifacts of a TPU mesh lowering, which the port does not make.
+JAX package's rule.
+
+  PYTHONPATH=src python -m repro_torch.launch.roofline [--dir build/dryrun]
 """
 from __future__ import annotations
 
+import argparse
 import functools
+import glob
+import json
+import os
 
 from ..configs.base import INPUT_SHAPES
 from ..configs.registry import get_arch
+from .mesh import BF16_FLOP_PER_S, CARD, HBM_BYTES_PER_S
 
 
 @functools.cache
@@ -37,3 +61,106 @@ def tokens_for(shape_name: str) -> int:
     if s.kind in ("train", "prefill"):
         return s.global_batch * s.seq_len
     return s.global_batch
+
+
+def analyze_record(rec: dict) -> dict | None:
+    if not rec.get("ok"):
+        return None
+    cost = rec["cost"]
+    t_compute = cost["flops_kernel"] / BF16_FLOP_PER_S
+    t_memory = cost["bytes_min"] / HBM_BYTES_PER_S
+    terms = {"compute": t_compute, "memory": t_memory}
+    dominant = max(terms, key=terms.get)
+    total, active = param_counts(rec["arch"])
+    shape = INPUT_SHAPES[rec["shape"]]
+    mult = 6 if shape.kind == "train" else 2
+    model_flops = mult * active * tokens_for(rec["shape"])
+    flops = cost["flops"]
+    return {
+        "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+        "tag": rec.get("tag", ""),
+        "chips": rec.get("chips", 1),
+        "t_compute_s": t_compute, "t_memory_s": t_memory,
+        "dominant": dominant,
+        "bound_s": max(terms.values()),
+        "flops": flops, "flops_kernel": cost["flops_kernel"],
+        "bytes_min": cost["bytes_min"], "bytes_unfused": cost.get("bytes_unfused", 0.0),
+        "arg_bytes": rec.get("memory", {}).get("argument_size_in_bytes", 0),
+        "params_total": total, "params_active": active,
+        "model_flops": model_flops,
+        "useful_ratio": None if rec.get("reduced") else
+        (model_flops / flops if flops else 0.0),
+        "reduced": rec.get("reduced", []), "inert": rec.get("inert", []),
+    }
+
+
+def load_all(dirpath: str, prefer_tag: str = "unrolled") -> list[dict]:
+    """One row per (arch, shape, mesh); a record tagged ``prefer_tag``
+    replaces the untagged one (the JAX package's rule, kept for records
+    merged from either); every other tag (the hillclimb's iterations) is a
+    row of its own."""
+    by_key: dict = {}
+    for f in sorted(glob.glob(os.path.join(dirpath, "*.json"))):
+        with open(f) as fh:
+            rec = json.load(fh)
+        a = analyze_record(rec)
+        if not a:
+            continue
+        tag = a.get("tag", "")
+        a["exact"] = tag == prefer_tag
+        if tag in ("", prefer_tag):
+            a["tag"] = ""  # the baseline row
+            key = (a["arch"], a["shape"], a["mesh"])
+            prev = by_key.get(key)
+            if prev is None or (a["exact"] and not prev["exact"]):
+                by_key[key] = a
+        else:  # hillclimb iterations etc. stay as separate rows
+            by_key[(a["arch"], a["shape"], a["mesh"], tag)] = a
+    return sorted(by_key.values(),
+                  key=lambda r: (r["arch"], r["shape"], r["mesh"], r.get("tag", "")))
+
+
+def fmt_s(x: float) -> str:
+    if x >= 1:
+        return f"{x:.2f}s"
+    if x >= 1e-3:
+        return f"{x*1e3:.2f}ms"
+    return f"{x*1e6:.1f}us"
+
+
+def markdown_table(rows: list[dict]) -> str:
+    head = (f"Roofline of one {CARD}: compute = flops_kernel / {BF16_FLOP_PER_S:.4g} FLOP/s "
+            f"(dense bf16), memory = bytes_min / {HBM_BYTES_PER_S:.4g} B/s (HBM3); no "
+            f"collective term.")
+    hdr = ("| arch | shape | mesh | compute | memory | dominant | "
+           "useful (6ND or 2ND / flops) | GFLOP | GB min |")
+    sep = "|" + "---|" * 9
+    lines = [head, "", hdr, sep]
+    for r in rows:
+        tag = r.get("tag", "")
+        ratio = "-" if r["useful_ratio"] is None else f"{r['useful_ratio']:.2f}"
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']}{('/'+tag) if tag else ''} | "
+            f"{fmt_s(r['t_compute_s'])} | {fmt_s(r['t_memory_s'])} | "
+            f"**{r['dominant']}** | {ratio} | {r['flops'] / 1e9:.1f} | "
+            f"{r['bytes_min'] / 1e9:.2f} |"
+        )
+    return "\n".join(lines)
+
+
+def main(argv: list[str] | None = None) -> None:
+    from .dryrun import OUT_DIR
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", default=OUT_DIR)
+    ap.add_argument("--json", default=None, help="also dump analyzed rows")
+    args = ap.parse_args(argv)
+    rows = load_all(args.dir)
+    print(markdown_table(rows))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rows, f, indent=2)
+
+
+if __name__ == "__main__":
+    main()
