@@ -107,14 +107,14 @@ def jax_objective_arms(rounds: int) -> dict:
 
 
 def test_objective_inconsistency_equals_jax():
-    rounds = 100
+    rounds = 60
     got = load("torch_objective_inconsistency").main("cpu", rounds=rounds)
     want = jax_objective_arms(rounds)
     assert set(got) == set(want)
     for arm in want:
         np.testing.assert_allclose(got[arm], want[arm], rtol=0, atol=1e-5, err_msg=arm)
     task = JQuad(copies=(1, 2, 3))
-    # the paper's claim, already at 100 rounds: FedShuffle nearer x* than FedAvg
+    # the paper's claim, already at 60 rounds: FedShuffle nearer x* than FedAvg
     assert np.linalg.norm(got["fedshuffle"] - task.optimum()) < \
         np.linalg.norm(got["fedavg"] - task.optimum())
 
@@ -122,7 +122,7 @@ def test_objective_inconsistency_equals_jax():
 def test_quickstart_trains_clips_and_traces(tmp_path):
     qs = load("torch_quickstart")
     trace = tmp_path / "trace.json"
-    res = qs.main("cpu", rounds=3, clip_rounds=1, traced_rounds=1, trace_path=str(trace))
+    res = qs.main("cpu", rounds=2, clip_rounds=1, traced_rounds=1, trace_path=str(trace))
     assert res["heldout"][1] < res["heldout"][0]
     assert LOCAL_UPDATES["sgd_demo_clip"].transforms == ("demo_clip",)
     assert CLIENT_TRANSFORMS["demo_clip"].__name__ == "make_demo_clip"
