@@ -38,9 +38,9 @@
    (``rr_backend="device"``), first with a dense wire, then for 1 round
    with the qsgd codec both ways (``uplink="qsgd", downlink="qsgd"``: the
    CUDA quantize kernels, 12 launches of each a direction a round, all on
-   the ``warp`` route); then FedShuffleMVR (``server_opt="mvr"``) for 1
-   round with the App. F server step (the CUDA server_update kernel, one
-   launch a round over all 111 parameter tensors) and for 1 round with
+   the ``warp`` route); then FedShuffleMVR (``server_opt="mvr"``) for 2
+   rounds with the App. F server step (the CUDA server_update kernel, one
+   launch a round over all 111 parameter tensors) and for 2 rounds with
    the exact eq. 14 step (torch, no kernel); then the same four training
    paths in the vmapped cohort mode (``cohort_mode="vmapped"``, the JAX
    package's default: every client's local steps batched over the cohort;
@@ -250,20 +250,19 @@ ROOT = Path(__file__).resolve().parent
 ROUNDS = 4
 MVR_EXACT_ROUNDS = 2
 # the sequential dense path and its plain-kernel twin (and the bucketed
-# sequential dense path) run 2 rounds, their vmapped and bucketed twins
-# ROUNDS: the vmapped dense path is held to the sequential one by a vmapped
-# run of 2 rounds
+# sequential dense path) and the sequential MVR App. F path run 2 rounds,
+# their vmapped and bucketed twins ROUNDS: the vmapped dense path is held to
+# the sequential one by a vmapped run of 2 rounds; the MVR paths' second
+# round runs the recursion with a nonzero gradient estimate
 SEQ_CUT_ROUNDS = 2
-# the sequential qsgd path and its plain-kernel twin, and the sequential MVR
-# App. F and exact paths run 1 round (their vmapped and bucketed twins
-# ROUNDS, or MVR_EXACT_ROUNDS): their checks (the launches, the twin
-# bitwise, a finite gradient estimate) read one round, and no other path is
-# held to them
+# the sequential qsgd path and its plain-kernel twin run 1 round (their
+# vmapped and bucketed twins ROUNDS): their checks (the launches, the twin
+# bitwise) read one round, and no other path is held to them
 SEQ_ONE_ROUND = 1
 KERNELS = ("rr_perm", "quantize", "server_update", "flash_attention", "ssd")
 # the H100 SXM's peaks, with their sources: one table for every bound
 sys.path.insert(0, str(ROOT / "src"))
-from repro_torch.kernels.flash_attention.ref import band_pairs  # noqa: E402
+from repro_torch.launch.dryrun import band_pairs  # noqa: E402
 from repro_torch.launch.mesh import (BF16_FLOP_PER_S, HBM_BYTES_PER_S,  # noqa: E402
                                      INT32_OPS_PER_S, INSTR_OPS_PER_S)
 # quantize.cu, source-level operations a value (a conversion, division or
@@ -794,13 +793,16 @@ def check_server_update(dev) -> dict:
     bitwise: the e2e leaf set (111 tensors, 114,051,840 values) with f32 and
     bf16 x, at inv_eta_l = 1/(0.05 * 1.0) (FedShuffle) and 1/(0.05 * 3.7)
     (a c = "one" preset's k_bar), and a ragged table (1, 255, 65,537 and 0
-    values, a tensor misaligned for 16-byte loads); then the kernel's one
+    values, a tensor misaligned for 16-byte loads) and the small leaves of
+    CHARLM_TINY (the quickstart's model); then the kernel's one
     launch over the f32 leaf set timed behind a GPU sleep and the plain
     version as it runs."""
     import torch
 
+    from repro_torch.configs.paper_tasks import CHARLM_TINY
     from repro_torch.kernels.server_update.kernel import server_update_kernel
     from repro_torch.kernels.server_update.ref import server_update_torch
+    from repro_torch.models.model import build_model
 
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = [v.shape for v in e2e_param_shapes().values()]
@@ -812,13 +814,17 @@ def check_server_update(dev) -> dict:
     ragged = [buf[:1], buf[1:256], buf[300:300 + 65537], buf[70000:70000], buf[70001:70001 + 4099]]
     r_ds = [buf[100000:100000 + t.numel()] * 1e-3 for t in ragged]
     r_ms = [buf[140000:140000 + t.numel()] for t in ragged]
+    tiny = [v.shape for v in build_model(CHARLM_TINY).init(0, "meta").values()]
+    t_xs, t_ds, t_ms = ([torch.randn(s, generator=gen, device=dev) * f for s in tiny]
+                        for f in (1.0, 1e-3, 0.1))
     eta_l = torch.tensor(0.05, device=dev)
     invs = {"1/(0.05*1.0)": torch.reciprocal(eta_l * torch.tensor(1.0, device=dev)),
             "1/(0.05*3.7)": torch.reciprocal(eta_l * torch.tensor(3.7, device=dev))}
     checked, max_err = 0, 0.0
     for label, inv in invs.items():
         for dtype in (torch.float32, torch.bfloat16):
-            for x_set, d_set, m_set in ((xs, ds, ms), (ragged, r_ds, r_ms)):
+            for x_set, d_set, m_set in ((xs, ds, ms), (ragged, r_ds, r_ms),
+                                        (t_xs, t_ds, t_ms)):
                 x_in = [x.to(dtype) for x in x_set]
                 d_in = [d.to(dtype) for d in d_set]
                 gx, gm = server_update_kernel(x_in, d_in, m_set, eta_g=1.0, a=0.1, inv_eta_l=inv)
@@ -834,7 +840,8 @@ def check_server_update(dev) -> dict:
                 del gx, gm, x_in, d_in
     torch.cuda.synchronize()
     print(f"server_update check: {checked} values bitwise equal to the plain torch version "
-          f"on the card (the {len(xs)}-tensor e2e leaf set and a ragged table; f32 and bf16 "
+          f"on the card (the {len(xs)}-tensor e2e leaf set, a ragged table and CHARLM_TINY's "
+          f"{len(tiny)} leaves; f32 and bf16 "
           f"x; inv_eta_l {', '.join(invs)})", flush=True)
 
     inv = invs["1/(0.05*1.0)"]
@@ -6438,20 +6445,20 @@ def run_paths(args, start: float, counts_proc) -> int:
     torch.cuda.reset_peak_memory_stats()
     rr_indices_kernel.launches = server_update_kernel.launches = 0
     t0 = time.perf_counter()
-    res = run_main_path(dev, "device", SEQ_ONE_ROUND, **MVR)
+    res = run_main_path(dev, "device", SEQ_CUT_ROUNDS, **MVR)
     torch.cuda.synchronize()
     upd["launches"] = server_update_kernel.launches
     mvr_rr = rr_indices_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     seq["mvr"] = (report_rounds("mvr path (App. F)", res, time.perf_counter() - t0, peak,
-                                SEQ_ONE_ROUND), peak)
-    if (upd["launches"], mvr_rr) != (SEQ_ONE_ROUND, SEQ_ONE_ROUND):
+                                SEQ_CUT_ROUNDS), peak)
+    if (upd["launches"], mvr_rr) != (SEQ_CUT_ROUNDS, SEQ_CUT_ROUNDS):
         raise AssertionError(f"mvr path launches: server_update {upd['launches']}, rr_perm "
-                             f"{mvr_rr} (want {SEQ_ONE_ROUND} each)")
+                             f"{mvr_rr} (want {SEQ_CUT_ROUNDS} each)")
     if not all(torch.isfinite(v).all() for v in res.state.opt["m"].values()):
         raise AssertionError("mvr path: non-finite gradient estimate")
-    print(f"mvr path launches: server_update {SEQ_ONE_ROUND}, rr_perm {mvr_rr} in "
-          f"{SEQ_ONE_ROUND} rounds, as predicted", flush=True)
+    print(f"mvr path launches: server_update {SEQ_CUT_ROUNDS}, rr_perm {mvr_rr} in "
+          f"{SEQ_CUT_ROUNDS} rounds, as predicted", flush=True)
     del res
     torch.cuda.empty_cache()
 
@@ -6459,18 +6466,18 @@ def run_paths(args, start: float, counts_proc) -> int:
     torch.cuda.reset_peak_memory_stats()
     rr_indices_kernel.launches = server_update_kernel.launches = 0
     t0 = time.perf_counter()
-    res = run_main_path(dev, "device", SEQ_ONE_ROUND, mvr_exact=True, **MVR)
+    res = run_main_path(dev, "device", MVR_EXACT_ROUNDS, mvr_exact=True, **MVR)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     seq["mvr_exact"] = (report_rounds("mvr path (exact eq. 14)", res, time.perf_counter() - t0,
-                                      peak, SEQ_ONE_ROUND), peak)
+                                      peak, MVR_EXACT_ROUNDS), peak)
     exact_launches = (server_update_kernel.launches, rr_indices_kernel.launches)
-    if exact_launches != (0, SEQ_ONE_ROUND):
+    if exact_launches != (0, MVR_EXACT_ROUNDS):
         raise AssertionError(f"exact mvr path launches (server_update, rr_perm): "
-                             f"{exact_launches}, want (0, {SEQ_ONE_ROUND})")
+                             f"{exact_launches}, want (0, {MVR_EXACT_ROUNDS})")
     if not all(torch.isfinite(v).all() for v in res.state.opt["m"].values()):
         raise AssertionError("exact mvr path: non-finite gradient estimate")
-    print(f"exact mvr path launches: server_update 0, rr_perm {SEQ_ONE_ROUND}, as predicted",
+    print(f"exact mvr path launches: server_update 0, rr_perm {MVR_EXACT_ROUNDS}, as predicted",
           flush=True)
     del res
     torch.cuda.empty_cache()

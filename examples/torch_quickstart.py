@@ -47,9 +47,9 @@ def make_demo_clip(loss_fn, fl_cfg):
     return ClientTransform(name="demo_clip", init=lambda p: {}, update=update)
 
 
-def main(device=None, rounds: int = 30, clip_rounds: int = 5, traced_rounds: int = 5,
-         trace_path: str = "quickstart_trace.json") -> dict:
-    device = resolve_device(device)
+def federation(device) -> tuple:
+    """The example's FL config, task, pipeline, model and initial weights
+    on ``device`` -> (fl, task, pipeline, model, params)."""
     # 1. an imbalanced federated population (log-normal |D_i|) with
     #    client-skewed char distributions — the paper's regime
     fl = FLConfig(
@@ -61,26 +61,35 @@ def main(device=None, rounds: int = 30, clip_rounds: int = 5, traced_rounds: int
     )
     task = CharLMTask(vocab=CHARLM_TINY.vocab, seq_len=32, num_clients=fl.num_clients)
     pipeline = FederatedPipeline(task, Population.build(fl), fl)
-    sizes = pipeline.population.sizes.tolist()
-    print(f"client dataset sizes: {sizes}")
-
-    # 2. model + federated training
     model = build_model(CHARLM_TINY)
     # drawn on the CPU so that every device starts from the same weights (a
     # CUDA generator draws others)
     params = {k: v.to(device) for k, v in model.init(0, "cpu").items()}
+    return fl, task, pipeline, model, params
+
+
+def heldout_loss(model, task, fl, params, device) -> float:
+    """The mean loss over 8 held-out sequences of every client."""
+    with torch.no_grad():
+        return float(np.mean([float(model.loss(params, {"tokens": torch.as_tensor(
+            task.batch(c, task.heldout_ids(c, 8))["tokens"], device=device)})[0])
+            for c in range(fl.num_clients)]))
+
+
+def main(device=None, rounds: int = 30, clip_rounds: int = 5, traced_rounds: int = 5,
+         trace_path: str = "quickstart_trace.json") -> dict:
+    device = resolve_device(device)
+    fl, task, pipeline, model, params = federation(device)
+    sizes = pipeline.population.sizes.tolist()
+    print(f"client dataset sizes: {sizes}")
+
+    # 2. federated training
     result = train(make_loss(model), params, pipeline, fl, rounds=rounds,
                    name="quickstart", log_every=10, device=device)
     losses = [float(r["local_loss"]) for r in result.metrics.rows]
 
-    @torch.no_grad()
-    def heldout_loss(p) -> float:
-        """The mean loss over 8 held-out sequences of every client."""
-        return float(np.mean([float(model.loss(p, {"tokens": torch.as_tensor(
-            task.batch(c, task.heldout_ids(c, 8))["tokens"], device=device)})[0])
-            for c in range(fl.num_clients)]))
-
-    heldout = (heldout_loss(params), heldout_loss(result.state.params))
+    heldout = tuple(heldout_loss(model, task, fl, p, device)
+                    for p in (params, result.state.params))
     print(f"held-out loss: {heldout[0]:.4f} before training, {heldout[1]:.4f} after")
 
     # 3. serve the trained global model (prefill + autoregressive decode)

@@ -17,43 +17,14 @@ A query row that sees no key has no answer the references agree on (the
 oracle returns the mean of v, the TPU kernel 0 where it skips the row's
 every key tile), so :func:`check_every_row_sees_a_key` refuses such inputs
 for this version and the kernel alike.
-
-:func:`band_pairs` counts the (query, key) pairs a block's mask keeps, the
-pairs the kernel computes; ``BLOCK_OBSERVER`` lets a count
-(``launch/dryrun.py``) see each plain block with them.
 """
 from __future__ import annotations
 
-from typing import Callable
-
-import numpy as np
 import torch
 
 NEG_INF = -1e30
 CHUNK_THRESHOLD = 2048
 Q_CHUNK = 1024
-# ``observer(pairs, full, fn) -> fn()``: when set, each plain attention block
-# (this module's and ``models/attention.py:attend``'s) runs through it with
-# the pairs its mask keeps and the pairs it scores; None outside a count
-BLOCK_OBSERVER: Callable | None = None
-
-
-def band_pairs(q0: int, tq: int, k0: int, tk: int, *, causal: bool = True,
-               window: int = 0) -> int:
-    """The (query, key) pairs of queries at positions q0..q0+tq-1 and keys
-    at k0..k0+tk-1 that the mask keeps: j <= i when ``causal``, i - j <
-    window when ``window``."""
-    i = np.arange(q0, q0 + tq, dtype=np.int64)
-    hi = np.minimum(i, k0 + tk - 1) if causal else np.full_like(i, k0 + tk - 1)
-    lo = np.maximum(i - window + 1, k0) if window else np.full_like(i, k0)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
-def observed(pairs: Callable[[], int], full: int, fn: Callable):
-    """``fn()``, a plain attention block that scores ``full`` pairs and keeps
-    ``pairs()`` of them, through ``BLOCK_OBSERVER`` when one is set."""
-    obs = BLOCK_OBSERVER
-    return fn() if obs is None else obs(pairs(), full, fn)
 
 
 def check_every_row_sees_a_key(Tq: int, Tk: int, window: int) -> None:
@@ -90,14 +61,9 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q's dtype (fp32 softmax): query i at position i sees the keys j <= i
     when ``causal``, every key otherwise, and only those with i - j <
     window when ``window``."""
-    Tq, Tk = q.shape[2], k.shape[2]
-    check_every_row_sees_a_key(Tq, Tk, window)
-
-    def rows(q0, qb):
-        tq = qb.shape[2]
-        return observed(lambda: band_pairs(q0, tq, 0, Tk, causal=causal, window=window), tq * Tk,
-                        lambda: _rows(qb, k, v, q0, causal=causal, window=window))
-
+    Tq = q.shape[2]
+    check_every_row_sees_a_key(Tq, k.shape[2], window)
     if Tq <= CHUNK_THRESHOLD:
-        return rows(0, q)
-    return torch.cat([rows(q0, q[:, :, q0:q0 + Q_CHUNK]) for q0 in range(0, Tq, Q_CHUNK)], dim=2)
+        return _rows(q, k, v, 0, causal=causal, window=window)
+    return torch.cat([_rows(q[:, :, q0:q0 + Q_CHUNK], k, v, q0, causal=causal, window=window)
+                      for q0 in range(0, Tq, Q_CHUNK)], dim=2)

@@ -11,11 +11,11 @@ It is a count of the eager program, not a mesh lowering.  A record:
 
 - ``cost.flops``: the counted matmul, bmm and einsum products, forward and
   backward (FlopCounterMode: 2 a multiply-add).
-- ``cost.flops_kernel``: the same count with each plain attention block's
-  products taken over the (query, key) pairs its causal and window mask
-  keeps, the pairs the flash kernel computes (the plain version scores
-  every pair).  A block run with gradients counts its backward products
-  twice its forward's, as the two products of each forward one have.
+- ``cost.flops_kernel``: the same count less the attention products over
+  the (query, key) pairs the causal and window mask drops
+  (``cost.attention_flops_masked``, :func:`masked_attention_flops`, worked
+  out per layer from the config and the shape): the pairs the flash kernel
+  computes, where the plain version scores every pair.
 - ``cost.bytes_min``: every argument read once and every output written
   once (each storage once; an output that is an input's storage, such as a
   decode cache written in place, is not counted again): the memory floor.
@@ -35,33 +35,34 @@ Usage::
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--archs a,b] [--shapes x,y]
 
 It writes one JSON a combo under ``build/dryrun/`` (``.gitignore`` lists
-it); ``launch/roofline.py`` reads them.  ``--dp`` gives the clients of a
-train setup (default: the production mesh's data axes, 16, or 32 with
-``--multi-pod``); ``--batch`` and ``--n-layers`` cut a setup.
+it); ``launch/roofline.py`` reads them.  A train setup runs the JAX
+package's production mesh's 16 clients; :func:`run_one` takes ``dp``,
+``batch`` and ``n_layers`` to cut a setup to one card's share.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import math
 import os
 import time
 import traceback
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode, flop_registry
+from torch.utils.flop_counter import FlopCounterMode
 
-from ..configs.base import INPUT_SHAPES, ArchConfig, MeshConfig
+from ..configs.base import INPUT_SHAPES, ArchConfig
 from ..configs.registry import ASSIGNED, get_arch, get_shape
-from ..kernels.flash_attention import ref as flash_ref
+from ..models.attention import CHUNK_THRESHOLD, Q_CHUNK
 from ..utils.logging import log
 from .specs import make_setup
 
 OUT_DIR = "build/dryrun"
 CARD_MESH = "1xH100"
+PRODUCTION_DP = 16     # the clients of a train setup: the JAX package's mesh's data axis
 
 
 def _tensors(tree) -> list:
@@ -86,80 +87,89 @@ def storage_bytes(tree, skip: set | None = None) -> tuple[int, set]:
 
 
 class _Count(TorchDispatchMode):
-    """Every aten op's input and output bytes (view ops left out), and the
-    matmul FLOPs run inside each observed attention block, at the shapes
-    the device sees (a vmapped block's products are its whole batch's)."""
+    """Every aten op's input and output bytes, view ops left out."""
 
     def __init__(self):
         super().__init__()
         self.bytes_unfused = 0
-        self.block_flops = 0
-        self.in_block = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not func.is_view:
             self.bytes_unfused += sum(_nbytes(t) for t in _tensors((args, kwargs, out)))
-        if self.in_block and func._overloadpacket in flop_registry:
-            self.block_flops += flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
         return out
 
 
-def _requires_grad(t: torch.Tensor) -> bool:
-    # under torch.func.vmap the autograd graph is the batched tensor's inner one
-    while torch._C._functorch.is_batchedtensor(t):
-        t = torch._C._functorch.get_unwrapped(t)
-    return t.requires_grad
+def band_pairs(q0: int, tq: int, k0: int, tk: int, *, causal: bool = True,
+               window: int = 0) -> int:
+    """The (query, key) pairs of queries at positions q0..q0+tq-1 and keys
+    at k0..k0+tk-1 that the mask keeps: j <= i when ``causal``, i - j <
+    window when ``window``."""
+    i = np.arange(q0, q0 + tq, dtype=np.int64)
+    hi = np.minimum(i, k0 + tk - 1) if causal else np.full_like(i, k0 + tk - 1)
+    lo = np.maximum(i - window + 1, k0) if window else np.full_like(i, k0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def _needs_grad(out) -> bool:
-    return torch.is_grad_enabled() and any(_requires_grad(t) for t in _tensors(out))
+def scored_pairs(t: int, window: int, banded: bool) -> int:
+    """The (query, key) pairs ``models/attention.py:attend`` scores in a
+    causal self-attention over t positions: every one, but for the
+    ``banded`` option's ``Q_CHUNK + window`` keys a query chunk."""
+    band = Q_CHUNK + window
+    if t <= CHUNK_THRESHOLD or not (banded and window and t > band):
+        return t * t
+    return sum(min(Q_CHUNK, t - q0) * band for q0 in range(0, t, Q_CHUNK))
 
 
-@contextlib.contextmanager
-def observing(count: _Count):
-    """Let ``count`` see each plain attention block: its products as run,
-    and as the kernel's band would take them.  Yields the totals, filled
-    when the block ends: ``{"full": flops, "band": flops}``, the backward's
-    included."""
-    totals = {"full": 0.0, "band": 0.0}
+def masked_attention_flops(setup) -> float:
+    """The products of the step's causal self-attention blocks over the
+    (query, key) pairs their mask drops: what the plain versions compute
+    and the flash kernel skips.  For each layer, (scored - kept) pairs at
+    2 H (d_qk + d_v) FLOPs a sequence, times its passes: 1 in a prefill, 3
+    in a train step (a backward of two products for each forward one), 4
+    in a layer that remat runs again.  A non-causal block (the audio
+    encoder's, the cross-attention) keeps every pair, and a decode step
+    scores its one query over the valid slots alone."""
+    cfg, shape = setup.cfg, setup.shape
+    if shape.kind == "decode" or cfg.family == "ssm":
+        return 0.0
+    if cfg.mla:
+        m = cfg.mla
+        per_pair = 2 * cfg.n_heads * (m.qk_nope_dim + m.qk_rope_dim + m.v_head_dim)
+    else:
+        per_pair = 4 * cfg.n_heads * cfg.hd()
+    window = 0 if cfg.enc_layers else cfg.sliding_window    # the audio decoder's is unbounded
+    banded, T = cfg.opt_banded_window, shape.seq_len
 
-    def observer(pairs: int, full: int, fn):
-        before, was = count.block_flops, count.in_block
-        count.in_block = True
-        try:
-            out = fn()
-        finally:
-            count.in_block = was
-        f = count.block_flops - before
-        if not was:
-            f *= 3 if _needs_grad(out) else 1     # a backward of two products each
-            totals["full"] += f
-            totals["band"] += f * pairs / full if full else 0.0
-        return out
+    def dropped(t, w, scored):
+        return scored - band_pairs(0, t, 0, t, window=w)
 
-    prev = flash_ref.BLOCK_OBSERVER
-    flash_ref.BLOCK_OBSERVER = observer
-    try:
-        yield totals
-    finally:
-        flash_ref.BLOCK_OBSERVER = prev
+    if shape.kind == "prefill":       # GQA through the plain flash version, MLA through attend
+        n_seq = setup.args[1]["tokens"].shape[0]
+        scored = scored_pairs(T, window, banded) if cfg.mla else T * T
+        return float(per_pair * n_seq * cfg.n_layers * dropped(T, window, scored))
+    n_seq = math.prod(setup.args[1].data["tokens"].shape[:3])       # C x K x B
+    passes = 4 if cfg.remat == "full" else 3
+    total = passes * cfg.n_layers * dropped(T, window, scored_pairs(T, window, banded))
+    if cfg.mtp and T >= 2:            # the MTP block: positions 0..T-2, no window, no remat
+        total += 3 * dropped(T - 1, 0, scored_pairs(T - 1, 0, banded))
+    return float(per_pair * n_seq * total)
 
 
 def count_step(setup) -> dict:
     """Run ``setup.fn(*setup.args)`` once under the counts -> the record's
     ``cost`` and ``memory``."""
     count = _Count()
-    with FlopCounterMode(display=False) as fc, count, observing(count) as attn:
+    with FlopCounterMode(display=False) as fc, count:
         out = setup.fn(*setup.args)
     flops = float(fc.get_total_flops())
+    masked = masked_attention_flops(setup)
     arg_bytes, keys = storage_bytes(setup.args)
     out_bytes, _ = storage_bytes(out, skip=keys)
     return {
         "cost": {"flops": flops,
-                 "flops_kernel": flops - attn["full"] + attn["band"],
-                 "attention_flops": attn["full"], "attention_flops_band": attn["band"],
+                 "flops_kernel": flops - masked, "attention_flops_masked": masked,
                  "bytes_min": float(arg_bytes + out_bytes),
                  "bytes_unfused": float(count.bytes_unfused)},
         "memory": {"argument_size_in_bytes": arg_bytes, "output_size_in_bytes": out_bytes,
@@ -168,16 +178,9 @@ def count_step(setup) -> dict:
     }
 
 
-def data_parallel(multi_pod: bool) -> int:
-    """The client count of the JAX package's production mesh: the product of
-    its data axes (16, or 2 x 16 with two pods)."""
-    mesh = MeshConfig(multi_pod)
-    return math.prod(n for n, a in zip(mesh.shape, mesh.axes) if a in ("pod", "data"))
-
-
-def run_one(arch_name: str, shape_name: str, *, multi_pod: bool = False, out_dir: str = OUT_DIR,
+def run_one(arch_name: str, shape_name: str, *, out_dir: str = OUT_DIR,
             setup_kwargs: dict | None = None, tag: str = "", cfg: ArchConfig | None = None,
-            dp: int | None = None, batch: int | None = None, n_layers: int | None = None,
+            dp: int = PRODUCTION_DP, batch: int | None = None, n_layers: int | None = None,
             inert: list | None = None, note: str = "") -> dict:
     """Count ``arch_name`` (or ``cfg``, a resolved config of it) at
     ``shape_name``, write the record to ``out_dir`` and return it.
@@ -185,10 +188,9 @@ def run_one(arch_name: str, shape_name: str, *, multi_pod: bool = False, out_dir
     that means for the count (the hillclimb's)."""
     cfg = cfg if cfg is not None else get_arch(arch_name)
     shape = get_shape(shape_name)
-    dp = dp if dp is not None else data_parallel(multi_pod)
     label = f"{arch_name}/{shape_name}/{CARD_MESH}{('/' + tag) if tag else ''}"
     rec: dict = {"arch": arch_name, "shape": shape_name, "mesh": CARD_MESH, "chips": 1,
-                 "multi_pod": multi_pod, "tag": tag, "ok": False, "note": note,
+                 "multi_pod": False, "tag": tag, "ok": False, "note": note,
                  "setup": {"dp": dp, "batch": batch, "n_layers": n_layers,
                            **(setup_kwargs or {})}}
     t0 = time.time()
@@ -229,11 +231,6 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--archs", default=None, help="comma list (with --all)")
     ap.add_argument("--shapes", default=None, help="comma list (with --all)")
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--multi-pod", action="store_true",
-                    help="the clients of the two-pod mesh's data axes (32)")
-    ap.add_argument("--dp", type=int, default=None, help="clients of a train setup")
-    ap.add_argument("--batch", type=int, default=None)
-    ap.add_argument("--n-layers", type=int, default=None)
     ap.add_argument("--out", default=OUT_DIR)
     ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
@@ -248,8 +245,7 @@ def main(argv: list[str] | None = None) -> None:
         combos = [(args.arch, args.shape)]
     n_ok = n_fail = 0
     for a, s in combos:
-        rec = run_one(a, s, multi_pod=args.multi_pod, out_dir=args.out, tag=args.tag,
-                      dp=args.dp, batch=args.batch, n_layers=args.n_layers)
+        rec = run_one(a, s, out_dir=args.out, tag=args.tag)
         n_ok += rec["ok"]
         n_fail += not rec["ok"]
     log(f"dry-run complete: {n_ok} ok, {n_fail} failed")

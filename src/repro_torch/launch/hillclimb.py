@@ -98,7 +98,6 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--pair", required=True, choices=sorted(PAIRS))
     ap.add_argument("--iter", default=None, help="run only this tag")
     ap.add_argument("--out", default=dryrun.OUT_DIR)
-    ap.add_argument("--dp", type=int, default=None, help="clients of a train setup")
     args = ap.parse_args(argv)
 
     arch, shape, iters = PAIRS[args.pair]
@@ -107,7 +106,7 @@ def main(argv: list[str] | None = None) -> None:
             continue
         log(f"hillclimb {args.pair}/{tag}: {hypothesis}")
         dryrun.run_one(arch, shape, out_dir=args.out, tag=tag, cfg=_resolve(arch, overrides),
-                       dp=args.dp, setup_kwargs=overrides.get("__setup__"),
+                       setup_kwargs=overrides.get("__setup__"),
                        inert=inert_levers(overrides), note=note(overrides))
 
 

@@ -64,6 +64,8 @@ class Setup:
     static_kwargs: dict | None = None
     reduced: list = field(default_factory=list)   # each cut from the shape and the config
     inert: list = field(default_factory=list)     # levers that act on a mesh alone
+    cfg: ArchConfig | None = None                 # the config as cut (``n_layers``)
+    shape: ShapeConfig | None = None
 
 
 def _cut(cfg: ArchConfig, n_layers: int | None, reduced: list) -> ArchConfig:
@@ -172,7 +174,7 @@ def train_setup(cfg: ArchConfig, shape: ShapeConfig, *, dp: int = 1, batch: int 
     lr = torch.ones((), dtype=torch.float32, device=device)
     step = build_round_step(loss_fn, strategy, fl, num_clients=fl.num_clients, device=device)
     return Setup(name=f"{cfg.name}/{shape.name}", fn=step, args=(state, rb, lr),
-                 reduced=reduced, inert=_inert(cfg))
+                 reduced=reduced, inert=_inert(cfg), cfg=cfg, shape=shape)
 
 
 def prefill_setup(cfg: ArchConfig, shape: ShapeConfig, *, batch: int | None = None,
@@ -189,7 +191,7 @@ def prefill_setup(cfg: ArchConfig, shape: ShapeConfig, *, batch: int | None = No
     data = _serve_batch(cfg, B, S, device, _gen(device, seed + 1))
     return Setup(name=f"{cfg.name}/{shape.name}", fn=partial(model.prefill, cache_len=S),
                  args=(params, data), reduced=reduced,
-                 inert=_inert(cfg, seq_over_model=seq_over_model))
+                 inert=_inert(cfg, seq_over_model=seq_over_model), cfg=cfg, shape=shape)
 
 
 def decode_cache_len(cfg: ArchConfig, seq_len: int) -> tuple[bool, int]:
@@ -221,7 +223,8 @@ def decode_setup(cfg: ArchConfig, shape: ShapeConfig, *, batch: int | None = Non
     cache["pos"] = S - 1
     token = _tokens((B, 1), cfg.vocab, device, gen)
     return Setup(name=f"{cfg.name}/{shape.name}", fn=partial(model.decode_step, ring=ring),
-                 args=(params, token, cache), reduced=reduced, inert=_inert(cfg))
+                 args=(params, token, cache), reduced=reduced, inert=_inert(cfg), cfg=cfg,
+                 shape=shape)
 
 
 def make_setup(cfg: ArchConfig, shape: ShapeConfig, **kw) -> Setup:

@@ -26,7 +26,6 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attend
-from ..kernels.flash_attention.ref import band_pairs, observed
 from .layers import apply_rope, dense_init, rmsnorm
 
 CHUNK_THRESHOLD = 2048
@@ -85,26 +84,19 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tenso
             m = m[None, None, None] & kv_valid[:, None, None, None, :]
         return m
 
-    Tk = k.shape[1]
-
-    def block(q0, qb, s, kb, vb, mask):
-        # the pairs its mask keeps, counted where positions run from 0 (every
-        # caller's but the decode step's, whose valid slots are all scored)
-        tq, tk = qb.shape[1], kb.shape[1]
-        return observed(lambda: tq * tk if kv_valid is not None else
-                        band_pairs(q0, tq, s, tk, causal=causal, window=window),
-                        tq * tk, lambda: _attend_block(qb, kb, vb, mask, scale))
-
     if Tq <= CHUNK_THRESHOLD:
-        return block(0, q, 0, k, v, mask_for(q_pos))
+        return _attend_block(q, k, v, mask_for(q_pos), scale)
+    Tk = k.shape[1]
     band = Q_CHUNK + window
     if banded and window and causal and kv_valid is None and Tk > band:
         starts = [min(max(q0 - window + 1, 0), Tk - band) for q0 in range(0, Tq, Q_CHUNK)]
-        return torch.cat([block(q0, q[:, q0:q0 + Q_CHUNK], s, k[:, s:s + band], v[:, s:s + band],
-                                band_mask(q_pos[q0:q0 + Q_CHUNK], kv_pos[s:s + band],
-                                          window=window))
+        return torch.cat([_attend_block(q[:, q0:q0 + Q_CHUNK], k[:, s:s + band],
+                                        v[:, s:s + band],
+                                        band_mask(q_pos[q0:q0 + Q_CHUNK], kv_pos[s:s + band],
+                                                  window=window), scale)
                           for q0, s in zip(range(0, Tq, Q_CHUNK), starts)], dim=1)
-    return torch.cat([block(q0, q[:, q0:q0 + Q_CHUNK], 0, k, v, mask_for(q_pos[q0:q0 + Q_CHUNK]))
+    return torch.cat([_attend_block(q[:, q0:q0 + Q_CHUNK], k, v,
+                                    mask_for(q_pos[q0:q0 + Q_CHUNK]), scale)
                       for q0 in range(0, Tq, Q_CHUNK)], dim=1)
 
 

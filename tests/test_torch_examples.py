@@ -16,7 +16,9 @@ through its ``main(device="cpu", ...)`` at fewer rounds than its default:
 * ``torch_robust_aggregation``: the sign flip breaks the plain mean and the
   trimmed mean defends against it;
 * ``torch_serve_moe``: greedy tokens equal to JAX's ``generate`` at the same
-  weights (``weights.params_from_jax``) and prompts.
+  weights (``weights.params_from_jax``) and prompts;
+* ``torch_quickstart_split`` (the quickstart's training round by round):
+  weights one ulp apart have parted after a round.
 """
 import ast
 import importlib.util
@@ -47,8 +49,9 @@ from repro_torch.weights import params_from_jax  # noqa: E402
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 NAMES = ("torch_quickstart", "torch_objective_inconsistency", "torch_dp_training",
-         "torch_robust_aggregation", "torch_serve_moe")
-ALLOWED = {"argparse", "dataclasses", "os", "sys", "time", "numpy", "torch"}
+         "torch_robust_aggregation", "torch_serve_moe", "torch_quickstart_split")
+ALLOWED = {"argparse", "dataclasses", "importlib", "json", "os", "sys", "time", "numpy",
+           "torch"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -128,6 +131,15 @@ def test_quickstart_trains_clips_and_traces(tmp_path):
     assert CLIENT_TRANSFORMS["demo_clip"].__name__ == "make_demo_clip"
     assert np.isfinite(res["clip_loss"]) and len(res["generated"]) == 2
     assert sum(res["hist_steps"]) == 4 and trace.stat().st_size > 0
+
+
+def test_quickstart_split_sees_one_ulp():
+    """The split diagnostic on the CPU: the reference arm is its own
+    reference, and weights one ulp apart have parted after a round."""
+    rep = load("torch_quickstart_split").main(rounds=1, cpu_only=True)
+    assert rep["cpu"]["distance"] == [0.0]
+    assert 0 < rep["cpu_ulp"]["distance"][0] < 1e-4
+    assert np.isfinite(rep["cpu"]["heldout"][0]) and len(rep["cpu_ulp"]["local"]) == 1
 
 
 def test_quickstart_clip_equals_local_clip():

@@ -45,8 +45,8 @@ from repro.launch.mesh import make_host_mesh  # noqa: E402
 from repro.launch.specs import make_setup as j_make_setup  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import band_pairs  # noqa: E402
 from repro_torch.launch import dryrun, hillclimb, mesh, roofline  # noqa: E402
+from repro_torch.launch.dryrun import band_pairs  # noqa: E402
 from repro_torch.launch.specs import decode_cache_len, make_setup  # noqa: E402
 from repro_torch.models.mamba2 import dims as ssm_dims  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
@@ -114,7 +114,8 @@ def test_mesh_and_run_config_equal_jax():
     # FLConfig's one default of its own (configs/base.py): the kernel's name
     assert (j["fl"].pop("uplink_backend"), p["fl"].pop("uplink_backend")) == ("ref", "kernel")
     assert j == p
-    assert dryrun.data_parallel(False) == 16 and dryrun.data_parallel(True) == 32
+    data_axes = base.MeshConfig().shape[base.MeshConfig().axes.index("data")]
+    assert dryrun.PRODUCTION_DP == data_axes == 16
 
 
 def test_assigned_equals_jax():
@@ -355,29 +356,32 @@ def test_kernel_count_takes_the_band():
     shape = dataclasses.replace(base.INPUT_SHAPES["prefill_32k"], seq_len=T, global_batch=2)
     cost = dryrun.count_step(make_setup(cfg, shape, device="meta", backend="ref"))["cost"]
     per_pair = 4 * 2 * cfg.n_heads * cfg.hd() * cfg.n_layers
-    assert cost["attention_flops"] == per_pair * T * T
-    assert cost["attention_flops_band"] == per_pair * band_pairs(0, T, 0, T, window=W)
-    assert cost["flops_kernel"] == cost["flops"] - per_pair * (T * T - band_pairs(0, T, 0, T,
-                                                                              window=W))
+    assert cost["attention_flops_masked"] == per_pair * (T * T - band_pairs(0, T, 0, T,
+                                                                            window=W))
+    assert cost["flops_kernel"] == cost["flops"] - cost["attention_flops_masked"]
 
 
 @pytest.mark.parametrize("mode", ("vmapped", "sequential"))
 def test_kernel_count_backward_factor(mode):
-    """The attention blocks' products counted with their backward (x3; x4
-    with remat's recompute): the banded loss scores fewer keys, and the
-    counted flops fall by exactly the blocks' attributed difference."""
+    """The masked pairs' products of a train step (x3 with the backward; x4
+    with remat's recompute) against the counted flops: the banded loss
+    scores fewer keys of the same band, so the counted flops fall by
+    exactly the masked products' difference and ``flops_kernel`` stays."""
     shape = dataclasses.replace(base.INPUT_SHAPES["train_4k"], global_batch=2, seq_len=3072)
     cost = {}
     for name, ov in (("plain", {}), ("banded", {"opt_banded_window": True}),
-                     ("remat", {"remat": "full"})):
+                     ("remat", {"remat": "full"}),
+                     ("remat_banded", {"remat": "full", "opt_banded_window": True})):
         cfg = registry.get_arch("qwen1.5-0.5b").reduced(sliding_window=64, **ov)
         st = make_setup(cfg, shape, device="meta", dp=2, cohort_mode=mode)
         cost[name] = dryrun.count_step(st)["cost"]
-    plain, banded, rm = cost["plain"], cost["banded"], cost["remat"]
-    assert plain["flops"] - banded["flops"] == \
-        plain["attention_flops"] - banded["attention_flops"] > 0
-    assert rm["attention_flops"] == plain["attention_flops"] * 4 // 3
-    assert plain["flops_kernel"] < plain["flops"]
+    for full, banded in (("plain", "banded"), ("remat", "remat_banded")):
+        f, b = cost[full], cost[banded]
+        assert f["flops"] - b["flops"] == \
+            f["attention_flops_masked"] - b["attention_flops_masked"] > 0
+        assert f["flops_kernel"] == b["flops_kernel"] < f["flops"]
+    assert cost["remat"]["attention_flops_masked"] == \
+        cost["plain"]["attention_flops_masked"] * 4 // 3
 
 
 def test_bytes_min_reads_and_writes_each_storage_once():
