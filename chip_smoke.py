@@ -139,8 +139,15 @@
    hillclimb hymba pair's four configs), each step's count from
    ``launch/dryrun.py`` (made on the meta device by a child process while
    the earlier paths run: ``--launch-counts``), its bound, wall, device
-   time and peak; then ``examples/torch_objective_inconsistency.py`` and
-   ``examples/torch_serve_moe.py`` on the card;
+   time and peak (the flash launch at T = 32,768 timed beside SDPA on the
+   memory-efficient backend with a bool band mask); then
+   ``examples/torch_objective_inconsistency.py`` (200 rounds) and
+   ``examples/torch_serve_moe.py`` on the card; then the mesh layer (main
+   path 19, ``mesh_paths``): a single-rank NCCL group over a ``HashStore``
+   and ``launch/mesh.py:make_host_mesh(1, 1)``, path 18's prefill_32k (32
+   flash and 32 SSD launches through ``local_map`` on the local shards)
+   and train_4k baseline laid out as DTensors by ``launch/specs.py``, each
+   step's wall and device time beside path 18's;
 4. checks the results: finite losses and parameters, the predicted launch
    counts, the same runs with the plain versions of the kernels
    (``rr_backend="device_ref"``, ``uplink_backend="ref"``) giving
@@ -221,7 +228,9 @@
    and its key written at slot pos % S alone, every step's device time at
    or above its counted bound, the examples' claims (FedAvg at its biased
    point, FedShuffle, FedNova and SCAFFOLD at the optimum; serve_moe's
-   greedy tokens equal to the CPU's);
+   greedy tokens equal to the CPU's); for path 19, the mesh prefill's
+   logits and cache and the mesh round's new params bitwise equal to path
+   18's, 32 flash and 32 SSD launches in the prefill and none in the round;
 5. prints one ``{"kernels": [...]}`` JSON line and, last, the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -4264,6 +4273,53 @@ def vision_eval_fn(model, task, dev):
     return acc
 
 
+FP32_FLOP_PER_S = 67e12     # H100 SXM, float32 outside the tensor cores (data sheet)
+
+
+def vision_flash_timing(acc_fn, params) -> dict:
+    """The vision eval's fp32 ``flash_fwd`` launch (``simt``) at its own
+    inputs (the last layer's of one eval): its time, its bound (the larger
+    of its products over the fp32 rate and its bytes over HBM's), the plain
+    version's time and ``F.scaled_dot_product_attention``'s (causal, the
+    backend PyTorch picks for fp32)."""
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.kernels.flash_attention.ops as fops
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+
+    seen = []
+
+    def record(q, k, v, *, causal=True, window=0):
+        seen.append((q, k, v, causal, window))
+        return flash_attention_kernel(q, k, v, causal=causal, window=window)
+
+    with swapped({(fops, "flash_attention_kernel"): record}):
+        acc_fn(params)
+    q, k, v, causal, window = seen[-1]
+    if not causal or window or q.dtype != torch.float32 or k.shape[1] != q.shape[1]:
+        raise AssertionError(f"vision eval flash: {q.shape} {q.dtype} causal {causal} "
+                             f"window {window}")
+    B, H, T, hd = q.shape
+    got = flash_attention_kernel(q, k, v, causal=True)
+    ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=True), 20)[0]
+    plain_ms = time_ms(lambda: flash_attention_torch(q, k, v, causal=True), 20)[0]
+    sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    sdpa_err = float((sdpa - got).abs().max())
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)[0]
+    flops = 4 * B * H * hd * band_pairs(0, T, 0, T)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+    terms = {"operations": flops / FP32_FLOP_PER_S * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    bound, by = max(terms.values()), max(terms, key=terms.get)
+    print(f"vision eval flash_fwd (simt, fp32) at [{B}, {T}, {H}/{k.shape[1]}, {hd}], causal: "
+          f"{ms:.5f} ms against its {by} bound {bound:.6f} ms ({flops} FLOP at 67 TFLOP/s fp32, "
+          f"{nbytes} B); the plain version {plain_ms:.5f} ms; SDPA (causal) {sdpa_ms:.5f} ms, "
+          f"max abs diff {sdpa_err:.3e} from the kernel", flush=True)
+    return {"shape": [B, T, H, k.shape[1], hd], "ms": ms, "bound_ms": bound, "bound_by": by,
+            "plain_ms": plain_ms, "library_ms": sdpa_ms, "library_max_abs_err": sdpa_err}
+
+
 def vision_path(dev, rr_row: dict, flash_row: dict) -> dict:
     """Main path 10, the paper's vision task (vision-tiny at full width, 2 x
     128, 64 patches; random weights from seed 0) as
@@ -4366,6 +4422,7 @@ def vision_path(dev, rr_row: dict, flash_row: dict) -> dict:
           f"{host_ms:.2f} ms a round; each method's last eval again: equal accuracy, every flash "
           f"launch within {FLASH_TOL['float32']} of the plain version (max abs diff "
           f"{err[0]:.3e})", flush=True)
+    flash_row["vision_eval_fp32"] = vision_flash_timing(acc_fn, finals["fedshuffle"])
     del finals
 
     # FedShuffle through the cohort engine: the device RR streams, one
@@ -5837,6 +5894,8 @@ LAUNCH_COUNTS_DIR = ROOT / "build" / "dryrun" / "launch_paths"
 # (b) decode_32k: the largest batch, up to the shape's 128, whose weights and
 # cache take at most this much of the card's 80 GB
 LAUNCH_DECODE_BUDGET = 60 * 2**30
+# path 18's outputs held for main path 19 (the same steps through a mesh)
+MESHLESS_TWINS: dict = {}
 
 
 def launch_decode_batch() -> int:
@@ -5912,12 +5971,13 @@ def read_launch_counts(proc, out_dir: Path) -> dict:
     return out
 
 
-def launch_step(label: str, run, count: dict, *, grad: bool = False) -> dict:
+def launch_step(label: str, run, count: dict, *, grad: bool = False,
+                peak: int | None = None) -> dict:
     """Run ``run()`` (a setup's step) on the card: once to warm up (its peak
-    memory), once timed on the host's clock, once traced (its device
-    kernels' time); print the step's count, bound, wall, device time and
-    peak, and fail if the device time falls under the bound (the count
-    would be wrong)."""
+    memory; with ``peak``, the caller's plain run of the step was both),
+    once timed on the host's clock, once traced (its device kernels' time);
+    print the step's count, bound, wall, device time and peak, and fail if
+    the device time falls under the bound (the count would be wrong)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5927,11 +5987,12 @@ def launch_step(label: str, run, count: dict, *, grad: bool = False) -> dict:
         torch.cuda.synchronize()
         return out
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    out = step()
-    peak = torch.cuda.max_memory_allocated()
-    del out
+    if peak is None:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = step()
+        peak = torch.cuda.max_memory_allocated()
+        del out
     t0 = time.perf_counter()
     step()
     wall = (time.perf_counter() - t0) * 1e3
@@ -6014,6 +6075,7 @@ def launch_prefill_path(dev, counts: dict) -> dict:
           f"ssd_intra_chunk launches over 256 chunks (mma), within atol {SSD_ATOL} / rtol "
           f"{SSD_RTOL} of the plain version (max abs diff {err['ssd_intra_chunk']:.3e})",
           flush=True)
+    MESHLESS_TWINS["prefill_32k"] = (logits, cache)     # main path 19's twin
     del logits, cache
     # one launch of each at T = 32,768, the last layer's inputs
     q, k, v, causal, window = last.pop("flash")
@@ -6023,6 +6085,8 @@ def launch_prefill_path(dev, counts: dict) -> dict:
     flash_bound = 4 * H * hd * band_pairs(0, T, 0, T, window=window) / BF16_FLOP_PER_S * 1e3
     flash_plain = time_ms(lambda: flash_attention_torch(q, k, v, causal=causal, window=window),
                           2, behind_sleep=False)[0]
+    sdpa_ms, sdpa_err = sdpa_band_ms(q, k, v, window, flash_attention_kernel(
+        q, k, v, causal=causal, window=window))
     args = last.pop("ssd")
     ssd_ms = time_ms(lambda: ssd_intra_chunk_kernel(*args), 20)[0]
     ssd_plain = time_ms(lambda: ssd_intra_chunk_torch(*args), 2, behind_sleep=False)[0]
@@ -6032,7 +6096,11 @@ def launch_prefill_path(dev, counts: dict) -> dict:
           f"window {window}: {flash_ms:.4f} ms against its operations bound {flash_bound:.4f} "
           f"ms (the plain version {flash_plain:.2f} ms); an ssd_intra_chunk launch over "
           f"{args[0].shape[1]} chunks: {ssd_ms:.4f} ms against its byte bound {ssd_bound:.4f} "
-          f"ms ({ssd_bytes} B; the plain version {ssd_plain:.2f} ms)", flush=True)
+          f"ms ({ssd_bytes} B; the plain version {ssd_plain:.2f} ms); SDPA on the "
+          f"memory-efficient backend with a bool band mask [1, 1, {T}, {T}], k/v expanded to "
+          f"{H} heads outside the timed call: {sdpa_ms:.4f} ms (the kernel "
+          f"{flash_ms / sdpa_ms:.2f}x its time; max abs diff {sdpa_err:.3e} from the kernel)",
+          flush=True)
     del q, k, v, args
     zero_counts(*kernels)
     res = launch_step("prefill_32k", lambda: setup.fn(*setup.args), counts["prefill_32k"])
@@ -6043,11 +6111,41 @@ def launch_prefill_path(dev, counts: dict) -> dict:
         raise AssertionError(f"prefill_32k: {res['launches']} launches in 3 prefills")
     res["layer_max_abs_err"] = err
     res["T32768"] = {"flash_attention": {"ms": flash_ms, "bound_ms": flash_bound,
-                                         "plain_ms": flash_plain},
+                                         "plain_ms": flash_plain, "library_ms": sdpa_ms,
+                                         "library_max_abs_err": sdpa_err},
                      "ssd_intra_chunk": {"ms": ssd_ms, "bound_ms": ssd_bound,
                                          "plain_ms": ssd_plain}}
     del setup
     return res
+
+
+def sdpa_band_ms(q, k, v, window: int, got) -> tuple[float, float]:
+    """(ms, max abs diff from ``got``) of ``F.scaled_dot_product_attention``
+    on the memory-efficient backend computing a causal windowed flash
+    launch's function: q [1, H, T, hd], k/v [1, KV, T, hd] expanded to H
+    heads and a bool band mask [1, 1, T, T] (1 GiB at T = 32,768) made
+    outside the timed call (the math backend's fp32 scores, H x T^2, do not
+    fit the card)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    T, g = q.shape[2], q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    i = torch.arange(T, device=q.device)
+    diff = i[:, None] - i[None, :]
+    mask = ((diff >= 0) & (diff < window) if window else diff >= 0)[None, None]
+    del diff
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        def call():
+            return F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+        out = call()
+        err = float((out.float() - got.float()).abs().max())
+        del out
+        ms = time_ms(call, 5)[0]
+    del ke, ve, mask
+    torch.cuda.empty_cache()
+    return ms, err
 
 
 def captured_attend(checks: list):
@@ -6143,7 +6241,12 @@ def launch_train_path(dev, counts: dict) -> dict:
         cfg = _resolve(s["arch"], s.get("overrides", {}))
         setup = make_setup(cfg, get_shape("train_4k"), device=dev, **s["kw"])
         state = setup.args[0]
+        # this checked round is launch_step's warm-up and gives its peak
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         new, mets = setup.fn(*setup.args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
         # a bf16 leaf whose step is under half its ulp (a norm scale at 1.0)
         # stays where it was
         moved = sum(not torch.equal(new.params[k], state.params[k]) for k in state.params)
@@ -6151,15 +6254,23 @@ def launch_train_path(dev, counts: dict) -> dict:
                 not all(torch.isfinite(v).all() for v in new.params.values()):
             raise AssertionError(f"launch {s['label']}: loss {float(mets['local_loss'])}, "
                                  f"{moved} of {len(state.params)} leaves moved")
+        if s["label"] == "train_4k_baseline":       # main path 19's twin
+            MESHLESS_TWINS["train_4k_baseline"] = {k: v.cpu() for k, v in new.params.items()}
         del new, mets
         res[s["label"]] = launch_step(s["label"], lambda st=setup: st.fn(*st.args),
-                                      counts[s["label"]], grad=True)
+                                      counts[s["label"]], grad=True, peak=peak)
         del setup, state
     return res
 
 
+# the objective inconsistency example's rounds on the card (its default 600):
+# every arm the check reads stands at its fixed point from round 200 on (on
+# the CPU its distances agree to 6 places at 200, 300 and 600 rounds)
+OBJECTIVE_ROUNDS = 200
+
+
 def launch_examples(dev) -> dict:
-    """``examples/torch_objective_inconsistency.py`` and
+    """``examples/torch_objective_inconsistency.py`` (``OBJECTIVE_ROUNDS``) and
     ``examples/torch_serve_moe.py`` on the card, each through its ``main``:
     the paper's claim (FedAvg at its biased point, FedShuffle and FedNova
     and SCAFFOLD at the optimum, as the CPU tests hold them) and the
@@ -6180,7 +6291,7 @@ def launch_examples(dev) -> dict:
     from repro_torch.models.model import build_model
 
     t0 = time.perf_counter()
-    xs = load("torch_objective_inconsistency").main(dev)
+    xs = load("torch_objective_inconsistency").main(dev, rounds=OBJECTIVE_ROUNDS)
     task = DuplicatedQuadraticTask(copies=(1, 2, 3))
     dist = {k: (float(np.linalg.norm(x - task.optimum())),
                 float(np.linalg.norm(x - task.fedavg_biased_point()))) for k, x in xs.items()}
@@ -6245,6 +6356,138 @@ def launch_paths(dev, rows: list, counts_proc) -> dict:
     res["seconds"] = time.perf_counter() - t0
     print(f"launch paths: launches of the port's kernels "
           f"{ {w.__name__: w.launches for w in wrappers} }; {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def timed_twice(run, ctx) -> tuple[float, float]:
+    """(wall ms, device ms) of ``run()`` under the context ``ctx()``, which
+    has run once already (the warm-up): once timed on the host's clock,
+    once traced (its device kernels' time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        with ctx():
+            out = run()
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    out = step()
+    wall = (time.perf_counter() - t0) * 1e3
+    del out
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = step()
+    del out
+    return wall, count_device(prof)[1]
+
+
+def mesh_paths(dev, rows: list, launch_res: dict) -> dict:
+    """Main path 19: the mesh layer (``dist/sharding.py``, ``launch/mesh.py``,
+    ``launch/specs.py`` with ``mesh=``) on the card: a single-rank NCCL
+    group over a ``HashStore`` (no socket), ``make_host_mesh(1, 1)``, and
+    path 18's steps laid out on it as DTensors: (a) Hymba-1.5B's
+    prefill_32k at batch 1, bf16, full width, its 32 flash and 32 SSD
+    launches through ``local_map`` on the local shards, logits and cache
+    bitwise equal to path 18 (a)'s; (b) the train_4k baseline (one client x
+    1 x 4,096, 16 of 32 layers), its round's new params bitwise equal to
+    path 18 (d)'s.  Each step's wall and device time beside path 18's: what
+    DTensor's dispatch costs the host.  ``rows``: the flash and SSD rows
+    gain (a)'s launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch, get_shape
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_kernel
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import make_setup
+
+    t0 = time.perf_counter()
+    card = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=card)
+    try:
+        mesh = make_host_mesh(1, 1)
+        cfg = get_arch(LAUNCH_ARCH)
+        res = {"mesh": str(mesh)}
+
+        # (a) the prefill: counts to 0 just before, read just after
+        # no_grad, not inference_mode: DTensor makes views of its inputs,
+        # which an inference-mode step may not version
+        setup = make_setup(cfg, get_shape("prefill_32k"), mesh=mesh, device=dev, batch=1)
+        wrappers = kernel_wrappers()
+        zero_counts(*wrappers)
+        with torch.no_grad():
+            logits, cache = setup.fn(*setup.args)
+        torch.cuda.synchronize()
+        launched = [w.launches for w in wrappers]
+        (nf, flash_routes, _), (ns, ssd_routes, _) = read_counts(flash_attention_kernel,
+                                                                 ssd_intra_chunk_kernel)
+        L = cfg.n_layers
+        if (nf, ns) != (L, L) or flash_routes["mma"] != L or ssd_routes["mma"] != L or \
+                sum(launched) != 2 * L:
+            raise AssertionError(f"mesh prefill_32k launches: flash {nf} {flash_routes}, ssd "
+                                 f"{ns} {ssd_routes}, all {launched}")
+        twin_logits, twin_cache = MESHLESS_TWINS.pop("prefill_32k")
+        got = {"logits": logits.full_tensor(),
+               **{k: v.full_tensor() for k, v in cache["layers"].items()}}
+        want = {"logits": twin_logits, **twin_cache["layers"]}
+        differ = [k for k in want if got[k].shape != want[k].shape or
+                  not torch.equal(got[k], want[k])]
+        if differ or set(got) != set(want) or cache["pos"] != twin_cache["pos"]:
+            raise AssertionError(f"mesh prefill_32k: {differ} differ from path 18 (a)'s")
+        cache_keys = sorted(twin_cache["layers"])
+        del logits, cache, got, want, twin_logits, twin_cache
+        wall, device = timed_twice(lambda: setup.fn(*setup.args), torch.no_grad)
+        a18 = launch_res["prefill_32k"]
+        res["prefill_32k"] = {"launches": {"flash_attention": nf, "ssd_intra_chunk": ns},
+                              "wall_ms": wall, "device_ms": device,
+                              "path_18_wall_ms": a18["wall_ms"],
+                              "path_18_device_ms": a18["device_ms"]}
+        print(f"mesh prefill_32k on {mesh}: {nf} flash_attention and {ns} ssd_intra_chunk "
+              f"launches (mma) through local_map; logits and the cache's {len(cache_keys)} "
+              f"entries bitwise equal to path 18 (a)'s; wall {wall:.2f} ms, device "
+              f"{device:.2f} ms (path 18: {a18['wall_ms']:.2f}, {a18['device_ms']:.2f})",
+              flush=True)
+        for row, n in zip(rows, launched):
+            row["launches_path_19"] = n
+        del setup
+        torch.cuda.empty_cache()
+
+        # (b) the train_4k baseline round
+        setup = make_setup(cfg, get_shape("train_4k"), mesh=mesh, device=dev, batch=1,
+                           n_layers=LAUNCH_TRAIN_DEPTH["baseline"])
+        zero_counts(*wrappers)
+        new, mets = setup.fn(*setup.args)
+        torch.cuda.synchronize()
+        if any(w.launches for w in wrappers):
+            raise AssertionError("mesh train_4k: a kernel launched in the train round")
+        twin = MESHLESS_TWINS.pop("train_4k_baseline")
+        differ = [k for k in twin if not torch.equal(new.params[k].full_tensor().cpu(), twin[k])]
+        if differ or set(twin) != set(new.params):
+            raise AssertionError(f"mesh train_4k: the round's params differ from path 18 (d)'s "
+                                 f"in {differ[:8]} ({len(differ)} leaves)")
+        loss = float(mets["local_loss"].full_tensor() if hasattr(mets["local_loss"],
+                                                                  "full_tensor")
+                     else mets["local_loss"])
+        del new, mets, twin
+        wall, device = timed_twice(lambda: setup.fn(*setup.args), contextlib.nullcontext)
+        d18 = launch_res["train_4k_baseline"]
+        res["train_4k_baseline"] = {"reduced": setup.reduced, "local_loss": loss,
+                                    "wall_ms": wall, "device_ms": device,
+                                    "path_18_wall_ms": d18["wall_ms"],
+                                    "path_18_device_ms": d18["device_ms"]}
+        print(f"mesh train_4k baseline on {mesh} ({', '.join(setup.reduced)}): the round's "
+              f"params bitwise equal to path 18 (d)'s, loss {loss:.4f}; wall {wall:.2f} ms, "
+              f"device {device:.2f} ms (path 18: {d18['wall_ms']:.2f}, "
+              f"{d18['device_ms']:.2f})", flush=True)
+        del setup
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"mesh paths: {res['seconds']:.1f} s", flush=True)
     return res
 
 
@@ -6587,6 +6830,12 @@ def run_paths(args, start: float, counts_proc) -> int:
     # Qwen1.5-0.5B's long context through its ring; two examples
     launch_res = launch_paths(dev, [rr, quant, dequant, upd, flash, ssd], counts_proc)
     print(json.dumps({"launch": launch_res}), flush=True)
+
+    # main path 19, the mesh layer: path 18's prefill_32k (32 flash and 32
+    # SSD launches through local_map) and train_4k baseline as DTensors on a
+    # one-rank NCCL mesh, bitwise equal to path 18's
+    mesh_res = mesh_paths(dev, [rr, quant, dequant, upd, flash, ssd], launch_res)
+    print(json.dumps({"mesh": mesh_res}), flush=True)
 
     for comm in ({}, dict(uplink="ef_qsgd", downlink="qsgd"), MVR,
                  dict(mvr_exact=True, **MVR), VMAPPED, VMAPPED | MVR,

@@ -7,17 +7,19 @@ hybrid (Mamba2 SSD, ``SSMConfig``) and audio (encoder-decoder) families
 with ``reduced()``; ``ShapeConfig`` and ``INPUT_SHAPES``, the assigned
 input shapes; ``FLConfig`` with the knobs of every plane: comm, fleet,
 robust, privacy and obs; and ``MeshConfig`` and ``RunConfig``, field for
-field the JAX package's (``MeshConfig`` names the TPU mesh of the JAX
-package's dry run; one card has no mesh, and ``launch/mesh.py`` says what
-of it the port keeps).  ``ArchConfig`` and ``FLConfig`` have every
+field the JAX package's (``MeshConfig`` names the production mesh of the
+JAX package's dry run, which ``launch/mesh.py:make_production_mesh`` lays
+out on H100 cards).  ``ArchConfig`` and ``FLConfig`` have every
 field of the JAX package's classes, with its names and defaults, so one
 keyword dict builds both configs and a copied config compares equal to
 JAX's field for field.  Of ``ArchConfig``'s switches, ``remat``,
 ``opt_banded_window`` and ``opt_onehot_xent`` act in the port's train
-loss (``models/model.py``); ``scan_unroll`` and ``opt_seq_shard`` steer
-XLA alone in the JAX package (the layer scan's unroll, a sharding
-constraint), change no value on one card, and are carried for equality
-and ignored; ``serve_window_long`` is the ring cache that
+loss (``models/model.py``); ``opt_seq_shard`` shards the residual stream's
+sequence dim over the ``"model"`` axis between blocks on a mesh (the JAX
+package's sharding constraint; ``dist/tensor.py:shard_model``) and changes
+no value; ``scan_unroll`` steers XLA alone in the JAX package (the layer
+scan's unroll) and is carried for equality and ignored, as
+``opt_seq_shard`` is on one card; ``serve_window_long`` is the ring cache that
 ``launch/specs.py:decode_setup`` gives the dense, vlm, moe and audio
 families at ``long_500k``.
 ``FLConfig.aggregation`` is read by nothing, in either package.  One
@@ -125,7 +127,7 @@ class ArchConfig:
     # --- the JAX package's perf switches (default = baseline)
     opt_banded_window: bool = False   # slice K/V to the sliding-window band
     opt_onehot_xent: bool = False     # one-hot picked logit in the cross entropy
-    opt_seq_shard: bool = False       # sequence-shard the residual stream; no effect here
+    opt_seq_shard: bool = False       # sequence-shard the residual stream on a mesh
 
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(1, self.n_heads))

@@ -44,6 +44,7 @@ from ..core.local import (ClientChain, build_cohort_step, build_local_step,
                           chain_client_template, cohort_full_local_gradient, cohort_loss,
                           full_local_gradient, resolve_chain)
 from ..data.federated import BucketedBatch
+from ..dist.tensor import is_distributed
 from ..kernels.server_update.ops import apply_fused_update
 from ..utils.pytree import tree_copy, tree_map, tree_zeros_like
 from .bucketing import run_buckets, slot_inputs
@@ -520,7 +521,13 @@ class BoundStrategy(NamedTuple):
 
 def weighted_sum(deltas: dict, coeff: torch.Tensor) -> dict:
     """sum_i coeff_i * Delta_i over the leading client axis of stacked
-    deltas (fp32 accumulate, result cast back to the delta dtype)."""
+    deltas (fp32 accumulate, result cast back to the delta dtype).  On a
+    mesh (DTensor deltas over several ranks) the same sum as a product and
+    a reduction: DTensor's sharding search for this einsum takes seconds a
+    leaf shape."""
+    if any(is_distributed(t) for t in deltas.values()):
+        return {k: (coeff.float().view(-1, *([1] * (t.dim() - 1))) * t.float()).sum(0)
+                .to(t.dtype) for k, t in deltas.items()}
     return {k: torch.einsum("c,c...->...", coeff.float(), t.float()).to(t.dtype)
             for k, t in deltas.items()}
 

@@ -4,12 +4,15 @@ with ``dryrun.run_one`` and records them as tagged dry-run records.  Each
 variant is an ArchConfig override set (and setup keywords under
 ``"__setup__"``), resolved by ``_resolve`` and passed to ``run_one``.
 
-Some levers act on a TPU mesh alone (``opt_seq_shard``, the prefill's
-``seq_over_model``): on one card they change nothing, so an iteration
-that pulls only such levers counts the same as its baseline; its record
-lists them under ``inert`` and says so under ``note``.
+The pairs are counted on the 16 x 16 production mesh, as in the JAX
+package: one rank's share, with its collectives, where the levers that
+act on a mesh alone (``opt_seq_shard``, the prefill's ``seq_over_model``)
+act.  ``--mesh 1xH100`` counts one card's whole step instead; there those
+levers change nothing, so an iteration that pulls only such levers counts
+the same as its baseline, and its record lists them under ``inert`` and
+says so under ``note``.
 
-  PYTHONPATH=src python -m repro_torch.launch.hillclimb --pair hymba
+  PYTHONPATH=src python -m repro_torch.launch.hillclimb --pair hymba [--mesh 1xH100]
 """
 from __future__ import annotations
 
@@ -98,8 +101,11 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--pair", required=True, choices=sorted(PAIRS))
     ap.add_argument("--iter", default=None, help="run only this tag")
     ap.add_argument("--out", default=dryrun.OUT_DIR)
+    ap.add_argument("--mesh", default="16x16",
+                    choices=sorted(dryrun.PRODUCTION_MESHES) + [dryrun.CARD_MESH])
     args = ap.parse_args(argv)
 
+    one_card = args.mesh == dryrun.CARD_MESH
     arch, shape, iters = PAIRS[args.pair]
     for tag, overrides, hypothesis in iters:
         if args.iter and tag != args.iter:
@@ -107,7 +113,9 @@ def main(argv: list[str] | None = None) -> None:
         log(f"hillclimb {args.pair}/{tag}: {hypothesis}")
         dryrun.run_one(arch, shape, out_dir=args.out, tag=tag, cfg=_resolve(arch, overrides),
                        setup_kwargs=overrides.get("__setup__"),
-                       inert=inert_levers(overrides), note=note(overrides))
+                       mesh=None if one_card else args.mesh,
+                       inert=inert_levers(overrides) if one_card else None,
+                       note=note(overrides) if one_card else "")
 
 
 if __name__ == "__main__":

@@ -1,23 +1,30 @@
-"""Roofline of the dry-run records on one NVIDIA H100 (the port of
+"""Roofline of the dry-run records on NVIDIA H100 cards (the port of
 ``repro.launch.roofline``).
 
-``launch/dryrun.py`` counts the whole step of one card (the JAX package's
-records are per device of a TPU mesh after SPMD partitioning), so:
+A one-card record (``launch/dryrun.py`` without ``--mesh``) counts the
+whole step of one card; a mesh record (``--mesh 16x16`` or ``2x16x16``)
+counts one rank's share of the step laid out on that many cards, with the
+collectives DTensor issues on that rank.  So, per card:
 
-    compute term = flops_kernel / BF16_FLOP_PER_S     [s]
-    memory term  = bytes_min / HBM_BYTES_PER_S        [s]
+    compute term    = flops_kernel / BF16_FLOP_PER_S           [s]
+    memory term     = bytes_min / HBM_BYTES_PER_S              [s]
+    collective term = collectives.total_bytes / NVLINK_BYTES_PER_S  [s]
 
-with the H100's peaks of ``launch/mesh.py``; one card has no collective
-term.  ``flops_kernel`` takes attention over the pairs the flash kernel
-computes, ``bytes_min`` reads each argument and writes each output once:
-both terms are floors, and the larger is the step's bound.
+with the H100's rates of ``launch/mesh.py``; a one-card record has no
+collective bytes.  ``flops_kernel`` takes attention over the pairs the
+flash kernel computes, ``bytes_min`` reads each argument and writes each
+output once, the collective bytes are each collective's result (the JAX
+package's proxy) over one NVLink direction, which is the fastest link a
+card has: all three terms are floors, and the largest is the step's
+bound.
 
 MODEL_FLOPS uses the 6*N*D (train) / 2*N*D (inference) rule with N = active
 parameters (``param_counts``: MoE shared + top_k/E of routed), D = tokens a
-step processes (``tokens_for``); ``useful_ratio`` = MODEL_FLOPS / flops
-(> 1: the step does less than the rule, e.g. a 1-token decode where
-attention dominates; < 1: recompute or aux compute).  A record cut from
-its shape or config (``reduced``) has no ratio.
+step processes (``tokens_for``); ``useful_ratio`` = MODEL_FLOPS / (flops x
+chips) (> 1: the step does less than the rule, e.g. a 1-token decode where
+attention dominates; < 1: recompute, aux compute, or work a mesh repeats
+on several ranks).  A record cut from its shape or config (``reduced``)
+has no ratio.
 
 ``param_counts`` builds the params of the full-size config on the meta
 device (shapes alone, no allocation); its active count takes the routed
@@ -36,7 +43,7 @@ import os
 
 from ..configs.base import INPUT_SHAPES
 from ..configs.registry import get_arch
-from .mesh import BF16_FLOP_PER_S, CARD, HBM_BYTES_PER_S
+from .mesh import BF16_FLOP_PER_S, CARD, HBM_BYTES_PER_S, NVLINK_BYTES_PER_S
 
 
 @functools.cache
@@ -69,8 +76,11 @@ def analyze_record(rec: dict) -> dict | None:
     cost = rec["cost"]
     t_compute = cost["flops_kernel"] / BF16_FLOP_PER_S
     t_memory = cost["bytes_min"] / HBM_BYTES_PER_S
-    terms = {"compute": t_compute, "memory": t_memory}
+    coll = rec.get("collectives", {}).get("total_bytes", 0)
+    t_coll = coll / NVLINK_BYTES_PER_S
+    terms = {"compute": t_compute, "memory": t_memory, "collective": t_coll}
     dominant = max(terms, key=terms.get)
+    chips = rec.get("chips", 1)
     total, active = param_counts(rec["arch"])
     shape = INPUT_SHAPES[rec["shape"]]
     mult = 6 if shape.kind == "train" else 2
@@ -79,17 +89,18 @@ def analyze_record(rec: dict) -> dict | None:
     return {
         "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
         "tag": rec.get("tag", ""),
-        "chips": rec.get("chips", 1),
-        "t_compute_s": t_compute, "t_memory_s": t_memory,
+        "chips": chips,
+        "t_compute_s": t_compute, "t_memory_s": t_memory, "t_collective_s": t_coll,
         "dominant": dominant,
         "bound_s": max(terms.values()),
         "flops": flops, "flops_kernel": cost["flops_kernel"],
         "bytes_min": cost["bytes_min"], "bytes_unfused": cost.get("bytes_unfused", 0.0),
+        "coll_bytes": coll,
         "arg_bytes": rec.get("memory", {}).get("argument_size_in_bytes", 0),
         "params_total": total, "params_active": active,
         "model_flops": model_flops,
         "useful_ratio": None if rec.get("reduced") else
-        (model_flops / flops if flops else 0.0),
+        (model_flops / (flops * chips) if flops else 0.0),
         "reduced": rec.get("reduced", []), "inert": rec.get("inert", []),
     }
 
@@ -129,12 +140,13 @@ def fmt_s(x: float) -> str:
 
 
 def markdown_table(rows: list[dict]) -> str:
-    head = (f"Roofline of one {CARD}: compute = flops_kernel / {BF16_FLOP_PER_S:.4g} FLOP/s "
-            f"(dense bf16), memory = bytes_min / {HBM_BYTES_PER_S:.4g} B/s (HBM3); no "
-            f"collective term.")
-    hdr = ("| arch | shape | mesh | compute | memory | dominant | "
-           "useful (6ND or 2ND / flops) | GFLOP | GB min |")
-    sep = "|" + "---|" * 9
+    head = (f"Roofline per card, {CARD}: compute = flops_kernel / {BF16_FLOP_PER_S:.4g} "
+            f"FLOP/s (dense bf16), memory = bytes_min / {HBM_BYTES_PER_S:.4g} B/s (HBM3), "
+            f"collective = collective bytes / {NVLINK_BYTES_PER_S:.4g} B/s (NVLink 4, one "
+            f"way; a floor across nodes).  A mesh row is one rank's share.")
+    hdr = ("| arch | shape | mesh | compute | memory | collective | dominant | "
+           "useful (6ND or 2ND / flops x chips) | GFLOP | GB min | GB coll |")
+    sep = "|" + "---|" * 11
     lines = [head, "", hdr, sep]
     for r in rows:
         tag = r.get("tag", "")
@@ -142,8 +154,8 @@ def markdown_table(rows: list[dict]) -> str:
         lines.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']}{('/'+tag) if tag else ''} | "
             f"{fmt_s(r['t_compute_s'])} | {fmt_s(r['t_memory_s'])} | "
-            f"**{r['dominant']}** | {ratio} | {r['flops'] / 1e9:.1f} | "
-            f"{r['bytes_min'] / 1e9:.2f} |"
+            f"{fmt_s(r['t_collective_s'])} | **{r['dominant']}** | {ratio} | "
+            f"{r['flops'] / 1e9:.1f} | {r['bytes_min'] / 1e9:.2f} | {r['coll_bytes'] / 1e9:.2f} |"
         )
     return "\n".join(lines)
 

@@ -21,15 +21,28 @@ elsewhere the weights are random from ``seed`` and the tokens from a
 ``torch.Generator`` seeded with ``seed + 1``, and a decode cache is random
 and full, at ``pos`` = seq_len - 1.
 
-One card's share.  The JAX package takes the client count from its mesh's
-data axes; here ``dp`` gives it (``launch/mesh.py:dp_size``; the dry run
-passes the production mesh's 16, or 32 with two pods).  ``batch`` (the local
+One card's share.  Without a mesh the JAX package's client count from its
+mesh's data axes is ``dp`` (``launch/mesh.py:dp_size``; the dry run passes
+the production mesh's 16, or 32 with two pods).  ``batch`` (the local
 batch of a train setup, the global batch of a serving one) and
 ``n_layers`` cut a setup to what a card holds; every cut from the assigned
 shape and the config is listed in ``Setup.reduced``.  One card has nothing
 to shard: ``in_shardings`` is None, and a lever that acts on a mesh alone
 (the prefill's ``seq_over_model``, the config's ``opt_seq_shard``) is kept
 in ``Setup.inert``, where it changes nothing.
+
+On a mesh (``mesh=``, a ``DeviceMesh`` of ``launch/mesh.py``) a setup is
+the JAX package's layout: the vmapped mode runs C = ``dp_size(mesh)``
+clients, the sequential one 4 with FSDP over the data axes
+(``fsdp_override="auto"``); the params, the optimizer state, the batch, the
+cohort's meta and a decode cache are DTensors under ``dist/sharding.py``'s
+rules, and ``in_shardings`` holds their specs (``dist.sharding.P``) leaf for
+leaf in the JAX package's tree.  A cache's ``pos`` stays a plain int.  The
+step runs under DTensor's ``implicit_replication``: a tensor the step makes
+itself (positions, masks, zeros) is the same on every rank.
+``seq_over_model`` shards the prefill's sequence dim over ``"model"``, and
+the config's ``opt_seq_shard`` the residual stream between blocks
+(``models/model.py``); neither is inert there.
 """
 from __future__ import annotations
 
@@ -42,12 +55,14 @@ import torch
 
 from ..configs.base import ArchConfig, FLConfig, ShapeConfig
 from ..data.federated import ClientMeta, RoundBatch
+from ..dist.sharding import (P, batch_specs, cache_specs, distribute, params_specs,
+                             seq_batch_specs, shardings)
 from ..fed.losses import make_loss
 from ..fed.rounds import build_round_step
 from ..fed.strategy import bind_strategy, strategy_for
 from ..models.model import build_model
 from ..utils.device import resolve_device
-from .mesh import dp_size
+from .mesh import dp_axes, dp_size
 
 SEQUENTIAL_ARCHS = {"qwen2-72b", "deepseek-v3-671b"}  # one replica needs the mesh
 LONG_CONTEXT = 100_000       # decode contexts above this go through the ring (quadratic archs)
@@ -59,7 +74,7 @@ class Setup:
     name: str
     fn: Callable
     args: tuple                   # tensors (or trees of them) on the setup's device
-    in_shardings: Any = None      # one card: nothing to shard
+    in_shardings: Any = None      # the args' specs on a mesh; one card: nothing to shard
     out_shardings: Any = None
     static_kwargs: dict | None = None
     reduced: list = field(default_factory=list)   # each cut from the shape and the config
@@ -77,9 +92,29 @@ def _cut(cfg: ArchConfig, n_layers: int | None, reduced: list) -> ArchConfig:
     return dataclasses.replace(cfg, n_layers=n_layers)
 
 
-def _inert(cfg: ArchConfig, **levers) -> list:
+def _inert(cfg: ArchConfig, mesh=None, **levers) -> list:
+    if mesh is not None:
+        return []
     out = [k for k, on in levers.items() if on]
     return out + (["opt_seq_shard"] if cfg.opt_seq_shard else [])
+
+
+def on_mesh(fn: Callable) -> Callable:
+    """``fn`` under DTensor's ``implicit_replication``: the plain tensors a
+    step makes itself are the same on every rank, so they count as
+    replicated beside its DTensor inputs."""
+    def run(*args, **kwargs):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def _laid_out(mesh, specs, args) -> tuple:
+    """``args`` as DTensors under ``specs`` (the same tree) on ``mesh``."""
+    return distribute(args, shardings(specs, mesh))
 
 
 def _gen(device: torch.device, seed: int):
@@ -144,15 +179,18 @@ def train_setup(cfg: ArchConfig, shape: ShapeConfig, *, dp: int = 1, batch: int 
                 n_layers: int | None = None, device=None, seed: int = 0, k_steps: int = 1,
                 cohort_mode: str | None = None, algorithm: str = "fedshuffle",
                 server_opt: str = "sgd", accum_dtype: str = "float32",
-                backend: str = "kernel") -> Setup:
-    """One FedShuffle round over ``shape``: C clients (``dp`` in the vmapped
-    mode, 4 in the sequential one), each ``k_steps`` local steps of a local
-    batch of global_batch / C (``batch`` cuts it)."""
+                backend: str = "kernel", mesh=None, fsdp_override: str | None = "auto") -> Setup:
+    """One FedShuffle round over ``shape``: C clients (``dp``, or the mesh's
+    ``dp_size``, in the vmapped mode, 4 in the sequential one), each
+    ``k_steps`` local steps of a local batch of global_batch / C (``batch``
+    cuts it).  On a mesh, ``fsdp_override`` "auto" shards the sequential
+    mode's weights over the data axes too (an axis tuple names them, None
+    turns FSDP off)."""
     device = resolve_device(device)
     reduced: list = []
     cfg = _cut(cfg, n_layers, reduced)
     mode = cohort_mode or ("sequential" if cfg.name in SEQUENTIAL_ARCHS else "vmapped")
-    C = dp_size(dp) if mode == "vmapped" else 4
+    C = dp_size(dp if mesh is None else mesh) if mode == "vmapped" else 4
     B = max(1, shape.global_batch // C)
     if batch is not None and batch != B:
         if batch > B:
@@ -173,15 +211,32 @@ def train_setup(cfg: ArchConfig, shape: ShapeConfig, *, dp: int = 1, batch: int 
                     meta=_meta(C, fl.num_clients, k_steps, B, device))
     lr = torch.ones((), dtype=torch.float32, device=device)
     step = build_round_step(loss_fn, strategy, fl, num_clients=fl.num_clients, device=device)
-    return Setup(name=f"{cfg.name}/{shape.name}", fn=step, args=(state, rb, lr),
-                 reduced=reduced, inert=_inert(cfg), cfg=cfg, shape=shape)
+    args, specs = (state, rb, lr), None
+    if mesh is not None:
+        dpx = dp_axes(mesh)
+        fsdp = (dpx if mode == "sequential" else None) if fsdp_override == "auto" \
+            else fsdp_override
+        p_specs = params_specs(state.params, mesh, fsdp=fsdp)
+        meta_spec = P(dpx) if mode == "vmapped" and C % dp_size(mesh) == 0 else P()
+        specs = (state._replace(params=p_specs, opt={k: p_specs for k in state.opt}, rnd=P()),
+                 RoundBatch(data=(batch_specs(rb.data, mesh, client_axis=dpx) if mode == "vmapped"
+                                  else seq_batch_specs(rb.data, mesh, dp_axis=dpx)),
+                            step_mask=(batch_specs(rb.step_mask, mesh, client_axis=dpx)
+                                       if mode == "vmapped" else P()),
+                            meta=ClientMeta(*(meta_spec,) * len(rb.meta))),
+                 P())
+        args, step = _laid_out(mesh, specs, args), on_mesh(step)
+    return Setup(name=f"{cfg.name}/{shape.name}", fn=step, args=args, in_shardings=specs,
+                 reduced=reduced, inert=_inert(cfg, mesh), cfg=cfg, shape=shape)
 
 
 def prefill_setup(cfg: ArchConfig, shape: ShapeConfig, *, batch: int | None = None,
                   n_layers: int | None = None, device=None, seed: int = 0,
-                  seq_over_model: bool = False, backend: str = "kernel") -> Setup:
+                  seq_over_model: bool = False, backend: str = "kernel", mesh=None) -> Setup:
     """``Model.prefill`` over ``batch`` (the shape's global batch unless
-    cut) prompts of seq_len positions, a vlm model's patches among them."""
+    cut) prompts of seq_len positions, a vlm model's patches among them.
+    On a mesh the prompts' batch dim goes over the data axes, and with
+    ``seq_over_model`` their sequence dim over ``"model"``."""
     device = resolve_device(device)
     reduced: list = []
     cfg = _cut(cfg, n_layers, reduced)
@@ -189,9 +244,21 @@ def prefill_setup(cfg: ArchConfig, shape: ShapeConfig, *, batch: int | None = No
     B, S = _batch(shape, batch, reduced), shape.seq_len
     params = model.init(seed, device)
     data = _serve_batch(cfg, B, S, device, _gen(device, seed + 1))
-    return Setup(name=f"{cfg.name}/{shape.name}", fn=partial(model.prefill, cache_len=S),
-                 args=(params, data), reduced=reduced,
-                 inert=_inert(cfg, seq_over_model=seq_over_model), cfg=cfg, shape=shape)
+    fn, args, specs = partial(model.prefill, cache_len=S), (params, data), None
+    if mesh is not None:
+        dpx, dpn, tp = dp_axes(mesh), dp_size(mesh), mesh.shape[mesh.mesh_dim_names.index("model")]
+
+        def bspec(t):
+            spec = [dpx if t.shape[0] % dpn == 0 else None] + [None] * (t.ndim - 1)
+            if seq_over_model and t.ndim >= 2 and t.shape[1] % tp == 0:
+                spec[1] = "model"       # sequence-sharded inputs (the hillclimb's lever)
+            return P(*spec)
+
+        specs = (params_specs(params, mesh), {k: bspec(v) for k, v in data.items()})
+        args, fn = _laid_out(mesh, specs, args), on_mesh(fn)
+    return Setup(name=f"{cfg.name}/{shape.name}", fn=fn, args=args, in_shardings=specs,
+                 reduced=reduced, inert=_inert(cfg, mesh, seq_over_model=seq_over_model),
+                 cfg=cfg, shape=shape)
 
 
 def decode_cache_len(cfg: ArchConfig, seq_len: int) -> tuple[bool, int]:
@@ -204,10 +271,12 @@ def decode_cache_len(cfg: ArchConfig, seq_len: int) -> tuple[bool, int]:
 
 def decode_setup(cfg: ArchConfig, shape: ShapeConfig, *, batch: int | None = None,
                  n_layers: int | None = None, device=None, seed: int = 0,
-                 backend: str = "kernel", **_ignored) -> Setup:
+                 backend: str = "kernel", mesh=None, **_ignored) -> Setup:
     """``Model.decode_step``: one token against a cache of seq_len positions
     (a ring of ``serve_window_long`` slots for a quadratic arch at a long
-    context), at ``pos`` = seq_len - 1."""
+    context), at ``pos`` = seq_len - 1.  On a mesh the token's and the
+    cache's batch dim go over the data axes, and at batch 1 the cache's
+    sequence (or SSD head) dim over ``"model"``."""
     device = resolve_device(device)
     reduced: list = []
     cfg = _cut(cfg, n_layers, reduced)
@@ -222,12 +291,22 @@ def decode_setup(cfg: ArchConfig, shape: ShapeConfig, *, batch: int | None = Non
             t.copy_(torch.randn(t.shape, dtype=torch.float32, device=device, generator=gen))
     cache["pos"] = S - 1
     token = _tokens((B, 1), cfg.vocab, device, gen)
-    return Setup(name=f"{cfg.name}/{shape.name}", fn=partial(model.decode_step, ring=ring),
-                 args=(params, token, cache), reduced=reduced, inert=_inert(cfg), cfg=cfg,
-                 shape=shape)
+    fn, args, specs = partial(model.decode_step, ring=ring), (params, token, cache), None
+    if mesh is not None:
+        dpx = dp_axes(mesh)
+        specs = (params_specs(params, mesh),
+                 P(dpx if B % dp_size(mesh) == 0 else None, None),
+                 {"layers": cache_specs(cache["layers"], mesh, dp_axis=dpx, shard_seq=B == 1),
+                  "pos": P()})
+        args, fn = _laid_out(mesh, specs, args), on_mesh(fn)
+    return Setup(name=f"{cfg.name}/{shape.name}", fn=fn, args=args, in_shardings=specs,
+                 reduced=reduced, inert=_inert(cfg, mesh), cfg=cfg, shape=shape)
 
 
-def make_setup(cfg: ArchConfig, shape: ShapeConfig, **kw) -> Setup:
+def make_setup(cfg: ArchConfig, shape: ShapeConfig, mesh=None, **kw) -> Setup:
+    """The setup of ``cfg`` at ``shape``: one card's share, or with ``mesh``
+    the JAX package's layout on it."""
+    kw["mesh"] = mesh
     if shape.kind == "train":
         return train_setup(cfg, shape, **kw)
     if shape.kind == "prefill":

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..dist.tensor import is_sharded, merged, settle, splittable
 from ..kernels.flash_attention.ops import flash_attend
 from .layers import apply_rope, dense_init, rmsnorm
 
@@ -48,12 +49,32 @@ def _attend_block(q, k, v, mask, scale: float):
     """q [B,Tq,H,hd], k/v [B,Tk,KV,hd], mask broadcastable to [B,KV,g,Tq,Tk]."""
     B, Tq, H, hd = q.shape
     KV = k.shape[2]
-    qg = q.reshape(B, Tq, KV, H // KV, hd)
+    qg = splittable(q, 2, KV).reshape(B, Tq, KV, H // KV, hd)
+    if is_sharded(k, 2) and not is_sharded(k, 0):
+        return merged(_attend_block_kv_major(qg, k, v, mask, scale), 2, KV)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(B, Tq, H, v.shape[-1])
+    return merged(out.reshape(B, Tq, H, v.shape[-1]), 2, KV)
+
+
+def _attend_block_kv_major(qg, k, v, mask, scale: float):
+    """:func:`_attend_block`'s products with the KV heads leading, for
+    DTensor inputs whose heads are sharded and whose batch is not: the
+    products fold their batch dims together, and DTensor folds a sharded
+    dim after an unsharded one into a strided shard that it cannot fold
+    again under the vmapped cohort's client dim (sharded over the data
+    axes); with the sharded heads first it can.  qg [B,Tq,KV,g,hd] ->
+    [B,Tq,H,dv]."""
+    B, Tq, KV, g, _ = qg.shape
+    scores = torch.einsum("kbgqd,kbsd->kbgqs", qg.permute(2, 0, 3, 1, 4),
+                          k.permute(2, 0, 1, 3)).float() * scale
+    scores = torch.where(mask.transpose(0, 1) if mask.dim() == 5 else mask,
+                         scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("kbgqs,kbsd->kbgqd", probs, v.permute(2, 0, 1, 3))
+    return out.permute(1, 3, 0, 2, 4).reshape(B, Tq, KV * g, v.shape[-1])
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor | None = None,
@@ -121,7 +142,7 @@ def _proj(p: dict, cfg: ArchConfig, x: torch.Tensor, name: str, heads: int) -> t
     y = x @ p[f"w{name}"]
     if cfg.qkv_bias:
         y = y + p[f"b{name}"]
-    return y.reshape(*x.shape[:2], heads, cfg.hd())
+    return splittable(y, -1, heads).reshape(*x.shape[:2], heads, cfg.hd())
 
 
 def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
@@ -148,7 +169,7 @@ def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tens
         kv_pos = None
     out = attend(q, k, v, positions, kv_pos, causal=causal, window=window,
                  banded=cfg.opt_banded_window)
-    return out.reshape(B, T, -1) @ p["wo"]
+    return settle(merged(out.reshape(B, T, -1), -1, out.shape[2]) @ p["wo"])
 
 
 def gqa_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
@@ -165,7 +186,7 @@ def gqa_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tens
     else:
         q, (k, v) = _proj(p, cfg, x, "q", cfg.n_heads), kv_override
     out = flash_attend(q, k, v, causal=causal, window=window, backend=backend)
-    return out.reshape(B, T, -1) @ p["wo"], (k, v)
+    return settle(out.reshape(B, T, -1) @ p["wo"]), (k, v)
 
 
 def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict | None, *,
@@ -180,7 +201,7 @@ def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict 
     B = x.shape[0]
     if cross_kv is not None:
         out = attend(_proj(p, cfg, x, "q", cfg.n_heads), *cross_kv, causal=False)
-        return out.reshape(B, 1, -1) @ p["wo"], cache
+        return settle(out.reshape(B, 1, -1) @ p["wo"]), cache
     positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _qkv(p, cfg, x, positions)
     k, v = cache["k"], cache["v"]
@@ -193,7 +214,7 @@ def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict 
     # positions are baked into the rotated keys: a validity-only mask
     out = attend(q, k, v, torch.full((1,), S + 1, device=x.device), torch.zeros_like(slots),
                  kv_valid=valid[None, :].expand(B, S))
-    return out.reshape(B, 1, -1) @ p["wo"], cache
+    return settle(out.reshape(B, 1, -1) @ p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +258,7 @@ def _mla_q(p: dict, cfg: ArchConfig, x: torch.Tensor):
         q = rmsnorm(p["q_norm/scale"], x @ p["wdq"], cfg.norm_eps) @ p["wuq"]
     else:
         q = x @ p["wq"]
-    q = q.reshape(B, T, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q = splittable(q, -1, cfg.n_heads).reshape(B, T, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
     return q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
 
 
@@ -261,13 +282,13 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tens
     q_nope, q_rope = _mla_q(p, cfg, x)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta, "full")
     c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
-    k_nope = (c_kv @ p["wuk"]).reshape(B, T, H, m.qk_nope_dim)
-    v = (c_kv @ p["wuv"]).reshape(B, T, H, m.v_head_dim)
+    k_nope = splittable(c_kv @ p["wuk"], -1, H).reshape(B, T, H, m.qk_nope_dim)
+    v = splittable(c_kv @ p["wuv"], -1, H).reshape(B, T, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, m.qk_rope_dim)], dim=-1)
     out = attend(q, k, v, positions, positions, causal=True, window=window,
                  banded=cfg.opt_banded_window)
-    return out.reshape(B, T, -1) @ p["wo"], (c_kv, k_rope)
+    return settle(merged(out.reshape(B, T, -1), -1, H) @ p["wo"]), (c_kv, k_rope)
 
 
 def mla_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict, *,
@@ -293,7 +314,7 @@ def mla_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict,
     slots = torch.arange(S, device=x.device)
     valid = torch.ones_like(slots, dtype=torch.bool) if ring and pos + 1 >= S else slots <= pos
 
-    wuk = p["wuk"].reshape(m.kv_lora, H, m.qk_nope_dim)
+    wuk = splittable(p["wuk"], -1, H).reshape(m.kv_lora, H, m.qk_nope_dim)
     q_c = torch.einsum("bqhn,lhn->bqhl", q_nope, wuk)                   # absorb W_uk
     scores = torch.einsum("bqhl,bsl->bhqs", q_c, c_kv)
     scores = scores + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope)
@@ -302,6 +323,6 @@ def mla_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict,
     scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
     ctx = torch.einsum("bhqs,bsl->bqhl", probs, c_kv)                   # latent context
-    wuv = p["wuv"].reshape(m.kv_lora, H, m.v_head_dim)
+    wuv = splittable(p["wuv"], -1, H).reshape(m.kv_lora, H, m.v_head_dim)
     out = torch.einsum("bqhl,lhv->bqhv", ctx, wuv)                      # absorb W_uv
-    return out.reshape(B, 1, -1) @ p["wo"], cache
+    return settle(out.reshape(B, 1, -1) @ p["wo"]), cache

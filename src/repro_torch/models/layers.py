@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist.tensor import settle, whole
+
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype, device) -> torch.Tensor:
     w = torch.randn((in_dim, out_dim), generator=gen, device=device)
@@ -51,7 +53,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, kind: str
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor, x: torch.Tensor):
-    return (F.silu(x @ gate) * (x @ up)) @ down
+    return settle((F.silu(x @ gate) * (x @ up)) @ down)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, onehot: bool = False) -> torch.Tensor:
@@ -67,5 +69,5 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, onehot: bool = Fals
         iota = torch.arange(lf.shape[-1], device=lf.device)
         picked = (lf * (labels[..., None].long() == iota).to(lf.dtype)).sum(-1)
     else:
-        picked = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+        picked = torch.gather(whole(lf, -1), -1, labels[..., None].long())[..., 0]
     return lse - picked

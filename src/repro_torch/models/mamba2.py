@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..dist.tensor import merged, settle, splittable
 from ..kernels.ssd.ops import ssd_scan
 from .layers import dense_init, rmsnorm
 
@@ -64,7 +65,7 @@ def _causal_conv(p: dict, cfg: ArchConfig, u: torch.Tensor, conv_cache=None):
 
 def _gate_out(p: dict, cfg: ArchConfig, y: torch.Tensor, z: torch.Tensor):
     y = rmsnorm(p["gate_norm/scale"], y * F.silu(z), cfg.norm_eps)
-    return y @ p["out_proj"]
+    return settle(y @ p["out_proj"])
 
 
 def mamba2_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, state0=None, *,
@@ -87,11 +88,12 @@ def mamba2_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, state0=None, *,
     xc, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])                       # [B,T,H]
     a = -torch.exp(p["A_log"]) * dt                                  # [B,T,H]
-    xh = xc.reshape(B, T, H, P)
+    xh = splittable(xc, -1, H).reshape(B, T, H, P)
     y, S = ssd_scan(xh * dt[..., None].to(xh.dtype), a, Bm, Cm, cfg.ssm.chunk, state0,
                     backend=backend)
     y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
-    return _gate_out(p, cfg, y.reshape(B, T, d_inner), z), {"state": S, "conv": conv_tail}
+    return _gate_out(p, cfg, merged(y.reshape(B, T, d_inner), -1, H), z), \
+        {"state": S, "conv": conv_tail}
 
 
 def mamba2_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict):
@@ -105,6 +107,7 @@ def mamba2_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict):
     xc, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])                       # [B,1,H]
     a = -torch.exp(p["A_log"]) * dt                                  # [B,1,H]
+    xc = splittable(xc, -1, H)
     xh = (xc.reshape(B, 1, H, P) * dt[..., None].to(xc.dtype))[:, 0]  # [B,H,P]
     S = cache["state"]
     S.mul_(torch.exp(a[:, 0])[..., None, None]).add_(

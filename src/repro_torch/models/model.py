@@ -53,6 +53,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from . import blocks as B
+from ..dist.tensor import is_dtensor, settle, shard_model
 from .layers import dense_init, embed_init, rmsnorm, softmax_xent
 from .mamba2 import dims as ssm_dims
 from .remat import checkpoint
@@ -143,6 +144,7 @@ class Model:
         (h, P)."""
         toks = toks.long()
         h = onehot_lookup(params["embed"], toks) if train else F.embedding(toks, params["embed"])
+        h = settle(h)       # a vocab-parallel lookup's partial sums, under a mesh
         if self.cfg.family != "vlm":
             return h, 0
         if "patches" not in batch:
@@ -197,6 +199,8 @@ class Model:
                 aux = a if aux is None else aux + a
             else:
                 h = out
+            if cfg.opt_seq_shard:     # sequence-parallel residual stream, on a mesh
+                h = shard_model(h, 1)
         onehot = cfg.opt_onehot_xent
         ce = softmax_xent(self._logits(params, h[:, offset:]), labels, onehot).mean()
         if aux is None:
@@ -311,8 +315,10 @@ class Model:
         if cfg.family == "audio":
             h = h + sinusoid(positions, cfg.d_model)[None].to(h.dtype)
             enc_out = self._encode(params, batch["frames"])
-        cache = self.init_cache(Bsz, cache_len, h.device,
-                                batch["frames"].shape[1] if cfg.family == "audio" else 0)
+        src_len = batch["frames"].shape[1] if cfg.family == "audio" else 0
+        mesh = is_dtensor(h)      # DTensor inputs: the cache is stacked from the layers' entries
+        cache = (self.init_cache(Bsz, cache_len, h.device, src_len) if not mesh else
+                 {"layers": {k: [] for k in self.cache_spec(Bsz, cache_len, src_len)}, "pos": 0})
         for i in range(cfg.n_layers):
             prefix = f"blocks/{i}/"
             if cfg.family == "audio":
@@ -331,12 +337,23 @@ class Model:
             else:
                 h, entry = B.dense_block_prefill(params, cfg, h, positions, prefix,
                                                  window=cfg.sliding_window, backend=self.backend)
+            if cfg.opt_seq_shard:
+                h = shard_model(h, 1)
             for name, x in entry.items():
+                if mesh:
+                    cache["layers"][name].append(x)
+                    continue
                 dst = cache["layers"][name][i]
                 if name in SEQ_KEYS:
                     _fit_cache_entry(dst, x, t=T)
                 else:
                     dst.copy_(x)
+        if mesh:
+            spec = self.cache_spec(Bsz, cache_len, src_len)
+            cache["layers"] = {
+                k: torch.stack([_cache_entry(x, spec[k][0][2], T) if k in SEQ_KEYS else x
+                                for x in xs]).to(spec[k][1])
+                for k, xs in cache["layers"].items()}
         cache["pos"] = T
         return self._logits(params, h[:, -1:]), cache
 
@@ -348,7 +365,7 @@ class Model:
         ring, the ssm family's has no slots."""
         cfg = self.cfg
         pos = cache["pos"]
-        h = F.embedding(token.long(), params["embed"])
+        h = settle(F.embedding(token.long(), params["embed"]))
         if cfg.family == "audio":
             h = h + sinusoid(torch.full((1,), pos, device=h.device), cfg.d_model)[None].to(h.dtype)
         for i in range(cfg.n_layers):
@@ -376,6 +393,18 @@ def _fit_cache_entry(dst: torch.Tensor, x: torch.Tensor, *, t: int) -> None:
     start = max(0, t - S)
     slots = torch.arange(start, t, device=dst.device) % S
     dst[:, slots] = x[:, start:t].to(dst.dtype)
+
+
+def _cache_entry(x: torch.Tensor, S: int, t: int) -> torch.Tensor:
+    """:func:`_fit_cache_entry` without the write: the layer's [B, S, ...]
+    cache from x [B, t, ...], slot ``p % S`` holding position p of the last
+    ``min(t, S)`` and zeros after them (the path for DTensor entries, which
+    take no in-place write into a plain cache)."""
+    start = max(0, t - S)
+    if t < S:
+        return torch.cat([x, x.new_zeros((x.shape[0], S - t) + tuple(x.shape[2:]))], dim=1)
+    j = (torch.arange(S, device=x.device) - start) % S          # slot s holds start + j[s]
+    return x[:, start:t][:, j]
 
 
 def build_model(cfg: ArchConfig, backend: str = "kernel") -> Model:

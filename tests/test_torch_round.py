@@ -301,7 +301,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "data/tasks.py", "launch/train.py", "fed/fleet/clock.py",
                  "fed/robust/aggregators.py", "fed/privacy/__init__.py",
                  "fed/privacy/accountant.py", "fed/privacy/dp.py", "fed/privacy/secagg.py",
-                 "obs/__init__.py", "obs/hist.py", "obs/metrics.py", "obs/trace.py"):
+                 "obs/__init__.py", "obs/hist.py", "obs/metrics.py", "obs/trace.py",
+                 "dist/__init__.py", "dist/sharding.py", "dist/tensor.py", "launch/mesh.py"):
         assert PORT_SRC / part in files, part
     for f in files:
         assert not bad.search(f.read_text()), f
