@@ -99,14 +99,16 @@ class _Relayout(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         base = _base(inputs[0])[0]       # beneath the grad transform's wrapper
-        ctx.mesh, ctx.src = base.device_mesh, tuple(base.placements)
+        ctx.src = tuple(base.placements)
 
     @staticmethod
     def backward(ctx, g):
+        # through this Function again: under remat's recompute the
+        # cotangent is wrapped by the grad transform
         from torch.distributed.tensor import Replicate
 
-        return g.redistribute(ctx.mesh, [Replicate() if p.is_partial() else p
-                                         for p in ctx.src]), None
+        return _Relayout.apply(g, tuple(Replicate() if p.is_partial() else p
+                                        for p in ctx.src)), None
 
     @staticmethod
     def vmap(info, in_dims, t, target):

@@ -71,6 +71,7 @@ def _on_mesh(q, k, v, **kw) -> torch.Tensor:
             n *= mesh.size(i)
         else:
             pl.append(Replicate())
-    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))   # a list: one output's placements
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    # ``pl`` a list: one output's placements (a tuple would be one per output)
     return local_map(partial(flash_attend, **kw), out_placements=pl,
                      in_placements=(pl, pl, pl), device_mesh=mesh)(q, k, v)

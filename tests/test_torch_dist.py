@@ -21,7 +21,8 @@ builders of ``repro_torch.launch.mesh``, ``launch/specs.py`` with
   ``opt_seq_shard`` change no value there;
 * the per-card count is one rank's share: a column-parallel product
   counts 1/16 of its FLOPs on the 16 x 16 mesh, a reduced TP step records
-  all-reduces, and a meshless record is what it was.
+  all-reduces, a remat round counts there, and a meshless record is what
+  it was.
 """
 import functools
 import json
@@ -296,6 +297,22 @@ def test_count_is_one_ranks_share(production):
     assert rec["collectives"]["total_bytes"] > 0
     assert 0 < rec["cost"]["flops"] < one["cost"]["flops"] / 100
     assert "collectives" not in one and set(one) == {"cost", "memory"}
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen1.5-0.5b", "qwen2-72b"])
+def test_remat_round_counts_on_the_mesh(arch, production):
+    """A train round with ``remat="full"`` (its recompute under
+    ``torch.func.vjp``, the vmapped cohort's under ``vmap`` too) counted on
+    the 16 x 16 mesh: the layout steps' backward runs beneath functorch's
+    wrappers.  Qwen2-72B's config sets remat and the sequential mode."""
+    import dataclasses
+
+    pm = production[False]
+    cfg = dataclasses.replace(registry.get_arch(arch).reduced(), remat="full")
+    st = make_setup(cfg, base.ShapeConfig("t", 64, 32, "train"), mesh=pm, device="meta",
+                    backend="ref")
+    rec = dryrun.count_step(st, pm)
+    assert rec["cost"]["flops"] > 0 and rec["collectives"]["total_bytes"] > 0
 
 
 def test_meshless_record_is_unchanged(tmp_path):
