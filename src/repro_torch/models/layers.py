@@ -15,11 +15,15 @@ from ..dist.tensor import settle, whole
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":     # shapes alone: a meta draw costs ~1 ms a leaf
+        return torch.empty((in_dim, out_dim), dtype=dtype, device=device)
     w = torch.randn((in_dim, out_dim), generator=gen, device=device)
     return (w * (1.0 / in_dim ** 0.5)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty((vocab, dim), dtype=dtype, device=device)
     return (torch.randn((vocab, dim), generator=gen, device=device) * 0.02).to(dtype)
 
 
