@@ -138,17 +138,19 @@ def _base_dim(t, dim: int, bdims: list) -> int:
     return d
 
 
-def whole(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """``t`` with its dim ``dim`` gathered on every rank and its partial
-    sums reduced (before a gather of the label's logit along the vocab)."""
+def whole(t: torch.Tensor, *dims: int) -> torch.Tensor:
+    """``t`` with its dims ``dims`` gathered on every rank and its partial
+    sums reduced: before a gather of the label's logit along the vocab, or
+    index arithmetic that folds a dim into another (the MoE dispatch's
+    priority cumsum).  A dim vmap batches over stays as it is."""
     base, bdims = _dtensor(t)
     if base is None:
         return t
     from torch.distributed.tensor import Replicate
 
-    d = _base_dim(t, dim, bdims)
-    return _relayout(t, base, [Replicate() if p.is_shard(d) or p.is_partial() else p
-                               for p in base.placements])
+    ds = {_base_dim(t, dim, bdims) for dim in dims}
+    return _relayout(t, base, [Replicate() if p.is_partial() or any(p.is_shard(d) for d in ds)
+                               else p for p in base.placements])
 
 
 def splittable(t: torch.Tensor, dim: int, lead: int) -> torch.Tensor:

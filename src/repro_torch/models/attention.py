@@ -50,7 +50,7 @@ def _attend_block(q, k, v, mask, scale: float):
     B, Tq, H, hd = q.shape
     KV = k.shape[2]
     qg = splittable(q, 2, KV).reshape(B, Tq, KV, H // KV, hd)
-    if is_sharded(k, 2) and not is_sharded(k, 0):
+    if (is_sharded(q, 2) or is_sharded(k, 2)) and not (is_sharded(q, 0) or is_sharded(k, 0)):
         return merged(_attend_block_kv_major(qg, k, v, mask, scale), 2, KV)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale
     scores = torch.where(mask, scores, NEG_INF)
@@ -61,7 +61,8 @@ def _attend_block(q, k, v, mask, scale: float):
 
 def _attend_block_kv_major(qg, k, v, mask, scale: float):
     """:func:`_attend_block`'s products with the KV heads leading, for
-    DTensor inputs whose heads are sharded and whose batch is not: the
+    DTensor inputs whose heads (q's or k's) are sharded and whose batch is
+    not: the
     products fold their batch dims together, and DTensor folds a sharded
     dim after an unsharded one into a strided shard that it cannot fold
     again under the vmapped cohort's client dim (sharded over the data

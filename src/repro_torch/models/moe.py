@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..dist.tensor import whole
 from .layers import dense_init, swiglu
 
 EXPERT_KEYS = ("experts/gate", "experts/up", "experts/down")
@@ -83,6 +84,7 @@ def _dispatch_group(router_probs: torch.Tensor, k: int, cap: int):
     fp32, aux).  An assignment's position in its expert is the cumsum of
     the flattened, priority-ordered (choice-major) assignment stream;
     assignments at position ``cap`` or later are dropped (classic GShard)."""
+    router_probs = whole(router_probs, 0, 1)   # on a mesh: the index arithmetic on every rank
     g, E = router_probs.shape
     gates, idx = top_k(router_probs, k)                           # [g,k]
     onehot = _onehot(idx, E)                                      # [g,k,E]
@@ -127,7 +129,8 @@ def router_probs(router: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
 def _group_ffn(params: dict, cfg: ArchConfig, xg: torch.Tensor, cap: int):
     """Groups xg [n, g, D] -> (y [n, g, D], aux [n]): the router in fp32,
     the dispatch of each group, the experts on their [E, C] slots."""
-    probs = router_probs(params["router"], xg)                    # [n,g,E]
+    xg = whole(xg, 1)     # on a mesh a group's tokens on every rank (a decode's one group)
+    probs = whole(router_probs(params["router"], xg), 0)          # [n,g,E], every group
     disp, comb, aux = [], [], []
     for i in range(xg.shape[0]):
         d, c, a = _dispatch_group(probs[i], cfg.moe.top_k, cap)
