@@ -80,7 +80,7 @@
    cross-attention flash launches a prefill on ``flash_fwd_wgmma``, 12
    causal self-attention ones on ``flash_fwd_mma``; none in decode); then
    the host side of ``train()``: (a) vmapped dense, padded and bucketed, at
-   ``prefetch`` 2, 0, 0, 2 in turns (at 2 the producer thread makes the
+   ``prefetch`` 2 and 0 in turns (at 2 the producer thread makes the
    plans and copies them to the card), each run's round wall and the host plan's ms a
    round; (b) vmapped MVR App. F at ``prefetch=2`` for 2 rounds,
    ``save_server_state`` / ``load_server_state`` through a file, and 2 more
@@ -95,8 +95,8 @@
    ``fedavg_min``, ``fedavg_mean``, ``fedavg``, ``fednova`` and
    ``fedshuffle`` 30 rounds each through ``train()`` in the vmapped cohort
    mode, the eval accuracy from the vlm prefill (2 fp32 flash launches an
-   eval, on ``flash_fwd``), then FedShuffle on the cohort engine (one
-   ``rr_perm`` launch a round); then serving full-width
+   eval, on ``flash_fwd``), then FedShuffle on the cohort engine, 10
+   rounds (one ``rr_perm`` launch a round); then serving full-width
    LLaVA-NeXT-Mistral-7B (32 x 4096, 32 / 8 heads of 128, bf16) through
    ``generate``: batch 4, 256-token prompts after 1,176 zero patch
    embeddings, 32 greedy tokens (one causal flash launch a layer in the
@@ -2517,14 +2517,22 @@ def check_scaffold_c_round0(dev) -> dict:
     return {"c_err_share_of_bound": worst}
 
 
+# main path 12's three SCAFFOLD forms run 2 rounds, not ROUNDS:
+# every check reads them alike (the launches a round, the bank's sampled
+# and scratch rows, bucketed and sequential held to the vmapped run), and a
+# second round already runs each client's control variate from its bank
+SCAFFOLD_ROUNDS = 2
+
+
 def scaffold_main_paths(dev, rows: dict) -> dict:
     """Main path 12: FedShuffle + SCAFFOLD on full-width CharLM-100M through
-    ``run_charlm_e2e`` (cohort engine, ``rr_backend="device"``), 4 rounds in
-    three forms, each with its rr_perm count set to 0 just before and read
+    ``run_charlm_e2e`` (cohort engine, ``rr_backend="device"``),
+    ``SCAFFOLD_ROUNDS`` rounds in three forms, each with its rr_perm count set to 0 just before and read
     just after (written into ``rows["rr_perm"]["scaffold_launches"]``):
-    vmapped padded (4 launches), vmapped bucketed (one a non-empty bucket,
+    vmapped padded (a launch a round), vmapped bucketed (one a non-empty bucket,
     from the host plans), held to the padded run by ``held_to_twin`` over
-    params, the server's c and the bank, and sequential padded (4), its
+    params, the server's c and the bank, and sequential padded (a launch a
+    round), its
     params held to the vmapped run's within ``VMAPPED_SEQ_RTOL`` of each
     leaf's largest magnitude.  Each form's bank is [33, ...] fp32 with the
     scratch row and never-sampled clients' rows exactly zero; before the
@@ -2539,18 +2547,18 @@ def scaffold_main_paths(dev, rows: dict) -> dict:
     from repro_torch.kernels.rr_perm.kernel import rr_indices_kernel
 
     out = check_scaffold_c_round0(dev)
-    layout = bucketed_layout(ROUNDS)
-    sampled = sampled_clients(ROUNDS)
-    forms = [("vmapped", VMAPPED, ROUNDS),
+    layout = bucketed_layout(SCAFFOLD_ROUNDS)
+    sampled = sampled_clients(SCAFFOLD_ROUNDS)
+    forms = [("vmapped", VMAPPED, SCAFFOLD_ROUNDS),
              ("bucketed", VMAPPED | BUCKETED, sum(r[0] for r in layout)),
-             ("sequential", dict(cohort_mode="sequential"), ROUNDS)]
+             ("sequential", dict(cohort_mode="sequential"), SCAFFOLD_ROUNDS)]
     kept, launches, twin_bytes = {}, {}, 0
     for label, kw, want in forms:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         zero_counts(rr_indices_kernel)
         t0 = time.perf_counter()
-        res = run_main_path(dev, "device", ROUNDS, **SCAFFOLD, **kw)
+        res = run_main_path(dev, "device", SCAFFOLD_ROUNDS, **SCAFFOLD, **kw)
         torch.cuda.synchronize()
         launches[label] = rr_indices_kernel.launches
         # the padded twin, held on the card for the later forms, left out
@@ -3872,9 +3880,9 @@ def privacy_obs_paths(dev, vm_params: dict, rows: dict) -> dict:
     return out
 
 
-# phase (a)'s prefetch depths, run in this order (ABBA: a drift of the host's
-# speed during the phase falls on both depths alike)
-PREFETCH_TURNS = (2, 0, 0, 2)
+# phase (a)'s prefetch depths, run in this order, each held bitwise to the
+# earlier prefetch-0 run (whose wall is a third sample of depth 0)
+PREFETCH_TURNS = (2, 0)
 # CharLM-100M served from the resumed run's params file: batch 4, prompts of
 # the training sequence length, 16 greedy tokens
 CKPT_SERVE_BATCH, CKPT_SERVE_PROMPT, CKPT_SERVE_STEPS = 4, 128, 16
@@ -4227,6 +4235,9 @@ VISION_FL = dict(num_clients=8, cohort_size=4, sampling="uniform", epochs=2, epo
                  mean_samples=6, seed=31)
 VISION_METHODS = ("fedavg_min", "fedavg_mean", "fedavg", "fednova", "fedshuffle")
 VISION_ROUNDS, VISION_EVAL_EVERY = 30, 5
+# FedShuffle on the cohort engine and its device_ref twin (their checks: one
+# rr_perm launch a round, the twin bitwise) run 10 rounds, not 30
+VISION_ENGINE_ROUNDS = 10
 # bench_vision.py's claim (the paper's Table 3): the methods are close on
 # the equal split, FedShuffle within this margin of the best final eval
 # accuracy, and the best above this floor (training learns)
@@ -4328,8 +4339,9 @@ def vision_path(dev, rr_row: dict, flash_row: dict) -> dict:
     the five methods 30 rounds each, the eval accuracy from the vlm prefill
     (2 fp32 flash launches an eval on ``simt``, 7 evals a run), the launch
     counts set to 0 before the five runs and read after; then FedShuffle
-    once more through the cohort engine with ``rr_backend="device"`` (one
-    ``rr_perm`` launch a round), bitwise equal to its ``device_ref`` twin.
+    once more through the cohort engine with ``rr_backend="device"``,
+    ``VISION_ENGINE_ROUNDS`` rounds (one ``rr_perm`` launch a round), bitwise
+    equal to its ``device_ref`` twin.
     Checks: ``bench_vision.py``'s claim, and each method's last eval again
     with every flash launch within ``FLASH_TOL`` of the plain version,
     giving the same accuracy."""
@@ -4356,13 +4368,13 @@ def vision_path(dev, rr_row: dict, flash_row: dict) -> dict:
     evals = sum(r % VISION_EVAL_EVERY == 0 or r == VISION_ROUNDS - 1
                 for r in range(VISION_ROUNDS))
 
-    def run(alg, **more):
+    def run(alg, rounds=VISION_ROUNDS, **more):
         fl = FLConfig(**VISION_FL, algorithm=alg, **more)
         fl = paper_lr_convention(fl, FederatedPipeline(task, Population.build(fl), fl))
         pipe = FederatedPipeline(task, Population.build(fl), fl)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = train(loss_fn, params0, pipe, fl, VISION_ROUNDS, eval_fn=acc_fn,
+        res = train(loss_fn, params0, pipe, fl, rounds, eval_fn=acc_fn,
                     eval_every=VISION_EVAL_EVERY, log_every=0, name=f"vision-{alg}", device=dev)
         torch.cuda.synchronize()
         rows = res.metrics.rows
@@ -4428,18 +4440,21 @@ def vision_path(dev, rr_row: dict, flash_row: dict) -> dict:
     # FedShuffle through the cohort engine: the device RR streams, one
     # rr_perm launch a round; its device_ref twin bitwise
     zero_counts(flash_attention_kernel, rr_indices_kernel)
-    eng, eng_stats, _ = run("fedshuffle", engine="cohort", rr_backend="device")
+    eng, eng_stats, _ = run("fedshuffle", VISION_ENGINE_ROUNDS, engine="cohort",
+                            rr_backend="device")
     torch.cuda.synchronize()
     eng_flash, eng_rr = flash_attention_kernel.launches, rr_indices_kernel.launches
-    twin, _, _ = run("fedshuffle", engine="cohort", rr_backend="device_ref")
+    twin, _, _ = run("fedshuffle", VISION_ENGINE_ROUNDS, engine="cohort", rr_backend="device_ref")
+    eng_evals = sum(r % VISION_EVAL_EVERY == 0 or r == VISION_ENGINE_ROUNDS - 1
+                    for r in range(VISION_ENGINE_ROUNDS))
     differ = [k for k in twin.state.params
               if not torch.equal(eng.state.params[k], twin.state.params[k])]
     print(f"vision path, fedshuffle on the cohort engine (rr_backend='device'): eval accuracy "
           f"{', '.join(f'{a:.4f}' for a in eng_stats['accs'])}, {eng_stats['round_ms']:.2f} ms "
-          f"a round; launches rr_perm {eng_rr} (want {VISION_ROUNDS}), flash_attention "
-          f"{eng_flash} (want {evals * cfg.n_layers}); params vs the device_ref twin: "
+          f"a round; launches rr_perm {eng_rr} (want {VISION_ENGINE_ROUNDS}), flash_attention "
+          f"{eng_flash} (want {eng_evals * cfg.n_layers}); params vs the device_ref twin: "
           f"{'bitwise equal' if not differ else differ}", flush=True)
-    if (eng_rr, eng_flash) != (VISION_ROUNDS, evals * cfg.n_layers) or differ:
+    if (eng_rr, eng_flash) != (VISION_ENGINE_ROUNDS, eng_evals * cfg.n_layers) or differ:
         raise AssertionError(f"vision path on the cohort engine: rr_perm {eng_rr}, flash "
                              f"{eng_flash}, params differ from the device_ref twin in {differ}")
     rr_row["launches_by_path"] = {"charlm-100m": rr_row["launches"], cfg.name: eng_rr}
