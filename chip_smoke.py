@@ -2527,14 +2527,14 @@ SCAFFOLD_ROUNDS = 2
 def scaffold_main_paths(dev, rows: dict) -> dict:
     """Main path 12: FedShuffle + SCAFFOLD on full-width CharLM-100M through
     ``run_charlm_e2e`` (cohort engine, ``rr_backend="device"``),
-    ``SCAFFOLD_ROUNDS`` rounds in three forms, each with its rr_perm count set to 0 just before and read
-    just after (written into ``rows["rr_perm"]["scaffold_launches"]``):
-    vmapped padded (a launch a round), vmapped bucketed (one a non-empty bucket,
-    from the host plans), held to the padded run by ``held_to_twin`` over
-    params, the server's c and the bank, and sequential padded (a launch a
-    round), its
-    params held to the vmapped run's within ``VMAPPED_SEQ_RTOL`` of each
-    leaf's largest magnitude.  Each form's bank is [33, ...] fp32 with the
+    ``SCAFFOLD_ROUNDS`` rounds in three forms, each with its rr_perm count
+    set to 0 just before and read just after (written into
+    ``rows["rr_perm"]["scaffold_launches"]``): vmapped padded (a launch a
+    round), vmapped bucketed (one a non-empty bucket, from the host plans),
+    held to the padded run by ``held_to_twin`` over params, the server's c
+    and the bank, and sequential padded (a launch a round), its params held
+    to the vmapped run's within ``VMAPPED_SEQ_RTOL`` of each leaf's largest
+    magnitude.  Each form's bank is [33, ...] fp32 with the
     scratch row and never-sampled clients' rows exactly zero; before the
     runs, one round checks the server's c against the fp64 sum
     (:func:`check_scaffold_c_round0`).  Then fedprox, local_clip and adam 2
@@ -2563,7 +2563,8 @@ def scaffold_main_paths(dev, rows: dict) -> dict:
         launches[label] = rr_indices_kernel.launches
         # the padded twin, held on the card for the later forms, left out
         peak = torch.cuda.max_memory_allocated() - twin_bytes
-        wall = report_rounds(f"scaffold path, {label}", res, time.perf_counter() - t0, peak)
+        wall = report_rounds(f"scaffold path, {label}", res, time.perf_counter() - t0, peak,
+                             SCAFFOLD_ROUNDS)
         if launches[label] != want:
             raise AssertionError(f"scaffold path, {label}: rr_perm launched {launches[label]} "
                                  f"times, want {want}")
