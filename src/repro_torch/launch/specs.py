@@ -21,9 +21,9 @@ elsewhere the weights are random from ``seed`` and the tokens from a
 ``torch.Generator`` seeded with ``seed + 1``, and a decode cache is random
 and full, at ``pos`` = seq_len - 1.
 
-One card's share.  Without a mesh the JAX package's client count from its
-mesh's data axes is ``dp`` (``launch/mesh.py:dp_size``; the dry run passes
-the production mesh's 16, or 32 with two pods).  ``batch`` (the local
+One card's share.  Without a mesh, ``dp`` stands for the client count the
+JAX package takes from its mesh's data axes (``launch/mesh.py:dp_size``;
+the dry run passes the production mesh's 16, or 32 with two pods).  ``batch`` (the local
 batch of a train setup, the global batch of a serving one) and
 ``n_layers`` cut a setup to what a card holds; every cut from the assigned
 shape and the config is listed in ``Setup.reduced``.  One card has nothing
