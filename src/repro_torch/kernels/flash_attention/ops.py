@@ -51,7 +51,6 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: b
     return out.transpose(1, 2)
 
 
-
 def _on_mesh(q, k, v, **kw) -> torch.Tensor:
     """:func:`flash_attend` on each rank's shards of DTensor inputs."""
     from torch.distributed.tensor import DTensor, Replicate, Shard

@@ -280,7 +280,7 @@ def _count_step_mesh(setup, mesh) -> dict:
     rec = _record(setup, out, float(count.flops), masked_attention_flops(setup) / split,
                   count.bytes_unfused)
     rec["cost"]["attention_split"] = split
-    coll = {k: v for k, v in count.collectives.items()}
+    coll = dict(count.collectives)
     coll["total_bytes"] = sum(v["bytes"] for v in count.collectives.values())
     rec["collectives"] = coll
     return rec

@@ -101,11 +101,6 @@ def make_host_mesh(data: int = 1, model: int = 1):
                       mesh_dim_names=("data", "model"))
 
 
-def mesh_name(mesh) -> str:
-    """``16x16``, ``2x16x16``, ``4x2``: the mesh's sizes."""
-    return "x".join(str(s) for s in mesh.shape)
-
-
 def dp_axes(mesh) -> tuple:
     """The batch and client axes of a mesh: ('pod', 'data') or ('data',)."""
     return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))

@@ -112,11 +112,6 @@ def on_mesh(fn: Callable) -> Callable:
     return run
 
 
-def _laid_out(mesh, specs, args) -> tuple:
-    """``args`` as DTensors under ``specs`` (the same tree) on ``mesh``."""
-    return distribute(args, shardings(specs, mesh))
-
-
 def _gen(device: torch.device, seed: int):
     return None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
 
@@ -225,7 +220,7 @@ def train_setup(cfg: ArchConfig, shape: ShapeConfig, *, dp: int = 1, batch: int 
                                        if mode == "vmapped" else P()),
                             meta=ClientMeta(*(meta_spec,) * len(rb.meta))),
                  P())
-        args, step = _laid_out(mesh, specs, args), on_mesh(step)
+        args, step = distribute(args, shardings(specs, mesh)), on_mesh(step)
     return Setup(name=f"{cfg.name}/{shape.name}", fn=step, args=args, in_shardings=specs,
                  reduced=reduced, inert=_inert(cfg, mesh), cfg=cfg, shape=shape)
 
@@ -255,7 +250,7 @@ def prefill_setup(cfg: ArchConfig, shape: ShapeConfig, *, batch: int | None = No
             return P(*spec)
 
         specs = (params_specs(params, mesh), {k: bspec(v) for k, v in data.items()})
-        args, fn = _laid_out(mesh, specs, args), on_mesh(fn)
+        args, fn = distribute(args, shardings(specs, mesh)), on_mesh(fn)
     return Setup(name=f"{cfg.name}/{shape.name}", fn=fn, args=args, in_shardings=specs,
                  reduced=reduced, inert=_inert(cfg, mesh, seq_over_model=seq_over_model),
                  cfg=cfg, shape=shape)
@@ -298,7 +293,7 @@ def decode_setup(cfg: ArchConfig, shape: ShapeConfig, *, batch: int | None = Non
                  P(dpx if B % dp_size(mesh) == 0 else None, None),
                  {"layers": cache_specs(cache["layers"], mesh, dp_axis=dpx, shard_seq=B == 1),
                   "pos": P()})
-        args, fn = _laid_out(mesh, specs, args), on_mesh(fn)
+        args, fn = distribute(args, shardings(specs, mesh)), on_mesh(fn)
     return Setup(name=f"{cfg.name}/{shape.name}", fn=fn, args=args, in_shardings=specs,
                  reduced=reduced, inert=_inert(cfg, mesh), cfg=cfg, shape=shape)
 
