@@ -272,8 +272,8 @@ KERNELS = ("rr_perm", "quantize", "server_update", "flash_attention", "ssd")
 # the H100 SXM's peaks, with their sources: one table for every bound
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.launch.dryrun import band_pairs  # noqa: E402
-from repro_torch.launch.mesh import (BF16_FLOP_PER_S, HBM_BYTES_PER_S,  # noqa: E402
-                                     INT32_OPS_PER_S, INSTR_OPS_PER_S)
+from repro_torch.launch.mesh import (BF16_FLOP_PER_S, FP32_FLOP_PER_S,  # noqa: E402
+                                     HBM_BYTES_PER_S, INT32_OPS_PER_S, INSTR_OPS_PER_S)
 # quantize.cu, source-level operations a value (a conversion, division or
 # modulo counted as one).  quantize_pack: integer 21 = key_combine 14,
 # position and mask 3, two conversions, shift and or; float 11 = abs and
@@ -4283,9 +4283,6 @@ def vision_eval_fn(model, task, dev):
             return {"acc": (logits[:, -1].argmax(-1) == toks[:, 1]).float().mean()}
 
     return acc
-
-
-FP32_FLOP_PER_S = 67e12     # H100 SXM, float32 outside the tensor cores (data sheet)
 
 
 def vision_flash_timing(acc_fn, params) -> dict:

@@ -36,8 +36,11 @@ that split the attention, :func:`attention_split`), ``bytes_min``,
 ``bytes_unfused`` and ``memory`` from the local shards, and
 ``collectives``: each kind's ``count`` and result ``bytes`` (the JAX
 package's ``collective_stats``: an all-gather's gathered tensor, a
-reduce-scatter's shard) and their ``total_bytes``, from the functional
-collectives DTensor issues.
+reduce-scatter's shard, an all-to-all's new shard) and their
+``total_bytes``, from the collectives DTensor issues.  The fake mesh is
+typed ``cpu``, where DTensor moves a shard from one dim to another by an
+all-gather and a chunk (gloo has no all-to-all); the count takes that
+move as the one all-to-all NCCL runs.
 
 ``models/_flags.py`` of the JAX package (``UNROLL_INNER``, and the
 ``--unroll`` flag) exists because XLA counts a scan body once; the eager
@@ -147,13 +150,43 @@ class LocalCount(TorchDispatchMode):
     DTensor propagates shapes, which are not counted.  Counts the products
     (``flop_registry``, FlopCounterMode's rules), the unfused bytes
     (:class:`_Count`'s rule) and each collective's count and result
-    bytes."""
+    bytes.  While it is entered, DTensor's shard-to-shard move goes
+    through :meth:`_all_to_all`."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.bytes_unfused = 0
         self.collectives = {kind: {"count": 0, "bytes": 0} for kind in COLLECTIVES.values()}
+        self._quiet = 0
+
+    def __enter__(self):
+        from torch.distributed.tensor import placement_types
+
+        self._moved = placement_types.shard_dim_alltoall
+        placement_types.shard_dim_alltoall = self._all_to_all
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from torch.distributed.tensor import placement_types
+
+        placement_types.shard_dim_alltoall = self._moved
+        return super().__exit__(*exc)
+
+    def _all_to_all(self, local, gather_dim, shard_dim, mesh, mesh_dim):
+        """DTensor's shard-to-shard move of ``local``: on a ``cpu`` mesh an
+        all-gather and a chunk (gloo has no all-to-all), run uncounted
+        and counted as the one all-to-all NCCL runs, its result the new
+        shard."""
+        self._quiet += 1
+        try:
+            out = self._moved(local, gather_dim, shard_dim, mesh, mesh_dim)
+        finally:
+            self._quiet -= 1
+        c = self.collectives[COLLECTIVES["all_to_all"]]
+        c["count"] += 1
+        c["bytes"] += _nbytes(out)
+        return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -163,6 +196,8 @@ class LocalCount(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self._quiet:
+            return out       # the ops of a move counted as one all-to-all
         if any(issubclass(t, FakeTensor) for t in types):
             return out       # DTensor's shape propagation over the global shapes
         kind = collective_kind(func)
@@ -303,14 +338,12 @@ def _record(setup, out, flops: float, masked: float, bytes_unfused: int) -> dict
 def run_one(arch_name: str, shape_name: str, *, out_dir: str = OUT_DIR,
             setup_kwargs: dict | None = None, tag: str = "", cfg: ArchConfig | None = None,
             dp: int = PRODUCTION_DP, batch: int | None = None, n_layers: int | None = None,
-            inert: list | None = None, note: str = "", mesh: str | None = None) -> dict:
+            mesh: str | None = None) -> dict:
     """Count ``arch_name`` (or ``cfg``, a resolved config of it) at
     ``shape_name``, write the record to ``out_dir`` and return it.
-    ``inert`` names levers that act on a mesh alone and ``note`` says what
-    that means for the count (the hillclimb's).  ``mesh`` ("16x16" or
-    "2x16x16") counts one rank's share of the setup laid out on that
-    production mesh (a train setup then takes its clients from the mesh,
-    not from ``dp``)."""
+    ``mesh`` ("16x16" or "2x16x16") counts one rank's share of the setup
+    laid out on that production mesh (a train setup then takes its
+    clients from the mesh, not from ``dp``)."""
     cfg = cfg if cfg is not None else get_arch(arch_name)
     shape = get_shape(shape_name)
     if mesh is not None and mesh not in PRODUCTION_MESHES:
@@ -319,7 +352,7 @@ def run_one(arch_name: str, shape_name: str, *, out_dir: str = OUT_DIR,
     label = f"{arch_name}/{shape_name}/{mesh_label}{('/' + tag) if tag else ''}"
     rec: dict = {"arch": arch_name, "shape": shape_name, "mesh": mesh_label,
                  "chips": math.prod(PRODUCTION_MESHES[mesh][0]) if mesh else 1,
-                 "multi_pod": mesh == "2x16x16", "tag": tag, "ok": False, "note": note,
+                 "multi_pod": mesh == "2x16x16", "tag": tag, "ok": False, "note": "",
                  "setup": {"dp": dp if mesh is None else None, "batch": batch,
                            "n_layers": n_layers, **(setup_kwargs or {})}}
     t0 = time.time()
@@ -332,7 +365,7 @@ def run_one(arch_name: str, shape_name: str, *, out_dir: str = OUT_DIR,
         setup = make_setup(cfg, shape, mesh=dm, **kw)
         rec["setup_s"] = round(time.time() - t0, 2)
         rec["reduced"] = setup.reduced
-        rec["inert"] = setup.inert + list(inert or [])
+        rec["inert"] = setup.inert
         t1 = time.time()
         rec.update(count_step(setup, dm))
         rec["count_s"] = round(time.time() - t1, 2)

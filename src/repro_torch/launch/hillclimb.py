@@ -5,14 +5,12 @@ variant is an ArchConfig override set (and setup keywords under
 ``"__setup__"``), resolved by ``_resolve`` and passed to ``run_one``.
 
 The pairs are counted on the 16 x 16 production mesh, as in the JAX
-package: one rank's share, with its collectives, where the levers that
-act on a mesh alone (``opt_seq_shard``, the prefill's ``seq_over_model``)
-act.  ``--mesh 1xH100`` counts one card's whole step instead; there those
-levers change nothing, so an iteration that pulls only such levers counts
-the same as its baseline, and its record lists them under ``inert`` and
-says so under ``note``.
+package (``multi_pod=False``): one rank's share, with its collectives,
+where the levers that act on a mesh alone (``opt_seq_shard``, the
+prefill's ``seq_over_model``) act.  ``dryrun.py`` without ``--mesh``
+counts one card's whole step.
 
-  PYTHONPATH=src python -m repro_torch.launch.hillclimb --pair hymba [--mesh 1xH100]
+  PYTHONPATH=src python -m repro_torch.launch.hillclimb --pair hymba
 """
 from __future__ import annotations
 
@@ -60,7 +58,6 @@ PAIRS = {
          "constraints): XLA propagates seq-sharding; attention gathers only locally"),
     ]),
 }
-MESH_ONLY = {"opt_seq_shard", "seq_over_model"}   # levers with nothing to act on one card
 
 
 def _resolve(arch_name: str, overrides: dict):
@@ -73,27 +70,6 @@ def _resolve(arch_name: str, overrides: dict):
     return dataclasses.replace(cfg, **ov)
 
 
-def levers(overrides: dict) -> dict:
-    """Every lever an iteration pulls, config and setup alike."""
-    return {**{k: v for k, v in overrides.items() if k != "__setup__"},
-            **overrides.get("__setup__", {})}
-
-
-def inert_levers(overrides: dict) -> list[str]:
-    """The levers of ``overrides`` that act on a mesh alone."""
-    return sorted(k for k, v in levers(overrides).items() if k in MESH_ONLY and v)
-
-
-def note(overrides: dict) -> str:
-    """What a record says of its levers that act on a mesh alone."""
-    inert = inert_levers(overrides)
-    if not inert:
-        return ""
-    if len(inert) == len(levers(overrides)):
-        return f"{', '.join(inert)}: acts on a mesh alone; this count is the baseline's"
-    return f"{', '.join(inert)}: acts on a mesh alone and changes nothing in this count"
-
-
 def main(argv: list[str] | None = None) -> None:
     from . import dryrun
 
@@ -101,21 +77,15 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--pair", required=True, choices=sorted(PAIRS))
     ap.add_argument("--iter", default=None, help="run only this tag")
     ap.add_argument("--out", default=dryrun.OUT_DIR)
-    ap.add_argument("--mesh", default="16x16",
-                    choices=sorted(dryrun.PRODUCTION_MESHES) + [dryrun.CARD_MESH])
     args = ap.parse_args(argv)
 
-    one_card = args.mesh == dryrun.CARD_MESH
     arch, shape, iters = PAIRS[args.pair]
     for tag, overrides, hypothesis in iters:
         if args.iter and tag != args.iter:
             continue
         log(f"hillclimb {args.pair}/{tag}: {hypothesis}")
         dryrun.run_one(arch, shape, out_dir=args.out, tag=tag, cfg=_resolve(arch, overrides),
-                       setup_kwargs=overrides.get("__setup__"),
-                       mesh=None if one_card else args.mesh,
-                       inert=inert_levers(overrides) if one_card else None,
-                       note=note(overrides) if one_card else "")
+                       setup_kwargs=overrides.get("__setup__"), mesh="16x16")
 
 
 if __name__ == "__main__":

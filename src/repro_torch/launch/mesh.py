@@ -10,9 +10,11 @@ as a ``torch.distributed`` ``DeviceMesh``:
   ranks in this one process (``torch.testing``'s ``FakeStore``): it runs
   nothing across ranks and exists for the dry run's count of one rank's
   share on the ``meta`` device.  Its device type is ``cpu`` (DTensor makes
-  fake tensors of a mesh's device type to propagate shapes, and there is
-  no card here), so DTensor redistributes as over gloo: a shard-to-shard
-  all-to-all becomes an all-gather and a local chunk.
+  fake tensors of a mesh's device type to propagate shapes, and a build
+  of PyTorch without CUDA makes no ``cuda`` ones), so DTensor moves a
+  shard from one dim to another as over gloo, which has no all-to-all:
+  by an all-gather and a local chunk.  The dry run counts that move as
+  the all-to-all NCCL would run (``dryrun.py:LocalCount``).
 - :func:`make_host_mesh`: ``(data, model)`` over the ranks of the process
   group the caller opened (gloo on the CPU; NCCL on the cards, one rank a
   card).
@@ -26,6 +28,7 @@ The peaks are the H100 SXM's (NVIDIA H100 Tensor Core GPU data sheet; the
 Hopper architecture white paper for the SM counts), per card:
 
 - ``BF16_FLOP_PER_S``: dense bf16 on the tensor cores, 989e12 FLOP/s;
+- ``FP32_FLOP_PER_S``: float32 outside the tensor cores, 67e12 FLOP/s;
 - ``HBM_BYTES_PER_S``: HBM3, 3.35e12 B/s;
 - ``INT32_OPS_PER_S``: 64 INT32 lanes an SM x 132 SMs x 1.98 GHz;
 - ``INSTR_OPS_PER_S``: 4 schedulers x 32 lanes a clock, 132 SMs at
@@ -45,6 +48,7 @@ import math
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core rate
+FP32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 INSTR_OPS_PER_S = 132 * 128 * 1.98e9
 NVLINK_BYTES_PER_S = 450e9     # NVLink 4, each way

@@ -12,11 +12,16 @@ collectives DTensor issues on that rank.  So, per card:
 
 with the H100's rates of ``launch/mesh.py``; a one-card record has no
 collective bytes.  ``flops_kernel`` takes attention over the pairs the
-flash kernel computes, ``bytes_min`` reads each argument and writes each
-output once, the collective bytes are each collective's result (the JAX
-package's proxy) over one NVLink direction, which is the fastest link a
-card has: all three terms are floors, and the largest is the step's
-bound.
+flash kernel computes and ``bytes_min`` reads each argument and writes
+each output once: those two terms are floors.  The collective bytes are
+each collective's result (the JAX package's proxy) as DTensor issues it
+over NCCL (a shard-to-shard move as one all-to-all, ``dryrun.py``), over
+one NVLink direction, the fastest link a card has.  That term is a floor on the time
+of the collectives this layout issues to within n / (n - 1) (1.07 at n =
+16 ranks): a rank receives at least (n - 1) / n of an all-gather's, an
+all-to-all's or an all-reduce's result, and a reduce-scatter's result is
+less than what it receives.  It is no floor on a better layout.  The
+largest term is the step's bound.
 
 MODEL_FLOPS uses the 6*N*D (train) / 2*N*D (inference) rule with N = active
 parameters (``param_counts``: MoE shared + top_k/E of routed), D = tokens a

@@ -202,7 +202,7 @@ def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict 
     B = x.shape[0]
     if cross_kv is not None:
         out = attend(_proj(p, cfg, x, "q", cfg.n_heads), *cross_kv, causal=False)
-        return settle(out.reshape(B, 1, -1) @ p["wo"]), cache
+        return _out_proj(out, p["wo"]), cache
     positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _qkv(p, cfg, x, positions)
     k, v = cache["k"], cache["v"]
@@ -215,7 +215,16 @@ def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: int, cache: dict 
     # positions are baked into the rotated keys: a validity-only mask
     out = attend(q, k, v, torch.full((1,), S + 1, device=x.device), torch.zeros_like(slots),
                  kv_valid=valid[None, :].expand(B, S))
-    return settle(out.reshape(B, 1, -1) @ p["wo"]), cache
+    return _out_proj(out, p["wo"]), cache
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """One token's output projection, out [B, 1, H, hd] -> [B, 1, D], as
+    a [B, H hd] x [H hd, D] product.  The [B, 1, H hd] product folds into
+    the same GEMM on a plain tensor; a DTensor's reshape strides its unit
+    dim so that ``matmul`` does not fold, and runs it as a batched product
+    of B rows, which rounds otherwise."""
+    return settle(out.reshape(out.shape[0], -1) @ wo)[:, None]
 
 
 # ---------------------------------------------------------------------------

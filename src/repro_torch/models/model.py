@@ -53,7 +53,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from . import blocks as B
-from ..dist.tensor import is_dtensor, settle, shard_model
+from ..dist.tensor import settle, shard_model
 from .layers import dense_init, embed_init, rmsnorm, softmax_xent
 from .mamba2 import dims as ssm_dims
 from .remat import checkpoint
@@ -316,9 +316,8 @@ class Model:
             h = h + sinusoid(positions, cfg.d_model)[None].to(h.dtype)
             enc_out = self._encode(params, batch["frames"])
         src_len = batch["frames"].shape[1] if cfg.family == "audio" else 0
-        mesh = is_dtensor(h)      # DTensor inputs: the cache is stacked from the layers' entries
-        cache = (self.init_cache(Bsz, cache_len, h.device, src_len) if not mesh else
-                 {"layers": {k: [] for k in self.cache_spec(Bsz, cache_len, src_len)}, "pos": 0})
+        spec = self.cache_spec(Bsz, cache_len, src_len)
+        layers = {k: [] for k in spec}      # each layer's entry, stacked at the end
         for i in range(cfg.n_layers):
             prefix = f"blocks/{i}/"
             if cfg.family == "audio":
@@ -340,21 +339,9 @@ class Model:
             if cfg.opt_seq_shard:
                 h = shard_model(h, 1)
             for name, x in entry.items():
-                if mesh:
-                    cache["layers"][name].append(x)
-                    continue
-                dst = cache["layers"][name][i]
-                if name in SEQ_KEYS:
-                    _fit_cache_entry(dst, x, t=T)
-                else:
-                    dst.copy_(x)
-        if mesh:
-            spec = self.cache_spec(Bsz, cache_len, src_len)
-            cache["layers"] = {
-                k: torch.stack([_cache_entry(x, spec[k][0][2], T) if k in SEQ_KEYS else x
-                                for x in xs]).to(spec[k][1])
-                for k, xs in cache["layers"].items()}
-        cache["pos"] = T
+                shape, dt = spec[name]
+                layers[name].append((_cache_entry(x, shape[2], T) if name in SEQ_KEYS else x).to(dt))
+        cache = {"layers": {k: torch.stack(xs) for k, xs in layers.items()}, "pos": T}
         return self._logits(params, h[:, -1:]), cache
 
     def decode_step(self, params: dict, token: torch.Tensor, cache: dict, *, ring: bool = False):
@@ -385,21 +372,10 @@ class Model:
         return self._logits(params, h), cache
 
 
-def _fit_cache_entry(dst: torch.Tensor, x: torch.Tensor, *, t: int) -> None:
-    """Place a prefill's sequence-indexed entry x [B, t, ...] into a cache
-    layer dst [B, S, ...] at slots ``p % S`` (ring-consistent): the last
-    ``min(t, S)`` positions are kept."""
-    S = dst.shape[1]
-    start = max(0, t - S)
-    slots = torch.arange(start, t, device=dst.device) % S
-    dst[:, slots] = x[:, start:t].to(dst.dtype)
-
-
 def _cache_entry(x: torch.Tensor, S: int, t: int) -> torch.Tensor:
-    """:func:`_fit_cache_entry` without the write: the layer's [B, S, ...]
-    cache from x [B, t, ...], slot ``p % S`` holding position p of the last
-    ``min(t, S)`` and zeros after them (the path for DTensor entries, which
-    take no in-place write into a plain cache)."""
+    """A prefill's sequence-indexed entry x [B, t, ...] as the layer's
+    [B, S, ...] cache, ring-consistent: slot ``p % S`` holds position p of
+    the last ``min(t, S)``, and the slots after t are zeros."""
     start = max(0, t - S)
     if t < S:
         return torch.cat([x, x.new_zeros((x.shape[0], S - t) + tuple(x.shape[2:]))], dim=1)

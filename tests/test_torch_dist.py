@@ -19,8 +19,11 @@ builders of ``repro_torch.launch.mesh``, ``launch/specs.py`` with
   each output's ``full_tensor()`` equals the meshless step within
   ``DIST_TOL``; each rank's count is above 0; ``seq_over_model`` and
   ``opt_seq_shard`` change no value there;
+* one gloo rank on a (1, 1) mesh: every family's prefill and decode
+  bitwise the meshless step;
 * the per-card count is one rank's share: a column-parallel product
-  counts 1/16 of its FLOPs on the 16 x 16 mesh, a reduced TP step records
+  counts 1/16 of its FLOPs on the 16 x 16 mesh, a shard-to-shard move one
+  all-to-all, a reduced TP step records
   all-reduces, a remat round counts there, and a meshless record is what
   it was.
 """
@@ -299,6 +302,24 @@ def test_count_is_one_ranks_share(production):
     assert "collectives" not in one and set(one) == {"cost", "memory"}
 
 
+def test_shard_to_shard_counts_as_all_to_all(production):
+    """DTensor moves a shard from one dim to another on the ``cpu``-typed
+    production mesh by an all-gather and a chunk, as over gloo; the count
+    records the one all-to-all NCCL runs instead, at its new shard's
+    bytes, and nothing of the gather."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    pm = production[False]
+    assert pm.device_type == "cpu"
+    x = distribute_tensor(torch.empty((64, 128), device="meta"), pm, [Replicate(), Shard(0)],
+                          src_data_rank=None)
+    with dryrun.LocalCount() as c:
+        y = x.redistribute(pm, [Replicate(), Shard(1)])
+    assert y.to_local().shape == (64, 8)
+    nonzero = {k: v for k, v in c.collectives.items() if v["count"]}
+    assert nonzero == {"all-to-all": {"count": 1, "bytes": 64 * 8 * 4}}
+
+
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen1.5-0.5b", "qwen2-72b"])
 def test_remat_round_counts_on_the_mesh(arch, production):
     """A train round with ``remat="full"`` (its recompute under
@@ -395,3 +416,49 @@ def test_mesh_run_equals_meshless_subprocess(tmp_path):
         assert r["err"] <= DIST_TOL * max(1.0, r["scale"]), (name, r)
         assert r["flops"] > 0 and r["inert"] == [], name
     assert all(r["coll"] > 0 for r in res.values())
+
+
+ONE_RANK = textwrap.dedent("""
+    import json, sys
+    sys.path.insert(0, "src")
+    import torch
+    import torch.distributed as dist
+    from torch.utils._pytree import tree_flatten
+    torch.set_num_threads(1)
+    store_path, out = sys.argv[1], sys.argv[2]
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, 1), rank=0, world_size=1)
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import make_setup
+    mesh = make_host_mesh(1, 1)
+    res = {}
+    for arch in ("qwen1.5-0.5b", "llava-next-mistral-7b", "hymba-1.5b", "mamba2-1.3b",
+                 "seamless-m4t-medium", "deepseek-v2-lite-16b"):
+        for kind in ("prefill", "decode"):
+            cfg, shape = get_arch(arch).reduced(), ShapeConfig("t", 128, 8, kind)
+            plain = make_setup(cfg, shape, device="cpu")
+            ref = [t for t in tree_flatten(plain.fn(*plain.args))[0] if torch.is_tensor(t)]
+            st = make_setup(cfg, shape, mesh=mesh, device="cpu")
+            got = [t for t in tree_flatten(st.fn(*st.args))[0] if torch.is_tensor(t)]
+            got = [t.full_tensor() if hasattr(t, "full_tensor") else t for t in got]
+            res[f"{arch}/{kind}"] = [len(ref) == len(got) > 0] + [
+                torch.equal(a, b) for a, b in zip(ref, got)]
+    json.dump(res, open(out, "w"))
+    dist.destroy_process_group()
+""")
+
+
+def test_one_rank_mesh_is_bitwise_subprocess(tmp_path):
+    """On a one-rank (1, 1) mesh every placement is ``Replicate``, so each
+    family's prefill and decode over DTensors run the meshless ops: every
+    output bitwise the meshless step's (the decode's output projection
+    included, ``models/attention.py:_out_proj``)."""
+    out = tmp_path / "out.json"
+    r = subprocess.run([sys.executable, "-c", ONE_RANK, str(tmp_path / "store"), str(out)],
+                       cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"},
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    res = json.loads(out.read_text())
+    assert len(res) == 12
+    assert all(all(v) for v in res.values()), res

@@ -467,15 +467,16 @@ def test_roofline_merges_and_orders_as_jax(tmp_path):
 # --------------------------------------------------------------- hillclimb
 
 
-def test_hillclimb_pairs_and_resolve_equal_jax():
+def test_hillclimb_pairs_and_resolve_equal_jax(monkeypatch):
     assert hillclimb.PAIRS == j_hillclimb.PAIRS
     for arch, _, iters in hillclimb.PAIRS.values():
         for tag, overrides, _ in iters:
             assert dataclasses.asdict(hillclimb._resolve(arch, overrides)) == \
                 dataclasses.asdict(j_hillclimb._resolve(arch, overrides)), tag
-    notes = {tag: hillclimb.note(ov) for _, _, iters in hillclimb.PAIRS.values()
-             for tag, ov, _ in iters}
-    assert notes["it1-seqshard"].endswith("this count is the baseline's")
-    assert notes["it5-seqinput"].endswith("this count is the baseline's")
-    assert "changes nothing" in notes["it2-seqshard"]
-    assert notes["it1-banded"] == notes["it3-bf16acc"] == ""
+    runs = []
+    monkeypatch.setattr(dryrun, "run_one", lambda *a, **kw: runs.append((a, kw)))
+    hillclimb.main(["--pair", "deepseek", "--out", "unused"])
+    assert [kw["tag"] for _, kw in runs] == [t for t, _, _ in hillclimb.PAIRS["deepseek"][2]]
+    assert all(a == ("deepseek-v3-671b", "prefill_32k") and kw["mesh"] == "16x16"
+               for a, kw in runs)
+    assert runs[-1][1]["setup_kwargs"] == {"seq_over_model": True}
