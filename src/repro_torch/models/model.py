@@ -338,9 +338,10 @@ class Model:
                                                  window=cfg.sliding_window, backend=self.backend)
             if cfg.opt_seq_shard:
                 h = shard_model(h, 1)
-            for name, x in entry.items():
+            for name, x in entry.items():   # a copy: a view would keep its layer's tensors alive
                 shape, dt = spec[name]
-                layers[name].append((_cache_entry(x, shape[2], T) if name in SEQ_KEYS else x).to(dt))
+                layers[name].append(_cache_entry(x, shape[2], T).to(dt) if name in SEQ_KEYS else
+                                    x.to(dt, copy=True))
         cache = {"layers": {k: torch.stack(xs) for k, xs in layers.items()}, "pos": T}
         return self._logits(params, h[:, -1:]), cache
 
